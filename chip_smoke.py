@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Smoke run of csinn2_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and continued):
+  1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
+     build of every CUDA kernel from csinn2_tpu_torch/kernels/csrc/;
+  2. each kernel held against its plain PyTorch version on the card at
+     Llama-2-7B shapes, timed (median GPU time of back-to-back calls queued
+     behind a sleep kernel, CUDA events) beside the plain version and one
+     library call that computes the same function (a yardstick only);
+  3. model parity: a 2-layer model at full 7B width (Q8_0, int8 KV) over a
+     128-token prompt, logits on the card against the same model through the
+     port's plain path on the CPU (cosine >= 0.999);
+  4. the main path: Llama-2-7B geometry (32 layers), Q8_0 weights made on the
+     card from a seed, int8 KV, InferenceEngine(batch=4).run_queue over six
+     greedy requests (prompts 5..1100 tokens, 16 new tokens each), with the
+     kernel launch counts of that run; then TTFT at prompt 128 and decode
+     tokens/s at batch 4 (CUDA events).
+No phase uses torch.profiler: once it has traced, host-side launches stay
+slower for the rest of the process, which would skew phase 4.  The last two
+lines are the kernels' JSON record and the run's JSON result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+
+REPLACES = {
+    "quant_matmul": "csinn2_tpu/kernels/qmatmul.py:287",
+    "decode_attention": "csinn2_tpu/kernels/flash_attention.py:142",
+    "prefill_attention": "csinn2_tpu/kernels/flash_attention.py:248",
+    "flash_attention": "csinn2_tpu/kernels/flash_attention.py:312",
+}
+SOURCE = {
+    "quant_matmul": "csinn2_tpu_torch/kernels/csrc/qmatmul.cu",
+    "decode_attention": "csinn2_tpu_torch/kernels/csrc/attention.cu",
+    "prefill_attention": "csinn2_tpu_torch/kernels/csrc/attention.cu",
+    "flash_attention": "csinn2_tpu_torch/kernels/csrc/attention.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, flops: float):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_quant_matmul(records):
+    import torch
+    from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    shapes = [("wqkv", 4096, 12288, torch.bfloat16), ("w13", 4096, 22016, torch.bfloat16),
+              ("w2", 11008, 4096, torch.bfloat16), ("lm_head", 4096, 32000, torch.float32)]
+    worst = 0.0
+    for name, K, N, odt in shapes:
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        s = (torch.rand((K // 32, N), generator=g, device="cuda") * 2e-4 + 1e-5) \
+            .to(torch.float16).float()
+        w_deq = (w.float().reshape(K // 32, 32, N) * s[:, None]).reshape(K, N) \
+            .to(torch.bfloat16)
+        for M in (1, 4, 128):
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            y = quant_matmul(x, w, s, scale_mode="block", out_dtype=odt)
+            torch.cuda.synchronize()
+            ref = quant_matmul_ref(x, w, s, scale_mode="block", out_dtype=odt)
+            yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
+            err = float(abs(yf - rf).max())
+            cos = cosine_similarity(yf, rf)
+            rel = err / float(abs(rf).max())
+            if not (cos >= 0.9999 and rel <= 1e-2):
+                raise AssertionError(f"quant_matmul {name} M={M}: cos={cos} "
+                                     f"max|d|/max|y|={rel}")
+            worst = max(worst, err)
+            ms = gpu_ms(lambda: quant_matmul(x, w, s, scale_mode="block", out_dtype=odt))
+            plain = gpu_ms(lambda: quant_matmul_ref(x, w, s, scale_mode="block",
+                                                       out_dtype=odt), reps=3)
+            lib = gpu_ms(lambda: torch.matmul(x, w_deq))
+            osz = torch.empty((), dtype=odt).element_size()
+            b_ms, b_by = bound(M * K * 2 + K * N + K // 32 * N * 4 + M * N * osz,
+                               2.0 * M * N * K)
+            log(f"  quant_matmul {name:7s} M={M:4d} K={K:5d} N={N:5d} ms={ms:.4f} "
+                f"plain_ms={plain:.4f} lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"roofline={b_ms / ms:.3f} cos={cos:.6f} max_abs_err={err:.3e}")
+            if name == "w13" and M == 4:        # the batch-4 decode FFN GEMM
+                records["quant_matmul"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                               bound_ms=b_ms, bound_by=b_by,
+                                               shape=f"M={M} K={K} N={N} bf16 out")
+        del w, s, w_deq
+    records["quant_matmul"]["max_abs_err"] = worst
+
+
+def _kv_case(g, b, hk, S, d, scale):
+    """int8 K/V in the cache's [b, S, hk, d] layout, seen as [b, hk, S, d]."""
+    import torch
+    k = torch.randint(-127, 128, (b, S, hk, d), generator=g, device="cuda", dtype=torch.int8)
+    v = torch.randint(-127, 128, (b, S, hk, d), generator=g, device="cuda", dtype=torch.int8)
+    return k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+
+def _verify_attn(name, out, ref):
+    from csinn2_tpu_torch.utils.verify import verify
+    r = verify(out.float().cpu().numpy(), ref.float().cpu().numpy(), tol=2e-2,
+               min_cosine=0.9999)
+    if not (r.passed and r.cosine_sim >= 0.9999):
+        raise AssertionError(f"{name}: {r}")
+    return r
+
+
+def check_attention(records):
+    import torch
+    import torch.nn.functional as F
+    from csinn2_tpu_torch.kernels import flash_attention as fa
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    hq = hk = 32
+    d, kv_scale = 128, 0.05          # the engine's default int8 KV scale
+    sm = 1.0 / math.sqrt(d)
+
+    # decode: b=4, one lane with kv_len = 0 (an inactive continuous-batching slot)
+    worst = 0.0
+    for S in (256, 2048):
+        b = 4
+        k, v = _kv_case(g, b, hk, S, d, kv_scale)
+        q = torch.randn((b, hq, 1, d), generator=g, device="cuda").to(torch.bfloat16)
+        kv_len = torch.tensor([S, S // 2 + 3, 0, 17], dtype=torch.int32, device="cuda")
+        pos = kv_len - 1
+        run = lambda: fa.decode_attention(q, k, v, q_offset=pos, kv_len=kv_len,
+                                          kv_scale=kv_scale)
+        out = run()
+        torch.cuda.synchronize()
+        ref = fa._attention_ref(q, k, v, causal=False, q_offset=pos, kv_len=kv_len,
+                                scale=sm, kv_scale=kv_scale).to(torch.bfloat16)
+        r = _verify_attn(f"decode_attention S={S}", out, ref)
+        if not bool(torch.isfinite(out).all()) or float(out[2].abs().max()) != 0.0:
+            raise AssertionError("decode_attention: kv_len=0 lane must output 0")
+        worst = max(worst, r.max_abs_err)
+        ms = gpu_ms(run)
+        plain = gpu_ms(lambda: fa._attention_ref(q, k, v, causal=False, q_offset=pos,
+                                                    kv_len=kv_len, scale=sm,
+                                                    kv_scale=kv_scale), reps=5)
+        kd = (k.float() * kv_scale).to(torch.bfloat16)
+        vd = (v.float() * kv_scale).to(torch.bfloat16)
+        mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None, :]
+        lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+        n_kv = int(kv_len.clamp(max=S).sum())
+        b_ms, b_by = bound(b * hq * d * 2 * 2 + 2 * n_kv * hk * d, 4.0 * n_kv * hq * d)
+        log(f"  decode_attention b={b} S={S:4d} kv_len={kv_len.tolist()} ms={ms:.4f} "
+            f"plain_ms={plain:.4f} lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"roofline={b_ms / ms:.3f} {r}")
+        if S == 2048:
+            records["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                               bound_ms=b_ms, bound_by=b_by,
+                                               shape=f"b=4 hq=hk=32 d=128 S={S}")
+    records["decode_attention"]["max_abs_err"] = worst
+
+    # prefill (whole KV fits 8 MiB) and flash (bshd, longer prompts).  The
+    # engine pads a prompt to its bucket, so run_queue gives the 128-token
+    # prompt sq=128 over S=256, and the 1100-token one sq=kv_len=2048 over
+    # S=2048 (recorded); sq=kv_len=1100 checks a ragged tail.
+    for name, sq, S, kvl, record in (("prefill_attention", 128, 256, 128, True),
+                                     ("flash_attention", 1100, 2048, 1100, False),
+                                     ("flash_attention", 2048, 2048, 2048, True)):
+        k, v = _kv_case(g, 1, hk, S, d, kv_scale)
+        q = torch.randn((1, sq, hq, d), generator=g, device="cuda").to(torch.bfloat16)
+        if name == "prefill_attention":
+            run = lambda: fa.prefill_attention(q, k, v, causal=True, q_offset=0,
+                                               kv_len=kvl, kv_scale=kv_scale)
+        else:
+            run = lambda: fa.flash_attention(q, k, v, causal=True, q_offset=0, kv_len=kvl,
+                                             kv_scale=kv_scale, qo_layout="bshd")
+        out = run()
+        torch.cuda.synchronize()
+        plain_fn = lambda: fa._attention_ref(q.permute(0, 2, 1, 3), k, v, causal=True,
+                                             q_offset=0, kv_len=kvl, scale=sm,
+                                             kv_scale=kv_scale)
+        ref = plain_fn().permute(0, 2, 1, 3).to(torch.bfloat16)
+        r = _verify_attn(name, out, ref)
+        ms = gpu_ms(run)
+        plain = gpu_ms(plain_fn, reps=5)
+        qh = q.permute(0, 2, 1, 3)
+        kd = (k[:, :, :kvl].float() * kv_scale).to(torch.bfloat16)
+        vd = (v[:, :, :kvl].float() * kv_scale).to(torch.bfloat16)
+        lib = gpu_ms(lambda: F.scaled_dot_product_attention(qh, kd, vd, is_causal=True))
+        pairs = sq * (sq + 1) // 2               # causal (query, key) pairs, q_offset 0
+        b_ms, b_by = bound(sq * hq * d * 2 * 2 + 2 * kvl * hk * d, 4.0 * pairs * hq * d)
+        log(f"  {name} sq={sq} S={S} kv_len={kvl} ms={ms:.4f} plain_ms={plain:.4f} "
+            f"lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} {r}")
+        worst = max(records.get(name, {}).get("max_abs_err", 0.0), r.max_abs_err)
+        if record:
+            records[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                                 bound_by=b_by, shape=f"b=1 sq={sq} S={S} kv_len={kvl} "
+                                                      "hq=hk=32 d=128")
+        records.setdefault(name, {})["max_abs_err"] = worst
+        del k, v
+
+
+# ---------------------------------------------------------------------------
+# phase 3: a 2-layer 7B-width model, card against the CPU plain path
+# ---------------------------------------------------------------------------
+
+def _to(tree, device):
+    import torch
+    from csinn2_tpu_torch.llm.model import QWeight
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    if isinstance(tree, QWeight):
+        return dataclasses.replace(tree, values=tree.values.to(device),
+                                   scales=None if tree.scales is None
+                                   else tree.scales.to(device))
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def model_parity():
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.model import (Q8_0, KVCache, fuse_params, init_params_device,
+                                            llama_forward)
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=2, max_seq_len=256)
+    params = fuse_params(init_params_device(cfg, Q8_0, seed=3, device="cuda"))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(1, cfg.vocab_size, (1, 128)))
+    cache = KVCache.create(cfg, 1, quantized=True, device="cuda")
+    gpu, _ = llama_forward(params, toks, cache, 0, cfg)
+    gpu = gpu.float().cpu().numpy()
+    cpu_params = _to(params, "cpu")
+    del params
+    cache = KVCache.create(cfg, 1, quantized=True, device="cpu")
+    cpu, _ = llama_forward(cpu_params, toks, cache, 0, cfg)
+    cos = cosine_similarity(gpu, cpu.numpy())
+    log(f"  2-layer 7B-width Q8_0 int8-KV prefill s=128: logits {gpu.shape} "
+        f"finite={bool(np.isfinite(gpu).all())} cosine(card, cpu plain)={cos:.6f}")
+    if not (np.isfinite(gpu).all() and cos >= 0.999):
+        raise AssertionError(f"model parity: cosine {cos}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def main_path(gpu_line: str):
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
+    from csinn2_tpu_torch.llm.model import Q8_0, init_params_device
+    cfg = LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, init_params_device(cfg, Q8_0, seed=0, device="cuda"),
+                          batch=4, quantized_kv=True, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  Llama-2-7B Q8_0 weights made and quantized on the card: "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    lengths = (5, 37, 128, 300, 700, 1100)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, n)],
+                    max_new_tokens=16) for n in lengths]
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_queue(reqs, chunk=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    log(f"  run_queue: {len(done)} requests, {sum(len(r.out) for r in done)} tokens "
+        f"in {wall:.3f} s (host clock, first call); launches {counts}")
+    for n, r in zip(lengths, done):
+        if not r.done or len(r.out) != 16 or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request of prompt {n}: done={r.done} out={r.out}")
+    missing = [k for k in REPLACES if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+
+    # TTFT at prompt 128: prefill + first-token sampling, CUDA events
+    prompt = reqs[2].prompt
+    ttfts = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        tok = eng.prefill_sample(0, prompt)
+        b.record()
+        b.synchronize()
+        ttfts.append(a.elapsed_time(b))
+    logits = eng.prefill(0, prompt)
+    if not (np.isfinite(logits).all() and 0 <= tok < cfg.vocab_size):
+        raise AssertionError("prefill logits not finite")
+    # decode tokens/s at batch 4: all lanes active at position ~128
+    first = {}
+    for sid in range(4):
+        first[sid] = eng.prefill_sample(sid, prompt)
+    step_logits = eng.decode_step(first)
+    if not all(np.isfinite(v).all() for v in step_logits.values()):
+        raise AssertionError("decode logits not finite")
+    nxt = {sid: int(np.argmax(v)) for sid, v in step_logits.items()}
+    n_steps, rates = 32, []
+    for _ in range(3):
+        for sid in range(4):
+            eng.slots[sid].pos = 129
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        eng.decode_steps(nxt, n_steps)
+        b.record()
+        b.synchronize()
+        rates.append(4 * n_steps / (a.elapsed_time(b) / 1e3))
+    ttft = statistics.median(ttfts)
+    tps = statistics.median(rates)
+    log(f"  TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events) "
+        f"[{gpu_line}]")
+    log(f"  decode batch 4 at pos ~130: {tps:.2f} tok/s, {4e3 / tps:.3f} ms/step "
+        f"(median of 3 x {n_steps} steps, CUDA events, incl. host launch gaps) [{gpu_line}]")
+    return counts
+
+
+def main() -> int:
+    here = Path(__file__).resolve().parent
+    if not (here / "csinn2_tpu_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the csinn2_tpu_torch package is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(here))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    from csinn2_tpu_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    gpu_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 1: card [{gpu_line}] torch {torch.__version__} CUDA {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+    _build.libs()
+    log(f"  kernels built and loaded in {_build.build_seconds:.2f} s")
+    for name, text in _build.build_logs().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    records = {}
+    log("phase 2: kernels against their plain versions at 7B shapes")
+    check_quant_matmul(records)
+    check_attention(records)
+    torch.cuda.empty_cache()
+    log("phase 3: model parity (card vs cpu plain path)")
+    model_parity()
+    torch.cuda.empty_cache()
+    log("phase 4: main path, Llama-2-7B Q8_0 int8 KV, run_queue batch 4")
+    counts = main_path(gpu_line)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": int(counts.get(name, 0)),
+                "max_abs_err": records[name]["max_abs_err"], "ms": records[name]["ms"],
+                "plain_ms": records[name]["plain_ms"], "bound_ms": records[name]["bound_ms"],
+                "bound_by": records[name]["bound_by"],
+                "library_ms": records[name]["library_ms"], "shape": records[name]["shape"]}
+               for name in REPLACES]
+    print(gpu_line)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

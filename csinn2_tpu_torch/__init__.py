@@ -1,0 +1,21 @@
+"""csinn2_tpu_torch — the PyTorch/CUDA port of csinn2_tpu for one NVIDIA H100.
+
+The JAX package `csinn2_tpu` is the reference; this package keeps its module
+and public names so each counterpart is easy to find, and never imports it
+(nor JAX).  Plain tensor code is PyTorch; every Pallas kernel on the ported
+path is a hand-written CUDA kernel for sm_90a (kernels/csrc/), built with
+nvcc at first use and bound through ctypes.
+
+Device rule: entry points take an explicit `device` ("cuda" by default) and
+raise when CUDA is absent unless the caller passed device="cpu".  Kernel
+wrappers decide by the tensor's device: CUDA tensors launch the kernel, CPU
+tensors run the plain PyTorch version beside it.
+
+Layer map (ported so far):
+  core/     — BLOCK_SIZE
+  kernels/  — quant_matmul (Q8_0 block mode), decode/prefill/flash attention
+  llm/      — LlamaConfig, model forward, params bridge, sampling, engine
+  utils/    — device helper, verify metrics
+"""
+
+__version__ = "0.1.0"

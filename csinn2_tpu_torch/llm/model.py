@@ -1,0 +1,432 @@
+"""Functional Llama forward with weight-only quantized linears and a
+static-shape (optionally int8) KV cache — counterpart of
+csinn2_tpu/llm/model.py, dense path.
+
+Params are a plain dict {"tok_embedding", "norm", "output", "layers": [...]}
+whose weights are `QWeight` dataclasses holding tensors.  Unlike the JAX
+functions, which return a new cache, `KVCache.store` and everything that
+calls it update the cache's tensors IN PLACE (and return the same cache), so
+the multi-gigabyte buffer is never copied.
+
+Quantized linears go through kernels.qmatmul.quant_matmul and attention
+through kernels.flash_attention: CUDA tensors launch the hand-written
+kernels, CPU tensors take their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from csinn2_tpu_torch.core.quant import BLOCK_SIZE
+from csinn2_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                      prefill_attention)
+from csinn2_tpu_torch.kernels.qmatmul import quant_matmul
+from csinn2_tpu_torch.llm.config import LlamaConfig
+from csinn2_tpu_torch.utils.device import resolve_device
+
+# quant modes for weights (the names of the JAX package)
+FLOAT = "float"            # bf16 weights
+INT8_CHANNEL = "int8"      # int8 + per-out-channel scale (f32[N])
+INT4_CHANNEL = "int4"      # int4 (int8 carrier in [-8,7]) + per-channel scale
+Q8_0 = "q8_0"              # int8 + f16-rounded scale per 32 along K
+Q4_0 = "q4_0"              # int4 carrier + f16 scale per 32 along K
+
+# whole-KV prefill kernel while the KV of one layer fits this budget
+# (the JAX package's VMEM rule, kept so both take the same branch)
+PREFILL_KV_BYTES = 8 * 2**20
+
+
+def _unported_mode(mode: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"weight mode {mode!r} is not ported yet (ROADMAP queue A/B); this "
+        f"package runs {FLOAT!r} and {Q8_0!r}")
+
+
+@dataclasses.dataclass
+class QWeight:
+    """[K, N] weight: bf16 values (FLOAT) or int8 values + f32 [K/32, N]
+    block scales (Q8_0)."""
+
+    values: torch.Tensor
+    scales: Optional[torch.Tensor] = None
+    mode: str = FLOAT
+    packed: bool = False        # int4 nibble packing (not ported)
+    layout: str = "plain"       # "swiglu128" pair layout not ported
+
+    @property
+    def shape(self):
+        return tuple(self.values.shape)
+
+
+def quantize_weight(w: np.ndarray, mode: str, device="cuda") -> QWeight:
+    """f32 [K, N] host array → QWeight on `device`, with the JAX package's
+    host math (same rounding, same f16-rounded block scales), so the bytes
+    are identical."""
+    dev = resolve_device(device)
+    w = np.asarray(w, np.float32)
+    if w.ndim != 2:
+        raise NotImplementedError("stacked MoE weights are not ported yet "
+                                  "(ROADMAP queue A)")
+    if mode == FLOAT:
+        return QWeight(values=torch.from_numpy(w).to(dev, torch.bfloat16),
+                       mode=FLOAT)
+    if mode == Q8_0:
+        K, N = w.shape
+        if K % BLOCK_SIZE:
+            raise ValueError(f"Q8_0 needs K % {BLOCK_SIZE} == 0, got K={K}")
+        bound = 127.0
+        wb = w.reshape(K // BLOCK_SIZE, BLOCK_SIZE, N)
+        amax = np.abs(wb).max(axis=1, keepdims=True)
+        d = (amax / bound).astype(np.float16).astype(np.float32)
+        q = np.where(d == 0, 0.0, np.round(wb / np.where(d == 0, 1.0, d)))
+        q = np.clip(q, -bound, bound).astype(np.int8).reshape(K, N)
+        return QWeight(values=torch.from_numpy(q).to(dev),
+                       scales=torch.from_numpy(np.ascontiguousarray(d[:, 0, :])).to(dev),
+                       mode=Q8_0)
+    raise _unported_mode(mode)
+
+
+def quantize_weight_device(w: torch.Tensor, mode: str) -> QWeight:
+    """On-device quantize of an f32 [K, N] tensor — the counterpart of the
+    JAX package's quantize_weight_jax (same rounding, f16-rounded scales)."""
+    if mode == FLOAT:
+        return QWeight(values=w.to(torch.bfloat16), mode=FLOAT)
+    if mode == Q8_0:
+        K, N = w.shape
+        wb = w.float().reshape(K // BLOCK_SIZE, BLOCK_SIZE, N)
+        d = (wb.abs().amax(dim=1, keepdim=True) / 127.0) \
+            .to(torch.float16).to(torch.float32)
+        q = torch.where(d == 0, torch.zeros_like(wb),
+                        torch.round(wb / torch.where(d == 0, torch.ones_like(d), d)))
+        q = q.clamp_(-127.0, 127.0).to(torch.int8).reshape(K, N)
+        return QWeight(values=q, scales=d[:, 0, :].contiguous(), mode=Q8_0)
+    raise _unported_mode(mode)
+
+
+def qweight_concat(qws: List[QWeight], tp: int = 1) -> QWeight:
+    """Concatenate QWeights along the output (N) axis (wq|wk|wv, w1|w3): one
+    GEMM launch instead of several, one longer weight stream."""
+    if tp != 1:
+        raise NotImplementedError("tensor-parallel interleave is not ported "
+                                  "yet (ROADMAP queue A)")
+    m0 = qws[0]
+    if any(q.mode != m0.mode or q.packed != m0.packed for q in qws):
+        raise ValueError("qweight_concat: mixed modes")
+    return QWeight(values=torch.cat([q.values for q in qws], dim=-1),
+                   scales=None if m0.scales is None
+                   else torch.cat([q.scales for q in qws], dim=-1),
+                   mode=m0.mode, packed=m0.packed)
+
+
+def fuse_layer_weights(lp: Dict, tp: int = 1) -> Dict:
+    """wqkv = [wq|wk|wv] and w13 = [w1|w3] (dense FFN) — the JAX package's
+    default (non-swiglu128) fusion."""
+    out = dict(lp)
+    if all(k in lp for k in ("wq", "wk", "wv")):
+        out["wqkv"] = qweight_concat([lp["wq"], lp["wk"], lp["wv"]], tp=tp)
+        out.pop("wq"), out.pop("wk"), out.pop("wv")
+    if "w1" in lp and "w3" in lp and "gate" not in lp:
+        out["w13"] = qweight_concat([lp["w1"], lp["w3"]], tp=tp)
+        out.pop("w1"), out.pop("w3")
+    return out
+
+
+def fuse_params(params: Dict, tp: int = 1) -> Dict:
+    return {**params,
+            "layers": [fuse_layer_weights(lp, tp=tp) for lp in params["layers"]]}
+
+
+def linear(x: torch.Tensor, qw: QWeight, *, out_dtype=torch.float32,
+           swiglu: bool = False) -> torch.Tensor:
+    """y = x @ dequant(qw); x [..., K].  out_dtype=bf16 for internal
+    activations, f32 for the logits.  FLOAT weights stay a plain matmul (the
+    JAX package leaves them to XLA, outside Pallas)."""
+    if swiglu or qw.layout != "plain":
+        raise NotImplementedError("the swiglu128 fused epilogue is not "
+                                  "ported yet (ROADMAP queue B)")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+    if qw.mode == FLOAT:
+        out = torch.matmul(x2.float(), qw.values.float()).to(out_dtype)
+    elif qw.mode == Q8_0:
+        out = quant_matmul(x2, qw.values, qw.scales, scale_mode="block",
+                           out_dtype=out_dtype)
+    else:
+        raise _unported_mode(qw.mode)
+    return out.reshape(*lead, qw.shape[-1])
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * weight).to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, d: int, base: float):
+    """RoPE (cos, sin) for a position vector, computed once per forward and
+    shared by every layer.  positions [s] or [b, s] → each [1|b, s, 1, d/2]
+    f32."""
+    dev = positions.device
+    inv_freq = base ** (-torch.arange(0, d // 2, dtype=torch.float32,
+                                      device=dev) * 2.0 / d)
+    theta = positions.float()[..., None] * inv_freq
+    if theta.ndim == 2:
+        theta = theta[None]
+    return torch.cos(theta)[:, :, None, :], torch.sin(theta)[:, :, None, :]
+
+
+def rope_rotate(x: torch.Tensor, positions, base: float, tables=None):
+    """Interleaved-pair RoPE (pairs (0,1), (2,3), ... of the head dim).
+    x: [b, s, h, d]; tables: optional (cos, sin) from rope_tables."""
+    b, s, h, d = x.shape
+    cos, sin = rope_tables(positions, d, base) if tables is None else tables
+    xf = x.float()
+    x0 = xf[..., 0::2]
+    x1 = xf[..., 1::2]
+    r0 = x0 * cos - x1 * sin
+    r1 = x0 * sin + x1 * cos
+    return torch.stack([r0, r1], dim=-1).reshape(b, s, h, d).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _check_dense(cfg: LlamaConfig):
+    if cfg.n_experts:
+        raise NotImplementedError("MoE is not ported yet (ROADMAP queue A)")
+
+
+def init_params(cfg: LlamaConfig, mode: str = FLOAT, seed: int = 0,
+                scale: float = 0.02, device="cuda") -> Dict:
+    """Random-init the parameter dict with the JAX package's numpy RNG
+    stream, so the same seed gives the same bytes."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def w(shape):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    D, F_ = cfg.dim, cfg.ffn_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    params = {
+        "tok_embedding": torch.from_numpy(w((cfg.vocab_size, D))).to(dev, torch.bfloat16),
+        "norm": torch.ones(D, dtype=torch.float32, device=dev),
+        "output": quantize_weight(w((D, cfg.vocab_size)), mode, dev),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": torch.ones(D, dtype=torch.float32, device=dev),
+            "ffn_norm": torch.ones(D, dtype=torch.float32, device=dev),
+            "wq": quantize_weight(w((D, D)), mode, dev),
+            "wk": quantize_weight(w((D, kvd)), mode, dev),
+            "wv": quantize_weight(w((D, kvd)), mode, dev),
+            "wo": quantize_weight(w((D, D)), mode, dev),
+            "w1": quantize_weight(w((D, F_)), mode, dev),
+            "w2": quantize_weight(w((F_, D)), mode, dev),
+            "w3": quantize_weight(w((D, F_)), mode, dev),
+        })
+    return params
+
+
+def init_params_device(cfg: LlamaConfig, mode: str = FLOAT, seed: int = 0,
+                       scale: float = 0.02, device="cuda") -> Dict:
+    """Random-init and quantize on the device from a torch.Generator seeded
+    with `seed`: only the seed crosses to the card, which at 7B takes seconds
+    where the host path takes minutes.  The values are NOT those of the JAX
+    package's init_params_device (torch's generator is not JAX's PRNG); use
+    init_params or llm.params.params_from_numpy for weights shared with JAX."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def w(shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(scale)
+
+    def gen_q(shape):
+        return quantize_weight_device(w(shape), mode)
+
+    D, F_ = cfg.dim, cfg.ffn_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    params = {
+        "tok_embedding": w((cfg.vocab_size, D)).to(torch.bfloat16),
+        "norm": torch.ones(D, dtype=torch.float32, device=dev),
+        "output": gen_q((D, cfg.vocab_size)),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": torch.ones(D, dtype=torch.float32, device=dev),
+            "ffn_norm": torch.ones(D, dtype=torch.float32, device=dev),
+            "wq": gen_q((D, D)), "wk": gen_q((D, kvd)), "wv": gen_q((D, kvd)),
+            "wo": gen_q((D, D)),
+            "w1": gen_q((D, F_)), "w2": gen_q((F_, D)), "w3": gen_q((D, F_)),
+        })
+    return params
+
+
+def quantize_params(params: Dict, mode: str) -> Dict:
+    """Requantize a FLOAT params dict to `mode` through the host math of
+    quantize_weight (bytes identical to the JAX package's quantize_params)."""
+    def conv(qw):
+        if not isinstance(qw, QWeight):
+            return qw
+        if qw.mode != FLOAT:
+            raise ValueError("quantize_params expects FLOAT params")
+        return quantize_weight(qw.values.float().cpu().numpy(), mode,
+                               qw.values.device)
+
+    return {"tok_embedding": params["tok_embedding"], "norm": params["norm"],
+            "output": conv(params["output"]),
+            "layers": [{k: conv(v) for k, v in lp.items()}
+                       for lp in params["layers"]]}
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def quantize_kv(t: torch.Tensor, scale: float) -> torch.Tensor:
+    """int8 KV carrier: round half to even, clip to ±127, one scale."""
+    return torch.clamp(torch.round(t.float() / scale), -127, 127).to(torch.int8)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape per-layer K/V buffers [L, B, S_max, H_kv, Dh].  int8 mode
+    stores carriers and one per-tensor f32 scale (dequant is fused into the
+    attention kernels)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    scale: Optional[float] = None     # None → float cache
+
+    @staticmethod
+    def create(cfg: LlamaConfig, batch: int, quantized: bool = False,
+               scale: float = 0.05, dtype=torch.bfloat16,
+               device="cuda") -> "KVCache":
+        dev = resolve_device(device)
+        shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        dt = torch.int8 if quantized else dtype
+        return KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                       v=torch.zeros(shape, dtype=dt, device=dev),
+                       scale=scale if quantized else None)
+
+    def _carrier(self, t: torch.Tensor) -> torch.Tensor:
+        return quantize_kv(t, self.scale) if self.scale is not None \
+            else t.to(self.k.dtype)
+
+    def store(self, layer: int, pos: int, k_new, v_new) -> "KVCache":
+        """Write [b, s, hk, dh] at rows pos .. pos+s-1 of `layer`, in place."""
+        s = k_new.shape[1]
+        if pos < 0 or pos + s > self.k.shape[2]:
+            raise ValueError(f"KVCache.store: rows {pos}..{pos + s} outside "
+                             f"the cache's {self.k.shape[2]}")
+        self.k[layer, :, pos:pos + s] = self._carrier(k_new)
+        self.v[layer, :, pos:pos + s] = self._carrier(v_new)
+        return self
+
+    def read(self, layer: int):
+        """→ (k, v) [b, S_max, hk, dh]: int8 carriers in int8 mode."""
+        return self.k[layer], self.v[layer]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def attention_block(x, layer_params, cache: KVCache, layer_idx: int, pos: int,
+                    cfg: LlamaConfig, kv_bound: Optional[int] = None):
+    """One attention sublayer including the KV-cache update (in place)."""
+    b, s, _ = x.shape
+    hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lp = layer_params
+    qk, v = _project_qkv(x, lp, hq, hk, dh)
+    positions = pos + torch.arange(s, device=x.device)
+    # q and k heads rotate together: one pass over [b, s, hq + hk, dh]
+    qk = rope_rotate(qk, positions, cfg.rope_base, tables=lp.get("_rope_tables"))
+    q, k = qk[:, :, :hq], qk[:, :, hq:]
+
+    cache.store(layer_idx, pos, k, v)
+    k_all, v_all = cache.read(layer_idx)          # [b, S_max, hk, dh]
+    if kv_bound is not None and kv_bound < k_all.shape[1]:
+        # the caller guarantees pos + s <= kv_bound: never-written tail rows
+        # of the static cache are not read
+        k_all, v_all = k_all[:, :kv_bound], v_all[:, :kv_bound]
+    k_t = k_all.permute(0, 2, 1, 3)               # [b, hk, S, dh] views
+    v_t = v_all.permute(0, 2, 1, 3)
+    S_kv = k_t.shape[2]
+    kv_bytes = hk * S_kv * max(dh, 128) * 2 * k_t.element_size()
+    attn = prefill_attention if s > 1 and kv_bytes <= PREFILL_KV_BYTES \
+        else _flash_bshd
+    out = attn(q.to(torch.bfloat16), k_t, v_t, causal=True, q_offset=pos,
+               kv_len=pos + s, kv_scale=cache.scale)   # [b, s, hq, dh]
+    out = linear(out.reshape(b, s, hq * dh), lp["wo"], out_dtype=torch.bfloat16)
+    return out, cache
+
+
+def _project_qkv(x, lp, hq: int, hk: int, dh: int):
+    """x [b, s, D] → (q|k heads [b, s, hq + hk, dh], v [b, s, hk, dh]), bf16,
+    through the fused wqkv GEMM when the params carry it."""
+    b, s, _ = x.shape
+    if "wqkv" in lp:
+        qkv = linear(x, lp["wqkv"], out_dtype=torch.bfloat16)
+        return (qkv[..., :(hq + hk) * dh].reshape(b, s, hq + hk, dh),
+                qkv[..., (hq + hk) * dh:].reshape(b, s, hk, dh))
+    q = linear(x, lp["wq"], out_dtype=torch.bfloat16)
+    k = linear(x, lp["wk"], out_dtype=torch.bfloat16)
+    v = linear(x, lp["wv"], out_dtype=torch.bfloat16)
+    return torch.cat([q, k], dim=-1).reshape(b, s, hq + hk, dh), v.reshape(b, s, hk, dh)
+
+
+def _flash_bshd(q, k, v, **kw):
+    return flash_attention(q, k, v, qo_layout="bshd", **kw)
+
+
+def ffn_block(x, layer_params):
+    """SwiGLU FFN: w2(silu(w1 x) * w3 x)."""
+    lp = layer_params
+    if "w13" in lp:
+        h13 = linear(x, lp["w13"], out_dtype=torch.bfloat16)
+        F_ = h13.shape[-1] // 2
+        h1, h3 = h13[..., :F_], h13[..., F_:]
+    else:
+        h1 = linear(x, lp["w1"], out_dtype=torch.bfloat16)
+        h3 = linear(x, lp["w3"], out_dtype=torch.bfloat16)
+    h = (F.silu(h1.float()) * h3.float()).to(torch.bfloat16)
+    return linear(h, lp["w2"], out_dtype=torch.bfloat16)
+
+
+def llama_forward(params, tokens, cache: KVCache, pos: int, cfg: LlamaConfig,
+                  kv_bound: Optional[int] = None):
+    """tokens [b, s] → (logits [b, s, V] f32, cache).  One function for
+    prefill (s = prompt) and decode (s = 1); the cache is updated in place."""
+    emb = params["tok_embedding"]
+    tokens = torch.as_tensor(tokens, device=emb.device).long()
+    x = emb[tokens]                                       # [b, s, D] bf16
+    # RoPE trig is position-only: once per forward, shared by all layers
+    tabs = rope_tables(pos + torch.arange(tokens.shape[1], device=emb.device),
+                       cfg.head_dim, cfg.rope_base)
+    for i, lp in enumerate(params["layers"]):
+        if "gate" in lp:
+            raise NotImplementedError("MoE is not ported yet (ROADMAP queue A)")
+        lp = {**lp, "_rope_tables": tabs}
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        attn_out, cache = attention_block(h.to(torch.bfloat16), lp, cache, i,
+                                          pos, cfg, kv_bound=kv_bound)
+        x = x + attn_out.to(x.dtype)
+        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = x + ffn_block(h.to(torch.bfloat16), lp).to(x.dtype)
+    x = rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = linear(x.to(torch.bfloat16), params["output"])
+    return logits, cache

@@ -1,0 +1,168 @@
+"""Attention of the PyTorch port against the JAX package: the plain versions
+of decode_attention, prefill_attention and bshd flash_attention against the
+Pallas kernels in interpret mode (GQA, int8 KV with kv_scale, per-row
+q_offset / kv_len, a kv_len = 0 lane), and the port's attention_block
+against the JAX package's XLA fallback (model.py:669-693).  K/V reach the
+port as permuted views of a [b, S, hk, d] cache buffer, as on the main path.
+
+Tolerance: verify(tol=2e-2, min_cosine=0.9999), as tests/test_attention.py
+(the Pallas kernels run bf16 dots, the port's plain versions f32)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from csinn2_tpu.kernels import flash_attention as jfa
+from csinn2_tpu.llm import model as jm
+from csinn2_tpu.llm.config import LlamaConfig as JConfig
+from csinn2_tpu.utils.verify import verify
+from csinn2_tpu_torch.kernels import flash_attention as tfa
+from csinn2_tpu_torch.llm import model as tm
+from csinn2_tpu_torch.llm.config import LlamaConfig as TConfig
+from csinn2_tpu_torch.llm.params import params_from_numpy
+
+torch.set_num_threads(2)
+
+KV_SCALE = 0.05
+
+
+def _q(rng, shape):
+    """bf16 query as (jax array, torch tensor) holding the same values."""
+    qj = jnp.asarray(rng.standard_normal(shape).astype(np.float32), jnp.bfloat16)
+    return qj, torch.from_numpy(np.array(qj, np.float32)).to(torch.bfloat16)
+
+
+def _kv(rng, b, hk, S, d, int8):
+    """K/V as [b, hk, S, d] numpy (for JAX) and as the permuted view of a
+    [b, S, hk, d] buffer (for the port)."""
+    if int8:
+        a = rng.integers(-127, 128, (2, b, S, hk, d)).astype(np.int8)
+    else:
+        a = np.array(jnp.asarray(rng.standard_normal((2, b, S, hk, d)), jnp.bfloat16)
+                     .astype(jnp.float32))
+    jax_kv = [np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in a]
+    t = torch.from_numpy(a)
+    if not int8:
+        t = t.to(torch.bfloat16)
+        jax_kv = [jnp.asarray(x, jnp.bfloat16) for x in jax_kv]
+    return jax_kv, [t[0].permute(0, 2, 1, 3), t[1].permute(0, 2, 1, 3)]
+
+
+def _check(got, want):
+    r = verify(np.asarray(got.float().numpy(), np.float32),
+               np.asarray(want, np.float32), tol=2e-2, min_cosine=0.9999)
+    assert r.passed and r.cosine_sim > 0.9999, r
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("hq,hk", [(8, 4), (4, 4)])
+def test_decode_attention_matches_jax(rng, int8, hq, hk):
+    b, d, S = 3, 32, 256
+    qj, qt = _q(rng, (b, hq, 1, d))
+    (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, int8)
+    kv_len = np.array([200, 0, 17], np.int32)          # lane 1: inactive slot
+    pos = np.maximum(kv_len - 1, 0)
+    scale = KV_SCALE if int8 else None
+    want = np.asarray(jfa.decode_attention(qj, kj, vj, q_offset=pos, kv_len=kv_len,
+                                           kv_scale=scale, hk_blk=2, interpret=True),
+                      np.float32)
+    got = tfa.decode_attention(qt, kt, vt, q_offset=torch.from_numpy(pos),
+                               kv_len=torch.from_numpy(kv_len), kv_scale=scale)
+    assert got.shape == (b, hq, 1, d) and got.dtype == torch.bfloat16
+    _check(got, want)
+    assert float(got[1].abs().max()) == 0.0 and np.abs(want[1]).max() == 0.0
+
+
+def test_decode_attention_default_kv_len(rng):
+    """kv_len defaults to q_offset + 1 (decode semantics)."""
+    qj, qt = _q(rng, (2, 4, 1, 16))
+    (kj, vj), (kt, vt) = _kv(rng, 2, 2, 128, 16, True)
+    pos = np.array([5, 90], np.int32)
+    want = np.asarray(jfa.decode_attention(qj, kj, vj, q_offset=pos, kv_scale=KV_SCALE,
+                                           interpret=True), np.float32)
+    got = tfa.decode_attention(qt, kt, vt, q_offset=torch.from_numpy(pos),
+                               kv_scale=KV_SCALE)
+    _check(got, want)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_prefill_attention_matches_jax(rng, int8):
+    b, sq, hq, hk, d, S = 2, 40, 8, 4, 32, 128
+    qj, qt = _q(rng, (b, sq, hq, d))
+    (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, int8)
+    off = np.array([0, 9], np.int32)
+    kvl = off + sq
+    scale = KV_SCALE if int8 else None
+    want = np.asarray(jfa.prefill_attention(qj, kj, vj, causal=True, q_offset=off,
+                                            kv_len=kvl, kv_scale=scale, interpret=True),
+                      np.float32)
+    got = tfa.prefill_attention(qt, kt, vt, causal=True, q_offset=torch.from_numpy(off),
+                                kv_len=torch.from_numpy(kvl), kv_scale=scale)
+    assert got.shape == (b, sq, hq, d)
+    _check(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bshd_matches_jax(rng, causal):
+    b, sq, hq, hk, d, S = 2, 24, 8, 2, 32, 128
+    qj, qt = _q(rng, (b, sq, hq, d))
+    (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, True)
+    off = np.array([3, 10], np.int32)                  # q_offset > 0
+    kvl = off + sq
+    want = np.asarray(jfa.flash_attention(qj, kj, vj, causal=causal, q_offset=off,
+                                          kv_len=kvl, kv_scale=KV_SCALE, blk_q=8,
+                                          blk_k=128, qo_layout="bshd", interpret=True),
+                      np.float32)
+    got = tfa.flash_attention(qt, kt, vt, causal=causal, q_offset=torch.from_numpy(off),
+                              kv_len=torch.from_numpy(kvl), kv_scale=KV_SCALE,
+                              qo_layout="bshd")
+    _check(got, want)
+
+
+def test_prefill_and_flash_agree_in_jax_and_port(rng):
+    """The two prefill entry points compute one function: the JAX kernels
+    agree with each other, and the port's two plain paths agree exactly."""
+    b, sq, hq, hk, d, S = 1, 32, 4, 2, 32, 256
+    qj, qt = _q(rng, (b, sq, hq, d))
+    (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, True)
+    kw = dict(causal=True, q_offset=0, kv_len=sq, kv_scale=KV_SCALE)
+    jp = np.asarray(jfa.prefill_attention(qj, kj, vj, interpret=True, **kw), np.float32)
+    jf = np.asarray(jfa.flash_attention(qj, kj, vj, qo_layout="bshd", interpret=True, **kw),
+                    np.float32)
+    r = verify(jp, jf, tol=2e-2, min_cosine=0.9999)
+    assert r.passed, r
+    tp = tfa.prefill_attention(qt, kt, vt, **kw)
+    tf = tfa.flash_attention(qt, kt, vt, qo_layout="bshd", **kw)
+    assert torch.equal(tp, tf)
+
+
+def test_flash_attention_bhsd_not_ported(rng):
+    _, qt = _q(rng, (1, 2, 4, 16))
+    _, (kt, vt) = _kv(rng, 1, 2, 64, 16, True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention(qt, kt, vt)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("branch", ["prefill", "flash"])
+def test_attention_block_matches_jax_fallback(rng, monkeypatch, quantized, branch):
+    """attention_block (QKV GEMM, RoPE, KV store, attention, wo) against the
+    JAX XLA fallback, through both kernels of the 8 MiB dispatch."""
+    if branch == "flash":
+        monkeypatch.setattr(tm, "PREFILL_KV_BYTES", 0)
+    jcfg, tcfg = JConfig.tiny(), TConfig.tiny()
+    jp = jm.init_params(jcfg, jm.Q8_0, seed=7)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    x = rng.standard_normal((2, 12, jcfg.dim)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xj, np.float32)).to(torch.bfloat16)
+    pos = 5
+    jc = jm.KVCache.create(jcfg, 2, quantized=quantized)
+    tc = tm.KVCache.create(tcfg, 2, quantized=quantized, device="cpu")
+    want, jc = jm.attention_block(xj, jp["layers"][0], jc, 0, pos, jcfg,
+                                  use_pallas=False)
+    got, tc = tm.attention_block(xt, tp["layers"][0], tc, 0, pos, tcfg)
+    _check(got, np.asarray(want, np.float32))
+    assert np.array_equal(np.array(jc.k.astype(jnp.float32)), tc.k.float().numpy())

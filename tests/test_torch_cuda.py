@@ -1,0 +1,160 @@
+"""CUDA kernels of the PyTorch port against their plain versions, on the
+card, at the ragged shapes the 7B checks in chip_smoke.py do not reach: M, N
+and K tails of quant_matmul, odd KV lengths, GQA, bf16 KV, head dim 64, a
+fully masked lane, strided K/V views and the wrappers' argument checks.
+
+Every test needs a CUDA device and skips without one.  This file imports
+neither JAX nor the JAX package, so on a machine with a card and no JAX it
+runs without the repository's conftest:
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from csinn2_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from csinn2_tpu_torch.kernels import launch_counts  # noqa: E402
+from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref  # noqa: E402
+from csinn2_tpu_torch.utils.verify import cosine_similarity, verify  # noqa: E402
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def gen(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    return g
+
+
+def _qmm_case(gen, dev, M, K, N):
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    s = (torch.rand((K // 32, N), generator=gen, device=dev) * 1e-3 + 1e-5) \
+        .to(torch.float16).float()
+    return x, w, s
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 16, 17, 40, 100])
+@pytest.mark.parametrize("K,N", [(96, 48), (352, 400), (1024, 2064)])
+@pytest.mark.parametrize("odt", [torch.bfloat16, torch.float32])
+def test_quant_matmul_tails(gen, dev, M, K, N, odt):
+    x, w, s = _qmm_case(gen, dev, M, K, N)
+    before = launch_counts["quant_matmul"]
+    y = quant_matmul(x, w, s, scale_mode="block", out_dtype=odt)
+    torch.cuda.synchronize()
+    assert launch_counts["quant_matmul"] == before + 1
+    ref = quant_matmul_ref(x, w, s, scale_mode="block", out_dtype=odt)
+    assert y.dtype == odt and y.shape == (M, N)
+    yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
+    assert cosine_similarity(yf, rf) >= 0.9999
+    assert np.abs(yf - rf).max() <= 1e-2 * np.abs(rf).max()
+
+
+def test_quant_matmul_bias(gen, dev):
+    x, w, s = _qmm_case(gen, dev, 4, 256, 160)
+    bias = torch.randn(160, generator=gen, device=dev)
+    for M in (4, 64):
+        xm = x.repeat(M // 4, 1)
+        y = quant_matmul(xm, w, s, bias, scale_mode="block").cpu().numpy()
+        ref = quant_matmul_ref(xm, w, s, bias, scale_mode="block").cpu().numpy()
+        assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_quant_matmul_rejects_bad_args(gen, dev):
+    x, w, s = _qmm_case(gen, dev, 4, 64, 40)          # N % 16 != 0
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, s, scale_mode="block")
+    x, w, s = _qmm_case(gen, dev, 4, 64, 32)
+    with pytest.raises(TypeError):
+        quant_matmul(x.float(), w, s, scale_mode="block")
+    with pytest.raises(ValueError):
+        quant_matmul(x, w.t().contiguous().t(), s, scale_mode="block")
+
+
+def _kv(gen, dev, b, hk, S, d, int8):
+    if int8:
+        k = torch.randint(-127, 128, (b, S, hk, d), generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, S, hk, d), generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        k = torch.randn((b, S, hk, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, S, hk, d), generator=gen, device=dev).to(torch.bfloat16)
+    return k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+
+def _close(out, ref):
+    r = verify(out.float().cpu().numpy(), ref.float().cpu().numpy(), tol=2e-2,
+               min_cosine=0.9999)
+    assert r.passed and r.cosine_sim >= 0.9999, r
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("hq,hk,d,S", [(8, 2, 128, 300), (4, 4, 64, 77), (6, 3, 32, 1000)])
+def test_decode_attention(gen, dev, int8, hq, hk, d, S):
+    b = 3
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    # q as the engine passes it: the q heads of a [b, 1, hq + hk, d] q|k tensor
+    qk = torch.randn((b, 1, hq + hk, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = qk[:, :, :hq].permute(0, 2, 1, 3)
+    kv_len = torch.tensor([S, 0, 5], dtype=torch.int32, device=dev)
+    scale = 0.05 if int8 else None
+    out = fa.decode_attention(q, k, v, q_offset=kv_len - 1, kv_len=kv_len, kv_scale=scale)
+    torch.cuda.synchronize()
+    ref = fa._attention_ref(q, k, v, causal=False, q_offset=kv_len - 1, kv_len=kv_len,
+                            scale=1 / d ** 0.5, kv_scale=scale)
+    _close(out, ref)
+    assert float(out[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name", ["prefill_attention", "flash_attention"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("int8,d", [(True, 128), (False, 64)])
+def test_prefill_and_flash_attention(gen, dev, name, causal, int8, d):
+    b, sq, hq, hk, S = 2, 45, 8, 4, 160
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    off = torch.tensor([0, 70], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([sq, 200], dtype=torch.int32, device=dev)  # 200 > S: clamped
+    scale = 0.05 if int8 else None
+    kw = dict(causal=causal, q_offset=off, kv_len=kvl, kv_scale=scale)
+    if name == "flash_attention":
+        out = fa.flash_attention(q, k, v, qo_layout="bshd", **kw)
+    else:
+        out = fa.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = fa._attention_ref(q.permute(0, 2, 1, 3), k, v, scale=1 / d ** 0.5, **kw) \
+        .permute(0, 2, 1, 3)
+    _close(out, ref)
+
+
+def test_fully_masked_prefill_row_outputs_zero(gen, dev):
+    k, v = _kv(gen, dev, 1, 2, 64, 128, True)
+    q = torch.randn((1, 8, 2, 128), generator=gen, device=dev).to(torch.bfloat16)
+    out = fa.prefill_attention(q, k, v, causal=True, q_offset=0, kv_len=0, kv_scale=0.05)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and float(out.abs().max()) == 0.0
+
+
+def test_attention_rejects_bad_args(gen, dev):
+    k, v = _kv(gen, dev, 1, 2, 64, 96, True)
+    q = torch.randn((1, 8, 2, 96), generator=gen, device=dev).to(torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        fa.prefill_attention(q, k, v)                    # head dim 96
+    q = torch.randn((1, 8, 2, 128), generator=gen, device=dev)
+    k, v = _kv(gen, dev, 1, 2, 64, 128, True)
+    with pytest.raises(TypeError):
+        fa.prefill_attention(q, k, v)                    # f32 q

@@ -1,0 +1,257 @@
+"""The PyTorch port's Llama forward, engine and sampling against the JAX
+package, on the CPU (plain versions of the kernels) at tiny sizes with the
+same weights (carried across with params_from_numpy).
+
+Gates: llama_forward logits cosine >= 0.999 against JAX
+llama_forward(use_pallas=False); the engine's greedy tokens identical to the
+JAX InferenceEngine(use_pallas=False); the top-k / top-p masks identical.
+Sampled (temperature > 0) tokens cannot match jax.random's stream; they are
+checked for reproducibility within the port."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from csinn2_tpu.llm import model as jm
+from csinn2_tpu.llm import sampling as jsamp
+from csinn2_tpu.llm.config import LlamaConfig as JConfig
+from csinn2_tpu.llm.engine import InferenceEngine as JEngine
+from csinn2_tpu.llm.engine import Request as JRequest
+from csinn2_tpu.utils.verify import cosine_similarity
+from csinn2_tpu_torch.llm import model as tm
+from csinn2_tpu_torch.llm import sampling as tsamp
+from csinn2_tpu_torch.llm.config import LlamaConfig as TConfig
+from csinn2_tpu_torch.llm.engine import InferenceEngine, Request, _batched_decode_forward
+from csinn2_tpu_torch.llm.params import params_from_numpy
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MHA = dict(dim=64, n_layers=2, n_heads=4, n_kv_heads=4, ffn_dim=128,
+           vocab_size=256, max_seq_len=128)
+PROMPTS = [[3, 7, 11, 2, 9], [5, 2], list(range(1, 36))]
+
+
+def _cfgs(name):
+    if name == "gqa":
+        return JConfig.tiny(), TConfig.tiny()
+    return JConfig(**MHA), TConfig(**MHA)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """(jax params, port params) per (config, mode), built once."""
+    out = {}
+    for name in ("gqa", "mha"):
+        jcfg, _ = _cfgs(name)
+        for mode in (jm.FLOAT, jm.Q8_0):
+            jp = jm.init_params(jcfg, mode, seed=1)
+            out[name, mode] = (jp, params_from_numpy(
+                jax.tree_util.tree_map(np.asarray, jp), device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("cfg_name", ["gqa", "mha"])
+@pytest.mark.parametrize("mode", [jm.FLOAT, jm.Q8_0])
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_llama_forward_matches_jax(weights, cfg_name, mode, quantized_kv):
+    jcfg, tcfg = _cfgs(cfg_name)
+    jp, tp = weights[cfg_name, mode]
+    toks = np.array([[3, 7, 11, 19, 5, 2, 9, 4], [1, 2, 3, 4, 5, 6, 7, 8]], np.int32)
+    jc = jm.KVCache.create(jcfg, 2, quantized=quantized_kv)
+    want, jc = jm.llama_forward(jp, jnp.asarray(toks), jc, 0, jcfg, use_pallas=False)
+    tc = tm.KVCache.create(tcfg, 2, quantized=quantized_kv, device="cpu")
+    got, tc = tm.llama_forward(tp, torch.from_numpy(toks), tc, 0, tcfg)
+    assert got.shape == (2, 8, tcfg.vocab_size) and got.dtype == torch.float32
+    cs = cosine_similarity(got.numpy(), np.asarray(want))
+    assert cs >= 0.999, cs
+    # a decode step on top of the prefilled cache, through both packages
+    nxt = np.array([[17], [23]], np.int32)
+    want2, _ = jm.llama_forward(jp, jnp.asarray(nxt), jc, 8, jcfg, use_pallas=False)
+    got2, _ = tm.llama_forward(tp, torch.from_numpy(nxt), tc, 8, tcfg)
+    cs2 = cosine_similarity(got2.numpy(), np.asarray(want2))
+    assert cs2 >= 0.999, cs2
+
+
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_prefill_decode_consistency(weights, quantized_kv):
+    """Token-by-token decode reproduces the prefill logits (as the JAX test
+    does), and both match the JAX package's prefill."""
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", jm.Q8_0]
+    toks = np.array([[3, 7, 11, 19, 5, 2, 9, 4]], np.int32)
+    full, _ = tm.llama_forward(tp, torch.from_numpy(toks),
+                               tm.KVCache.create(tcfg, 1, quantized=quantized_kv,
+                                                 device="cpu"), 0, tcfg)
+    cache = tm.KVCache.create(tcfg, 1, quantized=quantized_kv, device="cpu")
+    steps = []
+    for t in range(toks.shape[1]):
+        lg, cache = tm.llama_forward(tp, torch.from_numpy(toks[:, t:t + 1]), cache, t, tcfg)
+        steps.append(lg[:, 0])
+    step = torch.stack(steps, dim=1).numpy()
+    assert cosine_similarity(step, full.numpy()) > 0.999
+    jfull, _ = jm.llama_forward(jp, jnp.asarray(toks),
+                                jm.KVCache.create(jcfg, 1, quantized=quantized_kv), 0,
+                                jcfg, use_pallas=False)
+    assert cosine_similarity(step, np.asarray(jfull)) > 0.999
+
+
+@pytest.mark.parametrize("mode,quantized_kv", [(jm.FLOAT, False), (jm.Q8_0, True)])
+def test_generate_fused_greedy_matches_jax(weights, mode, quantized_kv):
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", mode]
+    want = JEngine(jcfg, jp, batch=1, use_pallas=False, quantized_kv=quantized_kv) \
+        .generate_fused([3, 7, 11], max_new_tokens=8)
+    got = InferenceEngine(tcfg, tp, batch=1, quantized_kv=quantized_kv, device="cpu") \
+        .generate_fused([3, 7, 11], max_new_tokens=8)
+    assert got == want
+
+
+def test_generate_stepwise_matches_jax(weights):
+    jcfg, tcfg = _cfgs("mha")
+    jp, tp = weights["mha", jm.Q8_0]
+    want = JEngine(jcfg, jp, batch=1, use_pallas=False).generate([5, 9, 2], max_new_tokens=6)
+    got = InferenceEngine(tcfg, tp, batch=1, device="cpu").generate([5, 9, 2],
+                                                                   max_new_tokens=6)
+    assert got == want
+
+
+@pytest.mark.parametrize("mode,quantized_kv", [(jm.FLOAT, False), (jm.Q8_0, True)])
+def test_run_queue_matches_jax(weights, mode, quantized_kv):
+    """Batch 2, three requests: continuous batching admits the third into the
+    first lane to free up; tokens are those of the JAX engine."""
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", mode]
+    jdone = JEngine(jcfg, jp, batch=2, use_pallas=False, quantized_kv=quantized_kv) \
+        .run_queue([JRequest(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    tdone = InferenceEngine(tcfg, tp, batch=2, quantized_kv=quantized_kv, device="cpu") \
+        .run_queue([Request(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    assert all(r.done for r in tdone)
+    assert [r.out for r in tdone] == [r.out for r in jdone]
+    assert [r.slot for r in tdone] == [r.slot for r in jdone]
+
+
+def test_engine_prefill_and_decode_step_logits_match_jax(weights):
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", jm.Q8_0]
+    je = JEngine(jcfg, jp, batch=2, use_pallas=False, quantized_kv=True)
+    te = InferenceEngine(tcfg, tp, batch=2, quantized_kv=True, device="cpu")
+    for sid, p in enumerate(PROMPTS[:2]):
+        assert cosine_similarity(te.prefill(sid, p), je.prefill(sid, p)) > 0.999
+    nxt = {0: 4, 1: 9}
+    jl, tl = je.decode_step(nxt), te.decode_step(nxt)
+    for sid in nxt:
+        assert tl[sid].dtype == np.float32
+        assert cosine_similarity(tl[sid], jl[sid]) > 0.999
+    assert [s.pos for s in te.slots] == [s.pos for s in je.slots]
+
+
+def test_decode_kv_store_drops_lanes_past_the_cache(weights):
+    """A lane whose position is >= S writes no KV row (JAX scatter
+    mode="drop"); the other lane writes its row."""
+    _, tcfg = _cfgs("gqa")
+    _, tp = weights["gqa", jm.Q8_0]
+    tp = tm.fuse_params(tp)
+    cache = tm.KVCache.create(tcfg, 2, quantized=True, device="cpu")
+    cache.k.fill_(7)
+    cache.v.fill_(7)
+    S = tcfg.max_seq_len
+    pos = torch.tensor([S, 3], dtype=torch.int32)
+    logits, cache = _batched_decode_forward(tp, torch.tensor([[1], [2]]), cache, pos, tcfg)
+    assert torch.isfinite(logits).all()
+    assert bool((cache.k[:, 0] == 7).all()) and bool((cache.v[:, 0] == 7).all())
+    assert not bool((cache.k[:, 1, 3] == 7).all())
+    assert bool((cache.k[:, 1, :3] == 7).all()) and bool((cache.k[:, 1, 4:] == 7).all())
+
+
+def test_sampled_generation_reproducible_within_port(weights):
+    """Temperature sampling: the same seed gives the same tokens, through
+    generate_fused and through a single-request run_queue (shared seed
+    schedule); a different seed gives another sequence."""
+    _, tcfg = _cfgs("gqa")
+    _, tp = weights["gqa", jm.FLOAT]
+    prompt, n, temp, seed = [3, 7, 11], 8, 1.5, 11
+
+    def fused(s):
+        return InferenceEngine(tcfg, tp, batch=1, device="cpu").generate_fused(
+            prompt, max_new_tokens=n, temperature=temp, seed=s)
+
+    a, b = fused(seed), fused(seed)
+    assert a == b and len(a) == n and all(0 <= t < tcfg.vocab_size for t in a)
+    req = Request(prompt, max_new_tokens=n, temperature=temp)
+    InferenceEngine(tcfg, tp, batch=1, device="cpu").run_queue([req], chunk=n, seed=seed)
+    assert req.out == a
+    assert fused(seed + 1) != a
+
+
+@pytest.mark.parametrize("top_k", [0, 1, 5, 49])
+@pytest.mark.parametrize("top_p", [1e-9, 0.3, 0.9, 1.0])
+def test_sampling_filter_masks_match_jax(rng, top_k, top_p):
+    lg = (rng.standard_normal((3, 50)) * 3).astype(np.float32)
+    lg[1, 10] = lg[1, 11]                          # a tie at the k-th logit
+    jk = np.asarray(jsamp.filter_top_k(jnp.asarray(lg), top_k)) > -1e29
+    tk = tsamp.filter_top_k(torch.from_numpy(lg), top_k).numpy() > -1e29
+    assert np.array_equal(jk, tk)
+    jp = np.asarray(jsamp.filter_top_p(jnp.asarray(lg), top_p)) > -1e29
+    tp = tsamp.filter_top_p(torch.from_numpy(lg), top_p).numpy() > -1e29
+    assert np.array_equal(jp, tp)
+    both_j = np.asarray(jsamp.filter_top_p(jsamp.filter_top_k(jnp.asarray(lg), top_k),
+                                           top_p)) > -1e29
+    both_t = tsamp.filter_top_p(tsamp.filter_top_k(torch.from_numpy(lg), top_k),
+                                top_p).numpy() > -1e29
+    assert np.array_equal(both_j, both_t)
+
+
+def test_sample_logits_support_and_greedy(rng):
+    lg = torch.from_numpy(np.log(np.asarray([0.5, 0.25, 0.15, 0.06, 0.04], np.float32)))
+    assert int(tsamp.sample_logits(lg, None, greedy=True)) == 0
+    g = torch.Generator().manual_seed(0)
+    toks = {int(tsamp.sample_logits(lg, g, temperature=1.0, top_k=2)) for _ in range(64)}
+    assert toks <= {0, 1} and len(toks) == 2
+    toks = {int(tsamp.sample_logits(lg, g, temperature=1.0, top_p=0.7)) for _ in range(64)}
+    assert toks <= {0, 1}
+    host = np.asarray(lg)
+    for seed in range(3):
+        assert jsamp.sample_host(host, 0.8, np.random.default_rng(seed), top_k=3) == \
+            tsamp.sample_host(host, 0.8, np.random.default_rng(seed), top_k=3)
+
+
+def test_engine_needs_cuda_unless_cpu_asked(weights, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _cfgs("gqa")
+    _, tp = weights["gqa", jm.Q8_0]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(tcfg, tp, batch=1)
+    InferenceEngine(tcfg, tp, batch=1, device="cpu")
+
+
+def test_port_imports_no_jax():
+    """Importing the port and running its CPU forward and engine loads
+    neither jax nor any module of the JAX package."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "import csinn2_tpu_torch\n"
+        "from csinn2_tpu_torch.llm.config import LlamaConfig\n"
+        "from csinn2_tpu_torch.llm.engine import InferenceEngine\n"
+        "from csinn2_tpu_torch.llm.model import init_params\n"
+        "import csinn2_tpu_torch.llm.params, csinn2_tpu_torch.utils.verify\n"
+        "cfg = LlamaConfig.tiny()\n"
+        "eng = InferenceEngine(cfg, init_params(cfg, 'q8_0', device='cpu'), batch=1,\n"
+        "                      quantized_kv=True, device='cpu')\n"
+        "assert len(eng.generate_fused([1, 2, 3], max_new_tokens=3)) == 3\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'jaxlib' or m == 'csinn2_tpu' or m.startswith('csinn2_tpu.')]\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
