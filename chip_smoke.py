@@ -9,25 +9,37 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   2. each kernel held against its plain PyTorch version on the card at
      Llama-2-7B shapes, timed (median GPU time of back-to-back calls queued
      behind a sleep kernel, CUDA events) beside the plain version and one
-     library call that computes the same function (a yardstick only);
-  3. model parity: a 2-layer model at full 7B width (Q8_0, int8 KV) over a
+     library call (a yardstick only): quant_matmul in every weight mode
+     (Q8_0, Q4_0, INT8_CHANNEL, INT4_CHANNEL, and the swiglu epilogue on a
+     Q8_0 and a Q4_0 w13 in the swiglu128 layout), and the attention kernels;
+  3. model parity: a 2-layer model at full 7B width (int8 KV) over a
      128-token prompt, logits on the card against the same model through the
-     port's plain path on the CPU (cosine >= 0.999);
-  4. the main path: Llama-2-7B geometry (32 layers), Q8_0 weights made on the
-     card from a seed, int8 KV, InferenceEngine(batch=4).run_queue over six
-     greedy requests (prompts 5..1100 tokens, 16 new tokens each), with the
-     kernel launch counts of that run; then TTFT at prompt 128 and decode
-     tokens/s at batch 4 (CUDA events).
-No phase uses torch.profiler: once it has traced, host-side launches stay
-slower for the rest of the process, which would skew phase 4.  The last two
-lines are the kernels' JSON record and the run's JSON result.
+     port's plain path on the CPU (cosine >= 0.999), for Q8_0, Q4_0,
+     INT8_CHANNEL, INT4_CHANNEL and Q4_0 with CSINN2_SWIGLU_FUSE=1;
+  4. the first slice's main path: Llama-2-7B geometry (32 layers), Q8_0
+     weights made on the card from a seed, int8 KV,
+     InferenceEngine(batch=4).run_queue over six greedy requests (prompts
+     5..1100 tokens, 16 new tokens each), with the kernel launch counts of
+     that run; then TTFT at prompt 128 and decode tokens/s at batch 4 (CUDA
+     events);
+  5. this slice's main path: the same with Q4_0 weights;
+  6. the paths of the other weight modes, each the same run at full width
+     and depth: INT8_CHANNEL, INT4_CHANNEL, and Q4_0 with the swiglu128
+     fusion (CSINN2_SWIGLU_FUSE=1).
+Each serving run zeroes the launch counts just before run_queue and reads
+them just after.  No phase uses torch.profiler: once it has traced,
+host-side launches stay slower for the rest of the process, which would skew
+the serving phases.  The last two lines are the kernels' JSON record and the
+run's JSON result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -37,18 +49,26 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 
-REPLACES = {
-    "quant_matmul": "csinn2_tpu/kernels/qmatmul.py:287",
-    "decode_attention": "csinn2_tpu/kernels/flash_attention.py:142",
-    "prefill_attention": "csinn2_tpu/kernels/flash_attention.py:248",
-    "flash_attention": "csinn2_tpu/kernels/flash_attention.py:312",
+QMM_SOURCE = "csinn2_tpu_torch/kernels/csrc/qmatmul.cuh"
+QMM_REPLACES = "csinn2_tpu/kernels/qmatmul.py:287"
+ATTN_SOURCE = "csinn2_tpu_torch/kernels/csrc/attention.cu"
+# kernel name (launch_counts key without its .decode/.prefill suffix) →
+# (source, TPU function replaced)
+KERNELS = {
+    "quant_matmul": (QMM_SOURCE, QMM_REPLACES),
+    "quant_matmul_q4_0": (QMM_SOURCE, QMM_REPLACES),
+    "quant_matmul_channel": (QMM_SOURCE, QMM_REPLACES),
+    "quant_matmul_int4_channel": (QMM_SOURCE, QMM_REPLACES),
+    "quant_matmul_swiglu": (QMM_SOURCE, QMM_REPLACES),
+    "decode_attention": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:142"),
+    "prefill_attention": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:248"),
+    "flash_attention": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
 }
-SOURCE = {
-    "quant_matmul": "csinn2_tpu_torch/kernels/csrc/qmatmul.cu",
-    "decode_attention": "csinn2_tpu_torch/kernels/csrc/attention.cu",
-    "prefill_attention": "csinn2_tpu_torch/kernels/csrc/attention.cu",
-    "flash_attention": "csinn2_tpu_torch/kernels/csrc/attention.cu",
-}
+ATTENTION = ("decode_attention", "prefill_attention", "flash_attention")
+# weight mode → (scale_mode, packed_int4) of its quant_matmul calls
+QMM_MODES = {"q8_0": ("block", False), "q4_0": ("block", True),
+             "int8": ("channel", False), "int4": ("channel", True)}
+PROMPTS = (5, 37, 128, 300, 700, 1100)
 
 
 def log(msg: str) -> None:
@@ -60,55 +80,91 @@ def bound(nbytes: float, flops: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def launches(counts, name: str) -> int:
+    """Launches of kernel `name` in a launch_counts snapshot (all variants)."""
+    return sum(n for k, n in counts.items() if k.split(".")[0] == name)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_quant_matmul(records):
+def _qmm_weights(g, mode: str, K: int, N: int):
+    """Random carriers over the mode's full range (-128 / -8 included), f16-
+    rounded scales, and a bf16 dequantized copy for the library yardstick."""
+    import torch
+    from csinn2_tpu_torch.kernels.qmatmul import pack_int4
+    scale_mode, packed = QMM_MODES[mode]
+    lo, hi = (-8, 8) if packed else ((-128, 128) if scale_mode == "channel" else (-127, 128))
+    q = torch.randint(lo, hi, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    if scale_mode == "block":
+        s = (torch.rand((K // 32, N), generator=g, device="cuda") * 2e-4 + 1e-5) \
+            .to(torch.float16).float()
+        w_deq = (q.float().reshape(K // 32, 32, N) * s[:, None]).reshape(K, N)
+    else:
+        s = torch.rand((N,), generator=g, device="cuda") * 2e-4 + 1e-5
+        w_deq = q.float() * s
+    return (pack_int4(q) if packed else q), s, w_deq.to(torch.bfloat16)
+
+
+def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, record_m=4):
     import torch
     from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref
     from csinn2_tpu_torch.utils.timing import gpu_ms
     from csinn2_tpu_torch.utils.verify import cosine_similarity
+    scale_mode, packed = QMM_MODES[mode]
+    kw = dict(scale_mode=scale_mode, packed_int4=packed, swiglu=swiglu, out_dtype=odt)
+    w, s, w_deq = _qmm_weights(g, mode, K, N)
+    worst = records.get(key, {}).get("max_abs_err", 0.0)
+    for M in (1, 4, 128):
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        y = quant_matmul(x, w, s, **kw)
+        torch.cuda.synchronize()
+        ref = quant_matmul_ref(x, w, s, **kw)
+        yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
+        err = float(abs(yf - rf).max())
+        cos = cosine_similarity(yf, rf)
+        rel = err / float(abs(rf).max())
+        if not (cos >= 0.9999 and rel <= 1e-2):
+            raise AssertionError(f"{key} {label} M={M}: cos={cos} max|d|/max|y|={rel}")
+        worst = max(worst, err)
+        ms = gpu_ms(lambda: quant_matmul(x, w, s, **kw))
+        plain = gpu_ms(lambda: quant_matmul_ref(x, w, s, **kw), reps=3)
+        lib = gpu_ms(lambda: torch.matmul(x, w_deq))
+        osz = torch.empty((), dtype=odt).element_size()
+        n_out = N // 2 if swiglu else N
+        b_ms, b_by = bound(M * K * 2 + w.numel() + s.numel() * 4 + M * n_out * osz,
+                           2.0 * M * N * K)
+        log(f"  {key} {label:7s} M={M:4d} K={K:5d} N={N:5d} ms={ms:.4f} plain_ms={plain:.4f} "
+            f"lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} "
+            f"cos={cos:.6f} max_abs_err={err:.3e}")
+        if M == record_m:
+            records.setdefault(key, {}).update(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                shape=f"{label} M={M} K={K} N={N} {'bf16' if osz == 2 else 'f32'} out")
+    records.setdefault(key, {})["max_abs_err"] = worst
+    del w, s, w_deq
+
+
+def check_quant_matmul(records):
+    """Every weight mode at the 7B shapes (M = 1, 4, 128); the record of each
+    mode is the batch-4 decode FFN GEMM, w13 at M = 4."""
+    import torch
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     shapes = [("wqkv", 4096, 12288, torch.bfloat16), ("w13", 4096, 22016, torch.bfloat16),
               ("w2", 11008, 4096, torch.bfloat16), ("lm_head", 4096, 32000, torch.float32)]
-    worst = 0.0
-    for name, K, N, odt in shapes:
-        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
-        s = (torch.rand((K // 32, N), generator=g, device="cuda") * 2e-4 + 1e-5) \
-            .to(torch.float16).float()
-        w_deq = (w.float().reshape(K // 32, 32, N) * s[:, None]).reshape(K, N) \
-            .to(torch.bfloat16)
-        for M in (1, 4, 128):
-            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            y = quant_matmul(x, w, s, scale_mode="block", out_dtype=odt)
-            torch.cuda.synchronize()
-            ref = quant_matmul_ref(x, w, s, scale_mode="block", out_dtype=odt)
-            yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
-            err = float(abs(yf - rf).max())
-            cos = cosine_similarity(yf, rf)
-            rel = err / float(abs(rf).max())
-            if not (cos >= 0.9999 and rel <= 1e-2):
-                raise AssertionError(f"quant_matmul {name} M={M}: cos={cos} "
-                                     f"max|d|/max|y|={rel}")
-            worst = max(worst, err)
-            ms = gpu_ms(lambda: quant_matmul(x, w, s, scale_mode="block", out_dtype=odt))
-            plain = gpu_ms(lambda: quant_matmul_ref(x, w, s, scale_mode="block",
-                                                       out_dtype=odt), reps=3)
-            lib = gpu_ms(lambda: torch.matmul(x, w_deq))
-            osz = torch.empty((), dtype=odt).element_size()
-            b_ms, b_by = bound(M * K * 2 + K * N + K // 32 * N * 4 + M * N * osz,
-                               2.0 * M * N * K)
-            log(f"  quant_matmul {name:7s} M={M:4d} K={K:5d} N={N:5d} ms={ms:.4f} "
-                f"plain_ms={plain:.4f} lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-                f"roofline={b_ms / ms:.3f} cos={cos:.6f} max_abs_err={err:.3e}")
-            if name == "w13" and M == 4:        # the batch-4 decode FFN GEMM
-                records["quant_matmul"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                               bound_ms=b_ms, bound_by=b_by,
-                                               shape=f"M={M} K={K} N={N} bf16 out")
-        del w, s, w_deq
-    records["quant_matmul"]["max_abs_err"] = worst
+    for mode, (scale_mode, packed) in QMM_MODES.items():
+        key = launch_key(scale_mode, packed, swiglu=False)
+        for label, K, N, odt in shapes:
+            _check_qmm_case(records, key, label, g, mode, K, N, odt,
+                            record_m=4 if label == "w13" else None)
+    # the swiglu epilogue on a w13 in the swiglu128 layout (F 11008 padded to
+    # 11264): N = 22528 → out [M, 11264]; recorded for Q4_0
+    for mode in ("q8_0", "q4_0"):
+        _check_qmm_case(records, "quant_matmul_swiglu", f"w13sw-{mode}", g, mode, 4096, 22528,
+                        torch.bfloat16, swiglu=True, record_m=4 if mode == "q4_0" else None)
 
 
 def _kv_case(g, b, hk, S, d, scale):
@@ -235,15 +291,31 @@ def _to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def model_parity():
+@contextlib.contextmanager
+def swiglu_fusion(on: bool):
+    """CSINN2_SWIGLU_FUSE=1 (or unset) while the params are fused."""
+    old = os.environ.pop("CSINN2_SWIGLU_FUSE", None)
+    if on:
+        os.environ["CSINN2_SWIGLU_FUSE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CSINN2_SWIGLU_FUSE", None)
+        if old is not None:
+            os.environ["CSINN2_SWIGLU_FUSE"] = old
+
+
+def model_parity(mode: str, swiglu: bool):
     import numpy as np
     import torch
     from csinn2_tpu_torch.llm.config import LlamaConfig
-    from csinn2_tpu_torch.llm.model import (Q8_0, KVCache, fuse_params, init_params_device,
-                                            llama_forward)
+    from csinn2_tpu_torch.llm.model import KVCache, fuse_params, init_params_device, llama_forward
     from csinn2_tpu_torch.utils.verify import cosine_similarity
     cfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=2, max_seq_len=256)
-    params = fuse_params(init_params_device(cfg, Q8_0, seed=3, device="cuda"))
+    with swiglu_fusion(swiglu):
+        params = fuse_params(init_params_device(cfg, mode, seed=3, device="cuda"))
+    if (params["layers"][0]["w13"].layout == "swiglu128") != swiglu:
+        raise AssertionError("swiglu128 fusion not as asked")
     toks = torch.from_numpy(np.random.default_rng(3).integers(1, cfg.vocab_size, (1, 128)))
     cache = KVCache.create(cfg, 1, quantized=True, device="cuda")
     gpu, _ = llama_forward(params, toks, cache, 0, cfg)
@@ -253,34 +325,41 @@ def model_parity():
     cache = KVCache.create(cfg, 1, quantized=True, device="cpu")
     cpu, _ = llama_forward(cpu_params, toks, cache, 0, cfg)
     cos = cosine_similarity(gpu, cpu.numpy())
-    log(f"  2-layer 7B-width Q8_0 int8-KV prefill s=128: logits {gpu.shape} "
-        f"finite={bool(np.isfinite(gpu).all())} cosine(card, cpu plain)={cos:.6f}")
+    log(f"  2-layer 7B-width {mode}{' +swiglu128' if swiglu else ''} int8-KV prefill s=128: "
+        f"logits {gpu.shape} finite={bool(np.isfinite(gpu).all())} "
+        f"cosine(card, cpu plain)={cos:.6f}")
     if not (np.isfinite(gpu).all() and cos >= 0.999):
-        raise AssertionError(f"model parity: cosine {cos}")
+        raise AssertionError(f"model parity {mode} swiglu={swiglu}: cosine {cos}")
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phases 4-6: serving paths at full width
 # ---------------------------------------------------------------------------
 
-def main_path(gpu_line: str):
+def serve(gpu_line: str, mode: str, swiglu: bool = False):
+    """Llama-2-7B (32 layers), `mode` weights made on the card, int8 KV:
+    run_queue over the six prompts, then TTFT at prompt 128 and decode
+    tokens/s at batch 4.  Returns the launch counts of the run_queue."""
     import numpy as np
     import torch
     from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key
     from csinn2_tpu_torch.llm.config import LlamaConfig
     from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
-    from csinn2_tpu_torch.llm.model import Q8_0, init_params_device
+    from csinn2_tpu_torch.llm.model import init_params_device
     cfg = LlamaConfig.llama2_7b()
+    name = f"{mode}{' +swiglu128' if swiglu else ''}"
     t0 = time.perf_counter()
-    eng = InferenceEngine(cfg, init_params_device(cfg, Q8_0, seed=0, device="cuda"),
-                          batch=4, quantized_kv=True, device="cuda")
+    with swiglu_fusion(swiglu):
+        eng = InferenceEngine(cfg, init_params_device(cfg, mode, seed=0, device="cuda"),
+                              batch=4, quantized_kv=True, device="cuda")
     torch.cuda.synchronize()
-    log(f"  Llama-2-7B Q8_0 weights made and quantized on the card: "
-        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"  Llama-2-7B {name} weights made and quantized on the card: "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"(weights + int8 KV cache)")
     rng = np.random.default_rng(0)
-    lengths = (5, 37, 128, 300, 700, 1100)
     reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, n)],
-                    max_new_tokens=16) for n in lengths]
+                    max_new_tokens=16) for n in PROMPTS]
 
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -291,12 +370,15 @@ def main_path(gpu_line: str):
     counts = dict(launch_counts)
     log(f"  run_queue: {len(done)} requests, {sum(len(r.out) for r in done)} tokens "
         f"in {wall:.3f} s (host clock, first call); launches {counts}")
-    for n, r in zip(lengths, done):
+    for n, r in zip(PROMPTS, done):
         if not r.done or len(r.out) != 16 or not all(0 <= t < cfg.vocab_size for t in r.out):
-            raise AssertionError(f"request of prompt {n}: done={r.done} out={r.out}")
-    missing = [k for k in REPLACES if counts.get(k, 0) == 0]
+            raise AssertionError(f"{name} request of prompt {n}: done={r.done} out={r.out}")
+    qmm = launch_key(*QMM_MODES[mode], swiglu=False)
+    want = [f"{k}.{v}" for k in ((qmm, "quant_matmul_swiglu") if swiglu else (qmm,))
+            for v in ("decode", "prefill")] + list(ATTENTION)
+    missing = [k for k in want if counts.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"{name} path never launched {missing}")
 
     # TTFT at prompt 128: prefill + first-token sampling, CUDA events
     prompt = reqs[2].prompt
@@ -333,10 +415,12 @@ def main_path(gpu_line: str):
         rates.append(4 * n_steps / (a.elapsed_time(b) / 1e3))
     ttft = statistics.median(ttfts)
     tps = statistics.median(rates)
-    log(f"  TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events) "
+    log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events) "
         f"[{gpu_line}]")
-    log(f"  decode batch 4 at pos ~130: {tps:.2f} tok/s, {4e3 / tps:.3f} ms/step "
+    log(f"  {name} decode batch 4 at pos ~130: {tps:.2f} tok/s, {4e3 / tps:.3f} ms/step "
         f"(median of 3 x {n_steps} steps, CUDA events, incl. host launch gaps) [{gpu_line}]")
+    del eng
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -373,19 +457,39 @@ def main() -> int:
     check_attention(records)
     torch.cuda.empty_cache()
     log("phase 3: model parity (card vs cpu plain path)")
-    model_parity()
-    torch.cuda.empty_cache()
-    log("phase 4: main path, Llama-2-7B Q8_0 int8 KV, run_queue batch 4")
-    counts = main_path(gpu_line)
+    for mode, swiglu in (("q8_0", False), ("q4_0", False), ("int8", False), ("int4", False),
+                         ("q4_0", True)):
+        model_parity(mode, swiglu)
+        torch.cuda.empty_cache()
+    # kernel name → (launch counts of the serving run whose path it is on, the run)
+    path_counts = {}
+    log("phase 4: the first slice's main path, Llama-2-7B Q8_0 int8 KV, run_queue batch 4")
+    counts = serve(gpu_line, "q8_0")
+    for k in ("quant_matmul",) + ATTENTION:
+        path_counts[k] = (counts, "phase 4 (Q8_0)")
+    log("phase 5: this slice's main path, Llama-2-7B Q4_0 int8 KV, run_queue batch 4")
+    path_counts["quant_matmul_q4_0"] = (serve(gpu_line, "q4_0"), "phase 5 (Q4_0)")
+    log("phase 6: the other weight modes' paths, Llama-2-7B int8 KV, run_queue batch 4")
+    path_counts["quant_matmul_channel"] = (serve(gpu_line, "int8"), "phase 6 (INT8_CHANNEL)")
+    path_counts["quant_matmul_int4_channel"] = (serve(gpu_line, "int4"),
+                                                "phase 6 (INT4_CHANNEL)")
+    path_counts["quant_matmul_swiglu"] = (serve(gpu_line, "q4_0", swiglu=True),
+                                          "phase 6 (Q4_0, CSINN2_SWIGLU_FUSE=1)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
-                "replaces": REPLACES[name], "launches": int(counts.get(name, 0)),
-                "max_abs_err": records[name]["max_abs_err"], "ms": records[name]["ms"],
-                "plain_ms": records[name]["plain_ms"], "bound_ms": records[name]["bound_ms"],
-                "bound_by": records[name]["bound_by"],
-                "library_ms": records[name]["library_ms"], "shape": records[name]["shape"]}
-               for name in REPLACES]
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        counts, path = path_counts[name]
+        r = records[name]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches(counts, name), "path": path,
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"], "shape": r["shape"]}
+        if name.startswith("quant_matmul"):
+            entry.update(launches_decode=int(counts.get(f"{name}.decode", 0)),
+                         launches_prefill=int(counts.get(f"{name}.prefill", 0)))
+        kernels.append(entry)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,8 @@ tensors run the plain PyTorch version beside it.
 
 Layer map (ported so far):
   core/     — BLOCK_SIZE
-  kernels/  — quant_matmul (Q8_0 block mode), decode/prefill/flash attention
+  kernels/  — quant_matmul (Q8_0, Q4_0, INT8/INT4 channel, swiglu epilogue),
+              decode/prefill/flash attention
   llm/      — LlamaConfig, model forward, params bridge, sampling, engine
   utils/    — device helper, verify metrics
 """

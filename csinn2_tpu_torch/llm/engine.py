@@ -1,7 +1,7 @@
 """Inference engine on one device: bucketed one-slot prefill, on-device
 sampling, chunked batched decode and a continuous-batching scheduler —
-counterpart of csinn2_tpu/llm/engine.py (single device; the mesh, native
-int4 and benchmark_* parts are not ported yet).
+counterpart of csinn2_tpu/llm/engine.py (single device; the mesh and
+benchmark_* parts are not ported yet).
 
 Design, as in the JAX engine:
   * the KV cache is ONE static [L, B, S_max, Hk, Dh] buffer; slot (lane) b
@@ -31,8 +31,9 @@ import torch.nn.functional as F
 from csinn2_tpu_torch.kernels.flash_attention import decode_attention
 from csinn2_tpu_torch.llm.config import LlamaConfig
 from csinn2_tpu_torch.llm.model import (KVCache, _project_qkv, fuse_params,
-                                        linear, llama_forward, quantize_kv,
-                                        rms_norm, rope_rotate, rope_tables)
+                                        has_int4, linear, llama_forward,
+                                        native4_params, quantize_kv, rms_norm,
+                                        rope_rotate, rope_tables)
 from csinn2_tpu_torch.llm.sampling import sample_host, sample_logits
 from csinn2_tpu_torch.utils.device import resolve_device
 
@@ -79,11 +80,17 @@ class InferenceEngine:
     decode_step(): one token for every given slot (host-stepped).
     decode_steps(): a chunk of tokens for every given slot, sampled on the
     device.  run_queue(): the continuous-batching scheduler over Requests.
+
+    native_int4: as in the JAX engine, None picks the native int4 carrier
+    for int4 weights on the card and True/False force it; the port has one
+    int4 carrier (model.native4_params), so every value gives the same
+    weights and the same tokens.
     """
 
     def __init__(self, cfg: LlamaConfig, params, batch: int = 1,
                  quantized_kv: bool = False, kv_scale: float = 0.05,
-                 fuse_weights: bool = True, device="cuda"):
+                 fuse_weights: bool = True, device="cuda",
+                 native_int4: Optional[bool] = None):
         self.device = resolve_device(device)
         emb_dev = params["tok_embedding"].device
         if emb_dev.type != self.device.type:
@@ -92,7 +99,9 @@ class InferenceEngine:
         if fuse_weights:
             # one GEMM for q|k|v and one for w1|w3: 7 → 4 launches per layer
             params = fuse_params(params)
-        self.params = params
+        self._native4 = bool(has_int4(params) and self.device.type == "cuda"
+                             if native_int4 is None else native_int4)
+        self.params = native4_params(params) if self._native4 else params
         self.batch = batch
         self.cache = KVCache.create(cfg, batch, quantized=quantized_kv,
                                     scale=kv_scale, device=self.device)
@@ -349,15 +358,24 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
         x = x + linear(attn, lp["wo"]).to(x.dtype)
 
         h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(torch.bfloat16)
-        if "w13" in lp:
-            h13 = linear(h, lp["w13"])
-            Fd = h13.shape[-1] // 2
-            h1, h3 = h13[..., :Fd], h13[..., Fd:]
-        else:
-            h1 = linear(h, lp["w1"])
-            h3 = linear(h, lp["w3"])
-        hsw = (F.silu(h1) * h3).to(torch.bfloat16)
-        x = x + linear(hsw, lp["w2"]).to(x.dtype)
+        x = x + linear(_swiglu_hidden(h, lp), lp["w2"]).to(x.dtype)
 
     x = rms_norm(x, params["norm"], cfg.norm_eps).to(torch.bfloat16)
     return linear(x, params["output"]), cache
+
+
+def _swiglu_hidden(h, lp):
+    """silu(w1 h)·(w3 h) of one decode layer, from f32 linears, as bf16."""
+    if "w13" in lp and lp["w13"].layout == "swiglu128":
+        # the pairs in the GEMM's epilogue, in f32.  (The JAX engine's decode
+        # splits a swiglu128 h13 in halves here, which mixes w1 and w3
+        # columns: see ROADMAP queue C.)
+        return linear(h, lp["w13"], swiglu=True).to(torch.bfloat16)
+    if "w13" in lp:
+        h13 = linear(h, lp["w13"])
+        Fd = h13.shape[-1] // 2
+        h1, h3 = h13[..., :Fd], h13[..., Fd:]
+    else:
+        h1 = linear(h, lp["w1"])
+        h3 = linear(h, lp["w3"])
+    return (F.silu(h1) * h3).to(torch.bfloat16)

@@ -16,6 +16,7 @@ kernels, CPU tensors take their plain PyTorch versions.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -25,92 +26,151 @@ import torch.nn.functional as F
 from csinn2_tpu_torch.core.quant import BLOCK_SIZE
 from csinn2_tpu_torch.kernels.flash_attention import (flash_attention,
                                                       prefill_attention)
-from csinn2_tpu_torch.kernels.qmatmul import quant_matmul
+from csinn2_tpu_torch.kernels.qmatmul import (pack_int4, quant_matmul,
+                                              swiglu_pairs)
 from csinn2_tpu_torch.llm.config import LlamaConfig
 from csinn2_tpu_torch.utils.device import resolve_device
 
 # quant modes for weights (the names of the JAX package)
 FLOAT = "float"            # bf16 weights
 INT8_CHANNEL = "int8"      # int8 + per-out-channel scale (f32[N])
-INT4_CHANNEL = "int4"      # int4 (int8 carrier in [-8,7]) + per-channel scale
+INT4_CHANNEL = "int4"      # int4 (packed, or int8 carrier in [-8,7]) + per-channel scale
 Q8_0 = "q8_0"              # int8 + f16-rounded scale per 32 along K
-Q4_0 = "q4_0"              # int4 carrier + f16 scale per 32 along K
+Q4_0 = "q4_0"              # packed int4 + f16-rounded scale per 32 along K
+INT4_MODES = (INT4_CHANNEL, Q4_0)
+CHANNEL_MODES = (INT8_CHANNEL, INT4_CHANNEL)
 
 # whole-KV prefill kernel while the KV of one layer fits this budget
 # (the JAX package's VMEM rule, kept so both take the same branch)
 PREFILL_KV_BYTES = 8 * 2**20
 
 
-def _unported_mode(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"weight mode {mode!r} is not ported yet (ROADMAP queue A/B); this "
-        f"package runs {FLOAT!r} and {Q8_0!r}")
-
-
 @dataclasses.dataclass
 class QWeight:
-    """[K, N] weight: bf16 values (FLOAT) or int8 values + f32 [K/32, N]
-    block scales (Q8_0)."""
+    """[K, N] weight: bf16 values (FLOAT); int8 values [K, N], or int4
+    nibble-packed values [K/2, N] (packed=True, kernels.qmatmul.pack_int4);
+    scales None, f32 [N] (channel modes) or f32 [K/32, N] (Q8_0, Q4_0).
+    layout "swiglu128": a fused w1|w3 in 128-column pair order."""
 
     values: torch.Tensor
     scales: Optional[torch.Tensor] = None
     mode: str = FLOAT
-    packed: bool = False        # int4 nibble packing (not ported)
-    layout: str = "plain"       # "swiglu128" pair layout not ported
+    packed: bool = False        # int4 nibble-packed values (2 weights/byte)
+    layout: str = "plain"       # "plain" | "swiglu128"
 
     @property
     def shape(self):
-        return tuple(self.values.shape)
+        """The logical [K, N], also for packed values."""
+        v = tuple(self.values.shape)
+        return v[:-2] + (2 * v[-2], v[-1]) if self.packed else v
 
 
 def quantize_weight(w: np.ndarray, mode: str, device="cuda") -> QWeight:
     """f32 [K, N] host array → QWeight on `device`, with the JAX package's
-    host math (same rounding, same f16-rounded block scales), so the bytes
-    are identical."""
+    host math (same rounding, same f16-rounded block scales, same nibble
+    packing), so the bytes are identical."""
     dev = resolve_device(device)
     w = np.asarray(w, np.float32)
     if w.ndim != 2:
         raise NotImplementedError("stacked MoE weights are not ported yet "
                                   "(ROADMAP queue A)")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
     if mode == FLOAT:
         return QWeight(values=torch.from_numpy(w).to(dev, torch.bfloat16),
                        mode=FLOAT)
-    if mode == Q8_0:
+    if mode in CHANNEL_MODES:
+        bound = 127.0 if mode == INT8_CHANNEL else 7.0
+        amax = np.abs(w).max(axis=0)                      # per out-channel
+        scale = np.where(amax == 0, 1.0, amax / bound).astype(np.float32)
+        q = np.clip(np.round(w / scale), -bound - 1, bound).astype(np.int8)
+        return _maybe_pack(QWeight(values=t(q), scales=t(scale), mode=mode))
+    if mode in (Q8_0, Q4_0):
         K, N = w.shape
         if K % BLOCK_SIZE:
-            raise ValueError(f"Q8_0 needs K % {BLOCK_SIZE} == 0, got K={K}")
-        bound = 127.0
+            raise ValueError(f"{mode} needs K % {BLOCK_SIZE} == 0, got K={K}")
+        bound = 127.0 if mode == Q8_0 else 7.0
         wb = w.reshape(K // BLOCK_SIZE, BLOCK_SIZE, N)
         amax = np.abs(wb).max(axis=1, keepdims=True)
         d = (amax / bound).astype(np.float16).astype(np.float32)
         q = np.where(d == 0, 0.0, np.round(wb / np.where(d == 0, 1.0, d)))
         q = np.clip(q, -bound, bound).astype(np.int8).reshape(K, N)
-        return QWeight(values=torch.from_numpy(q).to(dev),
-                       scales=torch.from_numpy(np.ascontiguousarray(d[:, 0, :])).to(dev),
-                       mode=Q8_0)
-    raise _unported_mode(mode)
+        return _maybe_pack(QWeight(values=t(q), scales=t(d[:, 0, :]), mode=mode))
+    raise ValueError(f"unknown weight mode {mode!r}")
+
+
+def _maybe_pack(qw: QWeight) -> QWeight:
+    """int4 modes: nibble-pack the carrier (2 weights/byte, half the bytes of
+    the decode weight stream).  K % 32 != 0 (INT4_CHANNEL only) keeps the
+    int8 carrier, as in the JAX package."""
+    if qw.mode not in INT4_MODES or qw.packed or qw.values.shape[-2] % BLOCK_SIZE:
+        return qw
+    return dataclasses.replace(qw, values=pack_int4(qw.values), packed=True)
 
 
 def quantize_weight_device(w: torch.Tensor, mode: str) -> QWeight:
-    """On-device quantize of an f32 [K, N] tensor — the counterpart of the
-    JAX package's quantize_weight_jax (same rounding, f16-rounded scales)."""
+    """Quantize an f32 [K, N] tensor where it lies — the counterpart of the
+    JAX package's quantize_weight_jax (same rounding, f16-rounded block
+    scales, same packing)."""
     if mode == FLOAT:
         return QWeight(values=w.to(torch.bfloat16), mode=FLOAT)
-    if mode == Q8_0:
+    w = w.float()
+    if mode in CHANNEL_MODES:
+        bound = 127.0 if mode == INT8_CHANNEL else 7.0
+        amax = w.abs().amax(dim=-2)                        # per out-channel
+        scale = torch.where(amax == 0, torch.ones_like(amax), amax / bound)
+        q = torch.round(w / scale).clamp_(-bound - 1.0, bound).to(torch.int8)
+        return _maybe_pack(QWeight(values=q, scales=scale, mode=mode))
+    if mode in (Q8_0, Q4_0):
+        bound = 127.0 if mode == Q8_0 else 7.0
         K, N = w.shape
-        wb = w.float().reshape(K // BLOCK_SIZE, BLOCK_SIZE, N)
-        d = (wb.abs().amax(dim=1, keepdim=True) / 127.0) \
+        wb = w.reshape(K // BLOCK_SIZE, BLOCK_SIZE, N)
+        d = (wb.abs().amax(dim=1, keepdim=True) / bound) \
             .to(torch.float16).to(torch.float32)
         q = torch.where(d == 0, torch.zeros_like(wb),
                         torch.round(wb / torch.where(d == 0, torch.ones_like(d), d)))
-        q = q.clamp_(-127.0, 127.0).to(torch.int8).reshape(K, N)
-        return QWeight(values=q, scales=d[:, 0, :].contiguous(), mode=Q8_0)
-    raise _unported_mode(mode)
+        q = q.clamp_(-bound, bound).to(torch.int8).reshape(K, N)
+        return _maybe_pack(QWeight(values=q, scales=d[:, 0, :].contiguous(), mode=mode))
+    raise ValueError(f"unknown weight mode {mode!r}")
+
+
+def _qweights(params):
+    """Every QWeight of a params dict (or one QWeight)."""
+    if isinstance(params, QWeight):
+        yield params
+    elif isinstance(params, dict):
+        for v in params.values():
+            yield from _qweights(v)
+    elif isinstance(params, (list, tuple)):
+        for v in params:
+            yield from _qweights(v)
+
+
+def has_int4(params) -> bool:
+    """True if any QWeight in the params uses an int4 mode."""
+    return any(q.mode in INT4_MODES for q in _qweights(params))
+
+
+def native4_params(params):
+    """The params unchanged: the port keeps ONE int4 carrier, the packed
+    [K/2, N] bytes (or, for INT4_CHANNEL with K % 32 != 0, the int8 carrier).
+
+    The JAX package converts int4 weights to a native jnp.int4 [K, N] array
+    for its decode executable because Mosaic's hardware sub-byte unpack of
+    that carrier is the fastest TPU load path.  On the H100 the CUDA kernel
+    reads the packed bytes — the fewest bytes a decode step can move — and
+    unpacks the nibbles in registers, so there is nothing to convert: both
+    values of InferenceEngine(native_int4=...) run the same weights and give
+    the same tokens, as the JAX package's two carriers do."""
+    return params
 
 
 def qweight_concat(qws: List[QWeight], tp: int = 1) -> QWeight:
     """Concatenate QWeights along the output (N) axis (wq|wk|wv, w1|w3): one
-    GEMM launch instead of several, one longer weight stream."""
+    GEMM launch instead of several, one longer weight stream.  Packed values
+    concatenate as they are (packing runs along K)."""
     if tp != 1:
         raise NotImplementedError("tensor-parallel interleave is not ported "
                                   "yet (ROADMAP queue A)")
@@ -123,15 +183,71 @@ def qweight_concat(qws: List[QWeight], tp: int = 1) -> QWeight:
                    mode=m0.mode, packed=m0.packed)
 
 
+def _pad_cols(a: Optional[torch.Tensor], Fp: int) -> Optional[torch.Tensor]:
+    if a is None or a.shape[-1] == Fp:
+        return a
+    return F.pad(a, (0, Fp - a.shape[-1]))
+
+
+def _pad_rows_qw(qw: QWeight, Kp: int) -> QWeight:
+    """Zero-pad a QWeight's K (contraction) dim to Kp: zero rows (and zero
+    block scales) contribute nothing."""
+    K = qw.shape[-2]
+    if K == Kp:
+        return qw
+    rows = (Kp - K) // 2 if qw.packed else Kp - K
+    v = F.pad(qw.values, (0, 0, 0, rows))
+    s = qw.scales
+    if s is not None and s.ndim >= 2 and s.shape[-2] == K // BLOCK_SIZE:
+        s = F.pad(s, (0, 0, 0, (Kp - K) // BLOCK_SIZE))
+    return dataclasses.replace(qw, values=v, scales=s)
+
+
+def qweight_concat_swiglu(w1: QWeight, w3: QWeight, pad_to: int = 512) -> QWeight:
+    """Fuse w1|w3 in 128-column PAIR-interleaved order
+    [w1[:, 0:128] | w3[:, 0:128] | w1[:, 128:256] | w3[:, 128:256] | ...],
+    F zero-padded to a multiple of `pad_to` (7B: 11008 → 11264), so that
+    quant_matmul(swiglu=True) computes silu(h1)·h3 in its epilogue and the
+    [M, 2F] h13 intermediate is never written out.  silu(0)·0 = 0 in the
+    padded tail; fuse_layer_weights pads w2's K to match."""
+    if w3.mode != w1.mode or w3.packed != w1.packed:
+        raise ValueError("qweight_concat_swiglu: mixed modes")
+    Fd = w1.shape[-1]
+    if Fd % 128 or w3.shape[-1] != Fd:
+        raise ValueError(f"qweight_concat_swiglu: F={Fd} must be a multiple of "
+                         "128 and equal for w1 and w3")
+    Fp = -(-Fd // pad_to) * pad_to
+
+    def pair(a, b):
+        a, b = _pad_cols(a, Fp), _pad_cols(b, Fp)
+        g = Fp // 128
+        ar = a.reshape(*a.shape[:-1], g, 128)
+        br = b.reshape(*b.shape[:-1], g, 128)
+        return torch.stack([ar, br], dim=-2).reshape(*a.shape[:-1], 2 * Fp)
+
+    return QWeight(values=pair(w1.values, w3.values),
+                   scales=None if w1.scales is None else pair(w1.scales, w3.scales),
+                   mode=w1.mode, packed=w1.packed, layout="swiglu128")
+
+
 def fuse_layer_weights(lp: Dict, tp: int = 1) -> Dict:
-    """wqkv = [wq|wk|wv] and w13 = [w1|w3] (dense FFN) — the JAX package's
-    default (non-swiglu128) fusion."""
+    """wqkv = [wq|wk|wv] and w13 = [w1|w3] (dense FFN), as in the JAX
+    package.  With CSINN2_SWIGLU_FUSE=1 (opt-in there too), tp == 1 and
+    F % 128 == 0, w13 takes the swiglu128 pair layout and w2 is K-padded to
+    the padded F."""
     out = dict(lp)
     if all(k in lp for k in ("wq", "wk", "wv")):
         out["wqkv"] = qweight_concat([lp["wq"], lp["wk"], lp["wv"]], tp=tp)
         out.pop("wq"), out.pop("wk"), out.pop("wv")
     if "w1" in lp and "w3" in lp and "gate" not in lp:
-        out["w13"] = qweight_concat([lp["w1"], lp["w3"]], tp=tp)
+        if (tp == 1 and lp["w1"].shape[-1] % 128 == 0
+                and os.environ.get("CSINN2_SWIGLU_FUSE") == "1"):
+            out["w13"] = qweight_concat_swiglu(lp["w1"], lp["w3"])
+            Fp = out["w13"].shape[-1] // 2
+            if Fp != lp["w1"].shape[-1]:
+                out["w2"] = _pad_rows_qw(lp["w2"], Fp)
+        else:
+            out["w13"] = qweight_concat([lp["w1"], lp["w3"]], tp=tp)
         out.pop("w1"), out.pop("w3")
     return out
 
@@ -144,21 +260,24 @@ def fuse_params(params: Dict, tp: int = 1) -> Dict:
 def linear(x: torch.Tensor, qw: QWeight, *, out_dtype=torch.float32,
            swiglu: bool = False) -> torch.Tensor:
     """y = x @ dequant(qw); x [..., K].  out_dtype=bf16 for internal
-    activations, f32 for the logits.  FLOAT weights stay a plain matmul (the
-    JAX package leaves them to XLA, outside Pallas)."""
-    if swiglu or qw.layout != "plain":
-        raise NotImplementedError("the swiglu128 fused epilogue is not "
-                                  "ported yet (ROADMAP queue B)")
+    activations, f32 for the logits.  swiglu=True (qw.layout "swiglu128"):
+    silu(h1)·h3 over the pair columns, [..., N/2].  FLOAT weights stay a
+    plain matmul, with the pairs taken after it (the JAX package leaves them
+    to XLA, outside Pallas)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+    n_out = qw.shape[-1] // 2 if swiglu else qw.shape[-1]
     if qw.mode == FLOAT:
-        out = torch.matmul(x2.float(), qw.values.float()).to(out_dtype)
-    elif qw.mode == Q8_0:
-        out = quant_matmul(x2, qw.values, qw.scales, scale_mode="block",
-                           out_dtype=out_dtype)
+        out = torch.matmul(x2.float(), qw.values.float())
+        out = (swiglu_pairs(out) if swiglu else out).to(out_dtype)
     else:
-        raise _unported_mode(qw.mode)
-    return out.reshape(*lead, qw.shape[-1])
+        Kw = qw.shape[-2]
+        if Kw > x2.shape[-1]:
+            x2 = F.pad(x2, (0, Kw - x2.shape[-1]))      # a K-padded weight
+        out = quant_matmul(x2, qw.values, qw.scales,
+                           scale_mode="channel" if qw.mode in CHANNEL_MODES else "block",
+                           out_dtype=out_dtype, packed_int4=qw.packed, swiglu=swiglu)
+    return out.reshape(*lead, n_out)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -396,6 +515,10 @@ def _flash_bshd(q, k, v, **kw):
 def ffn_block(x, layer_params):
     """SwiGLU FFN: w2(silu(w1 x) * w3 x)."""
     lp = layer_params
+    if "w13" in lp and lp["w13"].layout == "swiglu128":
+        # silu(h1)·h3 in the GEMM's epilogue: h13 is never written out
+        h = linear(x, lp["w13"], out_dtype=torch.bfloat16, swiglu=True)
+        return linear(h, lp["w2"], out_dtype=torch.bfloat16)
     if "w13" in lp:
         h13 = linear(x, lp["w13"], out_dtype=torch.bfloat16)
         F_ = h13.shape[-1] // 2

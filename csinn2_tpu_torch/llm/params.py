@@ -4,7 +4,8 @@
 The tree is what `jax.tree_util.tree_map(np.asarray, params)` gives for the
 JAX package's params: dicts and lists, numpy arrays, and weight leaves with
 `.values/.scales/.mode/.packed/.layout` attributes (read by duck typing —
-this module imports neither JAX nor the JAX package).  JAX's bfloat16 arrays
+this module imports neither JAX nor the JAX package).  Packed int4 bytes
+and the swiglu128 layout cross as they are.  JAX's bfloat16 arrays
 arrive as numpy arrays of the ml_dtypes bfloat16 dtype, which
 `torch.from_numpy` rejects: they cross as their uint16 bit patterns and are
 viewed as torch.bfloat16 on the other side, bit for bit.
@@ -44,14 +45,11 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         if hasattr(node, "values") and hasattr(node, "mode"):
-            if getattr(node, "packed", False):
-                raise NotImplementedError("packed int4 weights are not "
-                                          "ported yet (ROADMAP queue B)")
             return QWeight(
                 values=tensor_from_numpy(node.values, dev),
                 scales=None if node.scales is None
                 else tensor_from_numpy(node.scales, dev),
-                mode=node.mode, packed=False,
+                mode=node.mode, packed=bool(getattr(node, "packed", False)),
                 layout=getattr(node, "layout", "plain"))
         if node is None:
             return None

@@ -1,7 +1,9 @@
 """CUDA kernels of the PyTorch port against their plain versions, on the
 card, at the ragged shapes the 7B checks in chip_smoke.py do not reach: M, N
-and K tails of quant_matmul, odd KV lengths, GQA, bf16 KV, head dim 64, a
-fully masked lane, strided K/V views and the wrappers' argument checks.
+and K tails of quant_matmul in every weight mode (Q8_0, Q4_0, INT8_CHANNEL,
+INT4_CHANNEL, carriers at -128 and -8, the swiglu epilogue with one and
+several pairs), odd KV lengths, GQA, bf16 KV, head dim 64, a fully masked
+lane, strided K/V views and the wrappers' argument checks.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -21,7 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from csinn2_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from csinn2_tpu_torch.kernels import launch_counts  # noqa: E402
-from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref  # noqa: E402
+from csinn2_tpu_torch.kernels.qmatmul import (launch_key, pack_int4, quant_matmul,  # noqa: E402
+                                              quant_matmul_ref)
 from csinn2_tpu_torch.utils.verify import cosine_similarity, verify  # noqa: E402
 
 
@@ -52,10 +55,11 @@ def _qmm_case(gen, dev, M, K, N):
 @pytest.mark.parametrize("odt", [torch.bfloat16, torch.float32])
 def test_quant_matmul_tails(gen, dev, M, K, N, odt):
     x, w, s = _qmm_case(gen, dev, M, K, N)
-    before = launch_counts["quant_matmul"]
+    key = "quant_matmul." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
     y = quant_matmul(x, w, s, scale_mode="block", out_dtype=odt)
     torch.cuda.synchronize()
-    assert launch_counts["quant_matmul"] == before + 1
+    assert launch_counts[key] == before + 1
     ref = quant_matmul_ref(x, w, s, scale_mode="block", out_dtype=odt)
     assert y.dtype == odt and y.shape == (M, N)
     yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
@@ -82,6 +86,95 @@ def test_quant_matmul_rejects_bad_args(gen, dev):
         quant_matmul(x.float(), w, s, scale_mode="block")
     with pytest.raises(ValueError):
         quant_matmul(x, w.t().contiguous().t(), s, scale_mode="block")
+
+
+# weight modes of the Llama linears: (scale_mode, packed_int4)
+MODES = {"q8_0": ("block", False), "q4_0": ("block", True),
+         "int8_channel": ("channel", False), "int4_channel": ("channel", True)}
+
+
+def _mode_case(gen, dev, mode, M, K, N):
+    """x bf16 [M, K] and the weights of `mode`, with every value of column
+    0..7 at the carrier's minimum (-128 for int8 channel, -8 for int4)."""
+    scale_mode, packed = MODES[mode]
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    lo = -8 if packed else (-128 if scale_mode == "channel" else -127)
+    hi = 8 if packed else 128
+    q = torch.randint(lo, hi, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    q[:, :8] = lo
+    w = pack_int4(q) if packed else q
+    s_shape = (K // 32, N) if scale_mode == "block" else (N,)
+    s = (torch.rand(s_shape, generator=gen, device=dev) * 1e-3 + 1e-5) \
+        .to(torch.float16).float()
+    return x, w, s, dict(scale_mode=scale_mode, packed_int4=packed)
+
+
+def _agree(y, ref):
+    yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
+    assert cosine_similarity(yf, rf) >= 0.9999
+    assert np.abs(yf - rf).max() <= 1e-2 * np.abs(rf).max()
+
+
+@pytest.mark.parametrize("mode", ["q4_0", "int8_channel", "int4_channel"])
+@pytest.mark.parametrize("M", list(range(1, 18)) + [33])
+@pytest.mark.parametrize("K,N", [(96, 48), (352, 400), (1056, 2064)])   # K = 32 x odd
+@pytest.mark.parametrize("odt", [torch.bfloat16, torch.float32])
+def test_quant_matmul_modes_tails(gen, dev, mode, M, K, N, odt):
+    x, w, s, kw = _mode_case(gen, dev, mode, M, K, N)
+    key = f"{launch_key(kw['scale_mode'], kw['packed_int4'], False)}." \
+          + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    y = quant_matmul(x, w, s, out_dtype=odt, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert y.dtype == odt and y.shape == (M, N)
+    _agree(y, quant_matmul_ref(x, w, s, out_dtype=odt, **kw))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("M", [1, 4, 17, 40])
+@pytest.mark.parametrize("K,N", [(96, 256), (352, 768), (4096, 1536)])   # 1, 3, 6 pairs
+def test_quant_matmul_swiglu(gen, dev, mode, M, K, N):
+    x, w, s, kw = _mode_case(gen, dev, mode, M, K, N)
+    bias = torch.randn(N, generator=gen, device=dev) * 0.1 if M == 4 else None
+    key = "quant_matmul_swiglu." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    y = quant_matmul(x, w, s, bias, out_dtype=torch.bfloat16, swiglu=True, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert y.shape == (M, N // 2) and y.dtype == torch.bfloat16
+    _agree(y, quant_matmul_ref(x, w, s, bias, out_dtype=torch.bfloat16, swiglu=True, **kw))
+
+
+@pytest.mark.parametrize("mode", ["q4_0", "int8_channel", "int4_channel"])
+def test_quant_matmul_modes_bias(gen, dev, mode):
+    for M in (4, 64):
+        x, w, s, kw = _mode_case(gen, dev, mode, M, 256, 160)
+        bias = torch.randn(160, generator=gen, device=dev)
+        y = quant_matmul(x, w, s, bias, **kw).cpu().numpy()
+        ref = quant_matmul_ref(x, w, s, bias, **kw).cpu().numpy()
+        assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kw", [dict(scale_mode="none"), dict(w_transposed=True),
+                                dict(epilogue_scale=0.5), dict(out_dtype=torch.int8)])
+def test_quant_matmul_unported_modes_raise_on_the_card(gen, dev, kw):
+    x, w, s = _qmm_case(gen, dev, 4, 64, 32)
+    args = dict(scale_mode="block")
+    args.update(kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quant_matmul(x, w, s, **args)
+
+
+def test_quant_matmul_modes_reject_bad_args(gen, dev):
+    x, w, s, kw = _mode_case(gen, dev, "q4_0", 4, 64, 32)
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, s, scale_mode="block")          # packed bytes as int8 [K, N]
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, s, swiglu=True, **kw)           # N % 256 != 0
+    x, w, s, kw = _mode_case(gen, dev, "int8_channel", 4, 64, 32)
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, s[None], **kw)                  # channel scales are [N]
 
 
 def _kv(gen, dev, b, hk, S, d, int8):

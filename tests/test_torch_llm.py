@@ -3,8 +3,10 @@ package, on the CPU (plain versions of the kernels) at tiny sizes with the
 same weights (carried across with params_from_numpy).
 
 Gates: llama_forward logits cosine >= 0.999 against JAX
-llama_forward(use_pallas=False); the engine's greedy tokens identical to the
-JAX InferenceEngine(use_pallas=False); the top-k / top-p masks identical.
+llama_forward(use_pallas=False), in every weight mode and with the swiglu128
+fusion; the engine's greedy tokens identical to the JAX
+InferenceEngine(use_pallas=False); the top-k / top-p masks identical;
+quantized against float logits at the JAX package's gates.
 Sampled (temperature > 0) tokens cannot match jax.random's stream; they are
 checked for reproducibility within the port."""
 
@@ -50,7 +52,9 @@ def weights():
     out = {}
     for name in ("gqa", "mha"):
         jcfg, _ = _cfgs(name)
-        for mode in (jm.FLOAT, jm.Q8_0):
+        modes = (jm.FLOAT, jm.Q8_0) + ((jm.Q4_0, jm.INT8_CHANNEL, jm.INT4_CHANNEL)
+                                       if name == "gqa" else ())
+        for mode in modes:
             jp = jm.init_params(jcfg, mode, seed=1)
             out[name, mode] = (jp, params_from_numpy(
                 jax.tree_util.tree_map(np.asarray, jp), device="cpu"))
@@ -190,6 +194,104 @@ def test_sampled_generation_reproducible_within_port(weights):
     assert fused(seed + 1) != a
 
 
+# -- the weight modes of the second slice -----------------------------------------
+
+MODE_CASES = [(jm.Q4_0, False), (jm.INT8_CHANNEL, False), (jm.INT4_CHANNEL, False),
+              (jm.Q4_0, True)]     # (mode, CSINN2_SWIGLU_FUSE=1)
+
+
+@pytest.mark.parametrize("mode,swiglu", MODE_CASES)
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_llama_forward_modes_match_jax(weights, monkeypatch, mode, swiglu, quantized_kv):
+    """Q4_0, INT8_CHANNEL, INT4_CHANNEL and Q4_0 with the swiglu128 fusion:
+    fused params of both packages, prefill then one decode step, logits
+    cosine >= 0.999."""
+    if swiglu:
+        monkeypatch.setenv("CSINN2_SWIGLU_FUSE", "1")
+    else:
+        monkeypatch.delenv("CSINN2_SWIGLU_FUSE", raising=False)
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", mode]
+    jp, tp = jm.fuse_params(jp), tm.fuse_params(tp)
+    assert (tp["layers"][0]["w13"].layout == "swiglu128") == swiglu
+    toks = np.array([[3, 7, 11, 19, 5, 2, 9, 4], [1, 2, 3, 4, 5, 6, 7, 8]], np.int32)
+    jc = jm.KVCache.create(jcfg, 2, quantized=quantized_kv)
+    want, jc = jm.llama_forward(jp, jnp.asarray(toks), jc, 0, jcfg, use_pallas=False)
+    tc = tm.KVCache.create(tcfg, 2, quantized=quantized_kv, device="cpu")
+    got, tc = tm.llama_forward(tp, torch.from_numpy(toks), tc, 0, tcfg)
+    assert cosine_similarity(got.numpy(), np.asarray(want)) >= 0.999
+    nxt = np.array([[17], [23]], np.int32)
+    want2, _ = jm.llama_forward(jp, jnp.asarray(nxt), jc, 8, jcfg, use_pallas=False)
+    got2, _ = tm.llama_forward(tp, torch.from_numpy(nxt), tc, 8, tcfg)
+    assert cosine_similarity(got2.numpy(), np.asarray(want2)) >= 0.999
+
+
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_run_queue_q4_0_matches_jax(weights, quantized_kv):
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", jm.Q4_0]
+    jdone = JEngine(jcfg, jp, batch=2, use_pallas=False, quantized_kv=quantized_kv,
+                    native_int4=False) \
+        .run_queue([JRequest(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    tdone = InferenceEngine(tcfg, tp, batch=2, quantized_kv=quantized_kv, device="cpu") \
+        .run_queue([Request(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    assert all(r.done for r in tdone)
+    assert [r.out for r in tdone] == [r.out for r in jdone]
+
+
+def test_native_int4_gives_identical_tokens(weights):
+    """native_int4 True / False / None run the same packed weights: identical
+    tokens, and those of the JAX engine on its packed carrier."""
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", jm.Q4_0]
+    prompt = [3, 1, 4, 1, 5]
+    outs = [InferenceEngine(tcfg, tp, batch=1, device="cpu", native_int4=n)
+            .generate_fused(prompt, max_new_tokens=12) for n in (True, False, None)]
+    assert outs[0] == outs[1] == outs[2]
+    want = JEngine(jcfg, jp, batch=1, use_pallas=False, native_int4=False) \
+        .generate_fused(prompt, max_new_tokens=12)
+    assert outs[0] == list(want)
+
+
+def test_engine_swiglu_fusion_decodes_the_pairs(weights, monkeypatch):
+    """With CSINN2_SWIGLU_FUSE=1 the engine's prefill and batched decode take
+    the swiglu epilogue; their logits match the unfused JAX engine's."""
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", jm.Q4_0]
+    monkeypatch.delenv("CSINN2_SWIGLU_FUSE", raising=False)
+    je = JEngine(jcfg, jp, batch=2, use_pallas=False, quantized_kv=True, native_int4=False)
+    monkeypatch.setenv("CSINN2_SWIGLU_FUSE", "1")
+    te = InferenceEngine(tcfg, tp, batch=2, quantized_kv=True, device="cpu")
+    assert te.params["layers"][0]["w13"].layout == "swiglu128"
+    for sid, p in enumerate(PROMPTS[:2]):
+        assert cosine_similarity(te.prefill(sid, p), je.prefill(sid, p)) > 0.999
+    nxt = {0: 4, 1: 9}
+    jl, tl = je.decode_step(nxt), te.decode_step(nxt)
+    for sid in nxt:
+        assert cosine_similarity(tl[sid], jl[sid]) > 0.999
+    done = InferenceEngine(tcfg, tp, batch=2, quantized_kv=True, device="cpu") \
+        .run_queue([Request(p, max_new_tokens=4) for p in PROMPTS], chunk=2)
+    assert all(r.done and len(r.out) == 4 for r in done)
+
+
+@pytest.mark.parametrize("mode,gate", [(jm.INT8_CHANNEL, 0.99), (jm.Q8_0, 0.99),
+                                       (jm.Q4_0, 0.95)])
+def test_quantized_weights_cosine(mode, gate):
+    """The port's analog of tests/test_llm.py::test_quantized_weights_cosine:
+    weight-only quant keeps the prefill logits' cosine against float above
+    the reference's LLM gate."""
+    _, tcfg = _cfgs("gqa")
+    fp = tm.init_params(tcfg, tm.FLOAT, seed=1, device="cpu")
+    toks = torch.tensor([[3, 7, 11, 19]])
+
+    def logits(params):
+        cache = tm.KVCache.create(tcfg, 1, device="cpu")
+        return tm.llama_forward(params, toks, cache, 0, tcfg)[0].numpy()
+
+    cs = cosine_similarity(logits(tm.quantize_params(fp, mode)), logits(fp))
+    assert cs >= gate, f"{mode}: cs={cs}"
+
+
 @pytest.mark.parametrize("top_k", [0, 1, 5, 49])
 @pytest.mark.parametrize("top_p", [1e-9, 0.3, 0.9, 1.0])
 def test_sampling_filter_masks_match_jax(rng, top_k, top_p):
@@ -244,9 +346,10 @@ def test_port_imports_no_jax():
         "from csinn2_tpu_torch.llm.model import init_params\n"
         "import csinn2_tpu_torch.llm.params, csinn2_tpu_torch.utils.verify\n"
         "cfg = LlamaConfig.tiny()\n"
-        "eng = InferenceEngine(cfg, init_params(cfg, 'q8_0', device='cpu'), batch=1,\n"
-        "                      quantized_kv=True, device='cpu')\n"
-        "assert len(eng.generate_fused([1, 2, 3], max_new_tokens=3)) == 3\n"
+        "for mode in ('q8_0', 'q4_0', 'int8'):\n"
+        "    eng = InferenceEngine(cfg, init_params(cfg, mode, device='cpu'), batch=1,\n"
+        "                          quantized_kv=True, device='cpu')\n"
+        "    assert len(eng.generate_fused([1, 2, 3], max_new_tokens=3)) == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'csinn2_tpu' or m.startswith('csinn2_tpu.')]\n"
         "print('LOADED', bad)\n"
