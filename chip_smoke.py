@@ -25,7 +25,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   5. this slice's main path: the same with Q4_0 weights;
   6. the paths of the other weight modes, each the same run at full width
      and depth: INT8_CHANNEL, INT4_CHANNEL, and Q4_0 with the swiglu128
-     fusion (CSINN2_SWIGLU_FUSE=1).
+     fusion (CSINN2_SWIGLU_FUSE=1);
+  7. the CNN path: MobileNetV1 (alpha 1.0, 224x224, 1000 classes, seed 0)
+     calibrated on the card on one seeded image, INT8_SYM graph sessions at
+     batch 128 and 1 with CSINN2_FUSE_DS=1 (13 ds_block nodes, the
+     fused_dsconv CUDA kernel) and without; the fused session's forward at
+     batch 128 is the main path whose launches are counted (13 expected);
+     fused logits equal to unfused ones bit for bit (batch 128 and 1), to
+     the port's CPU plain path within the fc's 1 LSB (batch 1), cosine
+     >= 0.99 against forward_f32 (bench.py's gate); img/s at batch 128 and
+     batch-1 latency, fused and unfused (CUDA events); each of the 13 block
+     shapes of fused_dsconv against fused_dsconv_ref (bit for bit), timed
+     beside its bound, the plain version and the unfused pair.
 Each serving run zeroes the launch counts just before run_queue and reads
 them just after.  No phase uses torch.profiler: once it has traced,
 host-side launches stay slower for the rest of the process, which would skew
@@ -48,6 +59,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
 
 QMM_SOURCE = "csinn2_tpu_torch/kernels/csrc/qmatmul.cuh"
 QMM_REPLACES = "csinn2_tpu/kernels/qmatmul.py:287"
@@ -63,20 +75,23 @@ KERNELS = {
     "decode_attention": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:142"),
     "prefill_attention": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:248"),
     "flash_attention": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
+    "fused_dsconv": ("csinn2_tpu_torch/kernels/csrc/dsblock.cu",
+                     "csinn2_tpu/kernels/dsblock.py:164"),
 }
 ATTENTION = ("decode_attention", "prefill_attention", "flash_attention")
 # weight mode → (scale_mode, packed_int4) of its quant_matmul calls
 QMM_MODES = {"q8_0": ("block", False), "q4_0": ("block", True),
              "int8": ("channel", False), "int4": ("channel", True)}
 PROMPTS = (5, 37, 128, 300, 700, 1100)
+CNN_BATCH = 128                # bench.py:51
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -292,17 +307,22 @@ def _to(tree, device):
 
 
 @contextlib.contextmanager
-def swiglu_fusion(on: bool):
-    """CSINN2_SWIGLU_FUSE=1 (or unset) while the params are fused."""
-    old = os.environ.pop("CSINN2_SWIGLU_FUSE", None)
+def env_flag(name: str, on: bool):
+    """Environment variable `name` set to 1 (or unset) inside the block."""
+    old = os.environ.pop(name, None)
     if on:
-        os.environ["CSINN2_SWIGLU_FUSE"] = "1"
+        os.environ[name] = "1"
     try:
         yield
     finally:
-        os.environ.pop("CSINN2_SWIGLU_FUSE", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["CSINN2_SWIGLU_FUSE"] = old
+            os.environ[name] = old
+
+
+def swiglu_fusion(on: bool):
+    """CSINN2_SWIGLU_FUSE=1 (or unset) while the params are fused."""
+    return env_flag("CSINN2_SWIGLU_FUSE", on)
 
 
 def model_parity(mode: str, swiglu: bool):
@@ -424,6 +444,157 @@ def serve(gpu_line: str, mode: str, swiglu: bool = False):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CNN path, MobileNetV1 INT8_SYM through the graph session
+# ---------------------------------------------------------------------------
+
+def _block_calls(sess, xin):
+    """(node, op arguments, graph output) of each ds_block node of `sess` in
+    one run on xin (that run's launches are not the main path's)."""
+    import torch
+    from csinn2_tpu_torch.graph.ir import _const_key
+    acts = {}
+    with torch.inference_mode():
+        sess.graph.execute([xin], sess._consts,
+                           trace_hook=lambda node, r: acts.__setitem__(id(node.outputs[0]), r))
+    value = lambda t: acts[id(t)] if id(t) in acts else (
+        xin if t is sess.graph.inputs[0] else sess._consts[_const_key(t)])
+    return [(n, [value(t) for t in n.inputs], acts[id(n.outputs[0])])
+            for n in sess.graph.nodes if n.op == "ds_block"]
+
+
+def check_dsconv_blocks(records, sess, xin, fwd_ms, gpu_line):
+    """Each of the 13 blocks at batch 128: the kernel against its plain
+    version and the unfused pair (bit for bit), timed beside its bound."""
+    import torch
+    from csinn2_tpu_torch.kernels import dsblock as ds
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    worst, total = None, 0.0
+    for i, (node, arrays, graph_out) in enumerate(_block_calls(sess, xin)):
+        metas = [t.meta for t in node.inputs]
+        args, kw = ds.fused_args(arrays, metas, node.params, node.out_qinfo, **node.extra)
+        run = lambda: ds.fused_dsconv(*args, **kw)
+        plain_fn = lambda: ds.fused_dsconv_ref(*args, **kw)
+        pair_fn = lambda: ds.ds_block_xla(arrays, metas, node.params, node.out_qinfo,
+                                          **node.extra)
+        y = run()
+        torch.cuda.synchronize()
+        for name, other in (("graph output", graph_out), ("fused_dsconv_ref", plain_fn()),
+                            ("unfused pair", pair_fn())):
+            if not torch.equal(y, other):
+                n_bad = int((y.int() - other.int()).ne(0).sum())
+                raise AssertionError(f"fused_dsconv block {i}: {n_bad} of {y.numel()} "
+                                     f"outputs differ from the {name}")
+        ms = gpu_ms(run)
+        plain = gpu_ms(plain_fn, reps=3)
+        lib = gpu_ms(pair_fn, reps=5)
+        x, dw_w, effd, bd, pw_w, effp, bp = args
+        N, H, W, C = x.shape
+        _, Ho, Wo, O = y.shape
+        k = kw["k"]
+        nbytes = x.numel() + dw_w.numel() + pw_w.numel() + 4 * (2 * C + 2 * O) + y.numel()
+        b_ms, b_by = bound(nbytes, N * Ho * Wo * (k * k * C + 2 * C * O), INT8_OPS)
+        shape = (f"block {i} N={N} H={H} W={W} C={C} O={O} k={k} s={kw['stride']} "
+                 f"pads={kw['pads']} int8 out")
+        log(f"  fused_dsconv {shape}: ms={ms:.4f} plain_ms={plain:.4f} "
+            f"unfused_pair_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f}")
+        total += ms
+        if worst is None or ms > worst["ms"]:
+            # no single PyTorch call computes the block: library_ms is null,
+            # and the unfused pair stands beside it
+            worst = dict(ms=ms, plain_ms=plain, library_ms=None, unfused_pair_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, shape=shape, max_abs_err=0.0)
+    records["fused_dsconv"] = worst
+    log(f"  13 fused_dsconv launches: {total:.4f} ms of the {fwd_ms:.4f} ms fused "
+        f"forward at batch {CNN_BATCH} ({100 * total / fwd_ms:.1f} %) [{gpu_line}]")
+
+
+def cnn_path(records, gpu_line: str):
+    """MobileNetV1 INT8_SYM at 224 through the graph session, fused and
+    unfused.  Returns the launch counts of the fused batch-128 forward."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.core.quant import dequantize
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.models.mobilenet import MobileNetV1
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    t0 = time.perf_counter()
+    model = MobileNetV1(alpha=1.0, input_size=224, seed=0)
+    rng = np.random.default_rng(0)                       # as bench.py:174-176
+    x1 = rng.random(model.input_shape(1)).astype(np.float32)
+    xb = rng.random(model.input_shape(CNN_BATCH)).astype(np.float32)
+    model.calibrate(x1, device="cuda")
+    sess = {}
+    for fused in (True, False):
+        with env_flag("CSINN2_FUSE_DS", fused), env_flag("CSINN2_NO_FUSE_DS", False):
+            for batch in (CNN_BATCH, 1):
+                s = model.build_session(QuantScheme.INT8_SYM, batch=batch, device="cuda")
+                n_ds = sum(n.op == "ds_block" for n in s.graph.nodes)
+                if n_ds != (13 if fused else 0):
+                    raise AssertionError(f"fused={fused} batch {batch}: {n_ds} ds_block nodes")
+                sess[fused, batch] = s
+    xin = {b: model.prepare_input(x, sess[True, b]) for b, x in ((CNN_BATCH, xb), (1, x1))}
+    torch.cuda.synchronize()
+    log(f"  MobileNetV1 224 calibrated on the card and 4 INT8_SYM sessions built: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    out = {(True, CNN_BATCH): sess[True, CNN_BATCH].run(xin[CNN_BATCH])}
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    log(f"  fused forward, batch {CNN_BATCH}: launches {counts}")
+    if counts.get("fused_dsconv", 0) != 13:
+        raise AssertionError(f"fused forward launched fused_dsconv "
+                             f"{counts.get('fused_dsconv', 0)} times, want 13")
+    for key in ((False, CNN_BATCH), (True, 1), (False, 1)):
+        before = launch_counts["fused_dsconv"]
+        out[key] = sess[key].run(xin[key[1]])
+        torch.cuda.synchronize()
+        if launch_counts["fused_dsconv"] - before != (13 if key[0] else 0):
+            raise AssertionError(f"session {key}: fused_dsconv launches")
+    for b in (CNN_BATCH, 1):
+        f, u = out[True, b], out[False, b]
+        if f.dtype != torch.int8 or tuple(f.shape) != (b, 1000) or not torch.equal(f, u):
+            raise AssertionError(f"batch {b}: fused logits differ from unfused in "
+                                 f"{int(f.int().ne(u.int()).sum())} of {u.numel()}")
+    log(f"  fused int8 logits == unfused, bit for bit, at batch {CNN_BATCH} and 1")
+
+    with env_flag("CSINN2_FUSE_DS", True):
+        s_cpu = model.build_session(QuantScheme.INT8_SYM, batch=1, device="cpu")
+    cpu = s_cpu.run(model.prepare_input(x1, s_cpu)).numpy().astype(int)
+    d = np.abs(cpu - out[True, 1].cpu().numpy().astype(int))
+    log(f"  batch 1, card vs the port's CPU plain path (same recorder): max|d|={d.max()} "
+        f"LSB, {int((d > 0).sum())} of {d.size} logits differ (fc float-carrier sums)")
+    if d.max() > 1:
+        raise AssertionError(f"card vs CPU plain path: {d.max()} LSB")
+    golden = model.forward_f32(x1, device="cuda").cpu().numpy()
+    qi = sess[True, 1].graph.outputs[0].meta.qinfo
+    deq = dequantize(out[True, 1].cpu(), qi).numpy()
+    cos = cosine_similarity(deq, golden)
+    log(f"  cosine(int8 fused batch 1 dequantized, forward_f32) = {cos:.6f} (gate 0.99)")
+    if not (np.isfinite(golden).all() and cos >= 0.99):
+        raise AssertionError(f"accuracy gate: cosine {cos}")
+
+    times = {}
+    for fused in (True, False, False, True):
+        for b, iters in ((CNN_BATCH, 10), (1, 50)):
+            t = sess[fused, b].run_benchmark_device(xin[b], iters=iters, reps=3)
+            times.setdefault((fused, b), []).append(t)
+    for fused in (True, False):
+        t128 = statistics.median(times[fused, CNN_BATCH])
+        t1 = statistics.median(times[fused, 1])
+        log(f"  {'fused  ' if fused else 'unfused'}: batch {CNN_BATCH} {CNN_BATCH / t128:.1f} "
+            f"img/s ({t128 * 1e3:.3f} ms/forward), batch 1 latency {t1 * 1e3:.3f} ms "
+            f"(CUDA events, median of 2x3 x {{10, 50}} runs, host gaps included) [{gpu_line}]")
+    check_dsconv_blocks(records, sess[True, CNN_BATCH], xin[CNN_BATCH],
+                        statistics.median(times[True, CNN_BATCH]) * 1e3, gpu_line)
+    del sess, out
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "csinn2_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -475,6 +646,9 @@ def main() -> int:
                                                 "phase 6 (INT4_CHANNEL)")
     path_counts["quant_matmul_swiglu"] = (serve(gpu_line, "q4_0", swiglu=True),
                                           "phase 6 (Q4_0, CSINN2_SWIGLU_FUSE=1)")
+    log("phase 7: the CNN path, MobileNetV1 INT8_SYM 224, graph session, CSINN2_FUSE_DS=1")
+    path_counts["fused_dsconv"] = (cnn_path(records, gpu_line),
+                                   f"phase 7 (MobileNetV1 INT8_SYM, fused, batch {CNN_BATCH})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -486,6 +660,8 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
+        if "unfused_pair_ms" in r:
+            entry["unfused_pair_ms"] = r["unfused_pair_ms"]
         if name.startswith("quant_matmul"):
             entry.update(launches_decode=int(counts.get(f"{name}.decode", 0)),
                          launches_prefill=int(counts.get(f"{name}.prefill", 0)))

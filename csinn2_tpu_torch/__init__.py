@@ -12,11 +12,18 @@ wrappers decide by the tensor's device: CUDA tensors launch the kernel, CPU
 tensors run the plain PyTorch version beside it.
 
 Layer map (ported so far):
-  core/     — BLOCK_SIZE
+  core/     — dtypes and enums, QuantInfo/quantize/dequantize, Tensor,
+              layout axes, BLOCK_SIZE
+  ops/      — registry, params, call_op and the ops MobileNetV1 records,
+              float reference ops (ref/)
   kernels/  — quant_matmul (Q8_0, Q4_0, INT8/INT4 channel, swiglu epilogue),
-              decode/prefill/flash attention
+              decode/prefill/flash attention, fused_dsconv (the fused
+              depthwise→pointwise int8 block), qconv (int8 conv/fc paths)
+  graph/    — graph IR, the ds_block fusion pass
+  runtime/  — Session (eager replay of the recorded graph)
+  models/   — NetBuilder, MobileNetV1
   llm/      — LlamaConfig, model forward, params bridge, sampling, engine
-  utils/    — device helper, verify metrics
+  utils/    — device helper, verify metrics, config, logging, timing
 """
 
 __version__ = "0.1.0"

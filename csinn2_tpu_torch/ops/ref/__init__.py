@@ -1,0 +1,15 @@
+"""Float reference implementations in plain PyTorch (counterpart of
+csinn2_tpu/ops/ref/; the ops MobileNetV1 records so far).  They back the
+float session that `forward_f32` and `calibrate` run, and the generic
+dequant→f32→requant path of ops/api.py.
+
+Importing this package populates the op registry.
+"""
+
+from csinn2_tpu_torch.ops.ref import (  # noqa: F401
+    activation,
+    conv,
+    linear,
+    pool,
+    shape,
+)

@@ -1,0 +1,96 @@
+"""Float convolution (counterpart of csinn2_tpu/ops/ref/conv.py; conv2d and
+depthwise_conv2d, the ops MobileNetV1 records; conv1d/3d, deconv and the
+fused residual/hardswish epilogues are not ported yet).
+
+(ref: source/reference/convolution.c.)  NHWC activations stay NHWC: the
+convolution sees them as a channels_last view (`x.permute(0, 3, 1, 2)`, no
+copy), so cuDNN takes its NHWC kernels on the card.  TF32 is off inside
+`full_f32()`: cuDNN convolves f32 in TF32 by default, which would move the
+card's float graph (and so its calibration ranges) away from the CPU's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from csinn2_tpu_torch.core.dtypes import Api, Layout
+from csinn2_tpu_torch.ops.params import Conv2dParams
+from csinn2_tpu_torch.ops.registry import registry
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 convolutions and matmuls in full f32 (no TF32) on the card."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def to_nchw(x: torch.Tensor, layout: Layout) -> torch.Tensor:
+    """NCHW view of an activation (channels_last strides for NHWC data)."""
+    return x.permute(0, 3, 1, 2) if layout == Layout.NHWC else x
+
+
+def from_nchw(y: torch.Tensor, layout: Layout) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1) if layout == Layout.NHWC else y
+
+
+def weight_oihw(w: torch.Tensor, w_layout: Layout) -> torch.Tensor:
+    """Weights arrive OIHW (or the depthwise O1HW view) or OHWI."""
+    if w_layout in (Layout.OIHW, Layout.O1HW):
+        return w
+    if w_layout == Layout.OHWI:
+        return w.permute(0, 3, 1, 2)
+    raise ValueError(f"bad weight layout {w_layout}")
+
+
+def conv_nchw(x: torch.Tensor, w: torch.Tensor, params: Conv2dParams) -> torch.Tensor:
+    """F.conv2d with the (top, down, left, right) pads of csinn_conv2d_params."""
+    pt, pd, pl, pr = params.pad
+    if pt == pd and pl == pr:
+        return F.conv2d(x, w, None, tuple(params.stride), (pt, pl),
+                        tuple(params.dilation), params.group)
+    return F.conv2d(F.pad(x, (pl, pr, pt, pd)), w, None, tuple(params.stride), 0,
+                    tuple(params.dilation), params.group)
+
+
+def unported_epilogue(params: Conv2dParams):
+    if params.fuse_add or params.fuse_hswish:
+        raise NotImplementedError(
+            "conv2d with a fused residual or hardswish epilogue is not ported yet "
+            "(ROADMAP queue A items 10-11: MobileNetV3, ResNet-50)")
+
+
+@registry.register("conv2d", api=Api.TORCH)
+def conv2d(x, weight, bias, *rest, w_layout: Layout = Layout.OIHW):
+    """Grouped/depthwise 2-D convolution, f32.  x in params.layout; weight
+    [O, I/g, kh, kw] (OIHW view); pad = (top, down, left, right)."""
+    params: Conv2dParams = rest[-1]
+    unported_epilogue(params)
+    w = weight_oihw(weight.float(), w_layout)
+    with full_f32():
+        out = from_nchw(conv_nchw(to_nchw(x.float(), params.layout), w, params),
+                        params.layout)
+    if bias is not None and bias.numel() > 0:
+        caxis = 1 if params.layout == Layout.NCHW else 3
+        out = out + bias.float().reshape([-1 if i == caxis else 1 for i in range(4)])
+    if params.fuse_relu:
+        out = torch.clamp_min(out, 0.0)
+    if params.fuse_relu6:
+        out = torch.clamp(out, 0.0, 6.0)
+    return out.contiguous()
+
+
+@registry.register("depthwise_conv2d", api=Api.TORCH)
+def depthwise_conv2d(x, weight, bias, params: Conv2dParams, w_layout: Layout = Layout.OIHW):
+    """Depthwise = grouped conv with group == C_in; weight [C,1,kh,kw]."""
+    cin = x.shape[1] if params.layout == Layout.NCHW else x.shape[3]
+    return conv2d(x, weight, bias, dataclasses.replace(params, group=cin), w_layout=w_layout)

@@ -1,9 +1,13 @@
 """CUDA kernels of the PyTorch port against their plain versions, on the
-card, at the ragged shapes the 7B checks in chip_smoke.py do not reach: M, N
-and K tails of quant_matmul in every weight mode (Q8_0, Q4_0, INT8_CHANNEL,
-INT4_CHANNEL, carriers at -128 and -8, the swiglu epilogue with one and
-several pairs), odd KV lengths, GQA, bf16 KV, head dim 64, a fully masked
-lane, strided K/V views and the wrappers' argument checks.
+card, at the ragged shapes the 7B and MobileNetV1 checks in chip_smoke.py do
+not reach: M, N and K tails of quant_matmul in every weight mode (Q8_0, Q4_0,
+INT8_CHANNEL, INT4_CHANNEL, carriers at -128 and -8, the swiglu epilogue
+with one and several pairs), odd KV lengths, GQA, bf16 KV, head dim 64, a
+fully masked lane, strided K/V views; fused_dsconv (bit for bit) at odd H and
+W, C in {3, 8, 17, 1024}, O not a multiple of 8, k 3 and 5, stride 1 and 2,
+pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, and a small
+MobileNetV1 session fused against unfused; and the wrappers' argument
+checks.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -21,6 +25,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from csinn2_tpu_torch.kernels import dsblock as ds  # noqa: E402
 from csinn2_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from csinn2_tpu_torch.kernels import launch_counts  # noqa: E402
 from csinn2_tpu_torch.kernels.qmatmul import (launch_key, pack_int4, quant_matmul,  # noqa: E402
@@ -251,3 +256,71 @@ def test_attention_rejects_bad_args(gen, dev):
     k, v = _kv(gen, dev, 1, 2, 64, 128, True)
     with pytest.raises(TypeError):
         fa.prefill_attention(q, k, v)                    # f32 q
+
+
+def _ds_case(gen, dev, N, H, W, C, O, k):
+    """int8 carriers over their full range (-128 included), f32 scales that
+    keep the sums inside the requantize range, random biases."""
+    ri = lambda shape: torch.randint(-128, 128, shape, generator=gen, device=dev,
+                                     dtype=torch.int8)
+    rf = lambda n: torch.rand(n, generator=gen, device=dev)
+    x, dw, pw = ri((N, H, W, C)), ri((k * k, C)), ri((C, O))
+    effd = (rf(C) + 0.1) * (1.5e-4 * 3 / k)
+    effp = (rf(O) + 0.1) * (4e-4 / C ** 0.5)
+    bd = torch.randn(C, generator=gen, device=dev)
+    bp = torch.randn(O, generator=gen, device=dev) * 0.5
+    return x, dw, effd, bd, pw, effp, bp
+
+
+@pytest.mark.parametrize("C", [3, 8, 17, 1024])
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (5, 1), (5, 2)])
+@pytest.mark.parametrize("pads", [(0, 1, 0, 1), (1, 1, 1, 1)])
+@pytest.mark.parametrize("out", ["int8", "f32"])
+def test_fused_dsconv(gen, dev, C, k, stride, pads, out):
+    N, (H, W), O = (1, (7, 9), 257) if C == 1024 else (3 if C != 3 else 1, (13, 11), 70 - C % 2)
+    args = _ds_case(gen, dev, N, H, W, C, O, k)
+    kw = dict(k=k, stride=stride, pads=pads, mid_scale=6.0 / 255.0,
+              mid_relu=out == "f32", mid_relu6=out == "int8", out_relu=False,
+              out_relu6=out == "int8", out_scale=0.05 if out == "int8" else None,
+              out_dtype=torch.int8 if out == "int8" else torch.float32)
+    before = launch_counts["fused_dsconv"]
+    y = ds.fused_dsconv(*args, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["fused_dsconv"] == before + 1
+    ref = ds.fused_dsconv_ref(*args, **kw)
+    assert y.shape == ref.shape == (N, *ds.out_hw(H, W, k, stride, pads), O)
+    assert y.dtype == ref.dtype
+    np.testing.assert_array_equal(y.cpu().numpy(), ref.cpu().numpy())
+
+
+def test_fused_dsconv_rejects_bad_args_on_the_card(gen, dev):
+    args = list(_ds_case(gen, dev, 1, 8, 8, 16, 32, 3))
+    kw = dict(k=3, stride=1, pads=(1, 1, 1, 1), mid_scale=0.02, mid_relu=False,
+              mid_relu6=True, out_relu=False, out_relu6=True, out_scale=0.05)
+    ds.fused_dsconv(*args, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds.fused_dsconv(args[0].permute(0, 2, 1, 3), *args[1:], **kw)
+    with pytest.raises(ValueError, match="one device"):
+        ds.fused_dsconv(args[0], args[1].cpu(), *args[2:], **kw)
+
+
+def test_mobilenet_session_fused_equals_unfused_on_the_card(dev, monkeypatch):
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.models.mobilenet import MobileNetV1
+    m = MobileNetV1(alpha=0.25, input_size=32)
+    x = np.random.default_rng(1).random(m.input_shape(3)).astype(np.float32)
+    m.calibrate(x[:1], device="cpu")
+    monkeypatch.delenv("CSINN2_NO_FUSE_DS", raising=False)
+    outs = {}
+    for fused in (False, True):
+        if fused:
+            monkeypatch.setenv("CSINN2_FUSE_DS", "1")
+        s = m.build_session(QuantScheme.INT8_SYM, batch=3, device=dev)
+        before = launch_counts["fused_dsconv"]
+        outs[fused] = s.run(m.prepare_input(x, s)).cpu().numpy()
+        assert launch_counts["fused_dsconv"] - before == (13 if fused else 0)
+    np.testing.assert_array_equal(outs[True], outs[False])
+    s = m.build_session(QuantScheme.INT8_SYM, batch=3, device="cpu")
+    cpu = s.run(m.prepare_input(x, s)).numpy()
+    # the fc's float-carrier sums run in another order on the card: 1 LSB
+    assert np.abs(cpu.astype(int) - outs[True].astype(int)).max() <= 1

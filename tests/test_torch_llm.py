@@ -334,8 +334,9 @@ def test_engine_needs_cuda_unless_cpu_asked(weights, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running its CPU forward and engine loads
-    neither jax nor any module of the JAX package."""
+    """Importing the port and running its CPU forward, engine and a small
+    fused MobileNetV1 INT8 session loads neither jax nor any module of the
+    JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -350,6 +351,17 @@ def test_port_imports_no_jax():
         "    eng = InferenceEngine(cfg, init_params(cfg, mode, device='cpu'), batch=1,\n"
         "                          quantized_kv=True, device='cpu')\n"
         "    assert len(eng.generate_fused([1, 2, 3], max_new_tokens=3)) == 3\n"
+        "import os\n"
+        "os.environ['CSINN2_FUSE_DS'] = '1'\n"
+        "from csinn2_tpu_torch.core.dtypes import QuantScheme\n"
+        "from csinn2_tpu_torch.models.mobilenet import MobileNetV1\n"
+        "import csinn2_tpu_torch.kernels.dsblock, csinn2_tpu_torch.graph.fuse\n"
+        "m = MobileNetV1(alpha=0.25, input_size=32)\n"
+        "x = torch.rand(m.input_shape(1)).numpy()\n"
+        "m.calibrate(x, device='cpu')\n"
+        "s = m.build_session(QuantScheme.INT8_SYM, batch=1, device='cpu')\n"
+        "assert sum(n.op == 'ds_block' for n in s.graph.nodes) == 13\n"
+        "assert tuple(s.run(m.prepare_input(x, s)).shape) == (1, 1000)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'csinn2_tpu' or m.startswith('csinn2_tpu.')]\n"
         "print('LOADED', bad)\n"
