@@ -37,8 +37,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      batch-1 latency, fused and unfused (CUDA events); each of the 13 block
      shapes of fused_dsconv against fused_dsconv_ref (bit for bit), timed
      beside its bound, the plain version and the unfused pair.
-Each serving run zeroes the launch counts just before run_queue and reads
-them just after.  No phase uses torch.profiler: once it has traced,
+  8. the op API's CUDA tier (kernels/autodispatch.py) at Llama-2-7B width:
+     ops.fullyconnected on Q8_0 and Q4_0 block tensors of one layer's four
+     projections (wqkv, wo, w13, w2; made on the card from a seed) at M = 128
+     and 4, and ops.scaled_dot_product_attention at prefill [1, 32, 2048, 128]
+     and decode [4, 32, 1, 128] over S = 2048, recorded into a GRAPH
+     Session(device="cuda") with Api.AUTO and run in layer mode; every node
+     on the CUDA tier (quant_matmul_t, flash_attention_bhsd), outputs against
+     an Api.TORCH session on the card (fc cosine >= 0.9999, SDPA
+     verify(tol=2e-2, min_cosine=0.9999)), an int8 out_qinfo within 1 LSB;
+  9. phase 4's run under CSINN2_DECODE_ATTN=flash: the batched decode takes
+     bhsd flash_attention (32 launches per decode step, decode_attention
+     none), tokens set beside phase 4's, one step's logits against the
+     default decode's (cosine >= 0.999), decode tokens/s beside phase 4's.
+Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
+integer epilogues, the fixed-point requantize bit for bit, scale_mode
+"none", the transposed weights, bhsd flash_attention) against their plain
+versions at 7B shapes; the modes without a package caller (rows 1b' and
+1d) are then driven once each through quant_matmul, which is their path.
+Each path's run zeroes the launch counts just before it and reads them just
+after.  No phase uses torch.profiler: once it has traced,
 host-side launches stay slower for the rest of the process, which would skew
 the serving phases.  The last two lines are the kernels' JSON record and the
 run's JSON result.
@@ -64,6 +82,7 @@ INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
 QMM_SOURCE = "csinn2_tpu_torch/kernels/csrc/qmatmul.cuh"
 QMM_REPLACES = "csinn2_tpu/kernels/qmatmul.py:287"
 ATTN_SOURCE = "csinn2_tpu_torch/kernels/csrc/attention.cu"
+I8_SOURCE = "csinn2_tpu_torch/kernels/csrc/qmatmul_int8dot.cu"
 # kernel name (launch_counts key without its .decode/.prefill suffix) →
 # (source, TPU function replaced)
 KERNELS = {
@@ -77,6 +96,11 @@ KERNELS = {
     "flash_attention": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
     "fused_dsconv": ("csinn2_tpu_torch/kernels/csrc/dsblock.cu",
                      "csinn2_tpu/kernels/dsblock.py:164"),
+    "quant_matmul_none": (QMM_SOURCE, QMM_REPLACES),
+    "quant_matmul_int8dot": (I8_SOURCE, QMM_REPLACES),
+    "quant_matmul_requant": (I8_SOURCE, "csinn2_tpu/kernels/requant.py:40"),
+    "quant_matmul_t": (QMM_SOURCE, QMM_REPLACES),
+    "flash_attention_bhsd": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
 }
 ATTENTION = ("decode_attention", "prefill_attention", "flash_attention")
 # weight mode → (scale_mode, packed_int4) of its quant_matmul calls
@@ -289,6 +313,380 @@ def check_attention(records):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the fourth slice's kernel modes: int8 x, requantize, scale_mode
+# "none", the transposed layouts, bhsd flash_attention
+# ---------------------------------------------------------------------------
+
+# (label, K, N, Ms) of the 7B GEMMs the new modes are held at
+NEW_SHAPES = (("w13", 4096, 22016, (4, 128)), ("wqkv", 4096, 12288, (128,)),
+              ("w2", 11008, 4096, (128,)))
+
+
+def _new_qmm_case(g, kind: str, K: int, N: int):
+    """(weight, scales, bias, quant_matmul kwargs, bf16 dequantized [K, N]
+    weight for the library yardstick or None) of one new mode; random
+    carriers over the full range, f16-rounded scales."""
+    import torch
+    from csinn2_tpu_torch.core.quant import quantize_multiplier
+    from csinn2_tpu_torch.kernels.qmatmul import pack_int4_t
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g, device="cuda",
+                                             dtype=torch.int8)
+    rs = lambda shape, a=2e-4: (torch.rand(shape, generator=g, device="cuda") * a + 1e-5) \
+        .to(torch.float16).float()
+    if kind in ("int8dot", "int8dot_q", "requant", "none"):
+        w = ri(-128, 128, (K, N))
+        if kind == "none":
+            return w, None, None, dict(scale_mode="none"), w.to(torch.bfloat16)
+        if kind == "requant":
+            bias = torch.randint(-2**18, 2**18, (N,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            eff = torch.rand((N,), generator=g, device="cuda").double().cpu().numpy() * 1e-4 + 1e-6
+            mult, shift = quantize_multiplier(eff)
+            kw = dict(scale_mode="none", out_dtype=torch.int8, out_zp=3.0,
+                      rq_mult=torch.from_numpy(mult).cuda(), rq_shift=torch.from_numpy(shift).cuda())
+            return w, None, bias, kw, None
+        s = rs((N,), 1e-3)
+        if kind == "int8dot":
+            return w, s, None, dict(scale_mode="channel"), None
+        bias = torch.randn((N,), generator=g, device="cuda") * 4
+        return w, s * 0.05, bias, dict(scale_mode="channel", out_dtype=torch.int8,
+                                       epilogue_scale=0.37, out_zp=3.0), None
+    # transposed weights of the op API's block tensors, and the rest of 1e'
+    packed = kind == "t_packed"
+    lo = -8 if kind in ("t_q4_0", "t_packed") else -128
+    q = ri(lo, 8 if lo == -8 else 128, (N, K))
+    if kind == "t_int8_channel":
+        s = rs((N,))
+        deq = q.float() * s[:, None]
+        kw = dict(scale_mode="channel", w_transposed=True)
+    else:
+        s = rs((N, K // 32))
+        deq = (q.float().reshape(N, K // 32, 32) * s[:, :, None]).reshape(N, K)
+        kw = dict(scale_mode="block", w_transposed=True, packed_int4=packed)
+    return (pack_int4_t(q) if packed else q), s, None, kw, deq.t().to(torch.bfloat16)
+
+
+NEW_QMM = {  # kind → (launch_counts name, label)
+    "int8dot": ("quant_matmul_int8dot", "int8 x, channel, f32 out"),
+    "int8dot_q": ("quant_matmul_int8dot", "int8 x, channel·e + b → int8 (zp 3)"),
+    "requant": ("quant_matmul_requant", "int8 x, int32 bias, rq_mult → int8"),
+    "none": ("quant_matmul_none", "bf16 x, scale_mode none, f32 out"),
+    "t_q8_0": ("quant_matmul_t", "Q8_0 [N,K] + [N,K/32]"),
+    "t_q4_0": ("quant_matmul_t", "Q4_0 carrier [N,K] + [N,K/32]"),
+    "t_int8_channel": ("quant_matmul_t", "INT8_CHANNEL [N,K]"),
+    "t_packed": ("quant_matmul_t", "Q4_0 packed [N,K/2] + [N,K/32]"),
+}
+# the case each new kernel's record shows (w13; decode M = 4)
+NEW_RECORD = {"quant_matmul_int8dot": "int8dot", "quant_matmul_requant": "requant",
+              "quant_matmul_none": "none", "quant_matmul_t": "t_q8_0"}
+
+
+def _x_for(g, kind, M, K):
+    import torch
+    if kind in ("int8dot", "int8dot_q", "requant"):
+        return torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+    return torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+
+
+def int_mm_ms(x, w):
+    """torch._int_mm's time on the same int8 operands (int32 sums only), or
+    None where it refuses the shape (M <= 16)."""
+    import torch
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    try:
+        return gpu_ms(lambda: torch._int_mm(x, w))
+    except RuntimeError as e:
+        log(f"  (torch._int_mm refuses x{tuple(x.shape)} w{tuple(w.shape)}: "
+            f"{str(e).splitlines()[0][:100]})")
+        return None
+
+
+def kernel_api_path():
+    """The path of the modes no package caller reaches (rows 1b' and 1d):
+    the public kernel API, quant_matmul, once per mode at each 7B shape.
+    Returns the launch counts of exactly these calls."""
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.kernels.qmatmul import quant_matmul
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    calls = []
+    for kind in ("int8dot", "int8dot_q", "requant", "none"):
+        for _, K, N, Ms in NEW_SHAPES:
+            w, s, b, kw, _ = _new_qmm_case(g, kind, K, N)
+            calls += [(_x_for(g, kind, M, K), w, s, b, kw) for M in Ms]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for x, w, s, b, kw in calls:
+        quant_matmul(x, w, s, b, **kw)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    log(f"  kernel API path: {len(calls)} quant_matmul calls; launches {counts}")
+    return counts
+
+
+def check_new_quant_matmul(records):
+    """Every new mode against its plain version at the 7B shapes, timed
+    beside its bound, the plain version and a library call: torch._int_mm
+    (int32 sums only) for the int8 x rows where it takes the shape (M > 16;
+    null otherwise), torch.matmul on the dequantized bf16 weight for the
+    float rows.  int8 x with f32 out and the requantize: bit for bit; the
+    float epilogue to int8: 1 LSB on under 0.1 % (a double-rounding tie of
+    the plain version's f64 fma)."""
+    import torch
+    from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    for kind, (key, label) in NEW_QMM.items():
+        for name, K, N, Ms in NEW_SHAPES:
+            w, s, b, kw, deq = _new_qmm_case(g, kind, K, N)
+            for M in Ms:
+                x = _x_for(g, kind, M, K)
+                run = lambda: quant_matmul(x, w, s, b, **kw)
+                y = run()
+                torch.cuda.synchronize()
+                ref = quant_matmul_ref(x, w, s, b, **kw)
+                if kind in ("int8dot", "requant"):
+                    if not torch.equal(y, ref):
+                        raise AssertionError(f"{key} {kind} {name} M={M}: "
+                                             f"{int((y != ref).sum())} outputs differ")
+                    err, note = 0.0, "bit for bit"
+                elif kind == "int8dot_q":
+                    d = (y.int() - ref.int()).abs()
+                    frac = float((d > 0).float().mean())
+                    if int(d.max()) > 1 or frac >= 1e-3:
+                        raise AssertionError(f"{key} int8 epilogue {name} M={M}: "
+                                             f"max {int(d.max())} LSB on {frac:.2e}")
+                    err, note = float(d.max()), f"{frac:.2e} of outputs 1 LSB off"
+                else:
+                    yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
+                    err = float(abs(yf - rf).max())
+                    cos = cosine_similarity(yf, rf)
+                    if not (cos >= 0.9999 and err <= 1e-2 * float(abs(rf).max())):
+                        raise AssertionError(f"{key} {kind} {name} M={M}: cos={cos} err={err}")
+                    note = f"cos={cos:.6f}"
+                ms = gpu_ms(run)
+                plain = gpu_ms(lambda: quant_matmul_ref(x, w, s, b, **kw), reps=3)
+                if deq is not None:
+                    xb = x.to(torch.bfloat16)
+                    lib = gpu_ms(lambda: torch.matmul(xb, deq))
+                else:
+                    lib = int_mm_ms(x, w)
+                osz = y.element_size()
+                int_x = x.dtype == torch.int8
+                nbytes = (x.numel() * x.element_size() + w.numel()
+                          + (0 if s is None else s.numel() * 4)
+                          + (0 if b is None else N * 4) + (8 * N if kind == "requant" else 0)
+                          + M * N * osz)
+                b_ms, b_by = bound(nbytes, 2.0 * M * N * K, INT8_OPS if int_x else BF16_FLOPS)
+                lib_s = "null" if lib is None else f"{lib:.4f}"
+                log(f"  {key} {label} {name} M={M:4d} K={K:5d} N={N:5d} ms={ms:.4f} "
+                    f"plain_ms={plain:.4f} lib_ms={lib_s} bound_ms={b_ms:.4f} ({b_by}) "
+                    f"roofline={b_ms / ms:.3f} {note}")
+                rec = records.setdefault(key, {"max_abs_err": 0.0})
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if NEW_RECORD.get(key) == kind and name == "w13" and M == 4:
+                    rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                               bound_by=b_by, shape=f"{label} w13 M=4 K={K} N={N}")
+            del w, s, b, deq
+
+
+def check_flash_bhsd(records):
+    """bhsd flash_attention at the decode shape of row 2 (b = 4, hq = hk = 32,
+    d = 128, S = 2048, kv_len 2048/1027/1/17, causal, q_offset = kv_len - 1:
+    what the engine's CSINN2_DECODE_ATTN=flash decode calls) and at
+    sq = S = 2048 (the op API's prefill SDPA), against the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from csinn2_tpu_torch.kernels import flash_attention as fa
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    hq = hk = 32
+    d, kv_scale, S = 128, 0.05, 2048
+    sm = 1.0 / math.sqrt(d)
+    worst = 0.0
+    for case in ("decode", "prefill"):
+        b, sq = (4, 1) if case == "decode" else (1, S)
+        k, v = _kv_case(g, b, hk, S, d, kv_scale)
+        q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(torch.bfloat16)
+        kvl = torch.tensor([2048, 1027, 1, 17] if case == "decode" else [S],
+                           dtype=torch.int32, device="cuda")
+        off = kvl - 1 if case == "decode" else torch.zeros_like(kvl)
+        kw = dict(causal=True, q_offset=off, kv_len=kvl, kv_scale=kv_scale)
+        run = lambda: fa.flash_attention(q, k, v, **kw)
+        out = run()
+        torch.cuda.synchronize()
+        plain_fn = lambda: fa._attention_ref(q, k, v, scale=sm, **kw)
+        r = _verify_attn(f"flash_attention_bhsd {case}", out, plain_fn().to(torch.bfloat16))
+        worst = max(worst, r.max_abs_err)
+        ms = gpu_ms(run)
+        plain = gpu_ms(plain_fn, reps=5)
+        kd = (k.float() * kv_scale).to(torch.bfloat16)
+        vd = (v.float() * kv_scale).to(torch.bfloat16)
+        if case == "decode":
+            mask = (torch.arange(S, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+            lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+            n_kv = int(kvl.sum())
+            b_ms, b_by = bound(b * hq * d * 2 * 2 + 2 * n_kv * hk * d, 4.0 * n_kv * hq * d)
+        else:
+            lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, is_causal=True))
+            pairs = sq * (sq + 1) // 2
+            b_ms, b_by = bound(sq * hq * d * 2 * 2 + 2 * S * hk * d, 4.0 * pairs * hq * d)
+        shape = (f"b={b} hq=hk=32 sq={sq} d=128 S={S} kv_len={kvl.tolist()} causal, "
+                 f"q_offset {'kv_len - 1' if case == 'decode' else '0'}")
+        log(f"  flash_attention_bhsd {shape} ms={ms:.4f} plain_ms={plain:.4f} lib_ms={lib:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} {r}")
+        if case == "decode":
+            records["flash_attention_bhsd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                                   bound_ms=b_ms, bound_by=b_by, shape=shape)
+        del k, v
+    records["flash_attention_bhsd"]["max_abs_err"] = worst
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the op API's CUDA tier at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+# (name, N, K) of the four projections of one Llama-2-7B layer, [N, K] weights
+LAYER_FCS = (("wqkv", 12288, 4096), ("wo", 4096, 4096), ("w13", 22016, 4096),
+             ("w2", 4096, 11008))
+
+
+def _block_tensor(g, scheme, N, K):
+    """A Q8_0 / Q4_0 block tensor made on the card from the generator: int8
+    values [N, K] (Q4_0 in [-8, 7], the unpacked carrier) and fp16 scales
+    [N, K/32]."""
+    import torch
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.core.quant import BlockQuant
+    from csinn2_tpu_torch.core.tensor import Tensor
+    lim = 8 if scheme == "q4_0" else 128
+    values = torch.randint(-lim + (scheme == "q8_0"), lim, (N, K), generator=g, device="cuda",
+                           dtype=torch.int8)
+    scales = (torch.rand((N, K // 32), generator=g, device="cuda") * 2e-3 + 1e-4).half()
+    sch = QuantScheme.BLOCK_Q4_0 if scheme == "q4_0" else QuantScheme.BLOCK_Q8_0
+    return Tensor(block=BlockQuant(values=values, scales=scales, scheme=sch))
+
+
+def _op_graph(api, weights, M, out_qinfo=None, layer_mode=False, xs=None):
+    """The four projections (and with M = None the two SDPA calls) through
+    the op API: a GRAPH Session on the card, or in layer mode the eager
+    calls.  Returns (session or None, outputs)."""
+    from csinn2_tpu_torch import ops
+    from csinn2_tpu_torch.core.dtypes import Dtype, RunMode
+    from csinn2_tpu_torch.core.tensor import Tensor, TensorMeta
+    from csinn2_tpu_torch.runtime.session import Session
+
+    def body(inputs):
+        if M is None:
+            (pq, pk), (dq, dk) = (inputs[0], inputs[1]), (inputs[2], inputs[3])
+            return [ops.scaled_dot_product_attention(pq, pk, pk, ops.SDPAParams(causal=True)),
+                    ops.scaled_dot_product_attention(
+                        dq, dk, dk, ops.SDPAParams(causal=True, pos_offset=1500, kv_len=1501))]
+        x4096, x11008 = inputs
+        return [ops.fullyconnected(x11008 if name == "w2" else x4096, weights[name],
+                                   out_qinfo=out_qinfo if name == "wo" else None)
+                for name, _, _ in LAYER_FCS]
+
+    if layer_mode:
+        sess = Session(run_mode=RunMode.LAYER, api=api, device="cuda")
+        with sess.build():
+            return None, [o.data for o in body([Tensor(x) for x in xs])]
+    sess = Session(run_mode=RunMode.GRAPH, api=api, device="cuda")
+    with sess.build():
+        ins = [sess.input(TensorMeta(shape=tuple(x.shape), dtype=Dtype.FLOAT32)) for x in xs]
+        sess.set_output(*body(ins))
+    sess.setup()
+    return sess, None
+
+
+def op_api_path(records, gpu_line):
+    """Phase 8: `ops.fullyconnected` on Q8_0 and Q4_0 block tensors of one
+    Llama-2-7B layer's four projections at M = 128 and 4, and
+    `ops.scaled_dot_product_attention` at prefill ([1, 32, 2048, 128],
+    causal) and decode ([4, 32, 1, 128] over S = 2048, pos_offset 1500,
+    kv_len 1501), recorded into a GRAPH Session(device="cuda") with Api.AUTO
+    and run in layer mode; held against the same graph in an Api.TORCH
+    session.  Returns the launch counts of the AUTO GRAPH runs."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.core.dtypes import Api, Dtype
+    from csinn2_tpu_torch.core.quant import QuantInfo
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.utils.verify import cosine_similarity, verify
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    cases = []
+    for scheme in ("q8_0", "q4_0"):
+        weights = {name: _block_tensor(g, scheme, N, K) for name, N, K in LAYER_FCS}
+        for M in (128, 4):
+            xs = [torch.randn((M, K), generator=g, device="cuda") for K in (4096, 11008)]
+            cases.append((f"{scheme} fc M={M}", weights, M, xs))
+    sdpa_xs = [torch.randn(sh, generator=g, device="cuda").to(torch.bfloat16).float()
+               for sh in ((1, 32, 2048, 128), (1, 32, 2048, 128), (4, 32, 1, 128),
+                          (4, 32, 2048, 128))]
+    cases.append(("sdpa prefill+decode", None, None, sdpa_xs))
+    torch.cuda.synchronize()
+
+    counts = {}
+    for label, weights, M, xs in cases:
+        auto, _ = _op_graph(Api.AUTO, weights, M, xs=xs)
+        ref, _ = _op_graph(Api.TORCH, weights, M, xs=xs)
+        names = [n.cb_name for n in auto.graph.nodes]
+        if not all(n.endswith(":cuda") for n in names):
+            raise AssertionError(f"phase 8 {label}: nodes not on the CUDA tier: {names}")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        outs = auto.run(*xs, unwrap=False)
+        torch.cuda.synchronize()
+        run_counts = dict(launch_counts)
+        for k, n in run_counts.items():
+            counts[k] = counts.get(k, 0) + n
+        want = ref.run(*xs, unwrap=False)
+        _, eager = _op_graph(Api.AUTO, weights, M, layer_mode=True, xs=xs)
+        gates = []
+        for i, (o, e, w_) in enumerate(zip(outs, eager, want)):
+            o, e, w_ = (t.float().cpu().numpy() for t in (o, e, w_))
+            if M is None:
+                r = verify(o, w_, tol=2e-2, min_cosine=0.9999)
+                if not (r.passed and verify(e, w_, tol=2e-2, min_cosine=0.9999).passed):
+                    raise AssertionError(f"phase 8 {label} output {i}: {r}")
+                gates.append(f"{r.cosine_sim:.6f}")
+            else:
+                c, ce = cosine_similarity(o, w_), cosine_similarity(e, w_)
+                if not (c >= 0.9999 and ce >= 0.9999):
+                    raise AssertionError(f"phase 8 {label} {LAYER_FCS[i][0]}: cos {c} / {ce}")
+                gates.append(f"{c:.6f}")
+        t_auto = auto.run_benchmark_device(*xs, iters=10, reps=3)
+        t_ref = ref.run_benchmark_device(*xs, iters=3, reps=3)
+        log(f"  {label}: nodes {names}; launches {run_counts}; cos vs Api.TORCH {gates} "
+            f"(graph and layer mode); graph run {t_auto * 1e3:.3f} ms vs Api.TORCH "
+            f"{t_ref * 1e3:.3f} ms (CUDA events) [{gpu_line}]")
+        if label == "q8_0 fc M=4":
+            # an int8 out_qinfo on wo: the CUDA tier's requantize vs the TORCH tier's
+            y = want[1].float()
+            qi = QuantInfo(scale=float(y.abs().max()) / 127.0, zero_point=0, dtype=Dtype.INT8)
+            qa, _ = _op_graph(Api.AUTO, weights, M, out_qinfo=qi, xs=xs)
+            qr, _ = _op_graph(Api.TORCH, weights, M, out_qinfo=qi, xs=xs)
+            a, b = qa.run(*xs, unwrap=False)[1], qr.run(*xs, unwrap=False)[1]
+            d = (a.int() - b.int()).abs()
+            log(f"  wo with an int8 out_qinfo (scale {qi.scale:.4g}): {a.dtype}, max |d| "
+                f"{int(d.max())} LSB, {int((d > 0).sum())} of {d.numel()} off")
+            if a.dtype != torch.int8 or int(d.max()) > 1:
+                raise AssertionError("phase 8: int8 out_qinfo off by more than 1 LSB")
+        del auto, ref, outs, want, eager
+    for k in ("quant_matmul_t.prefill", "quant_matmul_t.decode", "flash_attention_bhsd"):
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"phase 8 never launched {k}: {counts}")
+    log(f"  phase 8 launches (AUTO graph runs): {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 3: a 2-layer 7B-width model, card against the CPU plain path
 # ---------------------------------------------------------------------------
 
@@ -307,11 +705,11 @@ def _to(tree, device):
 
 
 @contextlib.contextmanager
-def env_flag(name: str, on: bool):
-    """Environment variable `name` set to 1 (or unset) inside the block."""
+def env_flag(name: str, on: bool, value: str = "1"):
+    """Environment variable `name` set to `value` (or unset) inside the block."""
     old = os.environ.pop(name, None)
     if on:
-        os.environ[name] = "1"
+        os.environ[name] = value
     try:
         yield
     finally:
@@ -356,10 +754,20 @@ def model_parity(mode: str, swiglu: bool):
 # phases 4-6: serving paths at full width
 # ---------------------------------------------------------------------------
 
-def serve(gpu_line: str, mode: str, swiglu: bool = False):
+def serve(gpu_line: str, mode: str, swiglu: bool = False, flash_decode: bool = False,
+          base=None):
     """Llama-2-7B (32 layers), `mode` weights made on the card, int8 KV:
     run_queue over the six prompts, then TTFT at prompt 128 and decode
-    tokens/s at batch 4.  Returns the launch counts of the run_queue."""
+    tokens/s at batch 4.  flash_decode: all of it under
+    CSINN2_DECODE_ATTN=flash, with the tokens and decode rate set beside
+    `base` (the default decode's serve result) and one decode step's logits
+    against the default decode's.  Returns dict(counts of the run_queue,
+    outs, tps, steps = decode steps of the run_queue)."""
+    with env_flag("CSINN2_DECODE_ATTN", flash_decode, "flash"):
+        return _serve(gpu_line, mode, swiglu, flash_decode, base)
+
+
+def _serve(gpu_line, mode, swiglu, flash_decode, base):
     import numpy as np
     import torch
     from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -381,6 +789,14 @@ def serve(gpu_line: str, mode: str, swiglu: bool = False):
     reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, n)],
                     max_new_tokens=16) for n in PROMPTS]
 
+    steps = [0]
+    decode_steps = eng.decode_steps
+
+    def counted(next_tokens, n_steps, **kw):
+        steps[0] += n_steps
+        return decode_steps(next_tokens, n_steps, **kw)
+
+    eng.decode_steps = counted
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -388,17 +804,32 @@ def serve(gpu_line: str, mode: str, swiglu: bool = False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
+    eng.decode_steps = decode_steps
     log(f"  run_queue: {len(done)} requests, {sum(len(r.out) for r in done)} tokens "
         f"in {wall:.3f} s (host clock, first call); launches {counts}")
     for n, r in zip(PROMPTS, done):
         if not r.done or len(r.out) != 16 or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"{name} request of prompt {n}: done={r.done} out={r.out}")
     qmm = launch_key(*QMM_MODES[mode], swiglu=False)
+    attn = ("prefill_attention", "flash_attention", "flash_attention_bhsd") if flash_decode \
+        else ATTENTION
     want = [f"{k}.{v}" for k in ((qmm, "quant_matmul_swiglu") if swiglu else (qmm,))
-            for v in ("decode", "prefill")] + list(ATTENTION)
+            for v in ("decode", "prefill")] + list(attn)
     missing = [k for k in want if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"{name} path never launched {missing}")
+    outs = [list(r.out) for r in done]
+    if flash_decode:
+        n_layers = cfg.n_layers
+        log(f"  decode steps {steps[0]}: flash_attention_bhsd "
+            f"{counts.get('flash_attention_bhsd', 0)} launches (want {n_layers} x {steps[0]}), "
+            f"decode_attention {counts.get('decode_attention', 0)}")
+        if counts.get("decode_attention", 0) != 0 or \
+                counts.get("flash_attention_bhsd", 0) != n_layers * steps[0]:
+            raise AssertionError("flash decode launch counts")
+        same = sum(a == b for ra, rb in zip(outs, base["outs"]) for a, b in zip(ra, rb))
+        log(f"  generated tokens equal to the default decode's: {same} of "
+            f"{sum(len(r) for r in outs)} (greedy; argmax ties of near-equal logits may split)")
 
     # TTFT at prompt 128: prefill + first-token sampling, CUDA events
     prompt = reqs[2].prompt
@@ -421,6 +852,19 @@ def serve(gpu_line: str, mode: str, swiglu: bool = False):
     step_logits = eng.decode_step(first)
     if not all(np.isfinite(v).all() for v in step_logits.values()):
         raise AssertionError("decode logits not finite")
+    if flash_decode:
+        # the same step through the default decode_attention: the step's KV
+        # rows are rewritten with the same values
+        from csinn2_tpu_torch.utils.verify import cosine_similarity
+        for sid in range(4):
+            eng.slots[sid].pos -= 1
+        with env_flag("CSINN2_DECODE_ATTN", False):
+            default_logits = eng.decode_step(first)
+        cos = min(cosine_similarity(step_logits[sid], default_logits[sid]) for sid in range(4))
+        log(f"  one decode step at pos 128, batch 4: logits cosine (flash vs default decode) "
+            f"min over lanes {cos:.6f} (gate 0.999)")
+        if cos < 0.999:
+            raise AssertionError(f"flash decode logits cosine {cos}")
     nxt = {sid: int(np.argmax(v)) for sid, v in step_logits.items()}
     n_steps, rates = 32, []
     for _ in range(3):
@@ -437,11 +881,13 @@ def serve(gpu_line: str, mode: str, swiglu: bool = False):
     tps = statistics.median(rates)
     log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events) "
         f"[{gpu_line}]")
-    log(f"  {name} decode batch 4 at pos ~130: {tps:.2f} tok/s, {4e3 / tps:.3f} ms/step "
-        f"(median of 3 x {n_steps} steps, CUDA events, incl. host launch gaps) [{gpu_line}]")
+    log(f"  {name}{' flash decode' if flash_decode else ''} decode batch 4 at pos ~130: "
+        f"{tps:.2f} tok/s, {4e3 / tps:.3f} ms/step (median of 3 x {n_steps} steps, CUDA "
+        f"events, incl. host launch gaps) [{gpu_line}]"
+        + (f"; default decode (phase 4) {base['tps']:.2f} tok/s" if flash_decode else ""))
     del eng
     torch.cuda.empty_cache()
-    return counts
+    return dict(counts=counts, outs=outs, tps=tps, steps=steps[0])
 
 
 # ---------------------------------------------------------------------------
@@ -626,29 +1072,44 @@ def main() -> int:
     log("phase 2: kernels against their plain versions at 7B shapes")
     check_quant_matmul(records)
     check_attention(records)
+    check_new_quant_matmul(records)
+    check_flash_bhsd(records)
     torch.cuda.empty_cache()
+    # kernel name → (launch counts of the run whose path it is on, the run)
+    path_counts = {}
+    api_counts = kernel_api_path()
+    for k in ("quant_matmul_none", "quant_matmul_int8dot", "quant_matmul_requant"):
+        path_counts[k] = (api_counts, "phase 2 (kernel API: no package caller)")
     log("phase 3: model parity (card vs cpu plain path)")
     for mode, swiglu in (("q8_0", False), ("q4_0", False), ("int8", False), ("int4", False),
                          ("q4_0", True)):
         model_parity(mode, swiglu)
         torch.cuda.empty_cache()
-    # kernel name → (launch counts of the serving run whose path it is on, the run)
-    path_counts = {}
     log("phase 4: the first slice's main path, Llama-2-7B Q8_0 int8 KV, run_queue batch 4")
-    counts = serve(gpu_line, "q8_0")
+    q8_0 = serve(gpu_line, "q8_0")
     for k in ("quant_matmul",) + ATTENTION:
-        path_counts[k] = (counts, "phase 4 (Q8_0)")
+        path_counts[k] = (q8_0["counts"], "phase 4 (Q8_0)")
     log("phase 5: this slice's main path, Llama-2-7B Q4_0 int8 KV, run_queue batch 4")
-    path_counts["quant_matmul_q4_0"] = (serve(gpu_line, "q4_0"), "phase 5 (Q4_0)")
+    path_counts["quant_matmul_q4_0"] = (serve(gpu_line, "q4_0")["counts"], "phase 5 (Q4_0)")
     log("phase 6: the other weight modes' paths, Llama-2-7B int8 KV, run_queue batch 4")
-    path_counts["quant_matmul_channel"] = (serve(gpu_line, "int8"), "phase 6 (INT8_CHANNEL)")
-    path_counts["quant_matmul_int4_channel"] = (serve(gpu_line, "int4"),
+    path_counts["quant_matmul_channel"] = (serve(gpu_line, "int8")["counts"],
+                                           "phase 6 (INT8_CHANNEL)")
+    path_counts["quant_matmul_int4_channel"] = (serve(gpu_line, "int4")["counts"],
                                                 "phase 6 (INT4_CHANNEL)")
-    path_counts["quant_matmul_swiglu"] = (serve(gpu_line, "q4_0", swiglu=True),
+    path_counts["quant_matmul_swiglu"] = (serve(gpu_line, "q4_0", swiglu=True)["counts"],
                                           "phase 6 (Q4_0, CSINN2_SWIGLU_FUSE=1)")
     log("phase 7: the CNN path, MobileNetV1 INT8_SYM 224, graph session, CSINN2_FUSE_DS=1")
     path_counts["fused_dsconv"] = (cnn_path(records, gpu_line),
                                    f"phase 7 (MobileNetV1 INT8_SYM, fused, batch {CNN_BATCH})")
+    log("phase 8: the op API's CUDA tier at Llama-2-7B width (block fc, SDPA), "
+        "GRAPH session and layer mode")
+    path_counts["quant_matmul_t"] = (op_api_path(records, gpu_line),
+                                     "phase 8 (op API, Q8_0/Q4_0 block fullyconnected)")
+    log("phase 9: flash decode, Llama-2-7B Q8_0 int8 KV, run_queue batch 4, "
+        "CSINN2_DECODE_ATTN=flash")
+    flash = serve(gpu_line, "q8_0", flash_decode=True, base=q8_0)
+    path_counts["flash_attention_bhsd"] = (flash["counts"],
+                                           "phase 9 (Q8_0 run_queue, CSINN2_DECODE_ATTN=flash)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

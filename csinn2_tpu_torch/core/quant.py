@@ -1,7 +1,6 @@
-"""Quantization math: per-tensor / per-channel affine quantize and dequantize
-(counterpart of csinn2_tpu/core/quant.py; the block-quant helpers, the
-fixed-point `requantize_int` oracle and `quantize_multiplier` are not ported
-yet, ROADMAP queue A item 10).
+"""Quantization math: per-tensor / per-channel affine quantize and dequantize,
+multiplier folding, the fixed-point requantize oracle and llama.cpp block
+quant (counterpart of csinn2_tpu/core/quant.py).
 
 (ref: source/nn2/utils.c — csinn_tensor_data_convert :2206.)  `quantize`
 rounds half to even (`torch.round`, as `jnp.round`).  It divides by the
@@ -12,11 +11,17 @@ by a constant into that product), and what the port's in-graph requantize
 steps and CUDA kernels compute.  The scale is an f32 tensor on the data's
 device in both: PyTorch's CUDA division by a host scalar would take a
 reciprocal of its own.
+
+`quantize_multiplier`, `requantize_int`, `block_quantize` and
+`block_dequantize` take and return numpy arrays, as the JAX functions do, so
+the tests carry the same bytes into both packages; `requantize_float` takes
+a torch tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -144,3 +149,119 @@ def dequantize(q, qinfo: QuantInfo) -> torch.Tensor:
     shp = qinfo.broadcast_shape(q.dim())
     scale, zp, _ = qinfo.tensors(q.device)
     return (q.float() - zp.reshape(shp)) * scale.reshape(shp)
+
+
+def quantize_multiplier(double_multiplier) -> Tuple[np.ndarray, np.ndarray]:
+    """real multiplier → (int32 fixed-point multiplier, shift), TFLite
+    semantics: q = round(m · 2^31) with m normalized to [0.5, 1); the value
+    represented is q · 2^(shift - 31).  (ref: shl_quantize_multiplier,
+    source/nn2/utils.c:185-210.)"""
+    m = np.atleast_1d(np.asarray(double_multiplier, np.float64))
+    q_out = np.zeros(m.shape, np.int32)
+    s_out = np.zeros(m.shape, np.int32)
+    for i, v in np.ndenumerate(m):
+        if v == 0.0:
+            continue
+        frac, exp = math.frexp(v)
+        q = round(frac * (1 << 31))
+        if q == (1 << 31):
+            q //= 2
+            exp += 1
+        if exp < -31:
+            q, exp = 0, 0
+        q_out[i], s_out[i] = q, exp
+    return q_out, s_out
+
+
+def _np_dtype(dtype: Dtype):
+    return np.dtype(str(dtype.torch).replace("torch.", ""))
+
+
+def requantize_int(acc_i32, multiplier, shift, out_zp, out_dtype: Dtype) -> np.ndarray:
+    """Exact integer requantize of an int32 accumulator, in int64 on the host
+    (numpy): the bit-exactness oracle of kernels/requant.py.
+
+    The gemmlowp/TFLite chain (ref: requantize_m4_s,
+    source/thead_rvv/int8/gemm_int8_packn.c:26-41): clip(acc << left) to
+    int32, saturating rounding doubling high multiply with C-truncating
+    division, rounding divide by 2^right, + zp, clip to out_dtype."""
+    x = np.asarray(acc_i32, np.int64)
+    m = np.asarray(multiplier, np.int64)
+    s = np.asarray(shift, np.int64)
+    left = np.maximum(s, 0)
+    right = np.maximum(-s, 0)
+    x = np.clip(x << left, -(2**31), 2**31 - 1)
+    prod = x * m
+    nudge = np.where(prod >= 0, 1 << 30, 1 - (1 << 30))
+    q = prod + nudge
+    x = np.where(q >= 0, q >> 31, -((-q) >> 31))
+    x = np.clip(x, -(2**31), 2**31 - 1)
+    mask = (np.int64(1) << right) - 1
+    remainder = x & mask
+    threshold = (mask >> 1) + np.where(x < 0, 1, 0)
+    x = (x >> right) + np.where(remainder > threshold, 1, 0)
+    x = np.clip(x + np.asarray(out_zp, np.int64), out_dtype.qmin, out_dtype.qmax)
+    return x.astype(_np_dtype(out_dtype))
+
+
+def requantize_float(acc_i32: torch.Tensor, eff_scale, out_zp, out_dtype: Dtype) -> torch.Tensor:
+    """Float-path requantize: round(acc · eff_scale) + zp, clipped (eff_scale
+    scalar or broadcast against acc by the caller), in f32."""
+    eff = torch.as_tensor(np.asarray(eff_scale, np.float32), device=acc_i32.device)
+    x = torch.round(acc_i32.float() * eff) + float(out_zp)
+    return torch.clamp(x, out_dtype.qmin, out_dtype.qmax).to(out_dtype.torch)
+
+
+# ---------------------------------------------------------------------------
+# Block quantization (llama.cpp-compatible Q8_0 / Q4_0)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BlockQuant:
+    """Block-quantized weight: int8 values (Q4_0's in [-8, 7], unpacked in an
+    int8 carrier) and one fp16 scale per 32-element block along the last
+    axis.  (ref: block_quantize_q4/q8, source/nn2/utils.c:2079-2180.)
+
+    values: int8 array, original shape.  scales: fp16 array, the original
+    shape with the last dim / 32.  Numpy arrays or torch tensors."""
+
+    values: object
+    scales: object
+    scheme: QuantScheme
+
+    @property
+    def shape(self):
+        return tuple(self.values.shape)
+
+
+def block_quantize(x: np.ndarray, scheme: QuantScheme) -> BlockQuant:
+    """f32 → Q8_0/Q4_0 (numpy): per-32-block absmax scale stored as fp16,
+    values rounded against that fp16 scale and clipped."""
+    if x.shape[-1] % BLOCK_SIZE:
+        raise ValueError(f"last dim {x.shape[-1]} % {BLOCK_SIZE} != 0")
+    xb = np.asarray(x, np.float32).reshape(*x.shape[:-1], -1, BLOCK_SIZE)
+    amax = np.abs(xb).max(axis=-1, keepdims=True)
+    if scheme == QuantScheme.BLOCK_Q8_0:
+        d = amax / 127.0
+    elif scheme == QuantScheme.BLOCK_Q4_0:
+        d = amax / 7.0
+    else:
+        raise ValueError(f"unsupported block scheme {scheme}")
+    d16 = d.astype(np.float16)
+    dd = d16.astype(np.float32)
+    q = np.where(dd == 0, 0.0, np.round(xb / np.where(dd == 0, 1.0, dd)))
+    q = np.clip(q, -127, 127) if scheme == QuantScheme.BLOCK_Q8_0 else np.clip(q, -8, 7)
+    return BlockQuant(values=q.astype(np.int8).reshape(x.shape), scales=d16.squeeze(-1),
+                      scheme=scheme)
+
+
+def dequantize_blocks(values, scales) -> torch.Tensor:
+    """A (values, scales) block pair → f32 tensor on the values' device."""
+    v = _as_torch(values).float()
+    s = _as_torch(scales).to(v.device).float()
+    return (v.reshape(*v.shape[:-1], -1, BLOCK_SIZE) * s[..., None]).reshape(v.shape)
+
+
+def block_dequantize(bq: BlockQuant) -> torch.Tensor:
+    """Q8_0/Q4_0 → f32 tensor (on the values' device)."""
+    return dequantize_blocks(bq.values, bq.scales)

@@ -4,9 +4,12 @@ csinn2_tpu/kernels/flash_attention.py.
 
 Each entry point launches its CUDA kernel (csrc/attention.cu) for CUDA
 tensors and runs the plain PyTorch version `_attention_ref` for CPU tensors.
-`prefill_attention` and `flash_attention` share one device kernel; they stay
-two entry points because the model dispatches between them by the same
-8 MiB rule as the JAX package.
+`prefill_attention` and `flash_attention` share one device kernel
+(`attn_fwd_kernel`, which reads q and writes the output through (batch,
+seq, head) strides, so the bshd and bhsd layouts need no change to it); they
+stay two entry points because the model dispatches between them by the same
+8 MiB rule as the JAX package.  Launch counts: `prefill_attention`,
+`flash_attention` (bshd) and `flash_attention_bhsd`.
 
 Semantics shared by all three (per batch row b): query i sits at position
 q_offset[b] + i; it sees keys kpos < kv_len[b] (and kpos <= its position when
@@ -119,9 +122,14 @@ def decode_attention(q, k, v, *, q_offset, kv_len=None,
     return out
 
 
-def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale):
-    """bshd prefill: q [b, sq, hq, d]; k/v [b, hk, S, d] → [b, sq, hq, d]."""
-    b, sq, hq, d = q.shape
+def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
+                   bhsd: bool = False):
+    """q [b, sq, hq, d] (bshd) or [b, hq, sq, d] (bhsd); k/v [b, hk, S, d] →
+    the output in q's layout."""
+    if bhsd:
+        b, hq, sq, d = q.shape
+    else:
+        b, sq, hq, d = q.shape
     _, hk, S, _ = k.shape
     if hq % hk:
         raise ValueError(f"{name}: hq={hq} not a multiple of hk={hk}")
@@ -129,7 +137,10 @@ def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale):
         scale = 1.0 / math.sqrt(d)
     if kv_len is None:
         kv_len = S
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):      # meta: shapes while a graph records
+        if bhsd:
+            return _attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                                  scale=scale, kv_scale=kv_scale).to(q.dtype)
         return _attention_ref(q.permute(0, 2, 1, 3), k, v, causal=causal,
                               q_offset=q_offset, kv_len=kv_len, scale=scale,
                               kv_scale=kv_scale).permute(0, 2, 1, 3).to(q.dtype)
@@ -138,12 +149,14 @@ def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale):
         raise NotImplementedError(f"{name}: head_dim {d} (CUDA kernel takes 64 or 128)")
     off = _per_row(q_offset, b, q.device)
     kvl = _per_row(kv_len, b, q.device)
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty(tuple(q.shape), dtype=q.dtype, device=q.device)
+    # the kernel's (batch, seq, head) strides of q and out, in either layout
+    seq_dim, head_dim = (2, 1) if bhsd else (1, 2)
     ll3 = ctypes.c_longlong * 3
-    qs = ll3(q.stride(0), q.stride(1), q.stride(2))
+    qs = ll3(q.stride(0), q.stride(seq_dim), q.stride(head_dim))
     ks = ll3(*k.stride()[:3])
     vs = ll3(*v.stride()[:3])
-    os_ = ll3(out.stride(0), out.stride(1), out.stride(2))
+    os_ = ll3(out.stride(0), out.stride(seq_dim), out.stride(head_dim))
     vp, sp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
     fn = _build.c_function(
         "attention", "attention_fwd_launch",
@@ -173,11 +186,12 @@ def prefill_attention(q, k, v, *, causal: bool = True, q_offset=0,
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=0, kv_len=None,
                     scale: Optional[float] = None,
                     kv_scale: Optional[float] = None, qo_layout: str = "bhsd"):
-    """Blocked online-softmax attention.  Only qo_layout="bshd" (q and the
-    output [b, sq, hq, d]) is ported; "bhsd" is a ROADMAP queue B item."""
-    if qo_layout != "bshd":
-        raise NotImplementedError(
-            f"flash_attention qo_layout={qo_layout!r} is not ported yet "
-            "(ROADMAP queue B); use qo_layout='bshd'")
-    return _attention_fwd("flash_attention", q, k, v, causal, q_offset,
-                          kv_len, scale, kv_scale)
+    """Blocked online-softmax attention: q [b, hq, sq, d] (qo_layout "bhsd",
+    the JAX default) or [b, sq, hq, d] ("bshd"); k/v [b, hk, S, d] → the
+    output in q's layout and dtype.  q_offset / kv_len scalar or [b];
+    kv_len defaults to S."""
+    if qo_layout not in ("bhsd", "bshd"):
+        raise ValueError(f"flash_attention: qo_layout {qo_layout!r}")
+    bhsd = qo_layout == "bhsd"
+    return _attention_fwd("flash_attention_bhsd" if bhsd else "flash_attention", q, k, v,
+                          causal, q_offset, kv_len, scale, kv_scale, bhsd=bhsd)

@@ -1,18 +1,33 @@
-"""Fused dequant-GEMM: y = x @ dequant(w_q) [+ bias] [→ SwiGLU pairs]
-(counterpart of csinn2_tpu/kernels/qmatmul.py).
+"""Fused dequant-GEMM: y = (x @ dequant(w_q)) · epilogue_scale + bias, with
+the requantize/cast epilogue (counterpart of csinn2_tpu/kernels/qmatmul.py).
 
-`quant_matmul` launches the hand-written CUDA kernel (csrc/qmatmul.cuh, built
-as csrc/qmatmul.cu for int8 values and csrc/qmatmul_int4.cu for packed int4)
-for a CUDA tensor and runs `quant_matmul_ref`, its plain PyTorch version, for
-a CPU tensor.  Ported modes: scale_mode "block" (Q8_0, Q4_0: f32 [K/32, N]
-scales) and "channel" (INT8_CHANNEL, INT4_CHANNEL: f32 [N] scales), int8
-values [K, N] or nibble-packed int4 [K/2, N] (`pack_int4`), an f32 bias, and
-the swiglu epilogue over the swiglu128 pair layout.  scale_mode "none",
-w_transposed, epilogue_scale and integer outputs are ROADMAP queue B items
-and raise NotImplementedError.
+`quant_matmul` launches a hand-written CUDA kernel for CUDA tensors and runs
+`quant_matmul_ref`, its plain PyTorch version, for CPU tensors.  Every mode
+of the JAX function is ported:
 
-Numerics: the CUDA kernel dequantizes in f32 and accumulates in f32, as
-quant_matmul_ref does (the TPU kernel forms w·s in bf16 instead).
+  * scale_mode "block" (Q8_0, Q4_0: f32 [K/32, N] scales), "channel" ([N])
+    or "none"; int8 values [K, N], nibble-packed int4 [K/2, N]
+    (`pack_int4`), or with w_transposed the [N, K] / packed [N, K/2]
+    "rearranged" layout (`pack_int4_t`; block scales [N, K/32]);
+  * a float x (bf16 carrier; an int8 x is converted exactly) through
+    csrc/qmatmul.cuh (built as csrc/qmatmul.cu for int8 values and
+    csrc/qmatmul_int4.cu for packed int4), f32 accumulation;
+  * an int8 x with int8 or packed [K, N] or int8 [N, K] weights and
+    channel or no scales (JAX's int_dot path) through csrc/qmatmul_int8dot.cu:
+    s8×s8 products summed exactly in int32;
+  * epilogues: channel scale, epilogue_scale, f32 bias, the swiglu pairs
+    (float x), and the output cast — f32/bf16, int8/uint8/int16 as
+    clip(round(y) + out_zp), int32 as a plain cast; or, with rq_mult /
+    rq_shift (int8 x and int8 weights, scale_mode "none"), an int32 bias
+    added to the exact sum and the fixed-point requantize of
+    kernels/requant.py.
+
+Numerics: a float x is dequantized and accumulated in f32 (the TPU kernel
+forms w·s in bf16 instead).  The float epilogue follows what the JAX
+kernel's compiled code computes (XLA on the CPU): the last multiply before
+the bias add is one fused multiply-add, fma(acc·s, e, b) or fma(acc, s, b);
+the plain version emulates it in f64 (the product of two f32 is exact there)
+and rounds once.
 """
 
 from __future__ import annotations
@@ -21,10 +36,12 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from csinn2_tpu_torch.core.quant import BLOCK_SIZE
 from csinn2_tpu_torch.kernels import _build
+from csinn2_tpu_torch.kernels.requant import requant_int
 
 BLOCK = BLOCK_SIZE
 SWIGLU_HALF = 128     # columns per half of a swiglu128 pair
@@ -87,141 +104,306 @@ def swiglu_pairs(h: torch.Tensor) -> torch.Tensor:
 
 # -- arguments ------------------------------------------------------------------
 
+# output dtype → (kind code of csrc/epilogue.cuh, (qmin, qmax) of the clip or None)
+OUT_KINDS = {torch.float32: (0, None), torch.bfloat16: (1, None),
+             torch.int8: (2, (-128, 127)), torch.uint8: (3, (0, 255)),
+             torch.int16: (4, (-32768, 32767)), torch.int32: (5, None)}
+
+
 def _unported(what: str):
     return NotImplementedError(
-        f"quant_matmul {what} is not ported yet (ROADMAP queue B); this "
-        "package runs scale_mode 'block'/'channel', int8 or packed int4 "
-        "values, bias and the swiglu epilogue, with a float output")
+        f"quant_matmul {what} is not ported (ROADMAP queue B item 9b): no "
+        "caller or test of the JAX package reaches it")
 
 
-def _check_args(scale_mode, w_transposed, epilogue_scale, out_dtype):
-    if scale_mode not in ("block", "channel"):
-        raise _unported(f"scale_mode={scale_mode!r}")
+def _check_args(x, scale_mode, out_dtype, packed_int4, w_transposed, swiglu,
+                rq_mult, rq_shift, bias, w_dtype=torch.int8) -> bool:
+    """The JAX wrapper's asserts as ValueError; returns int_dot (s8×s8 → s32:
+    int8 x and int8 weights with channel or no scales, not packed [N, K/2])."""
+    if scale_mode not in ("block", "channel", "none"):
+        raise ValueError(f"quant_matmul: scale_mode {scale_mode!r}")
+    if out_dtype not in OUT_KINDS:
+        raise ValueError(f"quant_matmul: out_dtype {out_dtype} not supported")
+    int_out = OUT_KINDS[out_dtype][1] is not None
+    int_dot = (x.dtype == torch.int8 and w_dtype == torch.int8
+               and scale_mode in ("channel", "none")
+               and not (packed_int4 and w_transposed))
+    if packed_int4 and w_transposed and bias is not None:
+        raise ValueError("quant_matmul: bias not supported with packed-int4 split dots")
+    if swiglu and int_out:
+        raise ValueError("quant_matmul: the swiglu epilogue is float-only")
+    if (rq_mult is None) != (rq_shift is None):
+        raise ValueError("quant_matmul: rq_mult and rq_shift go together")
+    if rq_mult is not None:
+        if scale_mode != "none":
+            raise ValueError("quant_matmul: fold scales into rq_mult/rq_shift "
+                             "(scale_mode='none')")
+        if not int_dot:
+            raise ValueError("quant_matmul: rq_mult requires int8 x and unpacked int8 w")
+        if not int_out:
+            raise ValueError("quant_matmul: integer out_dtype required with rq_mult")
+    if swiglu and w_transposed:
+        raise _unported("swiglu with w_transposed")
+    if swiglu and int_dot:
+        raise _unported("swiglu on the int8 x (int_dot) path")
+    return int_dot
+
+
+def _weight_kn(w_q, K: int, packed_int4: bool, w_transposed: bool) -> torch.Tensor:
+    """The int8 weight values as [K, N] (a view for int8 [N, K])."""
     if w_transposed:
-        raise _unported("w_transposed layout")
-    if epilogue_scale is not None:
-        raise _unported("epilogue_scale")
-    if not out_dtype.is_floating_point:
-        raise _unported(f"integer out_dtype {out_dtype}")
+        return (unpack_int4_t(w_q, K) if packed_int4 else w_q).t()
+    return unpack_int4(w_q, K) if packed_int4 else w_q
+
+
+def _fma_epilogue(acc: torch.Tensor, scales, scale_mode, epilogue_scale, bias):
+    """acc [· s] [· e] [+ b] in f32 as the JAX kernel's compiled epilogue
+    rounds it: with a bias, the last multiply and the add are one fused
+    multiply-add (emulated in f64, rounded once)."""
+    mults = ([scales.float()] if scale_mode == "channel" else []) \
+        + ([epilogue_scale] if epilogue_scale is not None else [])
+    if bias is None:
+        for m in mults:
+            acc = acc * m
+        return acc
+    for m in mults[:-1]:
+        acc = acc * m
+    if not mults:
+        return acc + bias.float()
+    last = mults[-1]
+    last = last.double() if isinstance(last, torch.Tensor) else last
+    return (acc.double() * last + bias.double()).float()
 
 
 def quant_matmul_ref(x, w_q, scales=None, bias=None, *, scale_mode="channel",
                      out_dtype=torch.float32, epilogue_scale=None,
                      packed_int4: bool = False, w_transposed: bool = False,
-                     swiglu: bool = False):
+                     out_zp: float = 0.0, swiglu: bool = False,
+                     rq_mult=None, rq_shift=None):
     """Plain PyTorch version of the same contraction (CPU path and the CUDA
-    kernel's yardstick), in f32 as the JAX reference: y = x @ (q · s repeated
-    over 32-row K blocks) for block scales, (x @ q) · s for channel scales;
-    then + bias, then the swiglu pairs; cast to out_dtype."""
-    _check_args(scale_mode, w_transposed, epilogue_scale, out_dtype)
-    x = x.float()
+    kernels' yardstick).  A float x: f32, y = x @ (q · s repeated over 32-row
+    K blocks) for block scales, x @ q for channel/none.  The int_dot modes:
+    the exact integer sum (f64 products and sums, exact below 2^53), wrapped
+    to int32 as the TPU's int32 accumulator; with rq_mult the int32 bias and
+    requant_int; else converted to f32.  Then the epilogue (_fma_epilogue),
+    the swiglu pairs, and the output cast."""
+    int_dot = _check_args(x, scale_mode, out_dtype, packed_int4, w_transposed, swiglu,
+                          rq_mult, rq_shift, bias, w_q.dtype)
     K = x.shape[-1]
-    w = (unpack_int4(w_q, K) if packed_int4 else w_q).float()
+    w = _weight_kn(w_q, K, packed_int4, w_transposed)
     N = w.shape[1]
-    if scale_mode == "block":
-        w = (w.reshape(K // BLOCK, BLOCK, N) * scales.float()[:, None, :]).reshape(K, N)
-        acc = x @ w
+    clip = OUT_KINDS[out_dtype][1]
+    if int_dot:
+        acc32 = (x.double() @ w.double()).long().to(torch.int32)
+        if rq_mult is not None:
+            if bias is not None:
+                acc32 = acc32 + bias.to(torch.int32)
+            return requant_int(acc32, rq_mult, rq_shift, int(out_zp),
+                               clip[0], clip[1]).to(out_dtype)
+        acc = acc32.float()
     else:
-        acc = (x @ w) * scales.float()
-    if bias is not None:
-        acc = acc + bias.float()
+        x = x.float()
+        if scale_mode == "block":
+            s = (scales.t() if w_transposed else scales).float()
+            w = (w.float().reshape(K // BLOCK, BLOCK, N) * s[:, None, :]).reshape(K, N)
+        acc = x @ w.float()
+    acc = _fma_epilogue(acc, scales, scale_mode, epilogue_scale, bias)
     if swiglu:
         acc = swiglu_pairs(acc)
+    if clip is not None:
+        acc = torch.clamp(torch.round(acc) + float(out_zp), clip[0], clip[1])
     return acc.to(out_dtype)
 
 
-def launch_key(scale_mode: str, packed_int4: bool, swiglu: bool) -> str:
-    """The launch_counts name of a quant_matmul mode (a suffix ".decode" for
-    M <= 16 or ".prefill" marks the kernel variant)."""
+def launch_key(scale_mode: str, packed_int4: bool, swiglu: bool, *,
+               w_transposed: bool = False, int_dot: bool = False,
+               requant: bool = False) -> str:
+    """The launch_counts name of a quant_matmul mode family (a suffix
+    ".decode" for M <= 16 or ".prefill" marks the kernel variant)."""
+    if requant:
+        return "quant_matmul_requant"
+    if int_dot:
+        return "quant_matmul_int8dot"
+    if w_transposed:
+        return "quant_matmul_t"
     if swiglu:
         return "quant_matmul_swiglu"
+    if scale_mode == "none":
+        return "quant_matmul_none"
     if scale_mode == "block":
         return "quant_matmul_q4_0" if packed_int4 else "quant_matmul"
     return "quant_matmul_int4_channel" if packed_int4 else "quant_matmul_channel"
 
 
-DECODE_MAX_M = 16     # csrc/qmatmul.cuh: M <= 16 takes qmm_decode_kernel
+DECODE_MAX_M = 16     # csrc/qmatmul.cuh and qmatmul_int8dot.cu: the M <= 16 variants
+SCALE_KINDS = {"block": 0, "channel": 1, "none": 2}
 
 
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(M: int, N: int, K: int, swiglu: bool, device: int) -> int:
-    """f32 workspace (split-K partial sums, or the swiglu epilogue's sums)
-    the kernel asks for at this shape; csrc/qmatmul.cuh alone knows its tiles
-    and split-K plan."""
+def _workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
+                      w_transposed: bool, device: int) -> int:
+    """f32 workspace (split-K partial sums, or the sums that the swiglu
+    epilogue and the epilogues qmm_reduce applies read) the kernel asks for
+    at this shape; csrc/qmatmul.cuh alone knows its tiles and split-K plan."""
     fn = _build.c_function("qmatmul", "quant_matmul_workspace",
-                           (ctypes.c_int,) * 5 + (ctypes.POINTER(ctypes.c_int),),
+                           (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_int),),
                            restype=ctypes.c_longlong)
     err = ctypes.c_int(0)
-    n = fn(M, N, K, int(swiglu), device, ctypes.byref(err))
+    n = fn(M, N, K, int(swiglu), int(reduce_epi), int(w_transposed), device, ctypes.byref(err))
     _build.check("qmatmul", err.value, "quant_matmul workspace")
     return n
+
+
+def _device_index(x) -> int:
+    return x.device.index if x.device.index is not None else torch.cuda.current_device()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of csrc/qmatmul.cu quant_matmul_int8 (and _int4) and of
+# csrc/qmatmul_int8dot.cu quant_matmul_int8dot
+_FLOAT_ARGTYPES = (_VP,) * 5 + (_CI,) * 4 + (_CF, _CI, _CF, _VP, ctypes.c_longlong) \
+    + (_CI,) * 4 + (_VP,)
+_INT8DOT_ARGTYPES = (_VP, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CF, _CI, _CF) + (_CI,) * 3 + (_VP,)
+
+
+def _check_tensors(tensors, dtypes):
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError("quant_matmul: all tensors must be on one device")
+        if t.dtype != dt:
+            raise TypeError(f"quant_matmul: want {dt}, got {t.dtype} "
+                            f"(shape {tuple(t.shape)})")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("quant_matmul: tensors must be contiguous and 16-byte aligned")
 
 
 def quant_matmul(x, w_q, scales=None, bias=None, *, scale_mode: str = "channel",
                  out_dtype=torch.float32, epilogue_scale: Optional[float] = None,
                  packed_int4: bool = False, w_transposed: bool = False,
-                 swiglu: bool = False):
-    """y[M, N] = x[M, K] @ dequant(w_q, scales) + bias[N]; with swiglu the
-    pairs of the swiglu128 layout give y[M, N/2].
+                 out_zp: float = 0.0, swiglu: bool = False, rq_mult=None, rq_shift=None):
+    """y[M, N] = (x[M, K] @ dequant(w_q, scales)) · epilogue_scale + bias[N],
+    cast to out_dtype (integers: clip(round(y) + out_zp)); with swiglu the
+    pairs of the swiglu128 layout give y[M, N/2]; with rq_mult/rq_shift
+    ([N] or scalars, int32) the fixed-point requantize of acc + bias.
 
-    w_q: int8 [K, N], or packed int4 [K/2, N] with packed_int4.  scales: f32
-    [K/32, N] (block) or [N] (channel).
-    CUDA tensors: x bf16, w_q int8, scales/bias f32, all contiguous;
-    K % 32 == 0, N % 16 == 0 (swiglu: N % 256 == 0); out_dtype bf16 or f32.
-    CPU tensors: quant_matmul_ref."""
-    _check_args(scale_mode, w_transposed, epilogue_scale, out_dtype)
-    if x.device.type == "cpu":
-        return quant_matmul_ref(x, w_q, scales, bias, scale_mode=scale_mode,
-                                out_dtype=out_dtype, packed_int4=packed_int4,
-                                swiglu=swiglu)
+    w_q: int8 [K, N]; packed int4 [K/2, N] with packed_int4; with
+    w_transposed int8 [N, K] or packed [N, K/2].  scales: f32 [K/32, N]
+    (block; [N, K/32] transposed), [N] (channel) or None (none).
+    CUDA tensors, all contiguous and 16-byte aligned:
+      * float path: x bf16 (or int8, converted), scales/bias f32;
+        K % 32 == 0, N % 16 == 0 (swiglu: N % 256 == 0).
+      * int_dot path (x int8, w int8 and not packed [N, K/2], channel or
+        none scales): bias f32, or int32 with rq_mult; K % 16 == 0 (packed:
+        % 32), N % 16 == 0.
+    CPU tensors (and meta tensors, whose shapes a recording graph infers):
+    quant_matmul_ref."""
+    int_dot = _check_args(x, scale_mode, out_dtype, packed_int4, w_transposed, swiglu,
+                          rq_mult, rq_shift, bias, w_q.dtype)
+    kw = dict(scale_mode=scale_mode, out_dtype=out_dtype, epilogue_scale=epilogue_scale,
+              packed_int4=packed_int4, w_transposed=w_transposed, out_zp=out_zp,
+              swiglu=swiglu, rq_mult=rq_mult, rq_shift=rq_shift)
+    if x.device.type in ("cpu", "meta"):      # meta: shapes while a graph records
+        return quant_matmul_ref(x, w_q, scales, bias, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: unsupported device {x.device}")
     M, K = x.shape
-    N = w_q.shape[1]
-    tensors = [x, w_q, scales] + ([bias] if bias is not None else [])
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("quant_matmul: all tensors must be on one device")
-    if x.dtype != torch.bfloat16 or w_q.dtype != torch.int8 \
-            or scales.dtype != torch.float32 \
-            or (bias is not None and bias.dtype != torch.float32):
-        raise TypeError("quant_matmul: want x bf16, w_q int8, scales/bias f32; "
-                        f"got {x.dtype}, {w_q.dtype}, {scales.dtype}")
-    w_shape = (K // 2, N) if packed_int4 else (K, N)
-    s_shape = (K // BLOCK, N) if scale_mode == "block" else (N,)
-    if tuple(w_q.shape) != w_shape or K % BLOCK or N % 16 \
-            or tuple(scales.shape) != s_shape \
-            or (bias is not None and tuple(bias.shape) != (N,)) \
-            or (swiglu and N % (2 * SWIGLU_HALF)):
-        raise ValueError(f"quant_matmul: bad shapes x{tuple(x.shape)} "
-                         f"w{tuple(w_q.shape)} s{tuple(scales.shape)} "
-                         f"(packed_int4={packed_int4}, scale_mode={scale_mode!r}, "
-                         f"swiglu={swiglu}; need K % 32 == 0, N % 16 == 0, "
-                         "swiglu N % 256 == 0)")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
-        raise ValueError("quant_matmul: tensors must be contiguous and "
-                         "16-byte aligned")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"quant_matmul: out_dtype {out_dtype} not supported")
+    if w_transposed:
+        N = w_q.shape[0]
+        w_shape = (N, K // 2) if packed_int4 else (N, K)
+    else:
+        N = w_q.shape[1]
+        w_shape = (K // 2, N) if packed_int4 else (K, N)
+    s_shape = {"block": (N, K // BLOCK) if w_transposed else (K // BLOCK, N),
+               "channel": (N,), "none": None}[scale_mode]
+    bad = (tuple(w_q.shape) != w_shape or N % 16
+           or (None if scales is None else tuple(scales.shape)) != s_shape
+           or (bias is not None and tuple(bias.shape) != (N,))
+           or (swiglu and N % (2 * SWIGLU_HALF)))
+    if int_dot:
+        bad = bad or K % (BLOCK if packed_int4 else 16)
+    else:
+        bad = bad or K % BLOCK
+    if bad:
+        raise ValueError(f"quant_matmul: bad shapes x{tuple(x.shape)} w{tuple(w_q.shape)} "
+                         f"s{None if scales is None else tuple(scales.shape)} (scale_mode="
+                         f"{scale_mode!r}, packed_int4={packed_int4}, w_transposed="
+                         f"{w_transposed}, swiglu={swiglu}; need N % 16 == 0, K % 32 == 0 "
+                         "(int8 x with int8 w: K % 16), swiglu N % 256 == 0)")
     out = torch.empty((M, N // 2 if swiglu else N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out
-    device = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    n_ws = _workspace_floats(M, N, K, swiglu, device)
+    variant = "decode" if M <= DECODE_MAX_M else "prefill"
+    if int_dot:
+        _launch_int8dot(x, w_q, scales, bias, out, M, N, K, **kw)
+        key = launch_key(scale_mode, packed_int4, swiglu, int_dot=True,
+                         requant=rq_mult is not None)
+    else:
+        if x.dtype == torch.int8:
+            x = x.to(torch.bfloat16)            # exact carrier
+        _launch_float(x, w_q, scales, bias, out, M, N, K, **kw)
+        key = launch_key(scale_mode, packed_int4, swiglu, w_transposed=w_transposed)
+    _build.launch_counts[f"{key}.{variant}"] += 1
+    return out
+
+
+def _launch_float(x, w_q, scales, bias, out, M, N, K, *, scale_mode, out_dtype,
+                  epilogue_scale, packed_int4, w_transposed, out_zp, swiglu, **_):
+    _check_tensors([x, w_q, scales, bias],
+                   [torch.bfloat16, torch.int8, torch.float32, torch.float32])
+    kind = OUT_KINDS[out_dtype][0]
+    device = _device_index(x)
+    # as csrc/qmatmul.cuh run(): epilogues past one rounding go through the reduce
+    reduce_epi = (not out_dtype.is_floating_point or epilogue_scale is not None
+                  or (scale_mode == "channel" and bias is not None))
+    n_ws = _workspace_floats(M, N, K, swiglu, reduce_epi, w_transposed, device)
     workspace = (torch.empty((n_ws,), dtype=torch.float32, device=x.device)
                  if n_ws else None)
     lib, entry = ("qmatmul_int4", "quant_matmul_int4") if packed_int4 \
         else ("qmatmul", "quant_matmul_int8")
-    fn = _build.c_function(lib, entry,
-                           (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
-                           + (ctypes.c_void_p, ctypes.c_longlong)
-                           + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
-    err = fn(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-             int(out_dtype == torch.float32), int(scale_mode == "channel"),
-             int(swiglu), workspace.data_ptr() if workspace is not None else None,
-             n_ws, M, N, K, device, torch.cuda.current_stream(x.device).cuda_stream)
+    fn = _build.c_function(lib, entry, _FLOAT_ARGTYPES)
+    err = fn(x.data_ptr(), w_q.data_ptr(), _ptr(scales), _ptr(bias), out.data_ptr(),
+             kind, SCALE_KINDS[scale_mode], int(swiglu), int(w_transposed),
+             float(epilogue_scale if epilogue_scale is not None else 1.0),
+             int(epilogue_scale is not None), float(out_zp),
+             _ptr(workspace), n_ws, M, N, K, device,
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "quant_matmul")
-    variant = "decode" if M <= DECODE_MAX_M else "prefill"
-    _build.launch_counts[f"{launch_key(scale_mode, packed_int4, swiglu)}.{variant}"] += 1
-    return out
+
+
+# weight layouts of csrc/qmatmul_int8dot.cu
+W_KN, W_NK, W_PACKED_KN = 0, 1, 2
+
+
+def _launch_int8dot(x, w_q, scales, bias, out, M, N, K, *, scale_mode, out_dtype,
+                    epilogue_scale, packed_int4, w_transposed, out_zp, rq_mult, rq_shift,
+                    **_):
+    requant = rq_mult is not None
+    rq = None
+    if requant:
+        # per-channel (mult, shift) as int32 [2, N] on the card; scalars are
+        # filled there (a host copy per call would wait for the queue)
+        def row(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(device=x.device, dtype=torch.int32).reshape(-1).expand(N)
+            if np.ndim(v) == 0:
+                return torch.full((N,), int(v), dtype=torch.int32, device=x.device)
+            return torch.as_tensor(np.asarray(v, np.int32), device=x.device).expand(N)
+        rq = torch.stack([row(rq_mult), row(rq_shift)]).contiguous()
+    _check_tensors([x, w_q, scales, bias, rq],
+                   [torch.int8, torch.int8, torch.float32,
+                    torch.int32 if requant else torch.float32, torch.int32])
+    layout = W_NK if w_transposed else (W_PACKED_KN if packed_int4 else W_KN)
+    fn = _build.c_function("qmatmul_int8dot", "quant_matmul_int8dot", _INT8DOT_ARGTYPES)
+    err = fn(x.data_ptr(), w_q.data_ptr(), layout, _ptr(scales), _ptr(bias), _ptr(rq),
+             out.data_ptr(), OUT_KINDS[out_dtype][0],
+             float(epilogue_scale if epilogue_scale is not None else 1.0),
+             int(epilogue_scale is not None), float(out_zp), M, N, K,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("qmatmul_int8dot", err, "quant_matmul (int8 x)")

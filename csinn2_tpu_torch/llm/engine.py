@@ -22,13 +22,14 @@ Design, as in the JAX engine:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from csinn2_tpu_torch.kernels.flash_attention import decode_attention
+from csinn2_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
 from csinn2_tpu_torch.llm.config import LlamaConfig
 from csinn2_tpu_torch.llm.model import (KVCache, _project_qkv, fuse_params,
                                         has_int4, linear, llama_forward,
@@ -316,7 +317,13 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     """Decode with per-row positions: like llama_forward at s = 1 but pos is
     a vector [B].  RoPE, the KV store and the attention mask use each row's
     own position.  Unlike model.py's bf16 internal linears, the linears here
-    return f32 and silu(h1)·h3 is taken in f32, as in the JAX engine."""
+    return f32 and silu(h1)·h3 is taken in f32, as in the JAX engine.
+
+    Attention: decode_attention, or with CSINN2_DECODE_ATTN=flash in the
+    environment the blocked bhsd flash_attention (causal, q_offset = pos,
+    kv_len = pos + 1), the JAX engine's alternative decode kernel.  The JAX
+    engine reads the variable when it traces; this function reads it on
+    every call, once for all layers."""
     b, s = tokens.shape
     if s != 1:
         raise ValueError(f"decode takes one token per lane, got {s}")
@@ -339,6 +346,7 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     # per-row RoPE trig depends only on pos_vec — one evaluation, all layers
     rtabs = rope_tables(pos_vec[:, None], dh, cfg.rope_base)
     kv_len = pos_vec + 1
+    flash = os.environ.get("CSINN2_DECODE_ATTN") == "flash"
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(torch.bfloat16)
         qk, v = _project_qkv(h, lp, hq, hk, dh)
@@ -349,11 +357,14 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
         k_all, v_all = cache.k[i], cache.v[i]             # [b, S, hk, dh]
         if kv_bound is not None and kv_bound < S:
             k_all, v_all = k_all[:, :kv_bound], v_all[:, :kv_bound]
-        attn = decode_attention(q.to(torch.bfloat16).permute(0, 2, 1, 3),
-                                k_all.permute(0, 2, 1, 3),
-                                v_all.permute(0, 2, 1, 3),
-                                q_offset=pos_vec, kv_len=kv_len,
-                                kv_scale=cache.scale)     # [b, hq, 1, dh]
+        q_t = q.to(torch.bfloat16).permute(0, 2, 1, 3)     # [b, hq, 1, dh]
+        k_t, v_t = k_all.permute(0, 2, 1, 3), v_all.permute(0, 2, 1, 3)
+        if flash:
+            attn = flash_attention(q_t, k_t, v_t, causal=True, q_offset=pos_vec,
+                                   kv_len=kv_len, kv_scale=cache.scale)
+        else:
+            attn = decode_attention(q_t, k_t, v_t, q_offset=pos_vec, kv_len=kv_len,
+                                    kv_scale=cache.scale)  # [b, hq, 1, dh]
         attn = attn.permute(0, 2, 1, 3).reshape(b, 1, D).to(torch.bfloat16)
         x = x + linear(attn, lp["wo"]).to(x.dtype)
 

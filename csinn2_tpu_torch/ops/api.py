@@ -1,7 +1,10 @@
 """Public op API over Tensor handles (counterpart of csinn2_tpu/ops/api.py;
 the ops MobileNetV1's NetBuilder calls: conv2d, depthwise_conv2d,
-fullyconnected, global_avgpool2d, flatten, relu, relu6, softmax.  The rest
-of the 346-function csinn_* surface is ROADMAP queue A item 10).
+fullyconnected, global_avgpool2d, flatten, relu, relu6, softmax; and matmul
+and scaled_dot_product_attention, which with block-quantized (Q8_0 / Q4_0)
+weights and long or cached attention reach the CUDA tier of
+kernels/autodispatch.py.  The rest of the 346-function csinn_* surface is
+ROADMAP queue A item 10).
 
 (ref: include/csinn/csi_nn.h; impl pattern source/nn2/convolution.c:26-85.)
 In GRAPH mode the calls record nodes into the active Session; otherwise
@@ -13,6 +16,11 @@ callback registered for the scheme consumes the integer carriers directly
 
 Shape inference while recording runs the node's own exec function on
 tensors of torch's `meta` device (the JAX package uses jax.eval_shape).
+
+The callback is chosen for the device the op runs on: the session's in
+GRAPH mode, the first input's in layer mode.  A block-quantized weight is a
+(values [N, K] int8, scales [N, K/32]) pair; it moves to the device once
+(Session.setup, or the first eager call), its scales as f32.
 """
 
 from __future__ import annotations
@@ -22,8 +30,8 @@ from typing import Any, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from csinn2_tpu_torch.core.dtypes import Api, DebugLevel, Layout, MemType, QuantScheme, dtype_of
-from csinn2_tpu_torch.core.quant import QuantInfo, dequantize, quantize
+from csinn2_tpu_torch.core.dtypes import Api, DebugLevel, Layout, QuantScheme, dtype_of
+from csinn2_tpu_torch.core.quant import QuantInfo, dequantize, dequantize_blocks, quantize
 from csinn2_tpu_torch.core.tensor import Tensor, TensorMeta
 from csinn2_tpu_torch.graph.ir import Node
 from csinn2_tpu_torch.ops import params as P
@@ -43,9 +51,8 @@ def _as_tensor(x: TensorLike) -> Optional[Tensor]:
 def _dequant_array(arr, t: Tensor, compute_dtype):
     """Integer carrier → float per the tensor's quant metadata
     (ref: shl_ref_tensor_transform_f32, source/reference/utils.c:579)."""
-    if t.meta.mem_type != MemType.DEFAULT:
-        raise NotImplementedError("block-quantized tensors in ops are not ported yet "
-                                  "(ROADMAP queue A item 10)")
+    if t.is_block:
+        return dequantize_blocks(*arr).to(compute_dtype)
     q = t.qinfo
     if q is not None and q.dtype.is_quantized_int:
         return dequantize(arr, q).to(compute_dtype)
@@ -64,8 +71,23 @@ def _requant_array(out, out_qinfo: Optional[QuantInfo]):
     return quantize(out, out_qinfo, by_reciprocal=True)
 
 
-def _on_meta(t: Tensor) -> torch.Tensor:
+def _on_meta(t: Tensor):
+    """A meta tensor of t's shape and carrier (a pair for a block weight)."""
+    if t.is_block:
+        values, scales = t.data
+        return (torch.empty(values.shape, dtype=values.dtype, device="meta"),
+                torch.empty(scales.shape, dtype=torch.float32, device="meta"))
     return torch.empty(t.shape, dtype=t.dtype.torch, device="meta")
+
+
+def _run_device(sess, flat: Sequence[Tensor]) -> torch.device:
+    """The device the op runs on: the recording session's, else the first
+    input's (constants follow it)."""
+    if sess is not None and sess.recording:
+        return sess.device
+    if not flat:
+        return torch.device("cpu")
+    return flat[0].data[0].device if flat[0].is_block else flat[0].data.device
 
 
 def call_op(op: str, tensors: Sequence[Any], params=None,
@@ -99,7 +121,9 @@ def call_op(op: str, tensors: Sequence[Any], params=None,
         if t.qinfo is not None and t.qinfo.scheme != QuantScheme.UNSET:
             scheme = t.qinfo.scheme
             break
-    cb = registry.lookup(op, scheme=scheme, api=api_pref, metas=metas, params=params)
+    device = _run_device(sess, flat)
+    cb = registry.lookup(op, scheme=scheme, api=api_pref, metas=metas, params=params,
+                         device=device)
 
     # per-op-signature debug printer (ref: SHL_DEBUG_CALL, include/shl_debug.h:32-40)
     if _log.get_level() <= DebugLevel.DEBUG:
@@ -157,8 +181,7 @@ def call_op(op: str, tensors: Sequence[Any], params=None,
         return outs[0] if len(outs) == 1 else tuple(outs)
 
     # eager (layer mode): constants follow the first input's device
-    device = flat[0].data.device if flat else torch.device("cpu")
-    result = fn([t.data.to(device) for t in flat])
+    result = fn([t.on_device(device) for t in flat])
     if isinstance(result, tuple):
         return tuple(Tensor(data=r, qinfo=out_qinfo, layout=layout) for r in result)
     return Tensor(data=result, qinfo=out_qinfo, layout=layout)
@@ -220,6 +243,19 @@ def fullyconnected(x, weight, bias=None, params: P.FCParams = None, out_qinfo=No
     return call_op("fullyconnected", [x, weight, bias], params or P.FCParams(), out_qinfo)
 
 
+def matmul(a, b, params: P.MatmulParams = None, out_qinfo=None):
+    """With a block-quantized b the CUDA tier takes b as [N, K] and ignores
+    trans_b, as the JAX package's Pallas tier does; the TORCH tier honours
+    it (pass trans_b=True for the [N, K] layout and both agree)."""
+    return call_op("matmul", [a, b], params or P.MatmulParams(), out_qinfo)
+
+
+def scaled_dot_product_attention(q, k, v, params: P.SDPAParams = None, out_qinfo=None):
+    """q [b, hq, sq, d]; k/v [b, hk, sk, d] → [b, hq, sq, d] f32."""
+    return call_op("scaled_dot_product_attention", [q, k, v],
+                   params or P.SDPAParams(), out_qinfo)
+
+
 def global_avgpool2d(x, params: P.PoolParams = None, out_qinfo=None):
     return call_op("global_avgpool2d", [x], params or P.PoolParams(), out_qinfo)
 
@@ -228,5 +264,6 @@ def softmax(x, params: P.SoftmaxParams = None, out_qinfo=None):
     return call_op("softmax", [x], params or P.SoftmaxParams(), out_qinfo)
 
 
-__all__ = ["call_op", "conv2d", "depthwise_conv2d", "fullyconnected",
-           "global_avgpool2d", "flatten", "relu", "relu6", "softmax"]
+__all__ = ["call_op", "conv2d", "depthwise_conv2d", "fullyconnected", "matmul",
+           "scaled_dot_product_attention", "global_avgpool2d", "flatten", "relu", "relu6",
+           "softmax"]

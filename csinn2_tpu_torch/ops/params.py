@@ -1,5 +1,6 @@
 """Operator parameter structs (counterpart of csinn2_tpu/ops/params.py; the
-structs of the ops this package runs so far).
+structs of the ops this package runs so far: conv, fc, matmul, pool,
+softmax, relu, scaled-dot-product attention).
 
 Re-expression of the reference's csinn_*_params structs (ref:
 include/csinn/csinn_data_structure.h:566-1270); every struct embeds the
@@ -45,6 +46,14 @@ class FCParams(ParamsBase):
 
 
 @dataclasses.dataclass
+class MatmulParams(ParamsBase):
+    """(ref: struct csinn_matmul_params)."""
+
+    trans_a: bool = False
+    trans_b: bool = False
+
+
+@dataclasses.dataclass
 class PoolParams(ParamsBase):
     """(ref: struct csinn_pool_params)."""
 
@@ -65,3 +74,15 @@ class ReluParams(ParamsBase):
     """n used by leaky_relu slope / relun bound (ref: csinn_relu_params)."""
 
     n: float = 0.0
+
+
+@dataclasses.dataclass
+class SDPAParams(ParamsBase):
+    """(ref: struct csinn_scale_dot_attention_params)."""
+
+    norm_factor: float = 0.0   # 0 → 1/sqrt(head_dim)
+    causal: bool = True
+    pos_offset: int = 0        # kv positions already in cache (decode)
+    kv_len: int = 0            # valid kv entries (0 → all of sk); with
+                               # pos_offset this is the graph-mode route to
+                               # decode over a static, partially-filled cache

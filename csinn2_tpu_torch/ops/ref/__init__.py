@@ -1,5 +1,6 @@
 """Float reference implementations in plain PyTorch (counterpart of
-csinn2_tpu/ops/ref/; the ops MobileNetV1 records so far).  They back the
+csinn2_tpu/ops/ref/; the ops MobileNetV1 records, matmul and
+scaled-dot-product attention).  They back the
 float session that `forward_f32` and `calibrate` run, and the generic
 dequant→f32→requant path of ops/api.py.
 
@@ -8,6 +9,7 @@ Importing this package populates the op registry.
 
 from csinn2_tpu_torch.ops.ref import (  # noqa: F401
     activation,
+    attention,
     conv,
     linear,
     pool,

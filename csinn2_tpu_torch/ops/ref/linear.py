@@ -1,13 +1,15 @@
-"""Dense layer (counterpart of csinn2_tpu/ops/ref/linear.py; fullyconnected,
-the dense op MobileNetV1 records; matmul and embedding are not ported yet).
+"""Dense layers (counterpart of csinn2_tpu/ops/ref/linear.py:
+fullyconnected and matmul; embedding is not ported yet).
 
-(ref: source/reference/fullyconnected.c.)
+(ref: source/reference/fullyconnected.c, matmul.c.)
 """
 
 from __future__ import annotations
 
+import torch
+
 from csinn2_tpu_torch.core.dtypes import Api
-from csinn2_tpu_torch.ops.params import FCParams
+from csinn2_tpu_torch.ops.params import FCParams, MatmulParams
 from csinn2_tpu_torch.ops.ref.conv import full_f32
 from csinn2_tpu_torch.ops.registry import registry
 
@@ -20,3 +22,15 @@ def fullyconnected(x, weight, bias, params: FCParams):
     if bias is not None and bias.numel() > 0:
         out = out + bias.float()
     return out
+
+
+@registry.register("matmul", api=Api.TORCH)
+def matmul(a, b, params: MatmulParams):
+    """Batched matmul with optional transposes, in f32 (ref: shl_ref_matmul_f32)."""
+    a, b = a.float(), b.float()
+    if params.trans_a:
+        a = a.transpose(-1, -2)
+    if params.trans_b:
+        b = b.transpose(-1, -2)
+    with full_f32():
+        return torch.matmul(a, b)

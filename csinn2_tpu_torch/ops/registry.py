@@ -26,7 +26,7 @@ class OpCallback:
 
     exec: Callable
     init: Optional[Callable] = None       # weight prepack: params → params'
-    caps: Optional[Callable] = None       # (metas, params) → bool: is this kernel applicable?
+    caps: Optional[Callable] = None       # (metas, params, device) → bool: is this kernel applicable?
     api: Api = Api.TORCH
     name: str = ""
     quant_direct: bool = False            # consumes integer carriers + qinfos directly
@@ -50,10 +50,12 @@ class OpRegistry:
         return do(fn) if fn is not None else do
 
     def lookup(self, op: str, scheme: Optional[QuantScheme] = None,
-               api: Api = Api.AUTO, metas=None, params=None) -> OpCallback:
+               api: Api = Api.AUTO, metas=None, params=None, device=None) -> OpCallback:
         """Resolve with the fallback chain CUDA → TORCH (the rvv→ref analog).
 
-        AUTO prefers the CUDA kernel when its `caps` accepts the shapes.
+        AUTO prefers the CUDA kernel when its `caps` accepts the shapes on
+        `device`, the device the op runs on (the JAX package asks whether
+        its default backend is a TPU).
         Config-gated keys (the Kconfig CONFIG_*_DISABLED analog) are skipped,
         forcing the fallback chain."""
         from csinn2_tpu_torch.utils.config import config
@@ -77,7 +79,7 @@ class OpRegistry:
         # AUTO
         cu = cands.get(Api.CUDA)
         if cu is not None:
-            if cu.caps is None or cu.caps(metas, params):
+            if cu.caps is None or cu.caps(metas, params, device):
                 return cu
         return cands.get(Api.TORCH) or cands.get(Api.REF) or cu
 

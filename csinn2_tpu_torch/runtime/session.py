@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from csinn2_tpu_torch.core.dtypes import Api, ProfilerLevel, RunMode
-from csinn2_tpu_torch.core.tensor import Tensor, TensorMeta
+from csinn2_tpu_torch.core.tensor import Tensor, TensorMeta, place_block
 from csinn2_tpu_torch.graph.ir import Graph, Node
 from csinn2_tpu_torch.utils import logging as log
 from csinn2_tpu_torch.utils.device import resolve_device
@@ -107,7 +107,9 @@ class Session:
             if n_fused:
                 log.info("%s: fused %d depthwise→pointwise pairs", self.name, n_fused)
         self.graph.topo_check()
-        self._consts = {k: v.to(self.device)
+        # a block weight's (values, scales) pair moves once, scales as f32
+        self._consts = {k: place_block(v, self.device) if isinstance(v, tuple)
+                        else v.to(self.device)
                         for k, v in self.graph.collect_consts().items()}
         self._setup_done = True
         log.info("%s: setup %d nodes on %s in %.1f ms", self.name, len(self.graph.nodes),

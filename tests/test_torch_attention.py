@@ -1,6 +1,6 @@
 """Attention of the PyTorch port against the JAX package: the plain versions
-of decode_attention, prefill_attention and bshd flash_attention against the
-Pallas kernels in interpret mode (GQA, int8 KV with kv_scale, per-row
+of decode_attention, prefill_attention and flash_attention (bshd and bhsd)
+against the Pallas kernels in interpret mode (GQA, int8 KV with kv_scale, per-row
 q_offset / kv_len, a kv_len = 0 lane), and the port's attention_block
 against the JAX package's XLA fallback (model.py:669-693).  K/V reach the
 port as permuted views of a [b, S, hk, d] cache buffer, as on the main path.
@@ -139,10 +139,55 @@ def test_prefill_and_flash_agree_in_jax_and_port(rng):
 
 
 def test_flash_attention_bhsd_not_ported(rng):
-    _, qt = _q(rng, (1, 2, 4, 16))
-    _, (kt, vt) = _kv(rng, 1, 2, 64, 16, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(qt, kt, vt)
+    """bhsd, the JAX default layout, which the first slices left unported,
+    now runs by default: small MHA case against the JAX kernel (interpret)."""
+    qj, qt = _q(rng, (1, 2, 4, 16))
+    (kj, vj), (kt, vt) = _kv(rng, 1, 2, 64, 16, True)
+    want = np.asarray(jfa.flash_attention(qj, kj, vj, kv_scale=KV_SCALE, blk_q=8, blk_k=128,
+                                          interpret=True), np.float32)
+    got = tfa.flash_attention(qt, kt, vt, kv_scale=KV_SCALE)
+    assert got.shape == (1, 2, 4, 16) and got.dtype == torch.bfloat16
+    _check(got, want)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bhsd_matches_jax(rng, int8, causal):
+    """bhsd q/out [b, hq, sq, d], GQA, per-row q_offset / kv_len (a decode
+    row at sq = 1 among them is the engine's CSINN2_DECODE_ATTN=flash call)."""
+    b, sq, hq, hk, d, S = 3, 20, 8, 2, 32, 128
+    qj, qt = _q(rng, (b, hq, sq, d))
+    (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, int8)
+    off = np.array([0, 7, 100], np.int32)
+    kvl = np.minimum(off + sq, S).astype(np.int32)
+    scale = KV_SCALE if int8 else None
+    want = np.asarray(jfa.flash_attention(qj, kj, vj, causal=causal, q_offset=off,
+                                          kv_len=kvl, kv_scale=scale, blk_q=8, blk_k=128,
+                                          interpret=True), np.float32)
+    got = tfa.flash_attention(qt, kt, vt, causal=causal, q_offset=torch.from_numpy(off),
+                              kv_len=torch.from_numpy(kvl), kv_scale=scale)
+    assert got.shape == (b, hq, sq, d)
+    _check(got, want)
+    # the decode form: one query per row at its position, kv_len = pos + 1
+    pos = np.array([5, 60, 127], np.int32)
+    qj1, qt1 = _q(rng, (b, hq, 1, d))
+    want1 = np.asarray(jfa.flash_attention(qj1, kj, vj, causal=True, q_offset=pos,
+                                           kv_len=pos + 1, kv_scale=scale, interpret=True),
+                       np.float32)
+    got1 = tfa.flash_attention(qt1, kt, vt, causal=True, q_offset=torch.from_numpy(pos),
+                               kv_len=torch.from_numpy(pos + 1), kv_scale=scale)
+    _check(got1, want1)
+
+
+def test_flash_attention_layouts_agree(rng):
+    """bhsd and bshd compute one function: the port's plain paths agree exactly."""
+    qj, qt = _q(rng, (2, 4, 24, 32))
+    _, (kt, vt) = _kv(rng, 2, 2, 64, 32, True)
+    kw = dict(causal=True, q_offset=torch.tensor([0, 9]), kv_len=torch.tensor([24, 33]),
+              kv_scale=KV_SCALE)
+    a = tfa.flash_attention(qt, kt, vt, qo_layout="bhsd", **kw)
+    b = tfa.flash_attention(qt.permute(0, 2, 1, 3), kt, vt, qo_layout="bshd", **kw)
+    assert torch.equal(a, b.permute(0, 2, 1, 3))
 
 
 @pytest.mark.parametrize("quantized", [True, False])

@@ -2,8 +2,12 @@
 card, at the ragged shapes the 7B and MobileNetV1 checks in chip_smoke.py do
 not reach: M, N and K tails of quant_matmul in every weight mode (Q8_0, Q4_0,
 INT8_CHANNEL, INT4_CHANNEL, carriers at -128 and -8, the swiglu epilogue
-with one and several pairs), odd KV lengths, GQA, bf16 KV, head dim 64, a
-fully masked lane, strided K/V views; fused_dsconv (bit for bit) at odd H and
+with one and several pairs), and in the modes of the fourth slice (the
+transposed [N, K] / [N, K/2] layouts, scale_mode "none", int8 x with every
+output type, the fixed-point requantize bit for bit, epilogue_scale and
+integer outputs of a float x); odd KV lengths, GQA, bf16 KV, head dim 64, a
+fully masked lane, strided K/V views, bhsd flash_attention with a strided q;
+the op API's CUDA tier in a GRAPH session; fused_dsconv (bit for bit) at odd H and
 W, C in {3, 8, 17, 1024}, O not a multiple of 8, k 3 and 5, stride 1 and 2,
 pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, and a small
 MobileNetV1 session fused against unfused; and the wrappers' argument
@@ -164,11 +168,27 @@ def test_quant_matmul_modes_bias(gen, dev, mode):
 @pytest.mark.parametrize("kw", [dict(scale_mode="none"), dict(w_transposed=True),
                                 dict(epilogue_scale=0.5), dict(out_dtype=torch.int8)])
 def test_quant_matmul_unported_modes_raise_on_the_card(gen, dev, kw):
+    """The modes the second slice left unported run on the card now: each
+    against the plain version (the int8 output within 1 LSB: f32 sums in
+    another order)."""
     x, w, s = _qmm_case(gen, dev, 4, 64, 32)
     args = dict(scale_mode="block")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_matmul(x, w, s, **args)
+    if args["scale_mode"] == "none":
+        s = None
+    if args.get("w_transposed"):
+        w, s = w.t().contiguous(), s.t().contiguous()
+    if args.get("out_dtype") == torch.int8:
+        s = s * 100
+    for M in (4, 40):
+        xm = x.repeat(M // 4, 1)
+        y = quant_matmul(xm, w, s, **args)
+        torch.cuda.synchronize()
+        ref = quant_matmul_ref(xm, w, s, **args)
+        if y.dtype == torch.int8:
+            assert (y.int() - ref.int()).abs().max() <= 1
+        else:
+            _agree(y, ref)
 
 
 def test_quant_matmul_modes_reject_bad_args(gen, dev):
@@ -180,6 +200,169 @@ def test_quant_matmul_modes_reject_bad_args(gen, dev):
     x, w, s, kw = _mode_case(gen, dev, "int8_channel", 4, 64, 32)
     with pytest.raises(ValueError):
         quant_matmul(x, w, s[None], **kw)                  # channel scales are [N]
+
+
+# -- the fourth slice: transposed weights, int8 x, integer epilogues -----------------
+
+T_MODES = {"q8_0": ("block", False), "q4_0_carrier": ("block", False),
+           "int8_channel": ("channel", False), "q4_0_packed": ("block", True),
+           "int4_channel_packed": ("channel", True)}
+TAIL_M = [1, 5, 17, 130]
+TAIL_KN = [(96, 48), (352, 400), (1056, 2064)]
+
+
+def _t_case(gen, dev, mode, M, K, N):
+    """x bf16 and a transposed weight of `mode`: int8 [N, K] (Q4_0's unpacked
+    carrier in [-8, 7]) or packed [N, K/2], block scales [N, K/32] or [N];
+    rows 0..7 at the carrier's minimum."""
+    from csinn2_tpu_torch.kernels.qmatmul import pack_int4_t
+    scale_mode, packed = T_MODES[mode]
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    lo, hi = (-8, 8) if packed or mode == "q4_0_carrier" else (-128, 128)
+    q = torch.randint(lo, hi, (N, K), generator=gen, device=dev, dtype=torch.int8)
+    q[:8] = lo
+    w = pack_int4_t(q) if packed else q
+    s_shape = (N, K // 32) if scale_mode == "block" else (N,)
+    s = (torch.rand(s_shape, generator=gen, device=dev) * 1e-3 + 1e-5).to(torch.float16).float()
+    return x, w, s, dict(scale_mode=scale_mode, packed_int4=packed, w_transposed=True)
+
+
+@pytest.mark.parametrize("mode", list(T_MODES))
+@pytest.mark.parametrize("M", TAIL_M)
+@pytest.mark.parametrize("K,N", TAIL_KN)
+def test_quant_matmul_transposed_tails(gen, dev, mode, M, K, N):
+    x, w, s, kw = _t_case(gen, dev, mode, M, K, N)
+    key = "quant_matmul_t." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    odt = torch.float32 if M == 5 else torch.bfloat16
+    y = quant_matmul(x, w, s, out_dtype=odt, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert y.shape == (M, N) and y.dtype == odt
+    _agree(y, quant_matmul_ref(x, w, s, out_dtype=odt, **kw))
+
+
+@pytest.mark.parametrize("M", TAIL_M)
+def test_quant_matmul_transposed_epilogues(gen, dev, M):
+    """bias, epilogue_scale and a uint8 output on the transposed layouts
+    (the decode kernel's direct epilogue, and the reduce)."""
+    for mode in ("q8_0", "int4_channel_packed"):
+        x, w, s, kw = _t_case(gen, dev, mode, M, 352, 400)
+        bias = None if kw["packed_int4"] else torch.randn(400, generator=gen, device=dev)
+        y = quant_matmul(x, w, s, bias, epilogue_scale=0.5, **kw)
+        _agree(y, quant_matmul_ref(x, w, s, bias, epilogue_scale=0.5, **kw))
+        y8 = quant_matmul(x, w, s * 300, bias, out_dtype=torch.uint8, out_zp=128.0, **kw)
+        r8 = quant_matmul_ref(x, w, s * 300, bias, out_dtype=torch.uint8, out_zp=128.0, **kw)
+        torch.cuda.synchronize()
+        assert (y8.int() - r8.int()).abs().max() <= 1
+
+
+@pytest.mark.parametrize("M", TAIL_M)
+@pytest.mark.parametrize("K,N", TAIL_KN)
+def test_quant_matmul_scale_none_tails(gen, dev, M, K, N):
+    x, w, _ = _qmm_case(gen, dev, M, K, N)
+    key = "quant_matmul_none." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    y = quant_matmul(x, w, None, scale_mode="none")
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    _agree(y, quant_matmul_ref(x, w, None, scale_mode="none"))
+
+
+I8_LAYOUTS = ["kn", "nk", "packed"]
+I8_KN = [(80, 48), (352, 400), (1056, 2064)]       # K % 16 (packed: K = 352, 1056 only)
+
+
+def _i8_case(gen, dev, layout, M, K, N, scale_mode="channel"):
+    x = torch.randint(-128, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+    lo, hi = (-8, 8) if layout == "packed" else (-128, 128)
+    q = torch.randint(lo, hi, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    q[:, :8] = lo
+    w = q if layout == "kn" else (q.t().contiguous() if layout == "nk" else pack_int4(q))
+    s = (torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-5) \
+        if scale_mode == "channel" else None
+    return x, w, s, dict(scale_mode=scale_mode, packed_int4=layout == "packed",
+                         w_transposed=layout == "nk")
+
+
+@pytest.mark.parametrize("layout,K,N", [(lay, K, N) for lay in I8_LAYOUTS for K, N in I8_KN
+                                         if not (lay == "packed" and K % 32)])
+@pytest.mark.parametrize("M", TAIL_M)
+@pytest.mark.parametrize("scale_mode", ["channel", "none"])
+def test_quant_matmul_int8dot_tails(gen, dev, layout, M, K, N, scale_mode):
+    """int8 x: the exact int32 sum, then · s in f32: equal to the plain
+    version's exact sum bit for bit (packed int4 needs K % 32 == 0)."""
+    x, w, s, kw = _i8_case(gen, dev, layout, M, K, N, scale_mode)
+    key = "quant_matmul_int8dot." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    y = quant_matmul(x, w, s, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert torch.equal(y, quant_matmul_ref(x, w, s, **kw))
+
+
+@pytest.mark.parametrize("odt,zp", [(torch.int8, 3.0), (torch.uint8, 128.0),
+                                    (torch.int16, -7.0), (torch.int32, 0.0),
+                                    (torch.bfloat16, 0.0)])
+@pytest.mark.parametrize("M", TAIL_M)
+def test_quant_matmul_int8dot_epilogues(gen, dev, odt, zp, M):
+    """channel scale, epilogue_scale and an f32 bias (one fmaf, as the JAX
+    kernel's compiled epilogue) into each output type: equal to the plain
+    version (which emulates the fmaf in f64), at most 1 LSB on a rare
+    double-rounding tie."""
+    for layout in I8_LAYOUTS:
+        x, w, s, kw = _i8_case(gen, dev, layout, M, 352, 400)
+        bias = torch.randn(400, generator=gen, device=dev) * 4
+        args = dict(epilogue_scale=0.37, out_zp=zp, out_dtype=odt, **kw)
+        y = quant_matmul(x, w, s * 20, bias, **args)
+        torch.cuda.synchronize()
+        ref = quant_matmul_ref(x, w, s * 20, bias, **args)
+        assert y.dtype == odt
+        d = (y.double() - ref.double()).abs()
+        if odt.is_floating_point:
+            assert float(d.max()) <= 1e-2 * float(ref.double().abs().max())
+        else:
+            assert float(d.max()) <= 1 and float((d > 0).double().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("odt", [torch.int8, torch.uint8, torch.int16])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("M", TAIL_M)
+def test_quant_matmul_requant_bit_exact(gen, dev, odt, layout, M):
+    """rq_mult / rq_shift with an int32 bias: bit for bit the plain version
+    (kernels/requant.py, in int64) and the numpy oracle."""
+    from csinn2_tpu_torch.core.dtypes import dtype_of
+    from csinn2_tpu_torch.core.quant import quantize_multiplier, requantize_int
+    K, N = 1056, 400
+    x, w, _, kw = _i8_case(gen, dev, layout, M, K, N, "none")
+    bias = torch.randint(-2**18, 2**18, (N,), generator=gen, device=dev, dtype=torch.int32)
+    eff = np.exp(np.random.default_rng(M).uniform(np.log(1e-5), np.log(0.5), N))
+    mult, shift = quantize_multiplier(eff)
+    zp = 140.0 if odt == torch.uint8 else 10.0
+    args = dict(out_dtype=odt, out_zp=zp, rq_mult=torch.from_numpy(mult).to(dev),
+                rq_shift=torch.from_numpy(shift).to(dev), **kw)
+    key = "quant_matmul_requant." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    y = quant_matmul(x, w, None, bias, **args)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert torch.equal(y, quant_matmul_ref(x, w, None, bias, **args))
+    q = (w.t() if layout == "nk" else w).cpu().numpy().astype(np.int64)
+    acc = x.cpu().numpy().astype(np.int64) @ q + bias.cpu().numpy()[None, :]
+    gold = requantize_int(acc.astype(np.int32), mult[None, :], shift[None, :], int(zp),
+                          dtype_of(odt))
+    np.testing.assert_array_equal(y.cpu().numpy(), gold)
+
+
+def test_quant_matmul_int8dot_rejects_bad_args(gen, dev):
+    x, w, s, kw = _i8_case(gen, dev, "kn", 4, 72, 48)            # K % 16 != 0
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, s, **kw)
+    x, w, s, kw = _i8_case(gen, dev, "kn", 4, 80, 48)
+    with pytest.raises(TypeError):
+        quant_matmul(x, w, s.double(), **kw)                    # f64 scales
+    with pytest.raises(ValueError):
+        quant_matmul(x, w, s, out_dtype=torch.int8, rq_mult=1, rq_shift=0, **kw)   # scales
 
 
 def _kv(gen, dev, b, hk, S, d, int8):
@@ -237,6 +420,30 @@ def test_prefill_and_flash_attention(gen, dev, name, causal, int8, d):
     ref = fa._attention_ref(q.permute(0, 2, 1, 3), k, v, scale=1 / d ** 0.5, **kw) \
         .permute(0, 2, 1, 3)
     _close(out, ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("int8,d", [(True, 128), (False, 64)])
+@pytest.mark.parametrize("sq", [1, 45])
+def test_flash_attention_bhsd(gen, dev, causal, int8, d, sq):
+    """bhsd q/out with q a strided view (the q heads of a [b, hq + hk, sq, d]
+    buffer); per-row q_offset / kv_len, a kv_len past S clamped, one row
+    with kv_len 0 (outputs 0)."""
+    b, hq, hk, S = 3, 8, 4, 160
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    buf = torch.randn((b, hq + hk, sq, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = buf[:, :hq]
+    off = torch.tensor([0, 70, 3], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([sq, 200, 0], dtype=torch.int32, device=dev)
+    scale = 0.05 if int8 else None
+    kw = dict(causal=causal, q_offset=off, kv_len=kvl, kv_scale=scale)
+    before = launch_counts["flash_attention_bhsd"]
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention_bhsd"] == before + 1
+    assert out.shape == (b, hq, sq, d) and out.dtype == torch.bfloat16
+    _close(out, fa._attention_ref(q, k, v, scale=1 / d ** 0.5, **kw))
+    assert float(out[2].abs().max()) == 0.0
 
 
 def test_fully_masked_prefill_row_outputs_zero(gen, dev):
@@ -324,3 +531,41 @@ def test_mobilenet_session_fused_equals_unfused_on_the_card(dev, monkeypatch):
     cpu = s.run(m.prepare_input(x, s)).numpy()
     # the fc's float-carrier sums run in another order on the card: 1 LSB
     assert np.abs(cpu.astype(int) - outs[True].astype(int)).max() <= 1
+
+
+def test_op_api_cuda_tier_on_the_card(dev):
+    """A block-quantized fullyconnected and an SDPA recorded into a GRAPH
+    session on the card resolve to the CUDA tier (quant_matmul_t,
+    flash_attention_bhsd) and match the same graph in an Api.TORCH session."""
+    from csinn2_tpu_torch import ops
+    from csinn2_tpu_torch.core.dtypes import Api, Dtype, QuantScheme, RunMode
+    from csinn2_tpu_torch.core.quant import block_quantize
+    from csinn2_tpu_torch.core.tensor import Tensor, TensorMeta
+    from csinn2_tpu_torch.runtime.session import Session
+    rng = np.random.default_rng(0)
+    w = Tensor(block=block_quantize((rng.standard_normal((384, 256)) * 0.1).astype(np.float32),
+                                    QuantScheme.BLOCK_Q4_0))
+    x = rng.standard_normal((130, 256)).astype(np.float32)
+    q = rng.standard_normal((1, 4, 256, 64)).astype(np.float32)
+    outs = {}
+    for api in (Api.AUTO, Api.TORCH):
+        sess = Session(run_mode=RunMode.GRAPH, api=api, device=dev)
+        with sess.build():
+            xi = sess.input(TensorMeta(shape=x.shape, dtype=Dtype.FLOAT32))
+            qi = sess.input(TensorMeta(shape=q.shape, dtype=Dtype.FLOAT32))
+            sess.set_output(ops.fullyconnected(xi, w),
+                            ops.scaled_dot_product_attention(qi, qi, qi))
+        sess.setup()
+        want = ["fullyconnected:cuda", "scaled_dot_product_attention:cuda"] \
+            if api == Api.AUTO else ["fullyconnected:torch", "scaled_dot_product_attention:torch"]
+        assert [n.cb_name for n in sess.graph.nodes] == want
+        before = dict(launch_counts)
+        outs[api] = [o.cpu().numpy() for o in sess.run(x, q)]
+        torch.cuda.synchronize()
+        launched = {k: launch_counts[k] - before.get(k, 0) for k in launch_counts}
+        if api == Api.AUTO:
+            assert launched.get("quant_matmul_t.prefill") == 1
+            assert launched.get("flash_attention_bhsd") == 1
+    assert cosine_similarity(outs[Api.AUTO][0], outs[Api.TORCH][0]) >= 0.9999
+    r = verify(outs[Api.AUTO][1], outs[Api.TORCH][1], tol=2e-2, min_cosine=0.9999)
+    assert r.passed, r

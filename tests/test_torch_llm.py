@@ -174,6 +174,27 @@ def test_decode_kv_store_drops_lanes_past_the_cache(weights):
     assert bool((cache.k[:, 1, :3] == 7).all()) and bool((cache.k[:, 1, 4:] == 7).all())
 
 
+@pytest.mark.parametrize("mode,quantized_kv", [(jm.FLOAT, False), (jm.Q8_0, True)])
+def test_flash_decode_greedy_matches_jax(weights, monkeypatch, mode, quantized_kv):
+    """CSINN2_DECODE_ATTN=flash: the batched decode takes bhsd
+    flash_attention (decode_attention is never called); run_queue's greedy
+    tokens equal the JAX engine's."""
+    import csinn2_tpu_torch.llm.engine as te
+
+    def no_decode_kernel(*a, **k):
+        raise AssertionError("decode_attention called under CSINN2_DECODE_ATTN=flash")
+
+    monkeypatch.setenv("CSINN2_DECODE_ATTN", "flash")
+    monkeypatch.setattr(te, "decode_attention", no_decode_kernel)
+    jcfg, tcfg = _cfgs("gqa")
+    jp, tp = weights["gqa", mode]
+    jdone = JEngine(jcfg, jp, batch=2, use_pallas=False, quantized_kv=quantized_kv) \
+        .run_queue([JRequest(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    tdone = InferenceEngine(tcfg, tp, batch=2, quantized_kv=quantized_kv, device="cpu") \
+        .run_queue([Request(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    assert [r.out for r in tdone] == [r.out for r in jdone]
+
+
 def test_sampled_generation_reproducible_within_port(weights):
     """Temperature sampling: the same seed gives the same tokens, through
     generate_fused and through a single-request run_queue (shared seed
