@@ -49,7 +49,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   9. phase 4's run under CSINN2_DECODE_ATTN=flash: the batched decode takes
      bhsd flash_attention (32 launches per decode step, decode_attention
      none), tokens set beside phase 4's, one step's logits against the
-     default decode's (cosine >= 0.999), decode tokens/s beside phase 4's.
+     default decode's (cosine >= 0.999), decode tokens/s beside phase 4's;
+ 10. the probe path: the port's Q4_0 dequant-strategy probe
+     (csinn2_tpu_torch.examples.int4_dequant_probe, the eleven kernels of
+     kernels/int4_probe.py beside cur(quant_matmul)) at the four Llama-2-7B
+     decode shapes (wqkv, w13, w2, wo; M = 8), every variant timed cold
+     (rotating over weight copies that exceed twice the L2) and no row
+     above 105 % of its own bytes bound; then each kernel held against its
+     plain version on the card at every shape (stream bit for bit, the
+     others within 1e-5·max|y|), timed beside the plain version and
+     torch.matmul on the dequantized bf16 weight (cold); then the tile
+     tuner's geometry sweep of the andmask kernel at the four shapes.
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -102,6 +112,16 @@ KERNELS = {
     "quant_matmul_t": (QMM_SOURCE, QMM_REPLACES),
     "flash_attention_bhsd": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
 }
+# the probe kernels: kind → (line of the JAX body or pallas_call function in
+# examples/int4_dequant_probe.py, the probe's variant name)
+PROBE_KERNELS = {"split_i32": (91, "split_i32"), "split_i8": (91, "split_i8"),
+                 "i4native": (141, "i4native"), "bitcast": (173, "bitcast"),
+                 "andmask": (234, "andmask"), "andmask_bf16s": (395, "andmask_bf16s"),
+                 "stream": (294, "stream"), "intdot": (327, "intdot"), "w4a8": (530, "w4a8"),
+                 "noscale": (440, "noscale(timing)"), "halfq8": (460, "halfq8(timing)")}
+for _kind, (_line, _) in PROBE_KERNELS.items():
+    KERNELS[f"int4_probe_{_kind}"] = ("csinn2_tpu_torch/kernels/csrc/int4_probe.cu",
+                                      f"examples/int4_dequant_probe.py:{_line}")
 ATTENTION = ("decode_attention", "prefill_attention", "flash_attention")
 # weight mode → (scale_mode, packed_int4) of its quant_matmul calls
 QMM_MODES = {"q8_0": ("block", False), "q4_0": ("block", True),
@@ -1041,6 +1061,95 @@ def cnn_path(records, gpu_line: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the probe path, the Q4_0 dequant-strategy probes
+# ---------------------------------------------------------------------------
+
+def check_probe_kernels(records, results, gpu_line):
+    """Each probe kernel against its plain version on the card at the four
+    shapes (the probe's inputs), timed beside the plain version (warm) and
+    torch.matmul on the dequantized bf16 [K, N] weight (cold); the record of
+    each is the w13 shape, with the probe's cold kernel time."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.examples import int4_dequant_probe as probe
+    from csinn2_tpu_torch.kernels import int4_probe as ip
+    from csinn2_tpu_torch.kernels.qmatmul import unpack_int4
+    from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms, gpu_ms_cold, l2_bytes
+    M = 8
+    rng = np.random.default_rng(0)
+    us = {(r["name"], r["K"], r["N"]): r["us"] for r in results}
+    for label, (K, N, bn, bk) in zip(probe.SHAPE_NAMES, probe.ALL_SHAPES):
+        case = probe.make_case(rng, M, K, N, "cuda")
+        x, w = case["x"], case["weights"]
+        deq = (unpack_int4(w["wp"], K).float().reshape(K // 32, 32, N)
+               * w["s"][:, None]).reshape(K, N).to(torch.bfloat16)
+        libs = [deq] + [deq.clone() for _ in range(cold_copies(deq.numel() * 2, l2_bytes()) - 1)]
+        lib = gpu_ms_cold([lambda d=d: torch.matmul(x, d) for d in libs])
+        del libs, deq
+        for kind, (_, variant) in PROBE_KERNELS.items():
+            spec = probe.variant_table(M, K, N, bn, bk)[variant]
+            call = ip.prepare(kind, x, w[spec[1]], w[spec[2]], M, bn, bk)
+            y = call.kernel()
+            torch.cuda.synchronize()
+            ref = ip.kernel_ref(kind, call.tensors, M, N, K, bn, bk)
+            err = float((y - ref).abs().max())
+            if kind == "stream" and not torch.equal(y, ref):
+                raise AssertionError(f"int4_probe stream {label}: not bit for bit ({err})")
+            if err > 1e-5 * float(ref.abs().max()):
+                raise AssertionError(f"int4_probe {kind} {label}: max|d| {err} against "
+                                     f"max|y| {float(ref.abs().max())}")
+            plain = gpu_ms(lambda: ip.kernel_ref(kind, call.tensors, M, N, K, bn, bk), reps=3)
+            ms = us[variant, K, N] * 1e-3
+            b_ms, b_by = bound(ip.kernel_bytes(kind, M, N, K), 2.0 * M * N * K,
+                               INT8_OPS if kind in ("intdot", "w4a8") else BF16_FLOPS)
+            cols, ksplit = ip.launch_geometry(bn, bk)
+            shape = (f"{label} M={M} K={K} N={N} (bn {bn} bk {bk}: {cols} columns per CTA, "
+                     f"{ksplit}-row splits), cold L2")
+            log(f"  int4_probe_{kind} {shape}: ms={ms:.4f} plain_ms={plain:.4f} lib_ms={lib:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} max_abs_err={err:.3e}")
+            rec = records.setdefault(f"int4_probe_{kind}", {"max_abs_err": 0.0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if label == "w13":
+                rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                           shape=shape)
+            del call, y, ref
+        del case, x, w
+        torch.cuda.empty_cache()
+    log(f"  every probe kernel agrees with its plain version at the four shapes [{gpu_line}]")
+
+
+def probe_path(records, gpu_line):
+    """Phase 10: the port's probe at the four 7B decode shapes (its launch
+    counts are this path's), then each kernel against its plain version,
+    then the tile tuner's sweep.  Returns the probe run's launch counts."""
+    import torch
+    from csinn2_tpu_torch.examples import int4_dequant_probe as probe
+    from csinn2_tpu_torch.examples import int4_tile_tune as tuner
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    results = probe.probe(device="cuda", M=8, log=log)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    log(f"  probe launches: {counts}")
+    missing = [k for k in PROBE_KERNELS if counts.get(f"int4_probe_{k}", 0) == 0]
+    if missing or counts.get("quant_matmul_q4_0.decode", 0) == 0:
+        raise AssertionError(f"phase 10 never launched {missing} (or quant_matmul_q4_0)")
+    over = [(r["name"], r["K"], r["N"], r["bound_us"] / r["us"]) for r in results
+            if r["bound_us"] / r["us"] > 1.05]
+    if over:
+        raise AssertionError(f"phase 10 rows above 105 % of their bytes bound: {over}")
+    low = [(r["name"], r["K"], r["N"], r["cos"]) for r in results
+           if r["kind"] not in ("stream", "noscale", "halfq8") and r["cos"] < 0.99]
+    if low:
+        raise AssertionError(f"phase 10 variants off the golden: {low}")
+    check_probe_kernels(records, results, gpu_line)
+    tuner.tune(device="cuda", log=log)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "csinn2_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -1110,6 +1219,10 @@ def main() -> int:
     flash = serve(gpu_line, "q8_0", flash_decode=True, base=q8_0)
     path_counts["flash_attention_bhsd"] = (flash["counts"],
                                            "phase 9 (Q8_0 run_queue, CSINN2_DECODE_ATTN=flash)")
+    log("phase 10: the probe path, the Q4_0 dequant-strategy probes at the 7B decode shapes")
+    probe_counts = probe_path(records, gpu_line)
+    for kind in PROBE_KERNELS:
+        path_counts[f"int4_probe_{kind}"] = (probe_counts, "phase 10 (int4_dequant_probe, M=8)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -7,7 +7,10 @@ transposed [N, K] / [N, K/2] layouts, scale_mode "none", int8 x with every
 output type, the fixed-point requantize bit for bit, epilogue_scale and
 integer outputs of a float x); odd KV lengths, GQA, bf16 KV, head dim 64, a
 fully masked lane, strided K/V views, bhsd flash_attention with a strided q;
-the op API's CUDA tier in a GRAPH session; fused_dsconv (bit for bit) at odd H and
+the op API's CUDA tier in a GRAPH session; the eleven Q4_0 dequant-probe
+kernels (kernels/int4_probe.py) at M 1, 5, 8 and 16, N not a multiple of the
+CTA's columns, K a multiple of 32 but not of the split, in three launch
+geometries; fused_dsconv (bit for bit) at odd H and
 W, C in {3, 8, 17, 1024}, O not a multiple of 8, k 3 and 5, stride 1 and 2,
 pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, and a small
 MobileNetV1 session fused against unfused; and the wrappers' argument
@@ -31,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from csinn2_tpu_torch.kernels import dsblock as ds  # noqa: E402
 from csinn2_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from csinn2_tpu_torch.kernels import int4_probe as ip  # noqa: E402
 from csinn2_tpu_torch.kernels import launch_counts  # noqa: E402
 from csinn2_tpu_torch.kernels.qmatmul import (launch_key, pack_int4, quant_matmul,  # noqa: E402
                                               quant_matmul_ref)
@@ -569,3 +573,74 @@ def test_op_api_cuda_tier_on_the_card(dev):
     assert cosine_similarity(outs[Api.AUTO][0], outs[Api.TORCH][0]) >= 0.9999
     r = verify(outs[Api.AUTO][1], outs[Api.TORCH][1], tol=2e-2, min_cosine=0.9999)
     assert r.passed, r
+
+
+# -- the Q4_0 dequant probes (kernels/int4_probe.py) ---------------------------------
+
+# (K, N, bn, bk): bn selects 128, 64 and 256 columns per CTA; K = 11, 33 and
+# 10 blocks against splits of 4, 16 and 2 blocks; N not a multiple of cols
+PROBE_SHAPES = [(352, 200, 4096, 128), (1056, 264, 2048, 512), (320, 520, 8192, 64)]
+PROBE_CARRIER = {"split_i32": "q4_0", "split_i8": "q4_0", "stream": "q4_0",
+                 "i4native": "native", "bitcast": "biased"}
+
+
+def _probe_case(gen, dev, kind, M, K, N, bn, bk):
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randint(-8, 8, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    q[:, :8] = -8
+    s = torch.rand((K // 32, N), generator=gen, device=dev) * 0.01 + 0.005
+    pack = {"q4_0": pack_int4, "native": ip.pack_int4_native,
+            "biased": ip.pack_int4_biased}.get(PROBE_CARRIER.get(kind), ip.pack_int4_mixed)
+    if kind in ("andmask_bf16s", "noscale", "halfq8"):
+        s = s.to(torch.bfloat16)
+    return ip.prepare(kind, x, pack(q), s, M, bn, bk)
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES, ids=lambda s: "K{}_N{}_bn{}_bk{}".format(*s))
+@pytest.mark.parametrize("M", [1, 5, 8, 16])
+@pytest.mark.parametrize("kind", list(ip.KINDS))
+def test_int4_probe_kernels(gen, dev, kind, M, shape):
+    """Each probe kernel against its plain version on the card: stream bit
+    for bit (integer sums plus one f32 add in both), the others within
+    1e-5·max|y| (the same bf16 plane values or int32 partials; f32 sums in
+    another order)."""
+    call = _probe_case(gen, dev, kind, M, *shape)
+    key = f"int4_probe_{kind}"
+    before = launch_counts[key]
+    y = call.kernel()
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    ref = ip.kernel_ref(kind, call.tensors, call.M, call.N, call.K, call.bn, call.bk)
+    assert y.shape == (M, shape[1]) and y.dtype == torch.float32
+    if kind == "stream":
+        assert torch.equal(y, ref)
+    else:
+        assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    full = call()
+    assert torch.isfinite(full).all()
+
+
+def test_int4_probe_rejects_bad_args(gen, dev):
+    call = _probe_case(gen, dev, "andmask", 4, 256, 64, 4096, 128)
+    x = call.tensors["xa"]
+    with pytest.raises(ValueError):                     # M > 16 on the card
+        ip.run_andmask(torch.zeros((17, 256), device=dev, dtype=torch.bfloat16),
+                       call.tensors["w"], call.tensors["s"], 17, 4096, 128)
+    with pytest.raises(ValueError):                     # N % 8
+        ip.run_andmask(torch.zeros((4, 256), device=dev, dtype=torch.bfloat16),
+                       torch.zeros((128, 60), device=dev, dtype=torch.int8),
+                       torch.zeros((8, 60), device=dev), 4, 4096, 128)
+    bad = ip.ProbeCall("andmask", dict(call.tensors, s=call.tensors["s"].half()), 4, 64, 256,
+                       4096, 128, lambda y: y)
+    with pytest.raises(ValueError):                     # scale dtype
+        bad.kernel()
+    assert x.is_cuda
+
+
+def test_int4_probe_attrs_and_cold_timing(gen, dev):
+    from csinn2_tpu_torch.utils.timing import gpu_ms, gpu_ms_cold
+    attrs = ip.kernel_attrs("andmask", 8)
+    assert 0 < attrs["regs"] <= 255 and attrs["ctas_per_sm"] >= 1
+    calls = [_probe_case(gen, dev, "andmask", 8, 1024, 512, 4096, 512) for _ in range(3)]
+    assert gpu_ms_cold([c.kernel for c in calls], reps=6) > 0
+    assert gpu_ms(calls[0].kernel, reps=4) > 0

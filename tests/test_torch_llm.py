@@ -355,9 +355,9 @@ def test_engine_needs_cuda_unless_cpu_asked(weights, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running its CPU forward, engine and a small
-    fused MobileNetV1 INT8 session loads neither jax nor any module of the
-    JAX package."""
+    """Importing the port and running its CPU forward, engine, a small
+    fused MobileNetV1 INT8 session and the Q4_0 dequant probe loads neither
+    jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -383,6 +383,12 @@ def test_port_imports_no_jax():
         "s = m.build_session(QuantScheme.INT8_SYM, batch=1, device='cpu')\n"
         "assert sum(n.op == 'ds_block' for n in s.graph.nodes) == 13\n"
         "assert tuple(s.run(m.prepare_input(x, s)).shape) == (1, 1000)\n"
+        "from csinn2_tpu_torch.examples import int4_dequant_probe, int4_tile_tune\n"
+        "import csinn2_tpu_torch.kernels.int4_probe, csinn2_tpu_torch.utils.timing\n"
+        "recs = int4_dequant_probe.probe(device='cpu', shapes=[(512, 256, 4096, 128)],\n"
+        "                                log=lambda line: None)\n"
+        "assert len(recs) == 18 and all(r['cos'] > 0.99 for r in recs if r['kind'] in\n"
+        "                                 ('cur', 'andmask', 'w4a8', 'i4native'))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'csinn2_tpu' or m.startswith('csinn2_tpu.')]\n"
         "print('LOADED', bad)\n"
