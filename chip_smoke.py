@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      behind a sleep kernel, CUDA events) beside the plain version and one
      library call (a yardstick only): quant_matmul in every weight mode
      (Q8_0, Q4_0, INT8_CHANNEL, INT4_CHANNEL, and the swiglu epilogue on a
-     Q8_0 and a Q4_0 w13 in the swiglu128 layout), and the attention kernels;
+     Q8_0 and a Q4_0 w13 in the swiglu128 layout), and the attention kernels
+     (the tensor-core attn_fwd_kernel at prefill and, split over the KV
+     window, at flash decode), then every attention entry point at head
+     dims 16, 32, 80, 96 and 256 with an f32 and a bf16 q, int8 and bf16 KV;
   3. model parity: a 2-layer model at full 7B width (int8 KV) over a
      128-token prompt, logits on the card against the same model through the
      port's plain path on the CPU (cosine >= 0.999), for Q8_0, Q4_0,
@@ -21,7 +24,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      InferenceEngine(batch=4).run_queue over six greedy requests (prompts
      5..1100 tokens, 16 new tokens each), with the kernel launch counts of
      that run; then TTFT at prompt 128 and decode tokens/s at batch 4 (CUDA
-     events);
+     events); then the engine at LlamaConfig.tiny() (head dim 16, GQA 4/2)
+     on the card, with and without CSINN2_DECODE_ATTN=flash, logits against
+     the same engine on the CPU (cosine >= 0.999);
   5. this slice's main path: the same with Q4_0 weights;
   6. the paths of the other weight modes, each the same run at full width
      and depth: INT8_CHANNEL, INT4_CHANNEL, and Q4_0 with the swiglu128
@@ -48,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      verify(tol=2e-2, min_cosine=0.9999)), an int8 out_qinfo within 1 LSB;
   9. phase 4's run under CSINN2_DECODE_ATTN=flash: the batched decode takes
      bhsd flash_attention (32 launches per decode step, decode_attention
-     none), tokens set beside phase 4's, one step's logits against the
+     none; the split-KV launches and their merges counted), tokens set
+     beside phase 4's, one step's logits against the
      default decode's (cosine >= 0.999), decode tokens/s beside phase 4's;
  10. the probe path: the port's Q4_0 dequant-strategy probe
      (csinn2_tpu_torch.examples.int4_dequant_probe, the eleven kernels of
@@ -409,16 +415,17 @@ def _x_for(g, kind, M, K):
 
 
 def int_mm_ms(x, w):
-    """torch._int_mm's time on the same int8 operands (int32 sums only), or
-    None where it refuses the shape (M <= 16)."""
+    """torch._int_mm's time on the same int8 operands (int32 sums only).  It
+    refuses M <= 16, so there it takes x zero-padded to 32 rows."""
     import torch
     from csinn2_tpu_torch.utils.timing import gpu_ms
-    try:
-        return gpu_ms(lambda: torch._int_mm(x, w))
-    except RuntimeError as e:
-        log(f"  (torch._int_mm refuses x{tuple(x.shape)} w{tuple(w.shape)}: "
-            f"{str(e).splitlines()[0][:100]})")
-        return None
+    if x.shape[0] <= 16:
+        xp = torch.zeros((32, x.shape[1]), dtype=x.dtype, device=x.device)
+        xp[:x.shape[0]] = x
+        log(f"  (torch._int_mm refuses M <= 16: timed on x{tuple(x.shape)} zero-padded to "
+            "32 rows)")
+        return gpu_ms(lambda: torch._int_mm(xp, w))
+    return gpu_ms(lambda: torch._int_mm(x, w))
 
 
 def kernel_api_path():
@@ -448,9 +455,9 @@ def kernel_api_path():
 def check_new_quant_matmul(records):
     """Every new mode against its plain version at the 7B shapes, timed
     beside its bound, the plain version and a library call: torch._int_mm
-    (int32 sums only) for the int8 x rows where it takes the shape (M > 16;
-    null otherwise), torch.matmul on the dequantized bf16 weight for the
-    float rows.  int8 x with f32 out and the requantize: bit for bit; the
+    (int32 sums only; at M <= 16, which it refuses, on x zero-padded to 32
+    rows) for the int8 x rows, torch.matmul on the dequantized bf16 weight
+    for the float rows.  int8 x with f32 out and the requantize: bit for bit; the
     float epilogue to int8: 1 LSB on under 0.1 % (a double-rounding tie of
     the plain version's f64 fma)."""
     import torch
@@ -501,15 +508,15 @@ def check_new_quant_matmul(records):
                           + (0 if b is None else N * 4) + (8 * N if kind == "requant" else 0)
                           + M * N * osz)
                 b_ms, b_by = bound(nbytes, 2.0 * M * N * K, INT8_OPS if int_x else BF16_FLOPS)
-                lib_s = "null" if lib is None else f"{lib:.4f}"
                 log(f"  {key} {label} {name} M={M:4d} K={K:5d} N={N:5d} ms={ms:.4f} "
-                    f"plain_ms={plain:.4f} lib_ms={lib_s} bound_ms={b_ms:.4f} ({b_by}) "
+                    f"plain_ms={plain:.4f} lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                     f"roofline={b_ms / ms:.3f} {note}")
                 rec = records.setdefault(key, {"max_abs_err": 0.0})
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 if NEW_RECORD.get(key) == kind and name == "w13" and M == 4:
+                    padded = " (library: x zero-padded to 32 rows)" if deq is None else ""
                     rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                               bound_by=b_by, shape=f"{label} w13 M=4 K={K} N={N}")
+                               bound_by=b_by, shape=f"{label} w13 M=4 K={K} N={N}{padded}")
             del w, s, b, deq
 
 
@@ -564,6 +571,91 @@ def check_flash_bhsd(records):
                                                    bound_ms=b_ms, bound_by=b_by, shape=shape)
         del k, v
     records["flash_attention_bhsd"]["max_abs_err"] = worst
+
+
+ATTN_DIMS = (16, 32, 80, 96, 256)
+ATTN_ENTRIES = ("prefill_attention", "flash_attention", "flash_attention_bhsd",
+                "decode_attention")
+
+
+def _attend(name, q, k, v, kw):
+    """(output, its plain version on q rounded to bf16) of one attention entry
+    point; q is [b, sq, hq, d] for prefill and bshd flash, [b, hq, sq, d]
+    for bhsd flash and decode."""
+    import torch
+    from csinn2_tpu_torch.kernels import flash_attention as fa
+    if name == "decode_attention":
+        out = fa.decode_attention(q, k, v, q_offset=kw["q_offset"], kv_len=kw["kv_len"],
+                                  kv_scale=kw["kv_scale"])
+        kw = dict(kw, causal=False)
+    elif name == "flash_attention_bhsd":
+        out = fa.flash_attention(q, k, v, **kw)
+    elif name == "flash_attention":
+        out = fa.flash_attention(q, k, v, qo_layout="bshd", **kw)
+    else:
+        out = fa.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bhsd = name in ("flash_attention_bhsd", "decode_attention")
+    qb = q.to(torch.bfloat16)
+    ref = fa._attention_ref(qb if bhsd else qb.permute(0, 2, 1, 3), k, v,
+                            scale=1.0 / math.sqrt(q.shape[-1]), **kw)
+    return out, ref if bhsd else ref.permute(0, 2, 1, 3)
+
+
+def check_attention_dims(records):
+    """The head dims the JAX kernels take besides 64 and 128 (they pad d to
+    a multiple of 128) and an f32 q (rounded to bf16 in the kernel, as the
+    JAX bodies round it), through the four attention entry points with int8
+    (kv_scale 0.05) and bf16 KV, GQA 32/8, per-row q_offset / kv_len: b = 2,
+    sq = 128 over S = 512 (kv_len 128 / 461, q_offset 0 / 333) and decode at
+    kv_len 1 / 334; each output in q's dtype, against its plain version on
+    q rounded to bf16 at the attention gate.  Then the split-KV flash decode
+    at kv_len 0, 1, 17 and 2048 (sq 1 and 3)."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    b, hq, hk, S = 2, 32, 8, 512
+    n = 0
+    for d in ATTN_DIMS:
+        for int8 in (True, False):
+            if int8:
+                k, v = _kv_case(g, b, hk, S, d, 0.05)
+            else:
+                k, v = (torch.randn((b, S, hk, d), generator=g, device="cuda")
+                        .to(torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+            for qdt in (torch.float32, torch.bfloat16):
+                for name in ATTN_ENTRIES:
+                    sq = 1 if name == "decode_attention" else 128
+                    bhsd = name in ("flash_attention_bhsd", "decode_attention")
+                    q = torch.randn((b, hq, sq, d) if bhsd else (b, sq, hq, d), generator=g,
+                                    device="cuda").to(qdt)
+                    off = torch.tensor([0, 333], dtype=torch.int32, device="cuda")
+                    kw = dict(causal=True, q_offset=off, kv_len=off + sq,
+                              kv_scale=0.05 if int8 else None)
+                    out, ref = _attend(name, q, k, v, kw)
+                    if out.dtype != qdt or out.shape != q.shape:
+                        raise AssertionError(f"{name} d={d}: out {out.dtype} {tuple(out.shape)}")
+                    r = _verify_attn(f"{name} d={d} int8={int8} q {qdt}", out, ref)
+                    rec = records.setdefault(name, {})
+                    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), r.max_abs_err)
+                    n += 1
+            del k, v
+    log(f"  head dims {ATTN_DIMS} x int8/bf16 KV x f32/bf16 q x {len(ATTN_ENTRIES)} entry "
+        f"points: {n} cases against the plain version, verify(2e-2), cos >= 0.9999")
+    # the split-KV flash decode at the window's edges: kv_len 0 (outputs 0), 1, 17, 2048
+    k, v = _kv_case(g, 4, hk, 2048, 128, 0.05)
+    kvl = torch.tensor([0, 1, 17, 2048], dtype=torch.int32, device="cuda")
+    for sq in (1, 3):
+        q = torch.randn((4, hq, sq, 128), generator=g, device="cuda").to(torch.bfloat16)
+        kw = dict(causal=True, q_offset=(kvl - sq).clamp(min=0), kv_len=kvl, kv_scale=0.05)
+        out, ref = _attend("flash_attention_bhsd", q, k, v, kw)
+        r = _verify_attn(f"split-KV decode sq={sq} kv_len {kvl.tolist()}", out, ref)
+        if float(out[0].abs().max()) != 0.0:
+            raise AssertionError("split-KV decode: the kv_len = 0 row must output 0")
+        rec = records["flash_attention_bhsd"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], r.max_abs_err)
+    log(f"  split-KV flash decode, GQA {hq}/{hk}, sq 1 and 3, kv_len {kvl.tolist()}: "
+        f"against the plain version, the kv_len = 0 row 0")
 
 
 # ---------------------------------------------------------------------------
@@ -843,7 +935,9 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         n_layers = cfg.n_layers
         log(f"  decode steps {steps[0]}: flash_attention_bhsd "
             f"{counts.get('flash_attention_bhsd', 0)} launches (want {n_layers} x {steps[0]}), "
-            f"decode_attention {counts.get('decode_attention', 0)}")
+            f"of them split-KV with a merge (flash_attention_bhsd.combine) "
+            f"{counts.get('flash_attention_bhsd.combine', 0)}, decode_attention "
+            f"{counts.get('decode_attention', 0)}")
         if counts.get("decode_attention", 0) != 0 or \
                 counts.get("flash_attention_bhsd", 0) != n_layers * steps[0]:
             raise AssertionError("flash decode launch counts")
@@ -908,6 +1002,51 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     del eng
     torch.cuda.empty_cache()
     return dict(counts=counts, outs=outs, tps=tps, steps=steps[0])
+
+
+def serve_tiny():
+    """LlamaConfig.tiny() (head dim 16, GQA 4/2; Q8_0, int8 KV) through the
+    engine on the card, with CSINN2_DECODE_ATTN unset and =flash: two
+    prompts prefilled and four greedy decode steps at batch 2, logits of
+    each against the same engine on the CPU (cosine >= 0.999; the card fed
+    the CPU's tokens).  Returns the launch counts of the card's runs."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    cfg = LlamaConfig.tiny()
+    counts = {}
+    for flash in (False, True):
+        with env_flag("CSINN2_DECODE_ATTN", flash, "flash"):
+            cpu, gpu = (InferenceEngine(cfg, init_params(cfg, "q8_0", seed=5, device=dv),
+                                        batch=2, quantized_kv=True, device=dv)
+                        for dv in ("cpu", "cuda"))
+            reset_launch_counts()
+            cos, nxt = [], {}
+            for sid, prompt in enumerate(([3, 7, 11, 19, 4], list(range(1, 40)))):
+                want, got = cpu.prefill(sid, prompt), gpu.prefill(sid, prompt)
+                cos.append(cosine_similarity(got, want) if np.isfinite(got).all() else 0.0)
+                nxt[sid] = int(np.argmax(want))
+            for _ in range(4):
+                want, got = cpu.decode_step(nxt), gpu.decode_step(nxt)
+                cos += [cosine_similarity(got[i], want[i]) if np.isfinite(got[i]).all()
+                        else 0.0 for i in nxt]
+                nxt = {i: int(np.argmax(want[i])) for i in nxt}
+            torch.cuda.synchronize()
+            run = dict(launch_counts)
+        attn = "flash_attention_bhsd" if flash else "decode_attention"
+        log(f"  LlamaConfig.tiny() (d=16, GQA 4/2) on the card{' flash decode' if flash else ''}: "
+            f"2 prefills + 4 decode steps, min logit cosine vs the CPU engine {min(cos):.6f} "
+            f"(gate 0.999); launches {run}")
+        if min(cos) < 0.999 or run.get("prefill_attention", 0) == 0 or run.get(attn, 0) == 0:
+            raise AssertionError(f"tiny engine on the card: cosine {min(cos)}, launches {run}")
+        for k, n in run.items():
+            counts[k] = counts.get(k, 0) + n
+        del cpu, gpu
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1183,6 +1322,7 @@ def main() -> int:
     check_attention(records)
     check_new_quant_matmul(records)
     check_flash_bhsd(records)
+    check_attention_dims(records)
     torch.cuda.empty_cache()
     # kernel name → (launch counts of the run whose path it is on, the run)
     path_counts = {}
@@ -1198,6 +1338,7 @@ def main() -> int:
     q8_0 = serve(gpu_line, "q8_0")
     for k in ("quant_matmul",) + ATTENTION:
         path_counts[k] = (q8_0["counts"], "phase 4 (Q8_0)")
+    serve_tiny()
     log("phase 5: this slice's main path, Llama-2-7B Q4_0 int8 KV, run_queue batch 4")
     path_counts["quant_matmul_q4_0"] = (serve(gpu_line, "q4_0")["counts"], "phase 5 (Q4_0)")
     log("phase 6: the other weight modes' paths, Llama-2-7B int8 KV, run_queue batch 4")
@@ -1239,6 +1380,9 @@ def main() -> int:
         if name.startswith("quant_matmul"):
             entry.update(launches_decode=int(counts.get(f"{name}.decode", 0)),
                          launches_prefill=int(counts.get(f"{name}.prefill", 0)))
+        if name in ATTENTION[1:] + ("flash_attention_bhsd",):
+            # the split-KV merges of the same source, within `launches`
+            entry["launches_combine"] = int(counts.get(f"{name}.combine", 0))
         kernels.append(entry)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))

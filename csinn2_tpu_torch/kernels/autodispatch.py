@@ -10,8 +10,8 @@ input's in layer mode); on the CPU AUTO resolves to the TORCH tier, as the
 JAX package resolves to XLA there.
 
   * SDPA → bhsd `flash_attention` (csrc/attention.cu): for decode over a
-    cache (pos_offset or kv_len set) or once sq·sk ≥ 128·512; head dim 64
-    or 128, what the CUDA kernel takes (the JAX limit is d ≤ 256).  It
+    cache (pos_offset or kv_len set) or once sq·sk ≥ 128·512; head dim
+    d ≤ 256, as the JAX caps.  It
     passes q_offset = pos_offset, as the Pallas tier does: a causal call
     with sq < sk and neither set lets query i see keys <= i, where the
     TORCH tier offsets the queries by sk - sq (ROADMAP queue C).
@@ -47,7 +47,7 @@ def _sdpa_caps(metas, params, device=None) -> bool:
         return False
     sq = metas[0].shape[-2]
     sk = metas[1].shape[-2]
-    if metas[0].shape[-1] not in (64, 128):
+    if metas[0].shape[-1] > 256:
         return False
     if params is not None and (getattr(params, "kv_len", 0)
                                or getattr(params, "pos_offset", 0)):

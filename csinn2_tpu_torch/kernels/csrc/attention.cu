@@ -5,27 +5,79 @@
 //   over the row's whole KV window [0, kv_len), exact two-pass softmax.
 //   One CTA per (query head, row).  Bound: the K/V bytes (2·S·d per head),
 //   read once; warps take whole keys so each key row is one coalesced read.
+//   Any d <= 256: four elements a lane where the rows allow 4-element loads,
+//   a masked tail otherwise.
 //
 // attention_fwd_launch — replaces prefill_attention → _prefill_attn_kernel
-//   and flash_attention (bshd) → _attn_kernel: causal (or not) attention with
-//   per-row q_offset / kv_len, GQA head map h / (hq / hk), online softmax
-//   over 32-key tiles.  One CTA per (32-query block, query head, row); keys
-//   past the block's last causal position are never read.  Bound: at 7B
-//   prefill the QK and PV flops (4·sq·S·d per head, halved by causality);
-//   this SIMT f32 kernel trades speed for the reference's f32 numerics, and
-//   tensor-core (wgmma) tiles are later work.
+//   and flash_attention (bshd and bhsd) → _attn_kernel: causal (or not)
+//   attention with per-row q_offset / kv_len and the GQA head map
+//   h / (hq / hk), on the tensor cores.  The m rows of a CTA are
+//   (query, head of the KV head's group) pairs, so GQA heads share each
+//   K/V tile.  Two bounds, by shape:
+//   - prefill (sq·group > 64): the QK and PV products, 4·sq·S·d per head
+//     (halved by causality), 34.4 GFLOP at 7B sq = 2048: 0.035 ms at the
+//     bf16 peak.  FlashAttention-2 on mma.sync m16n8k16 (bf16 in, f32
+//     sums), as the JAX body runs bf16 dots on the MXU: a warp owns 16
+//     query rows, a CTA up to 8 warps (fewer where the card would not
+//     fill), K/V tiles of 64 keys (32 at d = 256) in a two-stage cp.async
+//     ring, so the next tile loads under this tile's products.  Q is
+//     rounded to bf16 as it is staged (the JAX q.astype(bf16)); Q·Kᵀ reads
+//     Q and K with ldmatrix, P is rounded to bf16 in registers and is P·V's
+//     A operand as it stands (the JAX p.astype(bf16)), V comes through
+//     ldmatrix.trans; exp2 runs on the SFU.  int8 K/V land raw and are
+//     widened to bf16 in shared memory once per CTA (exact), so 128 query
+//     rows share each widening and two 8-warp CTAs (128 registers a
+//     thread) share an SM; kv_scale folds into qk_scale and out_scale.
+//     Causal: tiles past the CTA's last position are never loaded, only the
+//     diagonal tiles are masked, and the CTAs with the most tiles start
+//     first.  What holds it back: each K/V fragment feeds one 16-row product
+//     from registers (mma.sync, not wgmma's shared-memory operands), and
+//     the int8 widening costs a pass and a barrier per tile.
+//   - flash decode (sq·group <= 64): the K/V bytes, 25.3 MB of int8 KV at
+//     the 7B decode shape (0.0076 ms).  The GQA group's queries × sq are
+//     the m rows of one CTA (16 a warp, zero-padded, Q in registers); the
+//     KV window is split into chunks of `chunk` keys, one CTA per (chunk,
+//     KV head, row), so the bytes stream on every SM and a chunk past
+//     kv_len returns at once.  The warps a CTA has beyond its row groups
+//     take key slices of each tile (their partials merge through shared
+//     memory), each CTA writes its (max, sum, unnormalised output) to f32
+//     scratch, and attn_combine_kernel merges the chunks of each row.
+//   Any d <= 256: d pads to 64, 128 or 256 as the JAX kernels pad to 128;
+//   the dims past d are zero in shared memory, not in a copy of the cache.
+//   K/V rows load 16, 8 or 4 bytes at a time (`vec`, the widest width the
+//   rows and strides allow), element by element where none does.
 //
-// Both fold kv_scale as the TPU kernels do: into the QK scale (qk_scale) and
-// into the PV epilogue (out_scale).  A row whose softmax denominator is 0
-// (kv_len == 0, or every key masked) outputs 0, never NaN.
-//
-// K/V are read through (batch, head, seq) strides with a contiguous last dim,
-// so the cache's [b, S, hk, d] layout is consumed in place (no transpose).
+// A row whose softmax denominator is 0 (kv_len == 0, or every key masked)
+// outputs 0, never NaN.  K/V are read through (batch, head, seq) strides
+// with a contiguous last dim, so the cache's [b, S, hk, d] layout is
+// consumed in place (no transpose).  q and out are bf16, f16 or f32
+// (dtype codes DT_*); out is written from the f32 sums in its own dtype.
+#include <cuda_fp16.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+enum : int { DT_BF16 = 0, DT_F16 = 1, DT_F32 = 2 };
+
+// q element i rounded to bf16, as the JAX bodies' q.astype(bfloat16)
+__device__ __forceinline__ __nv_bfloat16 load_q_bf16(const void* p, long long i, int dt) {
+  if (dt == DT_F32) return __float2bfloat16_rn(static_cast<const float*>(p)[i]);
+  if (dt == DT_F16) return __float2bfloat16_rn(__half2float(static_cast<const __half*>(p)[i]));
+  return static_cast<const __nv_bfloat16*>(p)[i];
+}
+
+__device__ __forceinline__ void store_dt(void* p, long long i, int dt, float v) {
+  if (dt == DT_F32)
+    static_cast<float*>(p)[i] = v;
+  else if (dt == DT_F16)
+    static_cast<__half*>(p)[i] = __float2half_rn(v);
+  else
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+}
 
 // four consecutive K/V elements as f32 (8-bit: one 4-byte load; bf16: 8 bytes)
 __device__ __forceinline__ void load4(const int8_t* p, float f[4]) {
@@ -37,6 +89,18 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float f[4]) {
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p + 2);
   f[0] = __low2float(a); f[1] = __high2float(a);
   f[2] = __low2float(b); f[3] = __high2float(b);
+}
+
+// elements c .. c+3 of row p, zero past d: one vector load where FULL4
+// (rows start on a 4-element boundary and d % 4 == 0), else one by one
+template <bool FULL4, typename KV>
+__device__ __forceinline__ void load4_masked(const KV* p, int c, int d, float f[4]) {
+  if constexpr (FULL4) {
+    load4(p + c, f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = c + e < d ? to_float(p[c + e]) : 0.f;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -52,7 +116,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 constexpr int DEC_THREADS = 256;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int DEC_MAX_D = 256;
+constexpr int MAX_D = 256;
 
 // Block-wide reduction through `scratch` (DEC_WARPS floats); every thread
 // gets the result.
@@ -68,30 +132,31 @@ __device__ float block_reduce(float v, float* scratch) {
   return r;
 }
 
-template <typename KV>
+template <typename KV, bool FULL4>
 __global__ void __launch_bounds__(DEC_THREADS)
-decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, long long q_sh,
+decode_attn_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long long q_sh,
                    const KV* __restrict__ k, long long k_sb, long long k_sh, long long k_ss,
                    const KV* __restrict__ v, long long v_sb, long long v_sh, long long v_ss,
                    const int* __restrict__ kv_len,        // [b]
-                   __nv_bfloat16* __restrict__ out,       // [b, hq, d]
+                   void* __restrict__ out, int o_dt,      // [b, hq, d]
                    int hq, int hk, int S, int d, float qk_scale, float out_scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                        // [d] scaled query
-  float* sc = qs + d;                      // [S] scores, then probabilities
-  float* part = sc + S;                    // [DEC_WARPS, d] PV partial sums
-  float* scratch = part + DEC_WARPS * d;   // [DEC_WARPS]
+  const int dq = (d + 3) / 4 * 4;          // d rounded up to the 4-element loads
+  float* qs = smem;                        // [dq] scaled query, zero past d
+  float* sc = qs + dq;                     // [S] scores, then probabilities
+  float* part = sc + S;                    // [DEC_WARPS, dq] PV partial sums
+  float* scratch = part + DEC_WARPS * dq;  // [DEC_WARPS]
 
   const int h = blockIdx.x, bi = blockIdx.y;
   const int hkid = h / (hq / hk);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int L = max(0, min(kv_len[bi], S));
-  const __nv_bfloat16* qrow = q + bi * q_sb + h * q_sh;
+  const long long qrow = bi * q_sb + h * q_sh;
   const KV* kb = k + bi * k_sb + hkid * k_sh;
   const KV* vb = v + bi * v_sb + hkid * v_sh;
 
-  for (int c = threadIdx.x; c < d; c += DEC_THREADS)
-    qs[c] = __bfloat162float(qrow[c]) * qk_scale;
+  for (int c = threadIdx.x; c < dq; c += DEC_THREADS)
+    qs[c] = c < d ? __bfloat162float(load_q_bf16(q, qrow + c, q_dt)) * qk_scale : 0.f;
   __syncthreads();
 
   // scores: one warp per key, four dims per lane
@@ -100,7 +165,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, long lon
     float dot = 0.f;
     for (int c = lane * 4; c < d; c += 128) {
       float f[4];
-      load4(kb + j * k_ss + c, f);
+      load4_masked<FULL4>(kb + j * k_ss, c, d, f);
       dot += qs[c] * f[0] + qs[c + 1] * f[1] + qs[c + 2] * f[2] + qs[c + 3] * f[3];
     }
     dot = warp_sum(dot);
@@ -118,230 +183,671 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, long lon
   const float l = block_reduce<false>(local_sum, scratch);  // syncs: p visible
 
   // PV: one warp per key, four dims per lane
-  float acc[DEC_MAX_D / 128][4] = {};
+  float acc[MAX_D / 128][4] = {};
   for (int j = warp; j < L; j += DEC_WARPS) {
     const float p = sc[j];
 #pragma unroll
-    for (int t = 0; t < DEC_MAX_D / 128; ++t) {
+    for (int t = 0; t < MAX_D / 128; ++t) {
       const int c = lane * 4 + t * 128;
       if (c < d) {
         float f[4];
-        load4(vb + j * v_ss + c, f);
+        load4_masked<FULL4>(vb + j * v_ss, c, d, f);
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[t][e] += p * f[e];
       }
     }
   }
 #pragma unroll
-  for (int t = 0; t < DEC_MAX_D / 128; ++t) {
+  for (int t = 0; t < MAX_D / 128; ++t) {
     const int c = lane * 4 + t * 128;
     if (c < d)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) part[warp * d + c + e] = acc[t][e];
+      for (int e = 0; e < 4; ++e) part[warp * dq + c + e] = acc[t][e];
   }
   __syncthreads();
   const float inv = 1.f / fmaxf(l, 1e-30f);
-  __nv_bfloat16* orow = out + ((size_t)bi * hq + h) * d;
+  const long long orow = ((long long)bi * hq + h) * d;
   for (int c = threadIdx.x; c < d; c += DEC_THREADS) {
     float sum = 0.f;
-    for (int w = 0; w < DEC_WARPS; ++w) sum += part[w * d + c];
-    orow[c] = __float2bfloat16_rn(sum * out_scale * inv);
+    for (int w = 0; w < DEC_WARPS; ++w) sum += part[w * dq + c];
+    store_dt(out, orow + c, o_dt, sum * out_scale * inv);
   }
 }
 
-constexpr int FWD_THREADS = 256;
-constexpr int BQ = 32;    // queries per CTA: 8 threads per query row
-constexpr int BKV = 32;   // keys per tile
+// ---------------------------------------------------------------------------
+// attn_fwd_kernel: tensor-core flash attention (prefill and split-KV decode)
+// ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + D * (BKV + 1) + BKV * D + BQ * (BKV + 1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D, typename KV>
-__global__ void __launch_bounds__(FWD_THREADS)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, long long q_ss, long long q_sh,
-                const KV* __restrict__ k, long long k_sb, long long k_sh, long long k_ss,
-                const KV* __restrict__ v, long long v_sb, long long v_sh, long long v_ss,
-                const int* __restrict__ q_offset, const int* __restrict__ kv_len,
-                __nv_bfloat16* __restrict__ out, long long o_sb, long long o_ss, long long o_sh,
-                int sq, int hq, int hk, int S, int causal, float qk_scale, float out_scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                       // [BQ][D+1]  scaled queries
-  float* Kt = Qs + BQ * (D + 1);          // [D][BKV+1] key tile, transposed
-  float* Vs = Kt + D * (BKV + 1);         // [BKV][D]   value tile
-  float* Ps = Vs + BKV * D;               // [BQ][BKV+1] probabilities
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p, bool trans) {
+  const uint32_t a = smem_u32(p);
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
-  const int hkid = h / (hq / hk);
-  const int tid = threadIdx.x;
-  const int r = tid / 8, c = tid % 8;     // query row r, lane c of its 8
-  const int qoff = q_offset[bi];
-  const int L = max(0, min(kv_len[bi], S));
-  const int qpos = qoff + q0 + r;
+// d += a · b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const __nv_bfloat16* qb = q + bi * q_sb + h * q_sh;
-  for (int idx = tid; idx < BQ * D; idx += FWD_THREADS) {
-    const int rr = idx / D, cc = idx % D;
-    const int qi = q0 + rr;
-    Qs[rr * (D + 1) + cc] = qi < sq ? __bfloat162float(qb[qi * q_ss + cc]) * qk_scale : 0.f;
+__device__ __forceinline__ uint32_t pack_bf162(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// BYTES from global to shared, asynchronously; ok == false fills zeros and
+// reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four int8 (one word) → two bf16 pairs, exact: byte x + 128 is the low
+// mantissa byte of the f32 2^23 + x + 128 (no I2F, 16 results/clk/SM)
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float base = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - base;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - base;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - base;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - base;
+  lo = pack_bf162(f0, f1);
+  hi = pack_bf162(f2, f3);
+}
+
+template <typename T>
+__device__ __forceinline__ T kv_zero();
+template <>
+__device__ __forceinline__ int8_t kv_zero<int8_t>() { return 0; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 kv_zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+
+constexpr int FWD_MAX_WARPS = 8;
+constexpr int NSTAGE = 2;   // K/V tiles in flight + 1
+
+// 2^x on the SFU, subnormal results flushed (p below 2^-126 of the row max
+// adds nothing to an f32 sum); -inf gives 0
+__device__ __forceinline__ float fexp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DP, typename KV, bool SLICED>
+struct Fwd {
+  static constexpr int BKV = DP == 256 ? 32 : 64;  // keys per tile
+  static constexpr bool I8 = sizeof(KV) == 1;
+  // Q fragments in registers for the few-row (key-sliced) launches; the
+  // long prefill reads them from shared memory, so that two CTAs of 8 warps
+  // fit an SM's registers
+  static constexpr bool Q_REGS = DP <= 128 && SLICED;
+  // key slices come with at most 4 warps (rw·kw <= 4); CTAs per SM that
+  // the shared memory allows, so registers do not allow fewer (int8 at
+  // d <= 128: 3 sliced CTAs of 67 KB, 2 prefill CTAs of 102 KB)
+  static constexpr int MAX_THREADS = SLICED ? 128 : 32 * FWD_MAX_WARPS;
+  static constexpr int MIN_CTAS = DP > 128 ? 1 : !SLICED ? 2 : I8 ? 3 : 1;
+  static constexpr int KS = DP / 16;               // k-steps of Q·Kᵀ
+  static constexpr int NT = BKV / 8;               // 8-key n-tiles of S
+  static constexpr int DT = DP / 8;                // 8-dim n-tiles of O
+  static constexpr int ROW = DP + 8;               // bf16 per smem row: conflict-free ldmatrix
+  static constexpr int RAW_ROW = I8 ? DP : ROW * 2;  // bytes per row of the load ring
+  static constexpr int RAW_TILE = BKV * RAW_ROW;     // bytes of one K or V tile as loaded
+  static constexpr int BF_TILE = BKV * ROW * 2;      // bytes of a widened bf16 tile
+  static constexpr int MERGE = DT * 4 + 4;           // floats a lane hands over per warp
+  static constexpr int TILES = NSTAGE * 2 * RAW_TILE + (I8 ? 2 * BF_TILE : 0);
+  // Q (16·rw rows) lives where the last tiles go (the widened tiles, or the
+  // last ring stage) until its fragments are in registers; otherwise it
+  // stays in shared memory past the tiles
+  static constexpr size_t smem(int rw) {
+    return size_t(TILES) + (Q_REGS ? 0 : size_t(16) * rw * ROW * 2);
   }
-  int kend = L;
-  if (causal) kend = min(kend, qoff + min(q0 + BQ, sq));
+  static_assert(!Q_REGS || 16 * FWD_MAX_WARPS * ROW * 2 <= 2 * BF_TILE, "Q must fit the alias");
+  static_assert(3 * 32 * MERGE * 4 <= TILES, "the merge must fit the tiles");
+};
+
+// The warps of a CTA: rw row groups of 16 query rows × kw key slices.  Row
+// group w % rw owns m rows m0 + 16·(w % rw) ...; with SLICED, slice w / rw
+// takes the n-tiles [slice·NT/kw, (slice+1)·NT/kw) of every K/V tile, and
+// the slices' (max, sum, output) merge at the end (kw = 1 without).
+template <int DP, typename KV, bool SLICED>
+__global__ void __launch_bounds__((Fwd<DP, KV, SLICED>::MAX_THREADS),
+                                  (Fwd<DP, KV, SLICED>::MIN_CTAS))
+attn_fwd_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long long q_ss,
+                long long q_sh, const KV* __restrict__ k, long long k_sb, long long k_sh,
+                long long k_ss, const KV* __restrict__ v, long long v_sb, long long v_sh,
+                long long v_ss, const int* __restrict__ q_offset, int off0,
+                const int* __restrict__ kv_len, int len0, void* __restrict__ out, int o_dt,
+                long long o_sb, long long o_ss, long long o_sh, float* __restrict__ part_ml,
+                float* __restrict__ part_acc, int sq, int hq, int hk, int S, int d, int causal,
+                int vec, int rw, int chunk, int n_chunks, float qk_scale, float out_scale) {
+  using C = Fwd<DP, KV, SLICED>;
+  constexpr int BKV = C::BKV, ROW = C::ROW, NT = C::NT;
+  extern __shared__ __align__(16) unsigned char fsm[];
+  unsigned char* ring = fsm;                                   // [NSTAGE][K, V][BKV][RAW_ROW]
+  __nv_bfloat16* kvb = reinterpret_cast<__nv_bfloat16*>(fsm + NSTAGE * 2 * C::RAW_TILE);
+  __nv_bfloat16* Qs = C::Q_REGS
+      ? (C::I8 ? kvb
+               : reinterpret_cast<__nv_bfloat16*>(ring + (NSTAGE - 1) * 2 * C::RAW_TILE))
+      : reinterpret_cast<__nv_bfloat16*>(fsm + C::TILES);     // [16·rw][ROW]
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  const int kw = SLICED ? nthr / 32 / rw : 1, rwi = warp % rw, slice = warp / rw;
+  const int n_lo = slice * (NT / kw), n_hi = n_lo + NT / kw;   // this warp's n-tiles
+  const int BM = 16 * rw;
+  const int group = hq / hk, MR = sq * group;                  // m rows: (i, head in group)
+  const int n_mb = (MR + BM - 1) / BM;
+  const int mb = n_mb - 1 - static_cast<int>(blockIdx.x) / n_chunks;  // longest first
+  const int ch = blockIdx.x % n_chunks;
+  const int hkid = blockIdx.y, bi = blockIdx.z;
+  const int m0 = mb * BM;
+  const int qoff = q_offset ? q_offset[bi] : off0;
+  const int L = max(0, min(kv_len ? kv_len[bi] : len0, S));
+  const int i_first = m0 / group, i_last = min(sq - 1, (m0 + BM - 1) / group);
+  const int kend = causal ? max(0, min(L, qoff + i_last + 1)) : L;
+  const int kbeg = ch * chunk;
+  const int kstop = min(kend, kbeg + chunk);
+  const bool split = n_chunks > 1;
+  // partials of this CTA's rows: ((bi, hkid, ch), row) → [m, l] and [d]
+  const long long pbase = ((long long)(bi * hk + hkid) * n_chunks + ch) * MR;
+
+  if (split && kbeg >= kstop) {       // a chunk past this row's window
+    for (int r = tid; r < MR; r += nthr) part_ml[(pbase + r) * 2] = -INFINITY;
+    return;
+  }
+  const int n_t = max(0, (kstop - kbeg + BKV - 1) / BKV);
 
   const KV* kb = k + bi * k_sb + hkid * k_sh;
   const KV* vb = v + bi * v_sb + hkid * v_sh;
-  float m = NEG_INF, l = 0.f;
-  float acc[D / 8];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) acc[t] = 0.f;
+  const bool full16 = vec == 16 && d == DP;   // whole rows in 16-byte loads
 
-  for (int kt = 0; kt < kend; kt += BKV) {
-    __syncthreads();   // previous tile fully consumed (and Qs written)
-    for (int idx = tid; idx < BKV * D; idx += FWD_THREADS) {
-      const int j = idx / D, cc = idx % D;
-      const int kj = kt + j;
-      const bool ok = kj < L;
-      Kt[cc * (BKV + 1) + j] = ok ? to_float(kb[kj * k_ss + cc]) : 0.f;
-      Vs[j * D + cc] = ok ? to_float(vb[kj * v_ss + cc]) : 0.f;
+  // tile t into ring stage t % NSTAGE (nothing past the last tile), as one
+  // cp.async group either way
+  auto load_tile = [&](int t) {
+    const int k0 = kbeg + t * BKV, st = t % NSTAGE;
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      if (t >= n_t) break;
+      unsigned char* dst = ring + (st * 2 + which) * C::RAW_TILE;
+      const KV* src = which ? vb : kb;
+      const long long rs = which ? v_ss : k_ss;
+      if (full16) {
+        constexpr int CPR = DP * static_cast<int>(sizeof(KV)) / 16;   // loads per row
+        for (int idx = tid; idx < BKV * CPR; idx += nthr) {
+          const int j = idx / CPR, cc = idx % CPR;
+          const bool ok = k0 + j < L;
+          cp_async<16>(smem_u32(dst + j * C::RAW_ROW + cc * 16),
+                       reinterpret_cast<const char*>(src + (ok ? (k0 + j) * rs : 0)) + cc * 16, ok);
+        }
+      } else if (vec) {
+        const int cpr = d * static_cast<int>(sizeof(KV)) / vec;
+        for (int idx = tid; idx < BKV * cpr; idx += nthr) {
+          const int j = idx / cpr, cc = idx % cpr;
+          const bool ok = k0 + j < L;
+          const char* gp = reinterpret_cast<const char*>(src + (ok ? (k0 + j) * rs : 0)) + cc * vec;
+          const uint32_t sp = smem_u32(dst + j * C::RAW_ROW + cc * vec);
+          if (vec == 16)
+            cp_async<16>(sp, gp, ok);
+          else if (vec == 8)
+            cp_async<8>(sp, gp, ok);
+          else
+            cp_async<4>(sp, gp, ok);
+        }
+      } else {        // rows not 4-byte aligned: element by element
+        for (int idx = tid; idx < BKV * d; idx += nthr) {
+          const int j = idx / d, c = idx % d;
+          reinterpret_cast<KV*>(dst + j * C::RAW_ROW)[c] =
+              k0 + j < L ? src[(k0 + j) * rs + c] : kv_zero<KV>();
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the first NSTAGE - 1 tiles go ahead; the last stage may hold Q for now
+#pragma unroll
+  for (int t = 0; t < NSTAGE - 1; ++t) load_tile(t);
+
+  // widen the landed int8 K/V tiles of ring stage st to bf16 (exact)
+  auto widen = [&](int st) {
+    constexpr int CH = DP / 16;                // 16-byte words per raw row
+    for (int idx = tid; idx < 2 * BKV * CH; idx += nthr) {
+      const int which = idx / (BKV * CH), rem = idx % (BKV * CH);
+      const int j = rem / CH, c16 = rem % CH;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          ring + (st * 2 + which) * C::RAW_TILE + j * C::RAW_ROW + c16 * 16);
+      uint4 a, b;
+      i8x4_to_bf16(w.x, a.x, a.y);
+      i8x4_to_bf16(w.y, a.z, a.w);
+      i8x4_to_bf16(w.z, b.x, b.y);
+      i8x4_to_bf16(w.w, b.z, b.w);
+      uint4* dst = reinterpret_cast<uint4*>(kvb + which * BKV * ROW + j * ROW + c16 * 16);
+      dst[0] = a;
+      dst[1] = b;
+    }
+  };
+
+  // Q rows of this CTA as bf16, zero past d and past the last m row; 8
+  // elements a load where q's rows allow
+  const int qsz = q_dt == DT_F32 ? 4 : 2;
+  const bool qv = ((q_sb | q_ss | q_sh | static_cast<long long>(d)) & 7) == 0 &&
+                  reinterpret_cast<uintptr_t>(q) % (8 * qsz) == 0;
+  if (qv) {
+    for (int idx = tid; idx < BM * (DP / 8); idx += nthr) {
+      const int rr = idx / (DP / 8), c = idx % (DP / 8) * 8, r = m0 + rr;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (r < MR && c < d) {
+        const long long e = bi * q_sb + (r / group) * q_ss + (hkid * group + r % group) * q_sh + c;
+        if (q_dt == DT_BF16) {
+          val = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(q) + e);
+        } else if (q_dt == DT_F32) {
+          const float4 a = *reinterpret_cast<const float4*>(static_cast<const float*>(q) + e);
+          const float4 b = *reinterpret_cast<const float4*>(static_cast<const float*>(q) + e + 4);
+          val = make_uint4(pack_bf162(a.x, a.y), pack_bf162(a.z, a.w), pack_bf162(b.x, b.y),
+                           pack_bf162(b.z, b.w));
+        } else {
+          const uint4 h = *reinterpret_cast<const uint4*>(static_cast<const __half*>(q) + e);
+          const __half2* hp = reinterpret_cast<const __half2*>(&h);
+          val = make_uint4(pack_bf162(__low2float(hp[0]), __high2float(hp[0])),
+                           pack_bf162(__low2float(hp[1]), __high2float(hp[1])),
+                           pack_bf162(__low2float(hp[2]), __high2float(hp[2])),
+                           pack_bf162(__low2float(hp[3]), __high2float(hp[3])));
+        }
+      }
+      *reinterpret_cast<uint4*>(Qs + rr * ROW + c) = val;
+    }
+  } else {
+    for (int idx = tid; idx < BM * DP; idx += nthr) {
+      const int rr = idx / DP, c = idx % DP, r = m0 + rr;
+      __nv_bfloat16 val = __float2bfloat16_rn(0.f);
+      if (r < MR && c < d)
+        val = load_q_bf16(q, bi * q_sb + (r / group) * q_ss + (hkid * group + r % group) * q_sh + c,
+                          q_dt);
+      Qs[rr * ROW + c] = val;
+    }
+  }
+  __syncthreads();
+
+  const __nv_bfloat16* Qw = Qs + rwi * 16 * ROW;
+  uint32_t qf[C::Q_REGS ? C::KS : 1][4];
+  if constexpr (C::Q_REGS) {
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks)
+      ldmatrix_x4(qf[ks], Qw + (lane % 16) * ROW + ks * 16 + (lane / 16) * 8, false);
+  }
+  if (d < DP) {
+    // the dims past d stay zero in every stage (the loads write [0, d)); Q
+    // may sit over the last stage, so every warp has its fragments first
+    if (C::Q_REGS && !C::I8) __syncthreads();
+    const int pad = DP - d;
+    for (int idx = tid; idx < NSTAGE * 2 * BKV * pad; idx += nthr)
+      reinterpret_cast<KV*>(ring + idx / pad * C::RAW_ROW)[d + idx % pad] = kv_zero<KV>();
+  }
+
+  // this thread's two rows: g and g + 8 of its row group's 16
+  int qpos[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = m0 + rwi * 16 + g + rr * 8;
+    qpos[rr] = qoff + min(r / group, sq - 1);
+  }
+  const float sl = qk_scale * LOG2E;   // scores in log2 units: exp2 below
+  float o[C::DT][4];
+#pragma unroll
+  for (int n = 0; n < C::DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+  // n-tile n belongs to this warp (always without key slices)
+  auto mine = [&](int n) { return !SLICED || (n >= n_lo && n < n_hi); };
+
+  for (int t = 0; t < n_t; ++t) {
+    const int st = t % NSTAGE;
+    cp_async_wait<NSTAGE - 2>();   // tile t has landed (later ones may be in flight)
+    __syncthreads();               // ... for every thread; tile t-1's buffers are free
+    load_tile(t + NSTAGE - 1);     // into tile t-1's stage
+    const __nv_bfloat16* Kt;
+    const __nv_bfloat16* Vt;
+    if constexpr (C::I8) {
+      widen(st);
+      __syncthreads();
+      Kt = kvb;
+      Vt = kvb + BKV * ROW;
+    } else {
+      Kt = reinterpret_cast<const __nv_bfloat16*>(ring + (st * 2) * C::RAW_TILE);
+      Vt = reinterpret_cast<const __nv_bfloat16*>(ring + (st * 2 + 1) * C::RAW_TILE);
+    }
+
+    // S = Q·Kᵀ over this warp's n-tiles: B[k = dim][n = key] is K's row,
+    // read without transposing
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (C::Q_REGS) {
+        qa[0] = qf[ks][0]; qa[1] = qf[ks][1]; qa[2] = qf[ks][2]; qa[3] = qf[ks][3];
+      } else {
+        ldmatrix_x4(qa, Qw + (lane % 16) * ROW + ks * 16 + (lane / 16) * 8, false);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (!mine(2 * np)) continue;
+        uint32_t r[4];
+        ldmatrix_x4(r, Kt + (np * 16 + (lane / 16) * 8 + lane % 8) * ROW + ks * 16 +
+                           ((lane / 8) % 2) * 8, false);
+        mma_bf16(s[2 * np], qa, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
+      }
+    }
+
+    // online softmax over this warp's keys of the tile (log2 units)
+    const int k0 = kbeg + t * BKV;
+    const bool need_mask = k0 + BKV > L || (causal && k0 + BKV - 1 > qoff + i_first);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (!mine(n)) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e / 2, key = k0 + n * 8 + 2 * tq + (e % 2);
+        float val = s[n][e] * sl;
+        if (need_mask && !(key < L && (!causal || key <= qpos[rr]))) val = -INFINITY;
+        s[n][e] = val;
+        mx[rr] = fmaxf(mx[rr], val);
+      }
+    }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(mrow[rr], mx[rr]);
+      mu[rr] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet: p = 0
+      alpha[rr] = fexp2(mrow[rr] - mu[rr]);
+      mrow[rr] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (!mine(n)) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fexp2(s[n][e] - mu[e / 2]);
+        s[n][e] = p;
+        psum[e / 2] += p;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) lrow[rr] = lrow[rr] * alpha[rr] + psum[rr];
+#pragma unroll
+    for (int n = 0; n < C::DT; ++n) {
+      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+    }
+
+    // O += P·V: P (bf16) from the S accumulators as the A operand; V through
+    // ldmatrix.trans (B[k = key][n = dim] from V's rows)
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      if (!mine(2 * kk)) continue;
+      const uint32_t pa[4] = {pack_bf162(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf162(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf162(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf162(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < C::DT / 2; ++dp) {
+        uint32_t r[4];
+        ldmatrix_x4(r, Vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * ROW + dp * 16 +
+                           (lane / 16) * 8, true);
+        mma_bf16(o[2 * dp], pa, r[0], r[1]);
+        mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    lrow[rr] += __shfl_xor_sync(0xffffffffu, lrow[rr], 1);
+    lrow[rr] += __shfl_xor_sync(0xffffffffu, lrow[rr], 2);
+  }
+  if (SLICED && kw > 1) {
+    // slices 1.. hand (m, l, o) to slice 0 of their row group through the
+    // tile buffers, element-major so the 32 lanes hit 32 banks
+    __syncthreads();   // every warp is done with the tiles
+    float* mg = reinterpret_cast<float*>(fsm);
+    if (slice > 0) {
+      float* w = mg + ((slice - 1) * rw + rwi) * 32 * C::MERGE + lane;
+      w[0] = mrow[0]; w[32] = mrow[1]; w[64] = lrow[0]; w[96] = lrow[1];
+#pragma unroll
+      for (int n = 0; n < C::DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[(4 + n * 4 + e) * 32] = o[n][e];
     }
     __syncthreads();
-
-    float sv[BKV / 8];
+    if (slice > 0) return;
+    for (int sl2 = 1; sl2 < kw; ++sl2) {
+      const float* w = mg + ((sl2 - 1) * rw + rwi) * 32 * C::MERGE + lane;
 #pragma unroll
-    for (int i = 0; i < BKV / 8; ++i) sv[i] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; ++dd) {
-      const float qv = Qs[r * (D + 1) + dd];
+      for (int rr = 0; rr < 2; ++rr) {
+        const float m2 = w[rr * 32], l2 = w[(2 + rr) * 32];
+        const float M = fmaxf(mrow[rr], m2);
+        const float mm = M == -INFINITY ? 0.f : M;
+        const float a1 = fexp2(mrow[rr] - mm), a2 = fexp2(m2 - mm);
+        lrow[rr] = lrow[rr] * a1 + l2 * a2;
+        mrow[rr] = M;
 #pragma unroll
-      for (int i = 0; i < BKV / 8; ++i) sv[i] = fmaf(qv, Kt[dd * (BKV + 1) + c + 8 * i], sv[i]);
-    }
-    bool valid[BKV / 8];
-    float mx = NEG_INF;
+        for (int n = 0; n < C::DT; ++n)
 #pragma unroll
-    for (int i = 0; i < BKV / 8; ++i) {
-      const int kpos = kt + c + 8 * i;
-      valid[i] = kpos < L && (!causal || kpos <= qpos);
-      sv[i] = valid[i] ? sv[i] : NEG_INF;
-      mx = fmaxf(mx, sv[i]);
-    }
-    // the 8 threads of a row are 8 consecutive lanes of one warp
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i) {
-      const float p = valid[i] ? expf(sv[i] - m_new) : 0.f;
-      Ps[r * (BKV + 1) + c + 8 * i] = p;
-      psum += p;
-    }
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();      // Ps row r is written and read by the same 8 lanes
-
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) acc[t] *= alpha;
-#pragma unroll 4
-    for (int j = 0; j < BKV; ++j) {
-      const float p = Ps[r * (BKV + 1) + j];
-#pragma unroll
-      for (int t = 0; t < D / 8; ++t) acc[t] = fmaf(p, Vs[j * D + c + 8 * t], acc[t]);
+          for (int e = 0; e < 2; ++e)
+            o[n][rr * 2 + e] = o[n][rr * 2 + e] * a1 + w[(4 + n * 4 + rr * 2 + e) * 32] * a2;
+      }
     }
   }
 
-  if (q0 + r < sq) {
-    const float denom = l == 0.f ? 1.f : l;
-    __nv_bfloat16* ob = out + bi * o_sb + (q0 + r) * o_ss + h * o_sh;
 #pragma unroll
-    for (int t = 0; t < D / 8; ++t)
-      ob[c + 8 * t] = __float2bfloat16_rn(acc[t] / denom * out_scale);
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = m0 + rwi * 16 + g + rr * 8;
+    if (r >= MR) continue;
+    if (split) {
+      const long long pr = pbase + r;
+      if (tq == 0) {
+        part_ml[pr * 2] = mrow[rr];
+        part_ml[pr * 2 + 1] = lrow[rr];
+      }
+#pragma unroll
+      for (int n = 0; n < C::DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * tq + e;
+          if (c < d) part_acc[pr * d + c] = o[n][rr * 2 + e];
+        }
+    } else {
+      const int i = r / group, h = hkid * group + r % group;
+      const long long ob = bi * o_sb + i * o_ss + h * o_sh;
+      const float f = lrow[rr] > 0.f ? out_scale / lrow[rr] : 0.f;
+#pragma unroll
+      for (int n = 0; n < C::DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * tq + e;
+          if (c < d) store_dt(out, ob + c, o_dt, o[n][rr * 2 + e] * f);
+        }
+    }
   }
 }
 
-template <int D, typename KV>
-int launch_fwd(const void* q, const long long* qs, const void* k, const long long* ks,
-               const void* v, const long long* vs, const int* q_offset, const int* kv_len,
-               void* out, const long long* os, int b, int sq, int hq, int hk, int S,
-               int causal, float qk_scale, float out_scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D>();
-  auto kern = attn_fwd_kernel<D, KV>;
+// Merge the split-KV partials of one m row (a query of one head): chunks
+// whose max is -inf saw no key (or never ran) and are skipped.
+__global__ void __launch_bounds__(128)
+attn_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                    void* __restrict__ out, int o_dt, long long o_sb, long long o_ss,
+                    long long o_sh, int sq, int hq, int hk, int d, int n_chunks,
+                    float out_scale) {
+  const int r = blockIdx.x, hkid = blockIdx.y, bi = blockIdx.z;
+  const int group = hq / hk, MR = sq * group;
+  const long long base = (long long)(bi * hk + hkid) * n_chunks * MR + r;   // chunk c: + c·MR
+  float M = -INFINITY;
+  for (int c = 0; c < n_chunks; ++c) M = fmaxf(M, part_ml[(base + (long long)c * MR) * 2]);
+  float l = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float m = part_ml[(base + (long long)c * MR) * 2];
+    if (m != -INFINITY) l += exp2f(m - M) * part_ml[(base + (long long)c * MR) * 2 + 1];
+  }
+  const float f = l > 0.f ? out_scale / l : 0.f;
+  const int i = r / group, h = hkid * group + r % group;
+  const long long ob = bi * o_sb + i * o_ss + h * o_sh;
+  for (int col = threadIdx.x; col < d; col += blockDim.x) {
+    float acc = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const long long pr = base + (long long)c * MR;
+      const float m = part_ml[pr * 2];
+      if (m != -INFINITY) acc += exp2f(m - M) * part_acc[pr * d + col];
+    }
+    store_dt(out, ob + col, o_dt, acc * f);
+  }
+}
+
+template <int DP, typename KV>
+int launch_fwd(const void* q, int q_dt, const long long* qs, const void* k, const long long* ks,
+               const void* v, const long long* vs, const int* q_offset, int off0,
+               const int* kv_len, int len0, void* out, int o_dt, const long long* os,
+               float* part_ml, float* part_acc, int b, int sq, int hq, int hk, int S, int d,
+               int causal, int vec, int rw, int kw, int chunk, int n_chunks, float qk_scale,
+               float out_scale, cudaStream_t stream) {
+  using C = Fwd<DP, KV, false>;
+  if (chunk % C::BKV != 0 || C::NT % kw != 0 || C::NT / kw < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = kw > 1 ? Fwd<DP, KV, true>::smem(rw) : C::smem(rw);
+  auto kern = kw > 1 ? attn_fwd_kernel<DP, KV, true> : attn_fwd_kernel<DP, KV, false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  kern<<<grid, FWD_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), qs[0], qs[1], qs[2],
-      static_cast<const KV*>(k), ks[0], ks[1], ks[2],
-      static_cast<const KV*>(v), vs[0], vs[1], vs[2], q_offset, kv_len,
-      static_cast<__nv_bfloat16*>(out), os[0], os[1], os[2],
-      sq, hq, hk, S, causal, qk_scale, out_scale);
+  const int MR = sq * (hq / hk);
+  const int n_mb = (MR + 16 * rw - 1) / (16 * rw);
+  dim3 grid(n_mb * n_chunks, hk, b);
+  kern<<<grid, 32 * rw * kw, smem, stream>>>(
+      q, q_dt, qs[0], qs[1], qs[2], static_cast<const KV*>(k), ks[0], ks[1], ks[2],
+      static_cast<const KV*>(v), vs[0], vs[1], vs[2], q_offset, off0, kv_len, len0, out, o_dt,
+      os[0], os[1], os[2], part_ml, part_acc, sq, hq, hk, S, d, causal, vec, rw, chunk,
+      n_chunks, qk_scale, out_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_chunks == 1) return static_cast<int>(e);
+  attn_combine_kernel<<<dim3(MR, hk, b), 128, 0, stream>>>(
+      part_ml, part_acc, out, o_dt, os[0], os[1], os[2], sq, hq, hk, d, n_chunks, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+bool valid_dt(int dt) { return dt == DT_BF16 || dt == DT_F16 || dt == DT_F32; }
 
 }  // namespace
 
-// q bf16 [b, hq, d] through strides (batch, head); k/v [b, hk, S, d] through
+// q [b, hq, d] through strides (batch, head) and out [b, hq, d] contiguous,
+// each bf16, f16 or f32 (q_dt / o_dt: 0 / 1 / 2); k/v [b, hk, S, d] through
 // element strides (batch, head, seq); d contiguous everywhere; K/V int8
-// (kv_int8 != 0) or bf16; kv_len int32 [b]; out bf16 [b, hq, d] contiguous.
-// d % 4 == 0, d <= 256.
-extern "C" int decode_attention_launch(const void* q, long long q_sb, long long q_sh,
+// (kv_int8 != 0) or bf16; kv_len int32 [b].  d <= 256; full4: d % 4 == 0
+// and every K/V row starts on a 4-element boundary.
+extern "C" int decode_attention_launch(const void* q, int q_dt, long long q_sb, long long q_sh,
                                        const void* k, long long k_sb,
                                        long long k_sh, long long k_ss, const void* v,
                                        long long v_sb, long long v_sh, long long v_ss,
-                                       const int* kv_len, void* out, int b, int hq, int hk,
-                                       int S, int d, int kv_int8, float qk_scale,
-                                       float out_scale, void* stream) {
-  if (d > DEC_MAX_D || d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (d + S + DEC_WARPS * d + DEC_WARPS);
+                                       const int* kv_len, void* out, int o_dt, int b, int hq,
+                                       int hk, int S, int d, int kv_int8, int full4,
+                                       float qk_scale, float out_scale, void* stream) {
+  if (d < 1 || d > MAX_D || !valid_dt(q_dt) || !valid_dt(o_dt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dq = (d + 3) / 4 * 4;
+  const size_t smem = sizeof(float) * (dq + S + DEC_WARPS * dq + DEC_WARPS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(hq, b);
-  cudaError_t e;
-  if (kv_int8) {
-    e = cudaFuncSetAttribute(decode_attn_kernel<int8_t>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    decode_attn_kernel<int8_t><<<grid, DEC_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), q_sb, q_sh, static_cast<const int8_t*>(k), k_sb,
-        k_sh, k_ss,
-        static_cast<const int8_t*>(v), v_sb, v_sh, v_ss, kv_len,
-        static_cast<__nv_bfloat16*>(out), hq, hk, S, d, qk_scale, out_scale);
-  } else {
-    e = cudaFuncSetAttribute(decode_attn_kernel<__nv_bfloat16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    decode_attn_kernel<__nv_bfloat16><<<grid, DEC_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), q_sb, q_sh, static_cast<const __nv_bfloat16*>(k),
-        k_sb, k_sh, k_ss, static_cast<const __nv_bfloat16*>(v), v_sb, v_sh, v_ss, kv_len,
-        static_cast<__nv_bfloat16*>(out), hq, hk, S, d, qk_scale, out_scale);
+  const dim3 grid(hq, b);
+#define CSINN2_DEC(KV, FULL4)                                                                   \
+  {                                                                                           \
+    auto kern = decode_attn_kernel<KV, FULL4>;                                                \
+    const cudaError_t e = cudaFuncSetAttribute(                                               \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));           \
+    if (e != cudaSuccess) return static_cast<int>(e);                                         \
+    kern<<<grid, DEC_THREADS, smem, st>>>(q, q_dt, q_sb, q_sh, static_cast<const KV*>(k), k_sb, \
+                                          k_sh, k_ss, static_cast<const KV*>(v), v_sb, v_sh,  \
+                                          v_ss, kv_len, out, o_dt, hq, hk, S, d, qk_scale,    \
+                                          out_scale);                                         \
+    return static_cast<int>(cudaGetLastError());                                              \
   }
-  return static_cast<int>(cudaGetLastError());
+  if (kv_int8) {
+    if (full4) CSINN2_DEC(int8_t, true);
+    CSINN2_DEC(int8_t, false);
+  }
+  if (full4) CSINN2_DEC(__nv_bfloat16, true);
+  CSINN2_DEC(__nv_bfloat16, false);
+#undef CSINN2_DEC
 }
 
-// q bf16 [b, sq, hq, d] and out bf16 through strides {batch, seq, head};
-// k/v [b, hk, S, d] through strides {batch, head, seq}; contiguous d in all;
-// q_offset / kv_len int32 [b].  d in {64, 128}.
-extern "C" int attention_fwd_launch(const void* q, const long long* q_strides, const void* k,
-                                    const long long* k_strides, const void* v,
-                                    const long long* v_strides, const int* q_offset,
-                                    const int* kv_len, void* out, const long long* o_strides,
-                                    int b, int sq, int hq, int hk, int S, int d, int kv_int8,
-                                    int causal, float qk_scale, float out_scale, void* stream) {
+// q [b, sq, hq, d] and out through strides {batch, seq, head}, each bf16,
+// f16 or f32 (q_dt / o_dt: 0 / 1 / 2); k/v [b, hk, S, d] through strides
+// {batch, head, seq}; contiguous d in all; q_offset / kv_len int32 [b], or
+// null for one off0 / len0 for every row.  d <= 256.  vec: bytes per K/V
+// load (16, 8 or 4; 0: element by element), dividing d·sizeof(KV), every
+// row start and stride.  A CTA is rw × kw warps: rw (1-8) groups of 16
+// query rows, each tile's keys cut in kw slices (at least 16 keys each;
+// tiles are 64 keys, 32 at d > 128; rw·kw <= 4 with slices).  The KV
+// window is cut into n_chunks chunks of `chunk` keys (a multiple of 64;
+// chunk·n_chunks >= S); n_chunks > 1 runs one CTA per chunk with f32
+// partials in part_ml [b, hk, n_chunks, sq·hq/hk, 2] and part_acc [.., d],
+// merged by a second kernel; it needs sq·hq/hk <= 16·rw.
+extern "C" int attention_fwd_launch(const void* q, const long long* q_strides, int q_dt,
+                                    const void* k, const long long* k_strides, const void* v,
+                                    const long long* v_strides, const int* q_offset, int off0,
+                                    const int* kv_len, int len0, void* out,
+                                    const long long* o_strides, int o_dt, float* part_ml,
+                                    float* part_acc, int b, int sq, int hq, int hk, int S, int d,
+                                    int kv_int8, int causal, int vec, int rw, int kw, int chunk,
+                                    int n_chunks, float qk_scale, float out_scale,
+                                    void* stream) {
+  const bool ok_vec = vec == 0 || vec == 4 || vec == 8 || vec == 16;
+  const bool ok_warps = (rw == 1 || rw == 2 || rw == 4 || rw == 8) &&
+                        (kw == 1 || kw == 2 || kw == 4) && rw * kw <= (kw > 1 ? 4 : FWD_MAX_WARPS);
+  if (d < 1 || d > MAX_D || !ok_vec || !ok_warps || !valid_dt(q_dt) || !valid_dt(o_dt) ||
+      n_chunks < 1 || chunk < 1 || (long long)chunk * n_chunks < S || hk < 1 || hq % hk != 0 ||
+      (n_chunks > 1 && (part_ml == nullptr || part_acc == nullptr || sq * (hq / hk) > 16 * rw)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CSINN2_FWD(D, KV)                                                                    \
-  return launch_fwd<D, KV>(q, q_strides, k, k_strides, v, v_strides, q_offset, kv_len, out, \
-                           o_strides, b, sq, hq, hk, S, causal, qk_scale, out_scale, st)
-  if (d == 128) {
-    if (kv_int8) CSINN2_FWD(128, int8_t);
-    CSINN2_FWD(128, __nv_bfloat16);
-  }
-  if (d == 64) {
+#define CSINN2_FWD(D, KV)                                                                     \
+  return launch_fwd<D, KV>(q, q_dt, q_strides, k, k_strides, v, v_strides, q_offset, off0,   \
+                           kv_len, len0, out, o_dt, o_strides, part_ml, part_acc, b, sq, hq, \
+                           hk, S, d, causal, vec, rw, kw, chunk, n_chunks, qk_scale,          \
+                           out_scale, st)
+  if (d <= 64) {
     if (kv_int8) CSINN2_FWD(64, int8_t);
     CSINN2_FWD(64, __nv_bfloat16);
   }
+  if (d <= 128) {
+    if (kv_int8) CSINN2_FWD(128, int8_t);
+    CSINN2_FWD(128, __nv_bfloat16);
+  }
+  if (kv_int8) CSINN2_FWD(256, int8_t);
+  CSINN2_FWD(256, __nv_bfloat16);
 #undef CSINN2_FWD
-  return static_cast<int>(cudaErrorInvalidValue);
 }

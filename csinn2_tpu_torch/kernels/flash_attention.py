@@ -5,23 +5,32 @@ csinn2_tpu/kernels/flash_attention.py.
 Each entry point launches its CUDA kernel (csrc/attention.cu) for CUDA
 tensors and runs the plain PyTorch version `_attention_ref` for CPU tensors.
 `prefill_attention` and `flash_attention` share one device kernel
-(`attn_fwd_kernel`, which reads q and writes the output through (batch,
-seq, head) strides, so the bshd and bhsd layouts need no change to it); they
-stay two entry points because the model dispatches between them by the same
-8 MiB rule as the JAX package.  Launch counts: `prefill_attention`,
-`flash_attention` (bshd) and `flash_attention_bhsd`.
+(`attn_fwd_kernel`, tensor-core flash attention that reads q and writes the
+output through (batch, seq, head) strides, so the bshd and bhsd layouts need
+no change to it); they stay two entry points because the model dispatches
+between them by the same 8 MiB rule as the JAX package.  `_fwd_plan` picks
+the kernel's shape: where the GQA group's queries × sq fit one CTA (64
+rows: decode) the KV window is split over CTAs and a second kernel merges
+the chunks, otherwise the query rows are split.  Launch counts:
+`prefill_attention`, `flash_attention` (bshd), `flash_attention_bhsd`, and
+`<that name>.combine` for the merge of a split launch; `decode_attention`.
 
-Semantics shared by all three (per batch row b): query i sits at position
+Semantics shared by all (per batch row b): query i sits at position
 q_offset[b] + i; it sees keys kpos < kv_len[b] (and kpos <= its position when
 causal); int8 K/V carriers are dequantized by the per-tensor kv_scale; GQA
 maps query head h to KV head h // (hq // hk); a row that sees no key outputs
 0.  K/V are [b, hk, S, d] and may be strided views (the port passes the
-cache's [b, S, hk, d] buffer permuted, without a copy).
+cache's [b, S, hk, d] buffer permuted, without a copy).  q is rounded to
+bf16 first, as the JAX bodies round it (the kernels as they stage it, the
+plain path before `_attention_ref`); the output comes back in q's dtype,
+from f32 sums.  On the card: any head dim d <= 256 and a bf16, f16 or f32
+q (other float types pass through f32).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -65,19 +74,82 @@ def _attention_ref(q, k, v, *, causal, q_offset, kv_len, scale, kv_scale):
     return torch.matmul(p, vf) / torch.where(l == 0, torch.ones_like(l), l)
 
 
+# q / out dtype codes of csrc/attention.cu
+_DT = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+MAX_D = 256                 # the kernels' widest head dim, as the JAX caps
+SPLIT_ROWS = 64             # sq·group at or below this: split-KV flash decode
+SPLIT_CHUNK = 256           # keys per CTA on the split path
+
+
 def _check_kv(name, q, k, v):
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: q must be bf16 on CUDA, got {q.dtype}")
+    if not q.is_floating_point():
+        raise TypeError(f"{name}: q must be a float tensor, got {q.dtype}")
     if k.dtype != v.dtype or k.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"{name}: k/v must both be int8 or bf16, got "
                         f"{k.dtype}/{v.dtype}")
+    d = q.shape[-1]
+    if k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"{name}: head dims q {d}, k {k.shape[-1]}, v {v.shape[-1]}")
+    if d > MAX_D:
+        raise NotImplementedError(f"{name}: head dim {d} (the CUDA kernels take d <= "
+                                  f"{MAX_D}, as the JAX caps; ROADMAP queue C)")
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"{name}: all tensors must be on one device")
-        if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1]) \
-                or t.data_ptr() % 8:
-            raise ValueError(f"{name}: need a contiguous last dim, strides "
-                             "that are multiples of 4 and 8-byte alignment")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: need a contiguous last dim")
+
+
+def _kernel_q(q):
+    """q as the kernel reads it: bf16, f16 or f32 (other floats through f32)."""
+    return q if q.dtype in _DT else q.float()
+
+
+def _row_align(*ts) -> int:
+    """The largest power of two up to 16 bytes that divides the start and
+    every (batch, head, seq) stride of each tensor's rows."""
+    g = 16
+    for t in ts:
+        g = math.gcd(g, t.data_ptr())
+        for st in t.stride()[:3]:
+            g = math.gcd(g, st * t.element_size())
+    return g
+
+
+def _vec_bytes(k, v) -> int:
+    """Bytes per K/V load of attn_fwd_kernel: 16, 8 or 4, dividing each row's
+    start, stride and length; 0 where none does (element by element)."""
+    g = math.gcd(_row_align(k, v), k.shape[-1] * k.element_size())
+    return g if g >= 4 else 0
+
+
+def _fwd_plan(b: int, sq: int, hq: int, hk: int, S: int, d: int, n_sm: int):
+    """(row groups rw, key slices kw, keys per chunk, chunks) of
+    attn_fwd_kernel.  A CTA is rw × kw warps: rw groups of 16 query rows,
+    each K/V tile (64 keys, 32 at d > 128) cut in kw slices of at least 16
+    keys (rw·kw <= 4 with slices); the chunks cover all S keys.  sq·group
+    <= 64 (flash decode): one CTA row block holds the group's queries, and
+    the KV window is cut in chunks of SPLIT_CHUNK keys (a second kernel
+    merges them when there are several).  Otherwise one chunk and the
+    largest row block of 128 (d <= 128), 64, 32 or 16 rows that still gives
+    90 % of the card's n_sm SMs a CTA; below 4 row groups the other warps
+    take key slices."""
+    rows = sq * (hq // hk)
+    max_kw = 2 if d > 128 else 4
+    if rows <= SPLIT_ROWS:
+        rw = 1 if rows <= 16 else 2 if rows <= 32 else 4
+        return rw, min(max_kw, 4 // rw), SPLIT_CHUNK, max(1, -(-S // SPLIT_CHUNK))
+    fills = lambda block: -(-rows // block) * hk * b * 10 >= 9 * n_sm
+    whole = max(SPLIT_CHUNK, -(-S // SPLIT_CHUNK) * SPLIT_CHUNK)
+    if d <= 128 and fills(128):
+        return 8, 1, whole, 1
+    rw = 4 if fills(64) else 2 if fills(32) else 1
+    return rw, min(max_kw, 4 // rw), whole, 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention(q, k, v, *, q_offset, kv_len=None,
@@ -95,31 +167,31 @@ def decode_attention(q, k, v, *, q_offset, kv_len=None,
     if kv_len is None:
         kv_len = (q_offset + 1 if isinstance(q_offset, torch.Tensor)
                   else int(q_offset) + 1)
-    if q.device.type == "cpu":
-        return _attention_ref(q, k, v, causal=False, q_offset=q_offset,
+    if q.device.type == "cpu":      # q rounded to bf16, as the kernel stages it
+        return _attention_ref(q.to(torch.bfloat16), k, v, causal=False, q_offset=q_offset,
                               kv_len=kv_len, scale=scale,
                               kv_scale=kv_scale).to(q.dtype)
     _check_kv("decode_attention", q, k, v)
-    if d % 4 or d > 256:
-        raise ValueError("decode_attention: need d % 4 == 0 and d <= 256")
+    qk = _kernel_q(q)
     kvl = _per_row(kv_len, b, q.device)
-    out = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
-    ll = ctypes.c_longlong
+    out = torch.empty((b, hq, 1, d), dtype=qk.dtype, device=q.device)
+    ll, i32 = ctypes.c_longlong, ctypes.c_int
     fn = _build.c_function(
         "attention", "decode_attention_launch",
-        (ctypes.c_void_p, ll, ll, ctypes.c_void_p, ll, ll, ll, ctypes.c_void_p, ll, ll, ll,
-         ctypes.c_void_p, ctypes.c_void_p) + (ctypes.c_int,) * 6
+        (ctypes.c_void_p, i32, ll, ll, ctypes.c_void_p, ll, ll, ll, ctypes.c_void_p, ll, ll, ll,
+         ctypes.c_void_p, ctypes.c_void_p) + (i32,) * 8
         + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
     ks, vs = k.stride(), v.stride()
-    err = fn(q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), ks[0], ks[1], ks[2],
-             v.data_ptr(), vs[0], vs[1], vs[2], kvl.data_ptr(), out.data_ptr(),
-             b, hq, hk, S, d, int(k.dtype == torch.int8),
+    full4 = d % 4 == 0 and _row_align(k, v) % (4 * k.element_size()) == 0
+    err = fn(qk.data_ptr(), _DT[qk.dtype], qk.stride(0), qk.stride(1), k.data_ptr(), ks[0],
+             ks[1], ks[2], v.data_ptr(), vs[0], vs[1], vs[2], kvl.data_ptr(), out.data_ptr(),
+             _DT[out.dtype], b, hq, hk, S, d, int(k.dtype == torch.int8), int(full4),
              scale * (kv_scale if kv_scale is not None else 1.0),
              kv_scale if kv_scale is not None else 1.0,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("attention", err, "decode_attention")
     _build.launch_counts["decode_attention"] += 1
-    return out
+    return out.to(q.dtype)
 
 
 def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
@@ -138,39 +210,53 @@ def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
     if kv_len is None:
         kv_len = S
     if q.device.type in ("cpu", "meta"):      # meta: shapes while a graph records
+        qb = q.to(torch.bfloat16)             # as the kernel stages it
         if bhsd:
-            return _attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-                                  scale=scale, kv_scale=kv_scale).to(q.dtype)
-        return _attention_ref(q.permute(0, 2, 1, 3), k, v, causal=causal,
+            return _attention_ref(qb, k, v, causal=causal, q_offset=q_offset,
+                                  kv_len=kv_len, scale=scale, kv_scale=kv_scale).to(q.dtype)
+        return _attention_ref(qb.permute(0, 2, 1, 3), k, v, causal=causal,
                               q_offset=q_offset, kv_len=kv_len, scale=scale,
                               kv_scale=kv_scale).permute(0, 2, 1, 3).to(q.dtype)
     _check_kv(name, q, k, v)
-    if d not in (64, 128):
-        raise NotImplementedError(f"{name}: head_dim {d} (CUDA kernel takes 64 or 128)")
-    off = _per_row(q_offset, b, q.device)
-    kvl = _per_row(kv_len, b, q.device)
-    out = torch.empty(tuple(q.shape), dtype=q.dtype, device=q.device)
+    qk = _kernel_q(q)
+    out = torch.empty(tuple(q.shape), dtype=qk.dtype, device=q.device)
+    # a per-row tensor, or one int for every row (no device copy)
+    off = _per_row(q_offset, b, q.device) if isinstance(q_offset, torch.Tensor) else None
+    kvl = _per_row(kv_len, b, q.device) if isinstance(kv_len, torch.Tensor) else None
+    rw, kw, chunk, n_chunks = _fwd_plan(b, sq, hq, hk, S, d, _sm_count(q.device.index or 0))
+    part_ml = part_acc = None
+    if n_chunks > 1:
+        rows = sq * (hq // hk)
+        part_ml = torch.empty((b, hk, n_chunks, rows, 2), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((b, hk, n_chunks, rows, d), dtype=torch.float32,
+                               device=q.device)
     # the kernel's (batch, seq, head) strides of q and out, in either layout
     seq_dim, head_dim = (2, 1) if bhsd else (1, 2)
     ll3 = ctypes.c_longlong * 3
-    qs = ll3(q.stride(0), q.stride(seq_dim), q.stride(head_dim))
+    qs = ll3(qk.stride(0), qk.stride(seq_dim), qk.stride(head_dim))
     ks = ll3(*k.stride()[:3])
     vs = ll3(*v.stride()[:3])
     os_ = ll3(out.stride(0), out.stride(seq_dim), out.stride(head_dim))
-    vp, sp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
+    vp, sp, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int
     fn = _build.c_function(
         "attention", "attention_fwd_launch",
-        (vp, sp) * 3 + (vp, vp, vp, sp) + (ctypes.c_int,) * 8
-        + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
-    err = fn(q.data_ptr(), qs, k.data_ptr(), ks, v.data_ptr(), vs,
-             off.data_ptr(), kvl.data_ptr(), out.data_ptr(), os_,
-             b, sq, hq, hk, S, d, int(k.dtype == torch.int8), int(causal),
+        (vp, sp, i32, vp, sp, vp, sp, vp, i32, vp, i32, vp, sp, i32, vp, vp) + (i32,) * 13
+        + (ctypes.c_float, ctypes.c_float, vp))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = fn(qk.data_ptr(), qs, _DT[qk.dtype], k.data_ptr(), ks, v.data_ptr(), vs,
+             ptr(off), 0 if off is not None else int(q_offset),
+             ptr(kvl), 0 if kvl is not None else int(kv_len),
+             out.data_ptr(), os_, _DT[out.dtype], ptr(part_ml), ptr(part_acc),
+             b, sq, hq, hk, S, d, int(k.dtype == torch.int8), int(causal), _vec_bytes(k, v),
+             rw, kw, chunk, n_chunks,
              scale * (kv_scale if kv_scale is not None else 1.0),
              kv_scale if kv_scale is not None else 1.0,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("attention", err, name)
     _build.launch_counts[name] += 1
-    return out
+    if n_chunks > 1:
+        _build.launch_counts[f"{name}.combine"] += 1
+    return out.to(q.dtype)
 
 
 def prefill_attention(q, k, v, *, causal: bool = True, q_offset=0,

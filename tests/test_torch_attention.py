@@ -211,3 +211,75 @@ def test_attention_block_matches_jax_fallback(rng, monkeypatch, quantized, branc
     got, tc = tm.attention_block(xt, tp["layers"][0], tc, 0, pos, tcfg)
     _check(got, np.asarray(want, np.float32))
     assert np.array_equal(np.array(jc.k.astype(jnp.float32)), tc.k.float().numpy())
+
+
+@pytest.mark.parametrize("entry", ["prefill", "flash_bhsd", "decode"])
+@pytest.mark.parametrize("d,int8", [(20, True), (80, False)])
+def test_head_dims_and_f32_q_match_jax(rng, entry, d, int8):
+    """Head dims that are not 64 or 128 and an f32 q, which the JAX kernels
+    take (they pad d to 128 and round q to bf16) and the port's CUDA kernels
+    now take too: the plain path, which rounds q to bf16 as they do, against
+    the Pallas kernels; the output in f32."""
+    b, hq, hk, S = 2, 4, 2, 96
+    sq = 1 if entry == "decode" else 12
+    (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, int8)
+    shape = (b, sq, hq, d) if entry == "prefill" else (b, hq, sq, d)
+    qn = rng.standard_normal(shape).astype(np.float32)
+    qj, qt = jnp.asarray(qn), torch.from_numpy(qn)
+    off = np.array([0, 40], np.int32)
+    kvl = off + sq
+    sc = KV_SCALE if int8 else None
+    kw = dict(q_offset=off, kv_len=kvl, kv_scale=sc)
+    tkw = dict(q_offset=torch.from_numpy(off), kv_len=torch.from_numpy(kvl), kv_scale=sc)
+    if entry == "prefill":
+        want = jfa.prefill_attention(qj, kj, vj, causal=True, interpret=True, **kw)
+        got = tfa.prefill_attention(qt, kt, vt, causal=True, **tkw)
+    elif entry == "flash_bhsd":
+        want = jfa.flash_attention(qj, kj, vj, causal=True, blk_q=8, blk_k=128,
+                                   interpret=True, **kw)
+        got = tfa.flash_attention(qt, kt, vt, causal=True, **tkw)
+    else:
+        want = jfa.decode_attention(qj, kj, vj, hk_blk=2, interpret=True, **kw)
+        got = tfa.decode_attention(qt, kt, vt, **tkw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    _check(got, np.asarray(want, np.float32))
+
+
+def test_fwd_plan():
+    """The wrapper's choice of attn_fwd_kernel's shape on a 132-SM H100: the
+    split-KV decode where sq·group fits one CTA (64 rows, 16 a row group;
+    chunks of 256 keys); else one chunk covering all S keys and the largest
+    row block (128 at d <= 128, 64, 32 or 16 rows) that still gives 90 % of
+    the SMs a CTA; below 4 row groups the other warps take key slices (at
+    least 16 of a tile's 64 keys, 32 at d > 128)."""
+    plan = lambda b, sq, hq, hk, S, d=128: tfa._fwd_plan(b, sq, hq, hk, S, d, 132)
+    assert plan(4, 1, 32, 32, 2048) == (1, 4, 256, 8)      # 7B flash decode
+    assert plan(4, 1, 32, 32, 200) == (1, 4, 256, 1)       # one chunk: no merge
+    assert plan(4, 1, 32, 32, 2048, 256) == (1, 2, 256, 8)
+    assert plan(1, 2, 64, 8, 4096) == (1, 4, 256, 16)      # 70B GQA, 2 queries: 16 rows
+    assert plan(1, 3, 64, 8, 4096) == (2, 2, 256, 16)      # 24 rows: 2 row groups
+    assert plan(1, 8, 64, 8, 4096) == (4, 1, 256, 16)      # 64 rows: 4 row groups
+    assert plan(1, 9, 64, 8, 4096) == (1, 4, 4096, 1)      # 72 rows: the query rows split
+    assert plan(1, 2048, 32, 32, 2048) == (8, 1, 2048, 1)  # row 4: 512 CTAs of 128 rows
+    assert plan(1, 2048, 32, 32, 2000, 256) == (4, 1, 2048, 1)
+    assert plan(1, 300, 32, 32, 512) == (4, 1, 512, 1)     # 160 CTAs of 64 rows
+    assert plan(1, 128, 32, 32, 256) == (2, 2, 256, 1)     # row 3: 128 CTAs of 32 rows
+    assert plan(1, 32, 4, 2, 128) == (4, 1, 256, 1)        # LlamaConfig.tiny() prefill
+    assert plan(2, 40, 8, 4, 100) == (1, 4, 256, 1)        # 80 rows: 40 CTAs of 16
+
+
+def test_kv_load_width():
+    """Bytes per K/V load of attn_fwd_kernel, from the rows' starts, strides
+    and length: the cache's [b, S, hk, d] views at d = 128 load 16 bytes,
+    int8 d = 20 rows 4, bf16 d = 36 rows 8, odd bf16 rows element by
+    element; decode_attention's 4-element loads need 4-element row starts."""
+    def cache(d, dt, hk=2):
+        t = torch.zeros((2, 64, hk, d), dtype=dt)
+        return t.permute(0, 2, 1, 3)
+    assert tfa._vec_bytes(cache(128, torch.int8), cache(128, torch.int8)) == 16
+    assert tfa._vec_bytes(cache(20, torch.int8), cache(20, torch.int8)) == 4
+    assert tfa._vec_bytes(cache(36, torch.bfloat16), cache(36, torch.bfloat16)) == 8
+    assert tfa._vec_bytes(cache(17, torch.bfloat16), cache(17, torch.bfloat16)) == 0
+    k = cache(17, torch.int8, hk=4)
+    assert tfa._vec_bytes(k, k) == 0 and tfa._row_align(k, k) % 4 != 0
+    assert tfa._row_align(cache(20, torch.int8), cache(20, torch.int8)) % 4 == 0

@@ -51,8 +51,10 @@ def _meta(shape, mem_type=MemType.DEFAULT):
     ((1, 8, 32, 64), None, CUDA, Api.TORCH),                   # tiny: plain ops
     ((1, 8, 4096, 128), None, CPU, Api.TORCH),                 # long, on the CPU
     ((4, 32, 1, 128), dict(pos_offset=100, kv_len=101), CUDA, Api.CUDA),   # decode
-    ((1, 8, 1024, 256), None, CUDA, Api.TORCH),                # d = 256: not the kernel's
-    ((1, 8, 1024, 96), None, CUDA, Api.TORCH),                 # d = 96: not the kernel's
+    ((1, 8, 1024, 256), None, CUDA, Api.CUDA),                 # d = 256: as the JAX caps
+    ((1, 8, 1024, 96), None, CUDA, Api.CUDA),                  # d = 96: as the JAX caps
+    ((1, 8, 1024, 320), None, CUDA, Api.TORCH),                # d > 256: not the kernel's
+    ((2, 4, 1, 16), dict(pos_offset=20, kv_len=21), CUDA, Api.CUDA),   # tiny decode, d = 16
 ])
 def test_sdpa_lookup(shape, params, device, want):
     metas = [_meta(shape), _meta(shape[:2] + (max(shape[2], 512),) + shape[3:]), _meta(shape)]

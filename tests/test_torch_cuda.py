@@ -5,8 +5,13 @@ INT8_CHANNEL, INT4_CHANNEL, carriers at -128 and -8, the swiglu epilogue
 with one and several pairs), and in the modes of the fourth slice (the
 transposed [N, K] / [N, K/2] layouts, scale_mode "none", int8 x with every
 output type, the fixed-point requantize bit for bit, epilogue_scale and
-integer outputs of a float x); odd KV lengths, GQA, bf16 KV, head dim 64, a
-fully masked lane, strided K/V views, bhsd flash_attention with a strided q;
+integer outputs of a float x); attention at every head dim class up to
+256 (16, 17, 20, 32, 36, 80, 96, 256: 16-, 8-, 4-byte and element loads)
+with an f32 or bf16 q in all four entry points, odd KV lengths, GQA, bf16
+KV, a fully masked lane, strided K/V views, bhsd flash_attention with a
+strided q, the split-KV flash decode at kv_len 0 to 2048 with sq 1 and 3,
+ragged query rows, and LlamaConfig.tiny() served on the card against the
+CPU path, with and without CSINN2_DECODE_ATTN=flash;
 the op API's CUDA tier in a GRAPH session; the eleven Q4_0 dequant-probe
 kernels (kernels/int4_probe.py) at M 1, 5, 8 and 16, N not a multiple of the
 CTA's columns, K a multiple of 32 but not of the split, in three launch
@@ -458,15 +463,166 @@ def test_fully_masked_prefill_row_outputs_zero(gen, dev):
     assert torch.isfinite(out).all() and float(out.abs().max()) == 0.0
 
 
-def test_attention_rejects_bad_args(gen, dev):
-    k, v = _kv(gen, dev, 1, 2, 64, 96, True)
-    q = torch.randn((1, 8, 2, 96), generator=gen, device=dev).to(torch.bfloat16)
+ENTRIES = ["prefill_attention", "flash_attention", "flash_attention_bhsd", "decode_attention"]
+
+
+def _attend(name, q, k, v, **kw):
+    """One entry point on q in its layout ([b, sq, hq, d] for prefill and
+    bshd flash, [b, hq, sq, d] for bhsd and decode); the output and its plain
+    version (on q rounded to bf16, as the kernels and the JAX bodies round
+    it) in the same layout."""
+    if name == "decode_attention":
+        out = fa.decode_attention(q, k, v, q_offset=kw["q_offset"], kv_len=kw["kv_len"],
+                                  kv_scale=kw["kv_scale"])
+        kw = dict(kw, causal=False)
+    elif name == "flash_attention_bhsd":
+        out = fa.flash_attention(q, k, v, **kw)
+    elif name == "flash_attention":
+        out = fa.flash_attention(q, k, v, qo_layout="bshd", **kw)
+    else:
+        out = fa.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bhsd = name in ("flash_attention_bhsd", "decode_attention")
+    qh = q if bhsd else q.permute(0, 2, 1, 3)
+    ref = fa._attention_ref(qh.to(torch.bfloat16), k, v, scale=1 / q.shape[-1] ** 0.5, **kw)
+    return out, ref if bhsd else ref.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("name", ENTRIES)
+@pytest.mark.parametrize("d", [16, 17, 20, 32, 36, 80, 96, 256])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_attention_head_dims_and_q_dtypes(gen, dev, name, d, int8, qdt):
+    """Every head dim up to 256 and an f32 or bf16 q, as the JAX kernels take
+    them (they pad d to 128 and round q to bf16): GQA 8/2, per-row
+    q_offset / kv_len, K/V as permuted views of the cache layout.  d = 17 and
+    20 rows are not 16-byte aligned (4-byte and element-wise loads).  The
+    plain version gets q rounded to bf16, the kernels' (and the JAX bodies')
+    rounding; the output comes back in q's dtype."""
+    b, hq, hk, S = 2, 8, 2, 150
+    sq = 1 if name == "decode_attention" else 37
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    shape = (b, hq, sq, d) if name in ("flash_attention_bhsd", "decode_attention") \
+        else (b, sq, hq, d)
+    q = torch.randn(shape, generator=gen, device=dev).to(qdt)
+    off = torch.tensor([0, 100], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([sq, 100 + sq], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, q_offset=off, kv_len=kvl, kv_scale=0.05 if int8 else None)
+    out, ref = _attend(name, q, k, v, **kw)
+    assert out.dtype == qdt and out.shape == q.shape
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("name", ENTRIES)
+def test_attention_rejects_head_dim_over_256(gen, dev, name):
+    """d > 256 is the one limit left (the JAX caps stop at 256 too)."""
+    k, v = _kv(gen, dev, 1, 2, 64, 320, True)
+    shape = (1, 8, 1, 320) if name in ("flash_attention_bhsd", "decode_attention") \
+        else (1, 1, 8, 320)
+    q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        fa.prefill_attention(q, k, v)                    # head dim 96
-    q = torch.randn((1, 8, 2, 128), generator=gen, device=dev)
-    k, v = _kv(gen, dev, 1, 2, 64, 128, True)
+        _attend(name, q, k, v, causal=True, q_offset=0, kv_len=1, kv_scale=0.05)
+
+
+def test_attention_rejects_bad_kv(gen, dev):
+    k, v = _kv(gen, dev, 1, 2, 64, 64, True)
+    q = torch.randn((1, 8, 2, 64), generator=gen, device=dev)
     with pytest.raises(TypeError):
-        fa.prefill_attention(q, k, v)                    # f32 q
+        fa.prefill_attention(q, k.float(), v.float())    # f32 K/V
+    with pytest.raises(ValueError):
+        fa.prefill_attention(q, k[..., :32], v[..., :32])  # q and K/V head dims differ
+
+
+@pytest.mark.parametrize("hq,hk", [(4, 2), (32, 8), (64, 8)])
+@pytest.mark.parametrize("sq", [1, 3])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("d", [128, 64])
+def test_attention_split_kv_decode(gen, dev, hq, hk, sq, int8, d):
+    """The split-KV flash decode (sq·group <= 64; 64/8 at sq = 3 is 24 rows,
+    two warps): bhsd q, S = 2048 in 8 chunks, kv_len 0, 1, 17, 1027 and 2048
+    in one batch, causal with q_offset = kv_len - sq; a row that sees no key
+    outputs 0; one merge launch (`.combine`) per call."""
+    lens = [0, 1, 17, 1027, 2048]
+    b, S = len(lens), 2048
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(torch.bfloat16)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    off = (kvl - sq).clamp(min=0)
+    kw = dict(causal=True, q_offset=off, kv_len=kvl, kv_scale=0.05 if int8 else None)
+    before = dict(launch_counts)
+    out, ref = _attend("flash_attention_bhsd", q, k, v, **kw)
+    for key in ("flash_attention_bhsd", "flash_attention_bhsd.combine"):
+        assert launch_counts[key] == before.get(key, 0) + 1
+    _close(out, ref)
+    assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("layout", ["flash_attention", "flash_attention_bhsd"])
+@pytest.mark.parametrize("sq", [2, 17, 30, 200, 333, 900])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ragged_rows(gen, dev, layout, sq, causal):
+    """sq (and sq·group) not a multiple of a CTA's 16, 32 or 64 rows, S not
+    a multiple of the 64-key tile, GQA 12/4, kv_len past S clamped: on the
+    132-SM H100 the plan takes the split path (two chunks) at sq = 2 (one
+    row group, four key slices) and 17 (51 rows: four row groups), and 1, 2
+    and 4 row groups a CTA over the query rows (with 4, 2 and 1 key slices)
+    at sq = 30, 200 and 333, and 8 row groups at 900."""
+    b, hq, hk, d, S = 2, 12, 4, 128, 413
+    k, v = _kv(gen, dev, b, hk, S, d, True)
+    shape = (b, hq, sq, d) if layout == "flash_attention_bhsd" else (b, sq, hq, d)
+    q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    off = torch.tensor([0, 60], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([sq, 500], dtype=torch.int32, device=dev)
+    out, ref = _attend(layout, q, k, v, causal=causal, q_offset=off, kv_len=kvl, kv_scale=0.05)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_long_prefill(gen, dev, d, int8, causal):
+    """Long prefill (8 row groups a CTA, many K/V tiles through the ring):
+    bshd sq = 1024 over S = 1100, GQA 16/8, q_offset 70 / 0 and kv_len past
+    S / 700."""
+    b, sq, hq, hk, S = 2, 1024, 16, 8, 1100
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    off = torch.tensor([70, 0], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([2000, 700], dtype=torch.int32, device=dev)
+    out, ref = _attend("flash_attention", q, k, v, causal=causal, q_offset=off, kv_len=kvl,
+                       kv_scale=0.05 if int8 else None)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("mode,quantized_kv", [("q8_0", True), ("float", False)])
+def test_engine_tiny_attention_on_the_card(dev, monkeypatch, flash, mode, quantized_kv):
+    """LlamaConfig.tiny() (head dim 16, GQA 4/2) on the card: prefill and
+    greedy decode steps with CSINN2_DECODE_ATTN unset and =flash, logits
+    against the same engine on the CPU (the plain path), the card fed the
+    CPU's tokens."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params
+    if flash:
+        monkeypatch.setenv("CSINN2_DECODE_ATTN", "flash")
+    else:
+        monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
+    cfg = LlamaConfig.tiny()
+    engines = [InferenceEngine(cfg, init_params(cfg, mode, seed=5, device=dv), batch=2,
+                               quantized_kv=quantized_kv, device=dv) for dv in ("cpu", "cuda")]
+    prompts = ([3, 7, 11, 19, 4], list(range(1, 40)))
+    nxt = {}
+    for sid, prompt in enumerate(prompts):
+        cpu, gpu = (e.prefill(sid, prompt) for e in engines)
+        assert np.isfinite(gpu).all() and cosine_similarity(gpu, cpu) >= 0.999
+        nxt[sid] = int(np.argmax(cpu))
+    for _ in range(4):
+        cpu, gpu = (e.decode_step(nxt) for e in engines)
+        for sid in nxt:
+            assert np.isfinite(gpu[sid]).all()
+            assert cosine_similarity(gpu[sid], cpu[sid]) >= 0.999
+        nxt = {sid: int(np.argmax(cpu[sid])) for sid in nxt}
 
 
 def _ds_case(gen, dev, N, H, W, C, O, k):
