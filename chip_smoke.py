@@ -9,11 +9,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   2. each kernel held against its plain PyTorch version on the card at
      Llama-2-7B shapes, timed (median GPU time of back-to-back calls queued
      behind a sleep kernel, CUDA events) beside the plain version and one
-     library call (a yardstick only): quant_matmul in every weight mode
-     (Q8_0, Q4_0, INT8_CHANNEL, INT4_CHANNEL, and the swiglu epilogue on a
-     Q8_0 and a Q4_0 w13 in the swiglu128 layout), and the attention kernels
-     (the tensor-core attn_fwd_kernel at prefill and, split over the KV
-     window, at flash decode), then every attention entry point at head
+     library call (a yardstick only): the GEMM launch plan's Python mirror
+     against the library's workspace size at every 7B projection; then
+     quant_matmul in every weight mode (Q8_0, Q4_0, INT8_CHANNEL,
+     INT4_CHANNEL, and the swiglu epilogue on a Q8_0 and a Q4_0 w13 in the
+     swiglu128 layout) at M = 1, 4 and 128, and the Q8_0 and Q4_0 w13 also at
+     the long prompts' prefill buckets M = 512 and 2048; the attention
+     kernels (the split-KV decode_attention, also timed cold over KV copies
+     beyond twice the L2 beside SDPA cold; the tensor-core attn_fwd_kernel
+     at prefill and, split over the KV window, at flash decode, its decode
+     also cold), then every attention entry point at head
      dims 16, 32, 80, 96 and 256 with an f32 and a bf16 q, int8 and bf16 KV;
   3. model parity: a 2-layer model at full 7B width (int8 KV) over a
      128-token prompt, logits on the card against the same model through the
@@ -23,8 +28,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      weights made on the card from a seed, int8 KV,
      InferenceEngine(batch=4).run_queue over six greedy requests (prompts
      5..1100 tokens, 16 new tokens each), with the kernel launch counts of
-     that run; then TTFT at prompt 128 and decode tokens/s at batch 4 (CUDA
-     events); then the engine at LlamaConfig.tiny() (head dim 16, GQA 4/2)
+     that run; then TTFT at prompts 128 and 1100 and decode tokens/s at
+     batch 4 (CUDA events); then the engine at LlamaConfig.tiny() (head dim 16, GQA 4/2)
      on the card, with and without CSINN2_DECODE_ATTN=flash, logits against
      the same engine on the CPU (cosine >= 0.999);
   5. this slice's main path: the same with Q4_0 weights;
@@ -172,7 +177,8 @@ def _qmm_weights(g, mode: str, K: int, N: int):
     return (pack_int4(q) if packed else q), s, w_deq.to(torch.bfloat16)
 
 
-def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, record_m=4):
+def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, record_m=4,
+                    ms_list=(1, 4, 128)):
     import torch
     from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref
     from csinn2_tpu_torch.utils.timing import gpu_ms
@@ -181,7 +187,7 @@ def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, recor
     kw = dict(scale_mode=scale_mode, packed_int4=packed, swiglu=swiglu, out_dtype=odt)
     w, s, w_deq = _qmm_weights(g, mode, K, N)
     worst = records.get(key, {}).get("max_abs_err", 0.0)
-    for M in (1, 4, 128):
+    for M in ms_list:
         x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
         y = quant_matmul(x, w, s, **kw)
         torch.cuda.synchronize()
@@ -207,6 +213,9 @@ def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, recor
             records.setdefault(key, {}).update(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                 shape=f"{label} M={M} K={K} N={N} {'bf16' if osz == 2 else 'f32'} out")
+        if record_m is not None and M > 16:   # the prefill kernel at the recorded shape
+            records.setdefault(key, {}).setdefault("prefill", {})[f"M={M}"] = dict(
+                ms=ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
     records.setdefault(key, {})["max_abs_err"] = worst
     del w, s, w_deq
 
@@ -223,13 +232,39 @@ def check_quant_matmul(records):
     for mode, (scale_mode, packed) in QMM_MODES.items():
         key = launch_key(scale_mode, packed, swiglu=False)
         for label, K, N, odt in shapes:
+            # the prefill buckets of a long prompt (512, 2048 rows) on the Q8_0 and Q4_0 w13
+            long = label == "w13" and scale_mode == "block"
             _check_qmm_case(records, key, label, g, mode, K, N, odt,
-                            record_m=4 if label == "w13" else None)
+                            record_m=4 if label == "w13" else None,
+                            ms_list=(1, 4, 128, 512, 2048) if long else (1, 4, 128))
     # the swiglu epilogue on a w13 in the swiglu128 layout (F 11008 padded to
     # 11264): N = 22528 → out [M, 11264]; recorded for Q4_0
     for mode in ("q8_0", "q4_0"):
         _check_qmm_case(records, "quant_matmul_swiglu", f"w13sw-{mode}", g, mode, 4096, 22528,
                         torch.bfloat16, swiglu=True, record_m=4 if mode == "q4_0" else None)
+
+
+def check_gemm_plan():
+    """kernels/qmatmul.py's mirror of the GEMM launch plan (workspace floats)
+    against the CUDA library's own number at every Llama-2-7B projection,
+    M 1-2048, both layouts, with and without the reduce."""
+    import torch
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n = 0
+    for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (4096, 22528), (11008, 4096),
+                 (4096, 32000)):
+        for M in (1, 2, 4, 8, 16, 17, 32, 64, 128, 512, 1024, 2048):
+            for trans in (False, True):
+                for swiglu, reduce_epi in ((False, False), (True, False), (False, True)):
+                    want = tq.kernel_workspace_floats(M, N, K, swiglu, reduce_epi, trans, 0)
+                    got = tq.workspace_floats(M, N, K, swiglu, reduce_epi, trans, n_sm)
+                    if got != want:
+                        raise AssertionError(f"GEMM plan mirror M={M} K={K} N={N} trans={trans}"
+                                             f": {got} floats, the library {want}")
+                    n += 1
+    log(f"  GEMM plan mirror = library workspace at {n} 7B cases; w13 M=128: "
+        f"{tq.gemm_plan(128, 22016, 4096, False, n_sm)}")
 
 
 def _kv_case(g, b, hk, S, d, scale):
@@ -247,6 +282,21 @@ def _verify_attn(name, out, ref):
     if not (r.passed and r.cosine_sim >= 0.9999):
         raise AssertionError(f"{name}: {r}")
     return r
+
+
+def _decode_cold(g, b, hk, S, d, kv_scale, run, lib):
+    """Cold times (utils/timing.gpu_ms_cold) of a decode attention call
+    `run(k, v)` and of its library call `lib(kd, vd)` on dequantized bf16
+    K/V, each over copies of the cache whose total exceeds twice the L2."""
+    import torch
+    from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms_cold, l2_bytes
+    caches = [_kv_case(g, b, hk, S, d, kv_scale)
+              for _ in range(cold_copies(2 * b * S * hk * d, l2_bytes()))]
+    ms = gpu_ms_cold([lambda c=c: run(*c) for c in caches])
+    deq = [tuple((t.float() * kv_scale).to(torch.bfloat16) for t in c)
+           for c in caches[:cold_copies(4 * b * S * hk * d, l2_bytes())]]
+    lib_ms = gpu_ms_cold([lambda c=c: lib(*c) for c in deq])
+    return ms, lib_ms
 
 
 def check_attention(records):
@@ -292,8 +342,16 @@ def check_attention(records):
             f"plain_ms={plain:.4f} lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"roofline={b_ms / ms:.3f} {r}")
         if S == 2048:
+            cold, lib_cold = _decode_cold(
+                g, b, hk, S, d, kv_scale,
+                lambda k, v: fa.decode_attention(q, k, v, q_offset=pos, kv_len=kv_len,
+                                                 kv_scale=kv_scale),
+                lambda kd, vd: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+            log(f"  decode_attention cold (KV copies beyond twice the L2): ms={cold:.4f} "
+                f"lib_ms={lib_cold:.4f} bound_ms={b_ms:.4f} roofline={b_ms / cold:.3f}")
             records["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                               bound_ms=b_ms, bound_by=b_by,
+                                               bound_ms=b_ms, bound_by=b_by, ms_cold=cold,
+                                               library_ms_cold=lib_cold,
                                                shape=f"b=4 hq=hk=32 d=128 S={S}")
     records["decode_attention"]["max_abs_err"] = worst
 
@@ -567,8 +625,14 @@ def check_flash_bhsd(records):
         log(f"  flash_attention_bhsd {shape} ms={ms:.4f} plain_ms={plain:.4f} lib_ms={lib:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} {r}")
         if case == "decode":
+            cold, lib_cold = _decode_cold(
+                g, b, hk, S, d, kv_scale, lambda k_, v_: fa.flash_attention(q, k_, v_, **kw),
+                lambda kd_, vd_: F.scaled_dot_product_attention(q, kd_, vd_, attn_mask=mask))
+            log(f"  flash_attention_bhsd decode cold: ms={cold:.4f} lib_ms={lib_cold:.4f} "
+                f"roofline={b_ms / cold:.3f}")
             records["flash_attention_bhsd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                                   bound_ms=b_ms, bound_by=b_by, shape=shape)
+                                                   bound_ms=b_ms, bound_by=b_by, ms_cold=cold,
+                                                   library_ms_cold=lib_cold, shape=shape)
         del k, v
     records["flash_attention_bhsd"]["max_abs_err"] = worst
 
@@ -959,6 +1023,16 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     logits = eng.prefill(0, prompt)
     if not (np.isfinite(logits).all() and 0 <= tok < cfg.vocab_size):
         raise AssertionError("prefill logits not finite")
+    # TTFT at prompt 1100 (bucket 2048: every projection at M = 2048)
+    ttfts_long = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        eng.prefill_sample(0, reqs[5].prompt)
+        b.record()
+        b.synchronize()
+        ttfts_long.append(a.elapsed_time(b))
     # decode tokens/s at batch 4: all lanes active at position ~128
     first = {}
     for sid in range(4):
@@ -995,6 +1069,8 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     tps = statistics.median(rates)
     log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events) "
         f"[{gpu_line}]")
+    log(f"  {name} TTFT prompt {PROMPTS[5]} (bucket 2048): {statistics.median(ttfts_long):.3f} ms "
+        f"(median of 3, CUDA events) [{gpu_line}]")
     log(f"  {name}{' flash decode' if flash_decode else ''} decode batch 4 at pos ~130: "
         f"{tps:.2f} tok/s, {4e3 / tps:.3f} ms/step (median of 3 x {n_steps} steps, CUDA "
         f"events, incl. host launch gaps) [{gpu_line}]"
@@ -1318,6 +1394,7 @@ def main() -> int:
 
     records = {}
     log("phase 2: kernels against their plain versions at 7B shapes")
+    check_gemm_plan()
     check_quant_matmul(records)
     check_attention(records)
     check_new_quant_matmul(records)
@@ -1375,12 +1452,13 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
-        if "unfused_pair_ms" in r:
-            entry["unfused_pair_ms"] = r["unfused_pair_ms"]
+        for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill"):
+            if extra in r:
+                entry[extra] = r[extra]
         if name.startswith("quant_matmul"):
             entry.update(launches_decode=int(counts.get(f"{name}.decode", 0)),
                          launches_prefill=int(counts.get(f"{name}.prefill", 0)))
-        if name in ATTENTION[1:] + ("flash_attention_bhsd",):
+        if name in ATTENTION + ("flash_attention_bhsd",):
             # the split-KV merges of the same source, within `launches`
             entry["launches_combine"] = int(counts.get(f"{name}.combine", 0))
         kernels.append(entry)

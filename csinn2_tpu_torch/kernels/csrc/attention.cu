@@ -2,11 +2,19 @@
 //
 // decode_attention_launch — replaces csinn2_tpu/kernels/flash_attention.py
 //   decode_attention → _decode_attn_kernel: one query per (row, query head)
-//   over the row's whole KV window [0, kv_len), exact two-pass softmax.
-//   One CTA per (query head, row).  Bound: the K/V bytes (2·S·d per head),
-//   read once; warps take whole keys so each key row is one coalesced read.
-//   Any d <= 256: four elements a lane where the rows allow 4-element loads,
-//   a masked tail otherwise.
+//   over the row's KV window [0, kv_len).  Bound: the K/V bytes, read once
+//   (25.3 MB of int8 KV at the 7B decode shape: 0.0076 ms).  A split-KV
+//   decode on the CUDA cores (decode_attn_kernel): one CTA per (chunk of
+//   keys, KV head, row), so the longest row's bytes stream on every SM and
+//   a chunk past kv_len returns at once; the GQA group's query heads share
+//   each K/V row the CTA reads.  All the chunk's K and V rows are requested
+//   at once by cp.async through the cache's strides into shared memory
+//   (32 KB a CTA at the 7B shape), so the whole byte stream is in flight
+//   before any is used.  Within a chunk the max and the sum are exact (two
+//   passes over the chunk's scores in shared memory, as the JAX body takes
+//   them over the whole window); attn_combine_kernel merges the chunks'
+//   (max, sum, output).  Any d <=
+//   256: 16-, 8-, 4-byte or element loads by the rows' alignment.
 //
 // attention_fwd_launch — replaces prefill_attention → _prefill_attn_kernel
 //   and flash_attention (bshd and bhsd) → _attn_kernel: causal (or not)
@@ -58,7 +66,6 @@
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 enum : int { DT_BF16 = 0, DT_F16 = 1, DT_F32 = 2 };
@@ -79,30 +86,6 @@ __device__ __forceinline__ void store_dt(void* p, long long i, int dt, float v) 
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
 }
 
-// four consecutive K/V elements as f32 (8-bit: one 4-byte load; bf16: 8 bytes)
-__device__ __forceinline__ void load4(const int8_t* p, float f[4]) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float f[4]) {
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(p);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p + 2);
-  f[0] = __low2float(a); f[1] = __high2float(a);
-  f[2] = __low2float(b); f[3] = __high2float(b);
-}
-
-// elements c .. c+3 of row p, zero past d: one vector load where FULL4
-// (rows start on a 4-element boundary and d % 4 == 0), else one by one
-template <bool FULL4, typename KV>
-__device__ __forceinline__ void load4_masked(const KV* p, int c, int d, float f[4]) {
-  if constexpr (FULL4) {
-    load4(p + c, f);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) f[e] = c + e < d ? to_float(p[c + e]) : 0.f;
-  }
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -112,106 +95,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-constexpr int DEC_THREADS = 256;
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int MAX_D = 256;
-
-// Block-wide reduction through `scratch` (DEC_WARPS floats); every thread
-// gets the result.
-template <bool IS_MAX>
-__device__ float block_reduce(float v, float* scratch) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  v = IS_MAX ? warp_max(v) : warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int i = 1; i < DEC_WARPS; ++i) r = IS_MAX ? fmaxf(r, scratch[i]) : r + scratch[i];
-  return r;
-}
-
-template <typename KV, bool FULL4>
-__global__ void __launch_bounds__(DEC_THREADS)
-decode_attn_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long long q_sh,
-                   const KV* __restrict__ k, long long k_sb, long long k_sh, long long k_ss,
-                   const KV* __restrict__ v, long long v_sb, long long v_sh, long long v_ss,
-                   const int* __restrict__ kv_len,        // [b]
-                   void* __restrict__ out, int o_dt,      // [b, hq, d]
-                   int hq, int hk, int S, int d, float qk_scale, float out_scale) {
-  extern __shared__ float smem[];
-  const int dq = (d + 3) / 4 * 4;          // d rounded up to the 4-element loads
-  float* qs = smem;                        // [dq] scaled query, zero past d
-  float* sc = qs + dq;                     // [S] scores, then probabilities
-  float* part = sc + S;                    // [DEC_WARPS, dq] PV partial sums
-  float* scratch = part + DEC_WARPS * dq;  // [DEC_WARPS]
-
-  const int h = blockIdx.x, bi = blockIdx.y;
-  const int hkid = h / (hq / hk);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int L = max(0, min(kv_len[bi], S));
-  const long long qrow = bi * q_sb + h * q_sh;
-  const KV* kb = k + bi * k_sb + hkid * k_sh;
-  const KV* vb = v + bi * v_sb + hkid * v_sh;
-
-  for (int c = threadIdx.x; c < dq; c += DEC_THREADS)
-    qs[c] = c < d ? __bfloat162float(load_q_bf16(q, qrow + c, q_dt)) * qk_scale : 0.f;
-  __syncthreads();
-
-  // scores: one warp per key, four dims per lane
-  float local_max = NEG_INF;
-  for (int j = warp; j < L; j += DEC_WARPS) {
-    float dot = 0.f;
-    for (int c = lane * 4; c < d; c += 128) {
-      float f[4];
-      load4_masked<FULL4>(kb + j * k_ss, c, d, f);
-      dot += qs[c] * f[0] + qs[c + 1] * f[1] + qs[c + 2] * f[2] + qs[c + 3] * f[3];
-    }
-    dot = warp_sum(dot);
-    if (lane == 0) sc[j] = dot;
-    local_max = fmaxf(local_max, dot);
-  }
-  const float m = block_reduce<true>(local_max, scratch);  // syncs: sc visible
-
-  float local_sum = 0.f;
-  for (int j = threadIdx.x; j < L; j += DEC_THREADS) {
-    const float p = expf(sc[j] - m);
-    sc[j] = p;
-    local_sum += p;
-  }
-  const float l = block_reduce<false>(local_sum, scratch);  // syncs: p visible
-
-  // PV: one warp per key, four dims per lane
-  float acc[MAX_D / 128][4] = {};
-  for (int j = warp; j < L; j += DEC_WARPS) {
-    const float p = sc[j];
-#pragma unroll
-    for (int t = 0; t < MAX_D / 128; ++t) {
-      const int c = lane * 4 + t * 128;
-      if (c < d) {
-        float f[4];
-        load4_masked<FULL4>(vb + j * v_ss, c, d, f);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[t][e] += p * f[e];
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < MAX_D / 128; ++t) {
-    const int c = lane * 4 + t * 128;
-    if (c < d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[warp * dq + c + e] = acc[t][e];
-  }
-  __syncthreads();
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  const long long orow = ((long long)bi * hq + h) * d;
-  for (int c = threadIdx.x; c < d; c += DEC_THREADS) {
-    float sum = 0.f;
-    for (int w = 0; w < DEC_WARPS; ++w) sum += part[w * dq + c];
-    store_dt(out, orow + c, o_dt, sum * out_scale * inv);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -732,6 +615,236 @@ attn_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// decode_attn_kernel: split-KV decode on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_THREADS = 128;
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int MAX_D = 256;
+
+// Elements of a K/V row a lane covers: one 16-byte segment.
+template <typename KV>
+__host__ __device__ constexpr int seg_elems() { return 16 / static_cast<int>(sizeof(KV)); }
+
+// Lanes a row takes (a power of two); a row holds lanes × 16 bytes in shared
+// memory.
+template <typename KV>
+__host__ __device__ inline int dec_lanes(int d) {
+  int l = 1;
+  while (l * seg_elems<KV>() < d) l *= 2;
+  return l;
+}
+
+// Dynamic shared memory of decode_attn_kernel: the chunk's K and V rows,
+// then f32 q [group][dpad], scores [group][chunk], (max, sum) [group], and
+// the warps' P·V sums [DEC_WARPS][HB][dpad].
+template <typename KV>
+__host__ __device__ inline size_t dec_smem(int d, int group, int chunk, int hb) {
+  const int rb = dec_lanes<KV>(d) * 16, dpad = rb / static_cast<int>(sizeof(KV));
+  return (size_t)2 * chunk * rb +
+         sizeof(float) * ((size_t)group * dpad + (size_t)group * chunk + 2 * group +
+                          (size_t)DEC_WARPS * hb * dpad);
+}
+
+// 16 int8 as f32 without I2F (16 results/clk/SM): byte x + 128 is the low
+// mantissa byte of the f32 2^23 + x + 128
+__device__ __forceinline__ void widen_seg(const uint4& r, float f[16], int8_t) {
+  const uint32_t* wd = reinterpret_cast<const uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = wd[i] ^ 0x80808080u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[4 * i + e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - 8388736.f;
+  }
+}
+__device__ __forceinline__ void widen_seg(const uint4& r, float f[8], __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    f[2 * e] = __low2float(h[e]);
+    f[2 * e + 1] = __high2float(h[e]);
+  }
+}
+
+// One CTA per (chunk of `chunk` keys, KV head, batch row): the GQA group's
+// query heads share every K/V row it reads.  All the chunk's K and V rows
+// are requested at once, by cp.async of VB bytes (16, 8, 4; element loads at
+// VB = 0) through the cache's strides into shared memory, so the CTA's
+// whole byte stream is in flight before any is used (pass 1 waits for the
+// K rows only).  A key row is then L lanes of 16 bytes (L a power of two,
+// L·EPL >= d; the dims past d are zero in shared memory).  Pass 1 writes
+// the chunk's scores (log2 units) to shared memory; the exact max and sum
+// of each head follow; pass 2 sums p·v for HB heads per sweep over the V
+// rows.  With one chunk the output is written here, else the chunk's (max,
+// sum, unnormalised output) go to part_ml / part_acc for attn_combine_kernel.
+template <typename KV, int VB, int HB>
+__global__ void __launch_bounds__(DEC_THREADS)
+decode_attn_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long long q_sh,
+                   const KV* __restrict__ k, long long k_sb, long long k_sh, long long k_ss,
+                   const KV* __restrict__ v, long long v_sb, long long v_sh, long long v_ss,
+                   const int* __restrict__ kv_len, void* __restrict__ out, int o_dt,
+                   float* __restrict__ part_ml, float* __restrict__ part_acc, int hq, int hk,
+                   int S, int d, int chunk, int n_chunks, float qk_scale, float out_scale) {
+  constexpr int EPL = seg_elems<KV>();
+  constexpr int ES = static_cast<int>(sizeof(KV));
+  extern __shared__ __align__(16) unsigned char dsm_raw[];
+  const int group = hq / hk;
+  const int L = dec_lanes<KV>(d), rb = L * 16, dpad = L * EPL;
+  unsigned char* kvs = dsm_raw;                                   // [2][chunk][rb]
+  float* qs = reinterpret_cast<float*>(dsm_raw + (size_t)2 * chunk * rb);   // [group][dpad]
+  float* sc = qs + group * dpad;                // [group][chunk] scores, then p
+  float* ml = sc + group * chunk;               // [group][2] max, sum
+  float* red = ml + 2 * group;                  // [DEC_WARPS][HB][dpad]
+
+  const int ch = blockIdx.x, hkid = blockIdx.y, bi = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int kpw = 32 / L, kpr = DEC_WARPS * kpw;       // keys a warp, a CTA
+  const int slot = warp * kpw + lane / L, c = (lane % L) * EPL;
+  const int Lk = max(0, min(kv_len[bi], S));
+  const int kbeg = ch * chunk, kstop = min(Lk, kbeg + chunk), n = kstop - kbeg;
+  const bool split = n_chunks > 1;
+  const long long pbase = ((long long)(bi * hk + hkid) * n_chunks + ch) * group;
+
+  if (n <= 0) {                                  // a chunk past this row's window
+    if (split) {
+      for (int h = tid; h < group; h += DEC_THREADS) part_ml[(pbase + h) * 2] = -INFINITY;
+    } else {
+      for (int i = tid; i < group * d; i += DEC_THREADS)
+        store_dt(out, ((long long)bi * hq + hkid * group + i / d) * d + i % d, o_dt, 0.f);
+    }
+    return;
+  }
+  const KV* kb = k + bi * k_sb + hkid * k_sh + kbeg * k_ss;
+  const KV* vb = v + bi * v_sb + hkid * v_sh + kbeg * v_ss;
+  {
+    const int pieces = VB ? d * ES / VB : d;     // loads a row
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {    // K, then V: one cp.async group each
+      const KV* base = which ? vb : kb;
+      const long long rs = which ? v_ss : k_ss;
+      for (int i = tid; i < n * pieces; i += DEC_THREADS) {
+        const int j = i / pieces, p = i % pieces;
+        const KV* src = base + j * rs;
+        unsigned char* dst = kvs + ((size_t)which * chunk + j) * rb;
+        if constexpr (VB == 16) cp_async<16>(smem_u32(dst + p * 16), src + p * (16 / ES), true);
+        else if constexpr (VB == 8) cp_async<8>(smem_u32(dst + p * 8), src + p * (8 / ES), true);
+        else if constexpr (VB == 4) cp_async<4>(smem_u32(dst + p * 4), src + p * (4 / ES), true);
+        else reinterpret_cast<KV*>(dst)[p] = src[p];
+      }
+      cp_async_commit();
+    }
+    if (d < dpad) {                              // the dims past d read as 0
+      const int pad = (dpad - d) * ES;
+      for (int i = tid; i < 2 * n * pad; i += DEC_THREADS) {
+        const int row = i / pad, which = row / n, j = row % n;
+        kvs[((size_t)which * chunk + j) * rb + d * ES + i % pad] = 0;
+      }
+    }
+  }
+  const float sl = qk_scale * LOG2E;
+  for (int i = tid; i < group * dpad; i += DEC_THREADS) {
+    const int h = i / dpad, cc = i % dpad;
+    qs[i] = cc < d ? __bfloat162float(load_q_bf16(
+                         q, bi * q_sb + (long long)(hkid * group + h) * q_sh + cc, q_dt)) * sl
+                   : 0.f;
+  }
+  cp_async_wait<1>();                            // the K rows (V may still be landing)
+  __syncthreads();
+
+  // pass 1: scores; the rounds are uniform across the CTA (shuffles)
+  for (int base = 0; base < n; base += kpr) {
+    const int j = base + slot;
+    float f[EPL];
+    widen_seg(j < n ? *reinterpret_cast<const uint4*>(kvs + (size_t)j * rb + c * ES)
+                    : make_uint4(0, 0, 0, 0), f, KV());
+    for (int h = 0; h < group; ++h) {
+      const float* qh = qs + h * dpad + c;
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) dot = fmaf(qh[e], f[e], dot);
+      for (int o = L / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (lane % L == 0 && j < n) sc[h * chunk + j] = dot;
+    }
+  }
+  __syncthreads();
+
+  // the exact max and sum of each head over the chunk; p = 2^(s - max)
+  for (int h = warp; h < group; h += DEC_WARPS) {
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, sc[h * chunk + j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float p = exp2f(sc[h * chunk + j] - m);
+      sc[h * chunk + j] = p;
+      l += p;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      ml[2 * h] = m;
+      ml[2 * h + 1] = l;
+    }
+  }
+  cp_async_wait<0>();                            // the V rows
+  __syncthreads();
+
+  // pass 2: P·V, HB heads a sweep over the chunk's V rows
+  const unsigned char* vs = kvs + (size_t)chunk * rb;
+  for (int h0 = 0; h0 < group; h0 += HB) {
+    const int nh = min(HB, group - h0);
+    float acc[HB][EPL];
+#pragma unroll
+    for (int h = 0; h < HB; ++h)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[h][e] = 0.f;
+    for (int j = slot; j < n; j += kpr) {
+      float f[EPL];
+      widen_seg(*reinterpret_cast<const uint4*>(vs + (size_t)j * rb + c * ES), f, KV());
+#pragma unroll
+      for (int h = 0; h < HB; ++h) {
+        if (h >= nh) break;
+        const float p = sc[(h0 + h) * chunk + j];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[h][e] = fmaf(p, f[e], acc[h][e]);
+      }
+    }
+    // the key slots of a warp, then the warps, through shared memory
+#pragma unroll
+    for (int h = 0; h < HB; ++h) {
+      if (h >= nh) break;                        // uniform
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        for (int o = L; o < 32; o <<= 1) acc[h][e] += __shfl_xor_sync(0xffffffffu, acc[h][e], o);
+      if (lane < L) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) red[(warp * HB + h) * dpad + c + e] = acc[h][e];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nh * d; i += DEC_THREADS) {
+      const int h = i / d, cc = i % d, hg = h0 + h;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w) sum += red[(w * HB + h) * dpad + cc];
+      if (split) {
+        part_acc[(pbase + hg) * d + cc] = sum;
+      } else {
+        const float l = ml[2 * hg + 1];
+        store_dt(out, ((long long)bi * hq + hkid * group + hg) * d + cc, o_dt,
+                 l > 0.f ? sum * out_scale / l : 0.f);
+      }
+    }
+    __syncthreads();
+  }
+  if (split)
+    for (int h = tid; h < group; h += DEC_THREADS) {
+      part_ml[(pbase + h) * 2] = ml[2 * h];
+      part_ml[(pbase + h) * 2 + 1] = ml[2 * h + 1];
+    }
+}
+
 template <int DP, typename KV>
 int launch_fwd(const void* q, int q_dt, const long long* qs, const void* k, const long long* ks,
                const void* v, const long long* vs, const int* q_offset, int off0,
@@ -769,40 +882,63 @@ bool valid_dt(int dt) { return dt == DT_BF16 || dt == DT_F16 || dt == DT_F32; }
 // q [b, hq, d] through strides (batch, head) and out [b, hq, d] contiguous,
 // each bf16, f16 or f32 (q_dt / o_dt: 0 / 1 / 2); k/v [b, hk, S, d] through
 // element strides (batch, head, seq); d contiguous everywhere; K/V int8
-// (kv_int8 != 0) or bf16; kv_len int32 [b].  d <= 256; full4: d % 4 == 0
-// and every K/V row starts on a 4-element boundary.
+// (kv_int8 != 0) or bf16; kv_len int32 [b].  d <= 256; vec: bytes per K/V
+// load (16, 8 or 4; 0: element by element), dividing d·sizeof(KV), every
+// row start and stride.  The KV window is cut into n_chunks chunks of
+// `chunk` keys (chunk·n_chunks >= S); n_chunks > 1 writes f32 partials to
+// part_ml [b, hk, n_chunks, hq/hk, 2] and part_acc [.., d], merged by
+// attn_combine_kernel.
 extern "C" int decode_attention_launch(const void* q, int q_dt, long long q_sb, long long q_sh,
-                                       const void* k, long long k_sb,
-                                       long long k_sh, long long k_ss, const void* v,
-                                       long long v_sb, long long v_sh, long long v_ss,
-                                       const int* kv_len, void* out, int o_dt, int b, int hq,
-                                       int hk, int S, int d, int kv_int8, int full4,
-                                       float qk_scale, float out_scale, void* stream) {
-  if (d < 1 || d > MAX_D || !valid_dt(q_dt) || !valid_dt(o_dt))
+                                       const void* k, long long k_sb, long long k_sh,
+                                       long long k_ss, const void* v, long long v_sb,
+                                       long long v_sh, long long v_ss, const int* kv_len,
+                                       void* out, int o_dt, float* part_ml, float* part_acc,
+                                       int b, int hq, int hk, int S, int d, int kv_int8, int vec,
+                                       int chunk, int n_chunks, float qk_scale, float out_scale,
+                                       void* stream) {
+  const bool ok_vec = vec == 0 || vec == 4 || vec == 8 || vec == 16;
+  if (d < 1 || d > MAX_D || !valid_dt(q_dt) || !valid_dt(o_dt) || !ok_vec || hk < 1 ||
+      hq % hk != 0 || chunk < 1 || n_chunks < 1 || (long long)chunk * n_chunks < S ||
+      (n_chunks > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dq = (d + 3) / 4 * 4;
-  const size_t smem = sizeof(float) * (dq + S + DEC_WARPS * dq + DEC_WARPS);
+  const int group = hq / hk;
+  const int hb = group == 1 ? 1 : 4;
+  const size_t smem = kv_int8 ? dec_smem<int8_t>(d, group, chunk, hb)
+                              : dec_smem<__nv_bfloat16>(d, group, chunk, hb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(hq, b);
-#define CSINN2_DEC(KV, FULL4)                                                                   \
-  {                                                                                           \
-    auto kern = decode_attn_kernel<KV, FULL4>;                                                \
-    const cudaError_t e = cudaFuncSetAttribute(                                               \
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));           \
-    if (e != cudaSuccess) return static_cast<int>(e);                                         \
+  const dim3 grid(n_chunks, hk, b);
+  cudaError_t e = cudaSuccess;
+#define CSINN2_DEC(KV, VB, HB)                                                                  \
+  {                                                                                             \
+    auto kern = decode_attn_kernel<KV, VB, HB>;                                                 \
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                 \
+                             static_cast<int>(smem));                                           \
+    if (e != cudaSuccess) return static_cast<int>(e);                                           \
     kern<<<grid, DEC_THREADS, smem, st>>>(q, q_dt, q_sb, q_sh, static_cast<const KV*>(k), k_sb, \
-                                          k_sh, k_ss, static_cast<const KV*>(v), v_sb, v_sh,  \
-                                          v_ss, kv_len, out, o_dt, hq, hk, S, d, qk_scale,    \
-                                          out_scale);                                         \
-    return static_cast<int>(cudaGetLastError());                                              \
+                                          k_sh, k_ss, static_cast<const KV*>(v), v_sb, v_sh,    \
+                                          v_ss, kv_len, out, o_dt, part_ml, part_acc, hq, hk,   \
+                                          S, d, chunk, n_chunks, qk_scale, out_scale);          \
   }
+#define CSINN2_DEC_HB(KV, VB) \
+  if (hb == 1) CSINN2_DEC(KV, VB, 1) else CSINN2_DEC(KV, VB, 4)
+#define CSINN2_DEC_VEC(KV)                                       \
+  if (vec == 16) { CSINN2_DEC_HB(KV, 16) }                       \
+  else if (vec == 8) { CSINN2_DEC_HB(KV, 8) }                    \
+  else if (vec == 4) { CSINN2_DEC_HB(KV, 4) }                    \
+  else { CSINN2_DEC_HB(KV, 0) }
   if (kv_int8) {
-    if (full4) CSINN2_DEC(int8_t, true);
-    CSINN2_DEC(int8_t, false);
+    CSINN2_DEC_VEC(int8_t)
+  } else {
+    CSINN2_DEC_VEC(__nv_bfloat16)
   }
-  if (full4) CSINN2_DEC(__nv_bfloat16, true);
-  CSINN2_DEC(__nv_bfloat16, false);
+#undef CSINN2_DEC_VEC
+#undef CSINN2_DEC_HB
 #undef CSINN2_DEC
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_chunks == 1) return static_cast<int>(e);
+  attn_combine_kernel<<<dim3(group, hk, b), 128, 0, st>>>(
+      part_ml, part_acc, out, o_dt, (long long)hq * d, 0, d, 1, hq, hk, d, n_chunks, out_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // q [b, sq, hq, d] and out through strides {batch, seq, head}, each bf16,

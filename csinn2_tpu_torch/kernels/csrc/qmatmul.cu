@@ -23,7 +23,7 @@ extern "C" long long quant_matmul_workspace(int M, int N, int K, int swiglu, int
 // ([N,K/32] with trans; scale_kind 0), [N] (scale_kind 1) or unused
 // (scale_kind 2); bias f32 [N] or null; the epilogue scale e when has_e;
 // out [M,N] of out_kind (epilogue.cuh OutKind, zp for the integer kinds), or
-// [M,N/2] with swiglu != 0 (N % 256 == 0, no trans); workspace f32 of
+// [M,N/2] with swiglu != 0 (N % 256 == 0); workspace f32 of
 // ws_floats (at least quant_matmul_workspace(...)).  K % 32 == 0,
 // N % 16 == 0, all pointers 16-byte aligned.
 extern "C" int quant_matmul_int8(const void* x, const void* w, const void* s, const void* bias,

@@ -13,7 +13,8 @@ the kernel's shape: where the GQA group's queries × sq fit one CTA (64
 rows: decode) the KV window is split over CTAs and a second kernel merges
 the chunks, otherwise the query rows are split.  Launch counts:
 `prefill_attention`, `flash_attention` (bshd), `flash_attention_bhsd`, and
-`<that name>.combine` for the merge of a split launch; `decode_attention`.
+`<that name>.combine` for the merge of a split launch; `decode_attention`
+(a split-KV kernel of its own, `_decode_plan`) and `decode_attention.combine`.
 
 Semantics shared by all (per batch row b): query i sits at position
 q_offset[b] + i; it sees keys kpos < kv_len[b] (and kpos <= its position when
@@ -152,12 +153,49 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+DECODE_CHUNKS = (512, 256, 128, 64)   # keys per CTA the decode plan picks from
+DECODE_SMALL_CHUNKS = (32, 16)        # ... where the shared memory takes no more
+DECODE_SMEM = 100 * 1024    # bytes of shared memory a decode CTA may take (2 an SM)
+DECODE_WARPS = 4            # csrc/attention.cu DEC_WARPS
+
+
+def _decode_smem(d: int, kv_bytes: int, group: int, chunk: int) -> int:
+    """Shared memory of decode_attn_kernel (csrc/attention.cu dec_smem): the
+    chunk's K and V rows (each L lanes × 16 bytes, L the power of two with
+    L·16 >= d·kv_bytes), f32 q, scores, (max, sum) and the warps' P·V sums
+    for 1 (group 1) or 4 heads a sweep."""
+    lanes = 1
+    while lanes * 16 < d * kv_bytes:
+        lanes *= 2
+    rb, dpad = lanes * 16, lanes * 16 // kv_bytes
+    hb = 1 if group == 1 else 4
+    return 2 * chunk * rb + 4 * (group * dpad + group * chunk + 2 * group
+                                 + DECODE_WARPS * hb * dpad)
+
+
+def _decode_plan(b: int, hq: int, hk: int, S: int, d: int, kv_bytes: int, n_sm: int):
+    """(keys per chunk, chunks) of decode_attn_kernel: the longest chunk of
+    DECODE_CHUNKS (DECODE_SMALL_CHUNKS where none fits) whose shared memory
+    fits DECODE_SMEM and whose split of a full window (S keys) over the hk
+    KV heads gives at least 2 CTAs per SM, else the shortest that fits; one
+    chunk when the window fits it."""
+    group = hq // hk
+    fit = lambda cs: [c for c in cs if _decode_smem(d, kv_bytes, group, c) <= DECODE_SMEM]
+    fits = fit(DECODE_CHUNKS) or fit(DECODE_SMALL_CHUNKS) or [DECODE_SMALL_CHUNKS[-1]]
+    chunk = next((c for c in fits if hk * -(-S // c) >= 2 * n_sm), fits[-1])
+    if S <= chunk:
+        return max(1, S), 1
+    return chunk, -(-S // chunk)
+
+
 def decode_attention(q, k, v, *, q_offset, kv_len=None,
                      scale: Optional[float] = None,
                      kv_scale: Optional[float] = None):
     """Decode attention: q [b, hq, 1, d]; k/v [b, hk, S, d] → [b, hq, 1, d]
-    in q's dtype (q and k/v may be strided views with a contiguous d).  q_offset/kv_len scalar or [b]; kv_len defaults to
-    q_offset + 1 and is clamped to S."""
+    in q's dtype (q and k/v may be strided views with a contiguous d).
+    q_offset/kv_len scalar or [b]; kv_len defaults to q_offset + 1 and is
+    clamped to S.  On the card a split-KV kernel (`_decode_plan` chunks,
+    merged by a second kernel: launch count `decode_attention.combine`)."""
     b, hq, sq, d = q.shape
     _, hk, S, _ = k.shape
     if sq != 1 or hq % hk:
@@ -175,22 +213,32 @@ def decode_attention(q, k, v, *, q_offset, kv_len=None,
     qk = _kernel_q(q)
     kvl = _per_row(kv_len, b, q.device)
     out = torch.empty((b, hq, 1, d), dtype=qk.dtype, device=q.device)
-    ll, i32 = ctypes.c_longlong, ctypes.c_int
+    chunk, n_chunks = _decode_plan(b, hq, hk, S, d, k.element_size(),
+                                   _sm_count(q.device.index or 0))
+    part_ml = part_acc = None
+    if n_chunks > 1:
+        part_ml = torch.empty((b, hk, n_chunks, hq // hk, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((b, hk, n_chunks, hq // hk, d), dtype=torch.float32,
+                               device=q.device)
+    ll, i32, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     fn = _build.c_function(
         "attention", "decode_attention_launch",
-        (ctypes.c_void_p, i32, ll, ll, ctypes.c_void_p, ll, ll, ll, ctypes.c_void_p, ll, ll, ll,
-         ctypes.c_void_p, ctypes.c_void_p) + (i32,) * 8
-        + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+        (vp, i32, ll, ll, vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, i32, vp, vp) + (i32,) * 9
+        + (ctypes.c_float, ctypes.c_float, vp))
     ks, vs = k.stride(), v.stride()
-    full4 = d % 4 == 0 and _row_align(k, v) % (4 * k.element_size()) == 0
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = fn(qk.data_ptr(), _DT[qk.dtype], qk.stride(0), qk.stride(1), k.data_ptr(), ks[0],
              ks[1], ks[2], v.data_ptr(), vs[0], vs[1], vs[2], kvl.data_ptr(), out.data_ptr(),
-             _DT[out.dtype], b, hq, hk, S, d, int(k.dtype == torch.int8), int(full4),
+             _DT[out.dtype], ptr(part_ml), ptr(part_acc), b, hq, hk, S, d,
+             int(k.dtype == torch.int8), _vec_bytes(k, v), chunk, n_chunks,
              scale * (kv_scale if kv_scale is not None else 1.0),
              kv_scale if kv_scale is not None else 1.0,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("attention", err, "decode_attention")
     _build.launch_counts["decode_attention"] += 1
+    if n_chunks > 1:
+        _build.launch_counts["decode_attention.combine"] += 1
     return out.to(q.dtype)
 
 

@@ -22,8 +22,10 @@ of the JAX function is ported:
     added to the exact sum and the fixed-point requantize of
     kernels/requant.py.
 
-Numerics: a float x is dequantized and accumulated in f32 (the TPU kernel
-forms w·s in bf16 instead).  The float epilogue follows what the JAX
+Numerics: the plain version dequantizes and accumulates in f32.  On the
+card the decode kernels (M <= 16) do the same; the prefill kernel (M > 16)
+forms block-scaled weights as bf16(q)·bf16(s) rounded to bf16, as the TPU
+kernel does, and accumulates in f32 (`gemm_plan` mirrors its launch plan).  The float epilogue follows what the JAX
 kernel's compiled code computes (XLA on the CPU): the last multiply before
 the bias add is one fused multiply-add, fma(acc·s, e, b) or fma(acc, s, b);
 the plain version emulates it in f64 (the product of two f32 is exact there)
@@ -142,8 +144,6 @@ def _check_args(x, scale_mode, out_dtype, packed_int4, w_transposed, swiglu,
             raise ValueError("quant_matmul: rq_mult requires int8 x and unpacked int8 w")
         if not int_out:
             raise ValueError("quant_matmul: integer out_dtype required with rq_mult")
-    if swiglu and w_transposed:
-        raise _unported("swiglu with w_transposed")
     if swiglu and int_dot:
         raise _unported("swiglu on the int8 x (int_dot) path")
     return int_dot
@@ -238,13 +238,67 @@ def launch_key(scale_mode: str, packed_int4: bool, swiglu: bool, *,
 DECODE_MAX_M = 16     # csrc/qmatmul.cuh and qmatmul_int8dot.cu: the M <= 16 variants
 SCALE_KINDS = {"block": 0, "channel": 1, "none": 2}
 
+# csrc/qmatmul.cuh's prefill kernel (M > 16): CTA tile, k per stage, ring
+# depth, and the cost model of its split plan
+PF_BM, PF_BN, PF_SK, PF_STAGES = 128, 256, 64, 5
+PF_BLOCK_COST, PF_MAX_SPLITS = 1260, 16
+SMEM_LIMIT = 232448   # bytes of dynamic shared memory a CTA may have on sm_90
 
-@functools.lru_cache(maxsize=None)
-def _workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
-                      w_transposed: bool, device: int) -> int:
-    """f32 workspace (split-K partial sums, or the sums that the swiglu
-    epilogue and the epilogues qmm_reduce applies read) the kernel asks for
-    at this shape; csrc/qmatmul.cuh alone knows its tiles and split-K plan."""
+
+def prefill_smem(packed_int4: bool) -> int:
+    """Dynamic shared memory of the prefill kernels: PF_STAGES stages of the
+    bf16 x tile, the raw weight tile and two blocks of f32 scales, and 1024
+    bytes to align the ring for wgmma's 128-byte swizzle."""
+    stage = PF_BM * PF_SK * 2 + PF_SK * PF_BN // (2 if packed_int4 else 1) \
+        + (PF_SK // BLOCK) * PF_BN * 4
+    return PF_STAGES * stage + 1024
+
+
+def gemm_plan(M: int, N: int, K: int, w_transposed: bool, n_sm: int) -> dict:
+    """The launch plan of csrc/qmatmul.cuh plan_split_k, mirrored: kernel
+    ("decode", "t_decode" or "prefill"), splits and 32-k blocks per split,
+    and for the prefill kernel its tile and stages.  Decode (M <= 16): split
+    K until about 4 CTAs of 128 columns per SM ([N, K]: no split).  Prefill:
+    the split count (<= PF_MAX_SPLITS, a 64-k stage at least per split) that
+    minimises waves of CTAs on the busiest SM × blocks per CTA, plus the
+    partials' cost."""
+    nb = K // BLOCK
+    if M > DECODE_MAX_M:
+        tiles = -(-M // PF_BM) * -(-N // PF_BN)
+        best = None
+        for sp in range(1, max(1, min(PF_MAX_SPLITS, nb // 2)) + 1):
+            bps = -(-nb // sp)
+            if -(-nb // bps) != sp:
+                continue
+            waves = -(-(tiles * sp) // n_sm)
+            cost = waves * bps * PF_BLOCK_COST + (8 * sp * M * N // 3000 if sp > 1 else 0)
+            if best is None or cost < best[0]:
+                best = (cost, sp, bps)
+        return dict(kernel="prefill", splits=best[1], blocks_per_split=best[2],
+                    tile=(PF_BM, PF_BN), stage_k=PF_SK, stages=PF_STAGES,
+                    grid=(-(-M // PF_BM), -(-N // PF_BN), best[1]))
+    if w_transposed:
+        return dict(kernel="t_decode", splits=1, blocks_per_split=nb)
+    tiles = -(-N // 128)
+    want = max(1, min(nb, -(-(4 * n_sm) // tiles)))
+    bps = max(1, -(-nb // want))
+    return dict(kernel="decode", splits=max(1, -(-nb // bps)), blocks_per_split=bps)
+
+
+def workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
+                     w_transposed: bool, n_sm: int) -> int:
+    """f32 workspace the float-x kernels need (csrc/qmatmul.cuh
+    workspace_floats, mirrored): [splits, M, N] partial sums when K is
+    split, when the swiglu epilogue pairs columns, or when the epilogue
+    goes through qmm_reduce; else 0."""
+    sp = gemm_plan(M, N, K, w_transposed, n_sm)["splits"]
+    return sp * M * N if (sp > 1 or swiglu or reduce_epi) else 0
+
+
+def kernel_workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
+                            w_transposed: bool, device: int) -> int:
+    """The same number from the CUDA library (quant_matmul_workspace): the
+    card checks the mirror against it."""
     fn = _build.c_function("qmatmul", "quant_matmul_workspace",
                            (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_int),),
                            restype=ctypes.c_longlong)
@@ -252,6 +306,11 @@ def _workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
     n = fn(M, N, K, int(swiglu), int(reduce_epi), int(w_transposed), device, ctypes.byref(err))
     _build.check("qmatmul", err.value, "quant_matmul workspace")
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _device_index(x) -> int:
@@ -362,7 +421,7 @@ def _launch_float(x, w_q, scales, bias, out, M, N, K, *, scale_mode, out_dtype,
     # as csrc/qmatmul.cuh run(): epilogues past one rounding go through the reduce
     reduce_epi = (not out_dtype.is_floating_point or epilogue_scale is not None
                   or (scale_mode == "channel" and bias is not None))
-    n_ws = _workspace_floats(M, N, K, swiglu, reduce_epi, w_transposed, device)
+    n_ws = workspace_floats(M, N, K, swiglu, reduce_epi, w_transposed, _sm_count(device))
     workspace = (torch.empty((n_ws,), dtype=torch.float32, device=x.device)
                  if n_ws else None)
     lib, entry = ("qmatmul_int4", "quant_matmul_int4") if packed_int4 \

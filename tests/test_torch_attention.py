@@ -272,7 +272,7 @@ def test_kv_load_width():
     """Bytes per K/V load of attn_fwd_kernel, from the rows' starts, strides
     and length: the cache's [b, S, hk, d] views at d = 128 load 16 bytes,
     int8 d = 20 rows 4, bf16 d = 36 rows 8, odd bf16 rows element by
-    element; decode_attention's 4-element loads need 4-element row starts."""
+    element (decode_attention's loads take the same widths)."""
     def cache(d, dt, hk=2):
         t = torch.zeros((2, 64, hk, d), dtype=dt)
         return t.permute(0, 2, 1, 3)
@@ -283,3 +283,83 @@ def test_kv_load_width():
     k = cache(17, torch.int8, hk=4)
     assert tfa._vec_bytes(k, k) == 0 and tfa._row_align(k, k) % 4 != 0
     assert tfa._row_align(cache(20, torch.int8), cache(20, torch.int8)) % 4 == 0
+
+
+def test_decode_plan():
+    """The chunks of the split-KV decode_attention on a 132-SM H100: the
+    longest chunk (512 ... 64 keys) whose K/V rows, scores and sums fit the
+    CTA's 100 KB of shared memory and whose split of a full window over the
+    KV heads gives 2 CTAs an SM; one chunk when the window fits it."""
+    plan = lambda b, hq, hk, S, d=128, kvb=1: tfa._decode_plan(b, hq, hk, S, d, kvb, 132)
+    assert plan(4, 32, 32, 2048) == (128, 16)        # row 2: 512 CTAs for a full row
+    assert plan(4, 32, 32, 200) == (64, 4)
+    assert plan(2, 4, 2, 64, d=16) == (64, 1)        # LlamaConfig.tiny(): no merge
+    assert plan(1, 64, 8, 4096) == (64, 64)          # 70B GQA: 8 query heads a CTA
+    assert plan(4, 32, 32, 2048, d=256, kvb=2) == (64, 32)
+    for b, hq, hk, S, d, kvb in ((4, 32, 32, 2048, 128, 1), (1, 40, 40, 4096, 128, 2),
+                                 (3, 8, 2, 1100, 80, 1), (1, 32, 1, 77, 256, 2),
+                                 (1, 128, 1, 1024, 17, 2)):
+        chunk, n = plan(b, hq, hk, S, d, kvb)
+        assert chunk * n >= S > chunk * (n - 1)
+        assert tfa._decode_smem(d, kvb, hq // hk, chunk) <= tfa.DECODE_SMEM
+
+
+def _chunked_decode(q, k, v, kv_len, chunk, n_chunks, scale, kv_scale):
+    """numpy emulation of decode_attn_kernel + attn_combine_kernel: per
+    (row, KV head, chunk) the scores in log2 units of q (bf16) · K, the
+    chunk's exact max and sum of 2^(s - max) and its unnormalised P·V
+    (f32); then the merge of the chunks with max -inf skipped, 0 where no
+    key was seen.  q [b, hq, d] f32 (bf16 values), k/v [b, hk, S, d]."""
+    b, hq, d = q.shape
+    hk, S = k.shape[1], k.shape[2]
+    g = hq // hk
+    sl = np.float32(scale * kv_scale * np.log2(np.e))
+    out = np.zeros((b, hq, d), np.float32)
+    for bi in range(b):
+        L = min(int(kv_len[bi]), S)
+        for h in range(hq):
+            kh, ms, ls, accs = h // g, [], [], []
+            for c in range(n_chunks):
+                lo, hi = c * chunk, min(L, (c + 1) * chunk)
+                if hi <= lo:
+                    ms.append(-np.inf), ls.append(0.0), accs.append(np.zeros(d, np.float32))
+                    continue
+                s = (k[bi, kh, lo:hi].astype(np.float32) @ (q[bi, h] * sl)).astype(np.float32)
+                m = s.max()
+                p = np.exp2(s - m).astype(np.float32)
+                ms.append(m), ls.append(p.sum()), accs.append(p @ v[bi, kh, lo:hi].astype(np.float32))
+            M = max(ms)
+            if M == -np.inf:
+                continue
+            w = [np.exp2(m - M) if m != -np.inf else 0.0 for m in ms]
+            l = sum(wi * li for wi, li in zip(w, ls))
+            out[bi, h] = sum(wi * a for wi, a in zip(w, accs)) * kv_scale / l
+    return out
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_chunked_decode_emulation_matches_jax(rng, int8):
+    """The split-KV decode's arithmetic (numpy emulation: 128-key chunks of
+    the 7B plan and 64-key ones, exact within each chunk, then the merge)
+    against the JAX decode_attention (interpret) at kv_len 0, 1, 17, 255,
+    256, 257 and 2048, GQA 8/2; a row with kv_len 0 outputs 0."""
+    lens = [0, 1, 17, 255, 256, 257, 2048]
+    b, hq, hk, S, d = len(lens), 8, 2, 2048, 64
+    qj, qt = _q(rng, (b, hq, 1, d))
+    (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, int8)
+    scale = KV_SCALE if int8 else None
+    kvl = np.array(lens, np.int32)
+    want = np.asarray(jfa.decode_attention(qj, kj, vj, q_offset=jnp.asarray(kvl - 1),
+                                           kv_len=jnp.asarray(kvl), kv_scale=scale, hk_blk=2,
+                                           interpret=True), np.float32)[:, :, 0]
+    kn, vn = kt.float().numpy(), vt.float().numpy()
+    qn = qt.float().numpy()[:, :, 0]
+    for chunk in (128, 64):
+        got = _chunked_decode(qn, kn, vn, kvl, chunk, -(-S // chunk), 1 / np.sqrt(d),
+                              scale if scale is not None else 1.0)
+        assert np.all(got[0] == 0.0)
+        r = verify(got, want, tol=2e-2, min_cosine=0.9999)
+        assert r.passed and r.cosine_sim > 0.9999, r
+        ref = tfa._attention_ref(qt, kt, vt, causal=False, q_offset=0, kv_len=torch.from_numpy(kvl),
+                                 scale=1 / np.sqrt(d), kv_scale=scale).float().numpy()[:, :, 0]
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max())

@@ -18,8 +18,12 @@ CTA's columns, K a multiple of 32 but not of the split, in three launch
 geometries; fused_dsconv (bit for bit) at odd H and
 W, C in {3, 8, 17, 1024}, O not a multiple of 8, k 3 and 5, stride 1 and 2,
 pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, and a small
-MobileNetV1 session fused against unfused; and the wrappers' argument
-checks.
+MobileNetV1 session fused against unfused; the prefill GEMM kernels in
+every float-x mode at M 17-2048 with ragged N and K (integer outputs and
+1e-4 bias checks against the function the kernel computes, its bf16 w·s),
+swiglu on the [N, K] layouts, the GEMM plan's Python mirror against the
+library, the split-KV decode_attention across its chunk edges; and the
+wrappers' argument checks.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -85,13 +89,38 @@ def test_quant_matmul_tails(gen, dev, M, K, N, odt):
     assert np.abs(yf - rf).max() <= 1e-2 * np.abs(rf).max()
 
 
+def _kernel_numerics_ref(x, w, s, bias, **kw):
+    """The function the kernel computes: quant_matmul_ref, except that the
+    prefill kernels (M > 16) form block-scaled weights as bf16(bf16(q) ·
+    bf16(s)), as the JAX body does (csrc/qmatmul.cuh, Numerics); the
+    epilogue and the output cast are the plain version's."""
+    if x.shape[0] <= 16 or kw.get("scale_mode") != "block":
+        return quant_matmul_ref(x, w, s, bias, **kw)
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    K = x.shape[1]
+    trans = kw.get("w_transposed", False)
+    q = tq._weight_kn(w, K, kw.get("packed_int4", False), trans)
+    sb = (s.t() if trans else s).to(torch.bfloat16).float()
+    wq = (q.float() * sb.repeat_interleave(32, dim=0)).to(torch.bfloat16).float()
+    acc = tq._fma_epilogue(x.float() @ wq, s, "block", kw.get("epilogue_scale"), bias)
+    if kw.get("swiglu"):
+        acc = tq.swiglu_pairs(acc)
+    odt = kw.get("out_dtype", torch.float32)
+    clip = tq.OUT_KINDS[odt][1]
+    if clip is not None:
+        acc = torch.clamp(torch.round(acc) + float(kw.get("out_zp", 0.0)), clip[0], clip[1])
+    return acc.to(odt)
+
+
 def test_quant_matmul_bias(gen, dev):
+    """A bias on the decode kernel (M = 4) and the prefill kernel (M = 64),
+    each against the function it computes (the prefill kernel's bf16 w·s)."""
     x, w, s = _qmm_case(gen, dev, 4, 256, 160)
     bias = torch.randn(160, generator=gen, device=dev)
     for M in (4, 64):
         xm = x.repeat(M // 4, 1)
         y = quant_matmul(xm, w, s, bias, scale_mode="block").cpu().numpy()
-        ref = quant_matmul_ref(xm, w, s, bias, scale_mode="block").cpu().numpy()
+        ref = _kernel_numerics_ref(xm, w, s, bias, scale_mode="block").cpu().numpy()
         assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
@@ -170,7 +199,7 @@ def test_quant_matmul_modes_bias(gen, dev, mode):
         x, w, s, kw = _mode_case(gen, dev, mode, M, 256, 160)
         bias = torch.randn(160, generator=gen, device=dev)
         y = quant_matmul(x, w, s, bias, **kw).cpu().numpy()
-        ref = quant_matmul_ref(x, w, s, bias, **kw).cpu().numpy()
+        ref = _kernel_numerics_ref(x, w, s, bias, **kw).cpu().numpy()
         assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
@@ -178,8 +207,8 @@ def test_quant_matmul_modes_bias(gen, dev, mode):
                                 dict(epilogue_scale=0.5), dict(out_dtype=torch.int8)])
 def test_quant_matmul_unported_modes_raise_on_the_card(gen, dev, kw):
     """The modes the second slice left unported run on the card now: each
-    against the plain version (the int8 output within 1 LSB: f32 sums in
-    another order)."""
+    against the plain version (the int8 output within 1 LSB of the function
+    the kernel computes: f32 sums in another order)."""
     x, w, s = _qmm_case(gen, dev, 4, 64, 32)
     args = dict(scale_mode="block")
     args.update(kw)
@@ -193,11 +222,11 @@ def test_quant_matmul_unported_modes_raise_on_the_card(gen, dev, kw):
         xm = x.repeat(M // 4, 1)
         y = quant_matmul(xm, w, s, **args)
         torch.cuda.synchronize()
-        ref = quant_matmul_ref(xm, w, s, **args)
         if y.dtype == torch.int8:
+            ref = _kernel_numerics_ref(xm, w, s, None, **args)
             assert (y.int() - ref.int()).abs().max() <= 1
-        else:
-            _agree(y, ref)
+            continue
+        _agree(y, quant_matmul_ref(xm, w, s, **args))
 
 
 def test_quant_matmul_modes_reject_bad_args(gen, dev):
@@ -261,7 +290,8 @@ def test_quant_matmul_transposed_epilogues(gen, dev, M):
         y = quant_matmul(x, w, s, bias, epilogue_scale=0.5, **kw)
         _agree(y, quant_matmul_ref(x, w, s, bias, epilogue_scale=0.5, **kw))
         y8 = quant_matmul(x, w, s * 300, bias, out_dtype=torch.uint8, out_zp=128.0, **kw)
-        r8 = quant_matmul_ref(x, w, s * 300, bias, out_dtype=torch.uint8, out_zp=128.0, **kw)
+        r8 = _kernel_numerics_ref(x, w, s * 300, bias, out_dtype=torch.uint8, out_zp=128.0,
+                                  **kw)
         torch.cuda.synchronize()
         assert (y8.int() - r8.int()).abs().max() <= 1
 
@@ -800,3 +830,140 @@ def test_int4_probe_attrs_and_cold_timing(gen, dev):
     calls = [_probe_case(gen, dev, "andmask", 8, 1024, 512, 4096, 512) for _ in range(3)]
     assert gpu_ms_cold([c.kernel for c in calls], reps=6) > 0
     assert gpu_ms(calls[0].kernel, reps=4) > 0
+
+
+# -- the seventh slice: the redesigned prefill GEMM and split-KV decode ---------------
+
+# every float-x mode of the prefill kernel: (scale_mode, packed_int4, w_transposed,
+# carrier range)
+PF_MODES = {"q8_0": ("block", False, False, 127), "q4_0": ("block", True, False, 8),
+            "int8_channel": ("channel", False, False, 128),
+            "int4_channel": ("channel", True, False, 8),
+            "none": ("none", False, False, 128), "t_q8_0": ("block", False, True, 127),
+            "t_int8_channel": ("channel", False, True, 128),
+            "t_q4_0_packed": ("block", True, True, 8),
+            "t_int4_channel_packed": ("channel", True, True, 8)}
+
+
+def _pf_case(gen, dev, mode, M, K, N):
+    """x bf16 [M, K] and a weight of `mode` with its scales; every value of
+    the first 8 columns at the carrier's minimum."""
+    from csinn2_tpu_torch.kernels.qmatmul import pack_int4_t
+    scale_mode, packed, trans, lim = PF_MODES[mode]
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    lo = -lim
+    q = torch.randint(lo, lim if lim != 127 else 128, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    q[:, :8] = lo
+    if trans:
+        w = pack_int4_t(q.t().contiguous()) if packed else q.t().contiguous()
+    else:
+        w = pack_int4(q) if packed else q
+    s_shape = {"block": (N, K // 32) if trans else (K // 32, N), "channel": (N,),
+               "none": None}[scale_mode]
+    s = None if s_shape is None else \
+        (torch.rand(s_shape, generator=gen, device=dev) * 1e-3 + 1e-5).to(torch.float16).float()
+    return x, w, s, dict(scale_mode=scale_mode, packed_int4=packed, w_transposed=trans)
+
+
+@pytest.mark.parametrize("mode", list(PF_MODES))
+@pytest.mark.parametrize("M", [17, 127, 129, 640, 2048])
+@pytest.mark.parametrize("odt", [torch.bfloat16, torch.float32, torch.int8])
+def test_prefill_gemm_every_mode(gen, dev, mode, M, odt):
+    """The cp.async tensor-core prefill kernel in every float-x mode at M
+    across its 128-row tiles, N = 400 (not a multiple of the 128-column tile),
+    K = 1056 = 32 · 33 (not a multiple of the 64-k stage), each output type
+    that reaches it (bf16 and f32 written by the kernel, int8 through the
+    reduce), against the plain version."""
+    K, N = 1056, 400
+    x, w, s, kw = _pf_case(gen, dev, mode, M, K, N)
+    extra = {}
+    if odt == torch.int8:          # outputs of ~10 LSB: most inside the int8 range
+        s = None if s is None else s * (8 if PF_MODES[mode][3] > 8 else 130)
+        extra = dict(out_zp=3.0, epilogue_scale=None if s is not None else 0.004)
+    key = launch_key(kw["scale_mode"], kw["packed_int4"], False,
+                     w_transposed=kw["w_transposed"]) + ".prefill"
+    before = launch_counts[key]
+    y = quant_matmul(x, w, s, out_dtype=odt, **kw, **extra)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert y.dtype == odt and y.shape == (M, N)
+    if odt == torch.int8:          # against the function the kernel computes
+        ref = _kernel_numerics_ref(x, w, s, None, out_dtype=odt, **kw, **extra)
+        d = (y.int() - ref.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.05
+    else:
+        _agree(y, quant_matmul_ref(x, w, s, out_dtype=odt, **kw, **extra))
+
+
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0", "t_q8_0", "t_q4_0_packed"])
+@pytest.mark.parametrize("M", [4, 17, 200])
+def test_swiglu_on_every_layout(gen, dev, mode, M):
+    """swiglu with the [N, K] and [N, K/2] layouts (and the [K, N] ones)
+    through qmm_reduce<SWIGLU>, against the plain version."""
+    x, w, s, kw = _pf_case(gen, dev, mode, M, 352, 768)
+    y = quant_matmul(x, w, s, out_dtype=torch.bfloat16, swiglu=True, **kw)
+    torch.cuda.synchronize()
+    assert y.shape == (M, 384)
+    ref = quant_matmul_ref(x, w, s, out_dtype=torch.bfloat16, swiglu=True, **kw)
+    _agree(y, ref)
+
+
+def test_gemm_plan_mirror_matches_the_library(dev):
+    """kernels/qmatmul.py workspace_floats (the Python mirror of the plan)
+    equals the CUDA library's quant_matmul_workspace for every projection of
+    Llama-2-7B and 13B at M 1-2048, both layouts, with and without the
+    reduce."""
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000),
+              (5120, 15360), (5120, 5120), (5120, 27648), (13824, 5120), (352, 400)]
+    for K, N in shapes:
+        for M in (1, 4, 8, 16, 17, 32, 128, 512, 2048):
+            for trans in (False, True):
+                for reduce_epi in (False, True):
+                    want = tq.kernel_workspace_floats(M, N, K, False, reduce_epi, trans, 0)
+                    assert tq.workspace_floats(M, N, K, False, reduce_epi, trans, n_sm) == want
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("d", [16, 17, 80, 128, 256])
+@pytest.mark.parametrize("hq,hk", [(32, 32), (8, 2), (32, 8)])
+def test_decode_attention_split_kv(gen, dev, int8, d, hq, hk):
+    """The split-KV decode_attention: kv_len 0, 1, chunk ± 1 and the whole
+    window S across its chunks, GQA, int8 and bf16 KV as strided views of the
+    cache layout, an f32 q (rounded to bf16) at d = 80; a row with kv_len 0
+    outputs 0; the merge launches once per call when the window is split."""
+    S = 1100
+    b = 7
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, n_chunks = fa._decode_plan(b, hq, hk, S, d, 1 if int8 else 2, n_sm)
+    lens = [0, 1, chunk - 1, chunk, chunk + 1, S - 1, S]
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    qdt = torch.float32 if d == 80 else torch.bfloat16
+    q = torch.randn((b, hq, 1, d), generator=gen, device=dev).to(qdt)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = dict(launch_counts)
+    out, ref = _attend("decode_attention", q, k, v, causal=False, q_offset=kvl - 1,
+                       kv_len=kvl, kv_scale=0.05 if int8 else None)
+    assert launch_counts["decode_attention"] == before.get("decode_attention", 0) + 1
+    assert launch_counts["decode_attention.combine"] == \
+        before.get("decode_attention.combine", 0) + (1 if n_chunks > 1 else 0)
+    assert out.dtype == qdt and out.shape == q.shape
+    _close(out, ref)
+    assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 2047, 2048])
+def test_decode_attention_every_chunk_edge(gen, dev, kv_len):
+    """The 7B decode shape (hq = hk = 32, d = 128, S = 2048, int8 KV) at
+    kv_len on each side of the chunk boundaries, with a second row at the
+    whole window."""
+    k, v = _kv(gen, dev, 2, 32, 2048, 128, True)
+    q = torch.randn((2, 32, 1, 128), generator=gen, device=dev).to(torch.bfloat16)
+    kvl = torch.tensor([kv_len, 2048], dtype=torch.int32, device=dev)
+    out, ref = _attend("decode_attention", q, k, v, causal=False, q_offset=kvl - 1,
+                       kv_len=kvl, kv_scale=0.05)
+    _close(out, ref)
+    if kv_len == 0:
+        assert float(out[0].abs().max()) == 0.0

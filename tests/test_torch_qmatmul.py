@@ -304,12 +304,122 @@ def test_jax_asserts_raise_value_error(rng, bad):
 
 
 def test_unreached_combination_raises_not_implemented(rng):
-    """swiglu with w_transposed: accepted by the JAX wrapper, reached by no
-    caller or test of the JAX package; it names its ROADMAP item."""
-    x, w, s, _ = _any_case(rng, 4, 64, 256, w_transposed=True)
+    """swiglu on the int8-x (int_dot) path: accepted by the JAX wrapper,
+    reached by no caller or test of the JAX package; it names its ROADMAP
+    item."""
+    x, w, s, _ = _any_case(rng, 4, 64, 256, scale_mode="channel", int_x=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_matmul(_t(x).to(torch.bfloat16), _t(w), _t(s), scale_mode="block",
-                     w_transposed=True, swiglu=True)
+        quant_matmul(_t(x), _t(w), _t(s), scale_mode="channel", swiglu=True)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("scale_mode", ["block", "channel"])
+def test_swiglu_with_w_transposed_matches_jax(rng, packed, scale_mode):
+    """swiglu with the [N, K] / [N, K/2] layouts (ROADMAP B.9b, now routed
+    like row 1e): the port's plain version against the JAX kernel in
+    interpret mode (its gate, cosine 0.999) and JAX's f32 reference."""
+    M, K, N = 8, 128, 512
+    x, w, s, _ = _any_case(rng, M, K, N, scale_mode=scale_mode, packed_int4=packed,
+                           w_transposed=True)
+    kw = dict(scale_mode=scale_mode, packed_int4=packed, w_transposed=True, swiglu=True)
+    got = _port_any(x, w, s, None, **kw).numpy()
+    assert got.shape == (M, N // 2)
+    want = _jax_any(x, w, s, None, bn=256, bk=128, **kw)
+    r = verify(got, want, tol=5e-2, min_cosine=0.999)
+    assert r.cosine_sim > 0.999, r
+    ref = np.asarray(jax_qmm_ref(x, w, s, **kw))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+# -- the prefill kernel's numerics and launch plan (csrc/qmatmul.cuh) ----------------
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(np.asarray(a, np.float32), jnp.bfloat16), np.float32)
+
+
+def _bf16_ws_gemm(x, q_kn, s_blocks):
+    """What the card's prefill kernel computes for block scales, in numpy:
+    each weight bf16(bf16(q) · bf16(s)) (one rounding of the exact f32
+    product), x in bf16, the products summed in f64 (the kernel: f32)."""
+    K, N = q_kn.shape
+    s_rows = np.repeat(_bf16(s_blocks), 32, axis=0)               # [K, N]
+    w = _bf16(q_kn.astype(np.float32) * s_rows)
+    return (_bf16(x).astype(np.float64) @ w.astype(np.float64)).astype(np.float32)
+
+
+@pytest.mark.parametrize("layout", ["kn", "packed_kn", "nk", "packed_nk"])
+def test_prefill_bf16_ws_numerics_match_jax_kernel(rng, layout):
+    """The numpy emulation of the prefill kernel's bf16 w·s against the JAX
+    kernel (interpret) in each block layout: within 2e-6·max|y| (f32 sums in
+    another order), where JAX's f32 reference (the port's plain version)
+    differs from the same kernel by more than 50 times that."""
+    M, K, N = 24, 256, 128
+    packed, trans = layout.startswith("packed"), layout.endswith("nk")
+    x, w, s, _ = _any_case(rng, M, K, N, packed_int4=packed, w_transposed=trans)
+    kw = dict(scale_mode="block", packed_int4=packed, w_transposed=trans)
+    want = _jax_any(x, w, s, None, bm=8, bn=128, bk=128, **kw)
+    q = tq._weight_kn(_t(w), K, packed, trans).numpy()
+    got = _bf16_ws_gemm(x, q, s.T if trans else s)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 2e-6 * scale
+    f32 = np.asarray(jax_qmm_ref(x, w, s, **kw))
+    assert np.abs(f32 - want).max() > 50 * 2e-6 * scale
+
+
+LLAMA_PROJ = {  # (K, N) of each projection: Llama-2-7B and 13B
+    "7b.wqkv": (4096, 12288), "7b.wo": (4096, 4096), "7b.w13": (4096, 22016),
+    "7b.w13sw": (4096, 22528), "7b.w2": (11008, 4096), "7b.lm_head": (4096, 32000),
+    "13b.wqkv": (5120, 15360), "13b.wo": (5120, 5120), "13b.w13": (5120, 27648),
+    "13b.w2": (13824, 5120), "13b.lm_head": (5120, 32000)}
+
+
+def _plan_invariants(M, N, K, trans, n_sm=132):
+    p = tq.gemm_plan(M, N, K, trans, n_sm)
+    nb = K // 32
+    sp, bps = p["splits"], p["blocks_per_split"]
+    assert sp >= 1 and sp * bps >= nb > (sp - 1) * bps       # every block once, none empty
+    if p["kernel"] == "prefill":
+        assert M > tq.DECODE_MAX_M and sp <= tq.PF_MAX_SPLITS
+        assert bps >= min(2, nb)                              # a whole 64-k stage a split
+        for packed in (False, True):
+            assert tq.prefill_smem(packed) <= tq.SMEM_LIMIT
+        assert p["grid"] == (-(-M // tq.PF_BM), -(-N // tq.PF_BN), sp) and p["grid"][1] <= 65535
+    for swiglu, reduce_epi in ((False, False), (True, False), (False, True)):
+        ws = tq.workspace_floats(M, N, K, swiglu, reduce_epi, trans, n_sm)
+        assert ws == (sp * M * N if (sp > 1 or swiglu or reduce_epi) else 0)
+    return p
+
+
+@pytest.mark.parametrize("proj", list(LLAMA_PROJ))
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 128, 512, 2048])
+@pytest.mark.parametrize("trans", [False, True])
+def test_gemm_plan_llama_projections(proj, M, trans):
+    """The Python mirror of csrc/qmatmul.cuh's launch plan at every Llama-2-7B
+    and 13B projection: the decode kernels at M <= 16, the prefill kernel
+    above, each K block in exactly one split, shared memory within the
+    227 KB a CTA may have, the workspace the kernels ask for (the card
+    holds the mirror to the library's own number)."""
+    K, N = LLAMA_PROJ[proj]
+    p = _plan_invariants(M, N, K, trans)
+    want = "prefill" if M > 16 else ("t_decode" if trans else "decode")
+    assert p["kernel"] == want
+
+
+@pytest.mark.parametrize("M,N,K", [(17, 16, 32), (129, 400, 1056), (333, 2064, 96),
+                                   (2047, 48, 64), (40, 160, 11008), (300, 30000, 4096)])
+def test_gemm_plan_ragged(M, N, K):
+    _plan_invariants(M, N, K, False)
+    _plan_invariants(M, N, K, True, n_sm=114)                 # another card's SM count
+
+
+def test_gemm_plan_7b_choices():
+    """The plan's choices at the 7B shapes on a 132-SM H100: w13 at M = 128
+    (86 tiles of 128 × 256) splits K in 3, w2 (16 tiles) in 8; at M = 2048
+    (1376 tiles) nothing is split."""
+    plan = lambda M, K, N: tq.gemm_plan(M, N, K, False, 132)
+    assert (plan(128, 4096, 22016)["splits"], plan(128, 11008, 4096)["splits"]) == (3, 8)
+    assert plan(2048, 4096, 22016)["splits"] == 1 and plan(2048, 11008, 4096)["splits"] == 1
+    assert plan(4, 4096, 22016) == dict(kernel="decode", splits=4, blocks_per_split=32)
 
 
 def test_launch_keys_name_each_new_family():
