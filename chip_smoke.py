@@ -13,8 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      against the library's workspace size at every 7B projection; then
      quant_matmul in every weight mode (Q8_0, Q4_0, INT8_CHANNEL,
      INT4_CHANNEL, and the swiglu epilogue on a Q8_0 and a Q4_0 w13 in the
-     swiglu128 layout) at M = 1, 4 and 128, and the Q8_0 and Q4_0 w13 also at
-     the long prompts' prefill buckets M = 512 and 2048; the attention
+     swiglu128 layout) at M = 1, 4, 8, 16 and 128 on wqkv, wo, w13, w2 and
+     lm_head, the decode rows (M <= 16) also cold (utils/timing.gpu_ms_cold
+     over weight copies beyond twice the L2, beside torch.matmul cold), and
+     the Q8_0 and Q4_0 w13 also at the long prompts' prefill buckets M = 512
+     and 2048; the attention
      kernels (the split-KV decode_attention, also timed cold over KV copies
      beyond twice the L2 beside SDPA cold; the tensor-core attn_fwd_kernel
      at prefill and, split over the KV window, at flash decode, its decode
@@ -29,7 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      InferenceEngine(batch=4).run_queue over six greedy requests (prompts
      5..1100 tokens, 16 new tokens each), with the kernel launch counts of
      that run; then TTFT at prompts 128 and 1100 and decode tokens/s at
-     batch 4 (CUDA events); then the engine at LlamaConfig.tiny() (head dim 16, GQA 4/2)
+     batch 4 (CUDA events), with the qmm_reduce launches per decode step (the
+     libraries' own count; the decode GEMM finishes its splits in one
+     launch); then the engine at LlamaConfig.tiny() (head dim 16, GQA 4/2)
      on the card, with and without CSINN2_DECODE_ATTN=flash, logits against
      the same engine on the CPU (cosine >= 0.999);
   5. this slice's main path: the same with Q4_0 weights;
@@ -177,8 +182,27 @@ def _qmm_weights(g, mode: str, K: int, N: int):
     return (pack_int4(q) if packed else q), s, w_deq.to(torch.bfloat16)
 
 
+def _gemm_cold(x, w, s, w_deq, run):
+    """Cold times (utils/timing.gpu_ms_cold) of a GEMM call run(w, s) and of
+    torch.matmul(x, w_deq), each over copies of its weight whose total
+    exceeds twice the L2."""
+    import torch
+    from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms_cold, l2_bytes
+    n = cold_copies(w.numel() + (0 if s is None else s.numel() * 4), l2_bytes())
+    copies = [(w, s)] + [(w.clone(), None if s is None else s.clone()) for _ in range(n - 1)]
+    ms = gpu_ms_cold([lambda c=c: run(*c) for c in copies])
+    del copies
+    deqs = [w_deq] + [w_deq.clone()
+                      for _ in range(cold_copies(w_deq.numel() * 2, l2_bytes()) - 1)]
+    lib = gpu_ms_cold([lambda d=d: torch.matmul(x, d) for d in deqs])
+    return ms, lib
+
+
+DECODE_MS = (1, 4, 8, 16)
+
+
 def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, record_m=4,
-                    ms_list=(1, 4, 128)):
+                    ms_list=DECODE_MS + (128,)):
     import torch
     from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref
     from csinn2_tpu_torch.utils.timing import gpu_ms
@@ -206,12 +230,22 @@ def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, recor
         n_out = N // 2 if swiglu else N
         b_ms, b_by = bound(M * K * 2 + w.numel() + s.numel() * 4 + M * n_out * osz,
                            2.0 * M * N * K)
+        cold = ""
+        if M <= 16:                            # the decode kernel, cold
+            ms_cold, lib_cold = _gemm_cold(x, w, s, w_deq,
+                                           lambda wc, sc: quant_matmul(x, wc, sc, **kw))
+            cold = (f" cold: ms={ms_cold:.4f} lib_ms={lib_cold:.4f} "
+                    f"roofline={b_ms / ms_cold:.3f}")
         log(f"  {key} {label:7s} M={M:4d} K={K:5d} N={N:5d} ms={ms:.4f} plain_ms={plain:.4f} "
             f"lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} "
-            f"cos={cos:.6f} max_abs_err={err:.3e}")
+            f"cos={cos:.6f} max_abs_err={err:.3e}{cold}")
+        if record_m is not None and M <= 16:  # the decode kernel at the recorded shape
+            records.setdefault(key, {}).setdefault("decode_cold", {})[f"M={M}"] = dict(
+                ms=ms_cold, library_ms=lib_cold, bound_ms=b_ms)
         if M == record_m:
             records.setdefault(key, {}).update(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                ms_cold=ms_cold, library_ms_cold=lib_cold,
                 shape=f"{label} M={M} K={K} N={N} {'bf16' if osz == 2 else 'f32'} out")
         if record_m is not None and M > 16:   # the prefill kernel at the recorded shape
             records.setdefault(key, {}).setdefault("prefill", {})[f"M={M}"] = dict(
@@ -221,14 +255,16 @@ def _check_qmm_case(records, key, label, g, mode, K, N, odt, swiglu=False, recor
 
 
 def check_quant_matmul(records):
-    """Every weight mode at the 7B shapes (M = 1, 4, 128); the record of each
-    mode is the batch-4 decode FFN GEMM, w13 at M = 4."""
+    """Every weight mode at the 7B shapes (M = 1, 4, 8, 16, 128); the record
+    of each mode is the batch-4 decode FFN GEMM, w13 at M = 4, with the
+    decode rows cold at M <= 16."""
     import torch
     from csinn2_tpu_torch.kernels.qmatmul import launch_key
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    shapes = [("wqkv", 4096, 12288, torch.bfloat16), ("w13", 4096, 22016, torch.bfloat16),
-              ("w2", 11008, 4096, torch.bfloat16), ("lm_head", 4096, 32000, torch.float32)]
+    shapes = [("wqkv", 4096, 12288, torch.bfloat16), ("wo", 4096, 4096, torch.bfloat16),
+              ("w13", 4096, 22016, torch.bfloat16), ("w2", 11008, 4096, torch.bfloat16),
+              ("lm_head", 4096, 32000, torch.float32)]
     for mode, (scale_mode, packed) in QMM_MODES.items():
         key = launch_key(scale_mode, packed, swiglu=False)
         for label, K, N, odt in shapes:
@@ -236,7 +272,7 @@ def check_quant_matmul(records):
             long = label == "w13" and scale_mode == "block"
             _check_qmm_case(records, key, label, g, mode, K, N, odt,
                             record_m=4 if label == "w13" else None,
-                            ms_list=(1, 4, 128, 512, 2048) if long else (1, 4, 128))
+                            ms_list=DECODE_MS + ((128, 512, 2048) if long else (128,)))
     # the swiglu epilogue on a w13 in the swiglu128 layout (F 11008 padded to
     # 11264): N = 22528 → out [M, 11264]; recorded for Q4_0
     for mode in ("q8_0", "q4_0"):
@@ -247,7 +283,8 @@ def check_quant_matmul(records):
 def check_gemm_plan():
     """kernels/qmatmul.py's mirror of the GEMM launch plan (workspace floats)
     against the CUDA library's own number at every Llama-2-7B projection,
-    M 1-2048, both layouts, with and without the reduce."""
+    M 1-2048, with and without the reduce (the plan is the same for both
+    weight layouts)."""
     import torch
     from csinn2_tpu_torch.kernels import qmatmul as tq
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -255,14 +292,13 @@ def check_gemm_plan():
     for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (4096, 22528), (11008, 4096),
                  (4096, 32000)):
         for M in (1, 2, 4, 8, 16, 17, 32, 64, 128, 512, 1024, 2048):
-            for trans in (False, True):
-                for swiglu, reduce_epi in ((False, False), (True, False), (False, True)):
-                    want = tq.kernel_workspace_floats(M, N, K, swiglu, reduce_epi, trans, 0)
-                    got = tq.workspace_floats(M, N, K, swiglu, reduce_epi, trans, n_sm)
-                    if got != want:
-                        raise AssertionError(f"GEMM plan mirror M={M} K={K} N={N} trans={trans}"
-                                             f": {got} floats, the library {want}")
-                    n += 1
+            for swiglu, reduce_epi in ((False, False), (True, False), (False, True)):
+                want = tq.kernel_workspace_floats(M, N, K, swiglu, reduce_epi, 0)
+                got = tq.workspace_floats(M, N, K, swiglu, reduce_epi, n_sm)
+                if got != want:
+                    raise AssertionError(f"GEMM plan mirror M={M} K={K} N={N}: {got} floats, "
+                                         f"the library {want}")
+                n += 1
     log(f"  GEMM plan mirror = library workspace at {n} 7B cases; w13 M=128: "
         f"{tq.gemm_plan(128, 22016, 4096, False, n_sm)}")
 
@@ -554,9 +590,15 @@ def check_new_quant_matmul(records):
                     note = f"cos={cos:.6f}"
                 ms = gpu_ms(run)
                 plain = gpu_ms(lambda: quant_matmul_ref(x, w, s, b, **kw), reps=3)
+                cold = {}
                 if deq is not None:
                     xb = x.to(torch.bfloat16)
                     lib = gpu_ms(lambda: torch.matmul(xb, deq))
+                    if M <= 16:                # the decode kernel, cold
+                        cold = dict(zip(("ms_cold", "library_ms_cold"), _gemm_cold(
+                            xb, w, s, deq, lambda wc, sc: quant_matmul(x, wc, sc, b, **kw))))
+                        note += (f" cold: ms={cold['ms_cold']:.4f} "
+                                 f"lib_ms={cold['library_ms_cold']:.4f}")
                 else:
                     lib = int_mm_ms(x, w)
                 osz = y.element_size()
@@ -574,7 +616,8 @@ def check_new_quant_matmul(records):
                 if NEW_RECORD.get(key) == kind and name == "w13" and M == 4:
                     padded = " (library: x zero-padded to 32 rows)" if deq is None else ""
                     rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                               bound_by=b_by, shape=f"{label} w13 M=4 K={K} N={N}{padded}")
+                               bound_by=b_by, shape=f"{label} w13 M=4 K={K} N={N}{padded}",
+                               **cold)
             del w, s, b, deq
 
 
@@ -947,7 +990,7 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     import numpy as np
     import torch
     from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from csinn2_tpu_torch.kernels.qmatmul import launch_key
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key, reduce_launches
     from csinn2_tpu_torch.llm.config import LlamaConfig
     from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
     from csinn2_tpu_torch.llm.model import init_params_device
@@ -1055,6 +1098,7 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
             raise AssertionError(f"flash decode logits cosine {cos}")
     nxt = {sid: int(np.argmax(v)) for sid, v in step_logits.items()}
     n_steps, rates = 32, []
+    reduces = reduce_launches()
     for _ in range(3):
         for sid in range(4):
             eng.slots[sid].pos = 129
@@ -1065,6 +1109,7 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         b.record()
         b.synchronize()
         rates.append(4 * n_steps / (a.elapsed_time(b) / 1e3))
+    reduce_per_step = (reduce_launches() - reduces) / (3 * n_steps)
     ttft = statistics.median(ttfts)
     tps = statistics.median(rates)
     log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events) "
@@ -1075,9 +1120,12 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         f"{tps:.2f} tok/s, {4e3 / tps:.3f} ms/step (median of 3 x {n_steps} steps, CUDA "
         f"events, incl. host launch gaps) [{gpu_line}]"
         + (f"; default decode (phase 4) {base['tps']:.2f} tok/s" if flash_decode else ""))
+    log(f"  {name} qmm_reduce launches per decode step: {reduce_per_step:g} (the libraries' "
+        f"count over the 3 x {n_steps} steps)")
     del eng
     torch.cuda.empty_cache()
-    return dict(counts=counts, outs=outs, tps=tps, steps=steps[0])
+    return dict(counts=counts, outs=outs, tps=tps, steps=steps[0],
+                reduce_per_step=reduce_per_step)
 
 
 def serve_tiny():
@@ -1411,20 +1459,25 @@ def main() -> int:
                          ("q4_0", True)):
         model_parity(mode, swiglu)
         torch.cuda.empty_cache()
+    # kernel name → qmm_reduce launches per decode step of its serving run
+    reduce_per_step = {}
     log("phase 4: the first slice's main path, Llama-2-7B Q8_0 int8 KV, run_queue batch 4")
     q8_0 = serve(gpu_line, "q8_0")
     for k in ("quant_matmul",) + ATTENTION:
         path_counts[k] = (q8_0["counts"], "phase 4 (Q8_0)")
+    reduce_per_step["quant_matmul"] = q8_0["reduce_per_step"]
     serve_tiny()
     log("phase 5: this slice's main path, Llama-2-7B Q4_0 int8 KV, run_queue batch 4")
-    path_counts["quant_matmul_q4_0"] = (serve(gpu_line, "q4_0")["counts"], "phase 5 (Q4_0)")
-    log("phase 6: the other weight modes' paths, Llama-2-7B int8 KV, run_queue batch 4")
-    path_counts["quant_matmul_channel"] = (serve(gpu_line, "int8")["counts"],
-                                           "phase 6 (INT8_CHANNEL)")
-    path_counts["quant_matmul_int4_channel"] = (serve(gpu_line, "int4")["counts"],
-                                                "phase 6 (INT4_CHANNEL)")
-    path_counts["quant_matmul_swiglu"] = (serve(gpu_line, "q4_0", swiglu=True)["counts"],
-                                          "phase 6 (Q4_0, CSINN2_SWIGLU_FUSE=1)")
+    for key, mode, swiglu, path in (
+            ("quant_matmul_q4_0", "q4_0", False, "phase 5 (Q4_0)"),
+            ("quant_matmul_channel", "int8", False, "phase 6 (INT8_CHANNEL)"),
+            ("quant_matmul_int4_channel", "int4", False, "phase 6 (INT4_CHANNEL)"),
+            ("quant_matmul_swiglu", "q4_0", True, "phase 6 (Q4_0, CSINN2_SWIGLU_FUSE=1)")):
+        if key == "quant_matmul_channel":
+            log("phase 6: the other weight modes' paths, Llama-2-7B int8 KV, run_queue batch 4")
+        run = serve(gpu_line, mode, swiglu=swiglu)
+        path_counts[key] = (run["counts"], path)
+        reduce_per_step[key] = run["reduce_per_step"]
     log("phase 7: the CNN path, MobileNetV1 INT8_SYM 224, graph session, CSINN2_FUSE_DS=1")
     path_counts["fused_dsconv"] = (cnn_path(records, gpu_line),
                                    f"phase 7 (MobileNetV1 INT8_SYM, fused, batch {CNN_BATCH})")
@@ -1452,9 +1505,12 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
-        for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill"):
+        for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
+                      "decode_cold"):
             if extra in r:
                 entry[extra] = r[extra]
+        if name in reduce_per_step:
+            entry["qmm_reduce_per_decode_step"] = reduce_per_step[name]
         if name.startswith("quant_matmul"):
             entry.update(launches_decode=int(counts.get(f"{name}.decode", 0)),
                          launches_prefill=int(counts.get(f"{name}.prefill", 0)))

@@ -27,18 +27,24 @@ struct Epi {
   int out_kind;            // OutKind
 };
 
-__device__ __forceinline__ float epi_float(float v, int col, const Epi& ep) {
+// epi_float of a column whose channel scale s and bias b are loaded already
+// (each read only when ep has it)
+__device__ __forceinline__ float epi_float_col(float v, float s, float b, const Epi& ep) {
   const bool ch = ep.ch_scale != nullptr;
   if (ep.bias == nullptr) {
-    if (ch) v *= ep.ch_scale[col];
+    if (ch) v *= s;
     if (ep.has_e) v *= ep.e;
     return v;
   }
-  const float b = ep.bias[col];
-  if (ch && ep.has_e) return fmaf(v * ep.ch_scale[col], ep.e, b);
-  if (ch) return fmaf(v, ep.ch_scale[col], b);
+  if (ch && ep.has_e) return fmaf(v * s, ep.e, b);
+  if (ch) return fmaf(v, s, b);
   if (ep.has_e) return fmaf(v, ep.e, b);
   return v + b;
+}
+
+__device__ __forceinline__ float epi_float(float v, int col, const Epi& ep) {
+  return epi_float_col(v, ep.ch_scale != nullptr ? ep.ch_scale[col] : 1.f,
+                       ep.bias != nullptr ? ep.bias[col] : 0.f, ep);
 }
 
 __device__ __forceinline__ float clip_round(float v, float zp, float lo, float hi) {

@@ -22,52 +22,50 @@
 // Two libraries instantiate it: qmatmul.cu (int8 values) and qmatmul_int4.cu
 // (packed int4), built in parallel.
 //
-// Numerics.  The decode kernels (M <= 16) follow the f32 reference
-// quant_matmul_ref: x · (q · s) with q · s formed in f32 per weight for
-// block scales, (x · q) · s for channel scales.  The prefill kernel (M > 16)
-// computes what the JAX body computes (csinn2_tpu/kernels/qmatmul.py
-// :232-235, :225, :203): each weight of a block-scaled tile becomes
+// Numerics.  Every kernel computes what the JAX body computes
+// (csinn2_tpu/kernels/qmatmul.py :232-235, :225, :203, :189-208 packed,
+// :170-188 transposed packed): each weight of a block-scaled tile becomes
 // bf16(bf16(q) · bf16(s)) — one rounding of the exact product — and x (bf16)
 // meets it on the tensor cores with f32 accumulation; with channel scales
 // or none, q stays exact in bf16 and the scale is applied to the f32 sum in
-// the epilogue.  quant_matmul_ref stays the yardstick: the bf16 w·s moves a
-// sum by ~2^-9 of its size, inside the gates (cosine 0.9999, 1e-2·max|y|).
+// the epilogue.  quant_matmul_ref (f32 q · s) stays the yardstick: the bf16
+// w·s moves a sum by ~2^-9 of its size, inside the gates (cosine 0.9999,
+// 1e-2·max|y|).
 //
 // Bound.  At decode (M <= 16) the weight stream: K·N bytes (int8) or K·N/2
-// (packed) plus the scales, read once, against 2·M·K·N flops.
-// qmm_decode_kernel serves it: one CTA covers all M rows of a 128-column
-// strip, so the weight is read exactly once, each weight is dequantized once
-// in registers and feeds M FMAs, and K is split across CTAs (split-K, sized
-// by plan_split_k) until the grid fills the card.  Each thread reads two
-// adjacent (byte) rows per 8-byte load pair; in the packed layout those give
-// four weight rows, whose activations are two bf16x2 loads.  At prefill
-// (M > 16) the 2·M·K·N flops and, at M <= 128, the weight stream bound it:
-// the prefill kernels (their notes below) stream x and the raw quantized
-// bytes through a 5-stage cp.async ring in shared memory (134-171 KB, one
-// CTA of 128 tokens × 256 columns an SM) and widen the weights in
-// registers, into wgmma A operands (qmm_wgmma_kernel, [K, N] layouts) or
-// mma.sync B fragments (qmm_mma_t_kernel, [N, K] layouts).  TMA loads and a
-// producer warp are later work.
+// (packed) plus the scales, read once, against 2·M·K·N flops (3 µs of tensor
+// cores at w13).  qmm_decode_kernel serves it in both layouts: a CTA takes a
+// 256-column strip and one K split, streams the raw weight bytes, their
+// scales and the few x rows through a cp.async ring (60-96 KB, two CTAs an
+// SM, 32 KB of weights in flight per CTA), widens the bytes in
+// registers without I2F and multiplies on mma.sync m16n8k16 with the
+// product taken transposed (the weights are A, x^T is B: one n8 tile for M
+// <= 8, two for M <= 16).  The split plan fills the card's CTA slots in one
+// wave; the last CTA of each strip finishes the split sums in the same
+// launch.  At prefill (M > 16) the 2·M·K·N flops and, at M <= 128, the
+// weight stream bound it: the prefill kernels (their notes below) stream x
+// and the raw quantized bytes through a 5-stage cp.async ring in shared
+// memory (134-171 KB, one CTA of 128 tokens × 256 columns an SM) and widen
+// the weights in registers, into wgmma A operands (qmm_wgmma_kernel, [K, N]
+// layouts) or mma.sync B fragments (qmm_mma_t_kernel, [N, K] layouts).  TMA
+// loads and a producer warp are later work.  One pair of widening functions
+// serves all of them: widen_kn for [k][n] bytes regrouped by ldmatrix.trans,
+// widen_nk for [n][k] bytes through plain ldmatrix.
 //
-// TRANS.  At decode (M <= 16) qmm_t_decode_kernel gives each warp one
-// output column: its 32 lanes stream 16 contiguous bytes of the column's K
-// row each (a whole packed block, or half an int8 block, with one scale),
-// dequantize in f32 and FMA against all M activation rows, then sum across
-// the warp.  No split-K: N/8 CTAs fill the card.
-//
-// Epilogue.  Without a split, without swiglu, with a float output and an
-// epilogue of at most one rounding (a channel scale or a bias), the GEMM
-// kernel writes the output itself (direct_epi).  Otherwise it writes f32
-// sums to a workspace [splits, M, N] and qmm_reduce sums the splits, applies
-// the whole epilogue (epi_float: the fmaf of a scale and a bias,
-// epilogue_scale) to the complete sum and, with swiglu, pairs columns c and
-// c+128 of each 256-column group; it also writes the integer outputs.  (The
-// whole epilogue inlined into the prefill kernel cost its w13 M=128 shape
-// 4-9 %, with the registers unchanged.)  The pair's two halves are 128
-// columns apart, in different 128-column CTA strips, and under split-K
-// neither is complete before the reduce, so the SwiGLU epilogue runs there,
-// over the f32 sums: the workspace round trip is M·N·8 bytes, small beside
-// the weight stream at decode and a few percent of the prefill GEMM.
+// Epilogue.  Decode: the kernel applies the whole epilogue itself
+// (epi_float, then store_kind's cast, every output type): from its own sums
+// without a split or swiglu; else each split writes its f32 partial tile to
+// the workspace [splits, M, N], takes a ticket on its strip's counter, and
+// the strip's last CTA sums the partials in split order (deterministic),
+// runs the epilogue and, with swiglu, pairs columns c and c+128 of its
+// 256-column strip, then zeroes the counter for the next launch.  Prefill:
+// without a split, without swiglu, with a float output and an epilogue of
+// at most one rounding (a channel scale or a bias), the GEMM kernel writes
+// the output itself (direct_epi).  Otherwise it writes f32 sums to the
+// workspace and qmm_reduce sums the splits, applies the whole epilogue and
+// the swiglu pairs, and writes the integer outputs.  (The whole epilogue
+// inlined into the prefill kernel cost its w13 M=128 shape 4-9 %, with the
+// registers unchanged.)
 #pragma once
 
 #include <algorithm>
@@ -78,7 +76,6 @@
 namespace {
 
 constexpr int BK = 32;
-constexpr int BN = 128;
 constexpr int THREADS = 256;
 constexpr int SWIGLU_HALF = 128;   // columns per half of a swiglu pair
 
@@ -106,22 +103,23 @@ __device__ __forceinline__ uint32_t pack_bf162(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// sign-extended nibbles of a packed byte: row j (low) and row j+16 (high)
-__device__ __forceinline__ int lo_nibble(int8_t b) { return static_cast<int8_t>(b << 4) >> 4; }
-__device__ __forceinline__ int hi_nibble(int8_t b) { return b >> 4; }
-
-// Packed staging for the tensor cores without I2F (16 results/clk/SM on
-// sm_90): a nibble n XORed with NIBBLE_BIAS is u = n + 8 (two's complement).
-constexpr uint32_t NIBBLE_BIAS = 0x88888888u;
-
-// bf16 pair (u0 - 8, u1 - 8) from biased nibbles u0 (bits 0-3) and u1 (bits
-// 16-19): the bf16 bits 0x4300 | u are the value 128 + u, exact.
-__device__ __forceinline__ uint32_t biased_nibble_pair_bf162(uint32_t u) {
-  const uint32_t bits = u | 0x43004300u;
-  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits),
-                                   __floats2bfloat162_rn(136.f, 136.f));
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// lop3.b32: any bitwise function of three words, by its truth table (the
+// constants stay in registers, so a mask and a bias take one instruction)
+template <int LUT>
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, %4;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c), "n"(LUT));
+  return d;
+}
+constexpr int LOP3_AND_XOR = 0x6A;   // (a & b) ^ c
+constexpr int LOP3_AND_OR = 0xEA;    // (a & b) | c
 
 // The GEMM kernels' direct write: a channel scale or a bias, never both
 // and no epilogue_scale (run() sends those through qmm_reduce).
@@ -141,17 +139,28 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// BYTES (16 or 4) from global to shared, asynchronously; ok == false fills
-// zeros and reads nothing
+// BYTES (16, 8 or 4) from global to the shared address dst, asynchronously;
+// ok == false fills zeros and reads nothing.  L2_256: ask the L2 to fetch the
+// whole 256-byte block around src (the next stages of a row that a stage
+// reads in short pieces).
+template <int BYTES, bool L2_256 = false>
+__device__ __forceinline__ void cp_async_s(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16 && L2_256)
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n));
+  else if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+  else if constexpr (L2_256)
+    asm volatile("cp.async.ca.shared.global.L2::256B [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(BYTES), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(n));
+}
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
-  const int n = ok ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "n"(BYTES), "r"(n));
+  cp_async_s<BYTES>(smem_u32(dst), src, ok);
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -159,21 +168,92 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+// bf16 pair (b0, b1) from int8 bytes b0 (bits 0-7) and b1 (bits 16-23) of
+// p (its other bits ignored), exact and without I2F: with the sign bit t and
+// the low bits l of a byte, b = l - 128·t = (128 + l) - (128 + 128·t), and
+// both terms are bf16 bit patterns 0x4300 | l and 0x4300 | (t << 7), one
+// LOP3 each.
+__device__ __forceinline__ uint32_t i8_pair_bf162(uint32_t p) {
+  const uint32_t lo = lop3<LOP3_AND_OR>(p, 0x007F007Fu, 0x43004300u);
+  const uint32_t hi = lop3<LOP3_AND_OR>(p, 0x00800080u, 0x43004300u);
+  return as_u32(__hsub2(as_bf162(lo), as_bf162(hi)));
 }
 
-// bf16 pair (b0, b1) from int8 bytes b0 (bits 0-7) and b1 (bits 16-23),
-// exact and without I2F: with the sign bit t and the low bits l of a byte,
-// b = l - 128·t = (128 + l) - (128 + 128·t), and both terms are bf16 bit
-// patterns 0x4300 | l and 0x4300 | (t << 7).
-__device__ __forceinline__ uint32_t i8_pair_bf162(uint32_t p) {
-  const uint32_t lo = (p & 0x007F007Fu) | 0x43004300u;
-  const uint32_t hi = (p & 0x00800080u) | 0x43004300u;
-  return as_u32(__hsub2(as_bf162(lo), as_bf162(hi)));
+// bf16 pair (n0, n1) from the two's-complement nibbles at bits 0-3 and
+// 16-19 of p (its other bits ignored), exact and without I2F: one LOP3
+// masks them, flips their sign bits (n + 8) and sets the exponent, (p &
+// 0x000F000F) ^ 0x43084308 = the bf16 bit patterns of 128 + n + 8; one HSUB2
+// takes 136 off.
+__device__ __forceinline__ uint32_t nibble_pair_bf162(uint32_t p) {
+  const uint32_t v = lop3<LOP3_AND_XOR>(p, 0x000F000Fu, 0x43084308u);
+  return as_u32(__hsub2(as_bf162(v), as_bf162(0x43084308u)));   // 0x4308: 136
+}
+
+__device__ __forceinline__ uint32_t hmul2_u32(uint32_t a, uint32_t b) {
+  return as_u32(__hmul2(as_bf162(a), as_bf162(b)));
+}
+
+// The widening of every GEMM kernel here: raw weight bytes as ldmatrix
+// delivers them → bf16 pairs for mma.sync / wgmma, exact and without I2F
+// (a shift or a PRMT where the pair is not in place, one or two LOP3s and an
+// HSUB2 a pair), then, with SCALE, times the block scale as one bf16 HMUL2
+// (the JAX body's bf16(q) · bf16(s), one rounding).
+//
+// widen_kn: a [k][n] byte tile regrouped by ldmatrix.trans, r = bytes (k,
+// c), (k, c+1), (k+1, c), (k+1, c+1) of int8 values; or packed bytes of byte
+// rows j, j+1, whose low (ks = 0) or high (ks = 1) nibbles are k = j + 16·ks.
+// e = the pair (k, k+1) of the even column c, times sc_e; o = that of the
+// odd column c + 1, times sc_o.
+template <bool PACKED, bool SCALE>
+__device__ __forceinline__ void widen_kn(uint32_t r, int ks, uint32_t sc_e, uint32_t sc_o,
+                                         uint32_t& e, uint32_t& o) {
+  if constexpr (PACKED) {
+    e = nibble_pair_bf162(r >> (4 * ks));
+    o = nibble_pair_bf162(r >> (8 + 4 * ks));
+  } else {
+    e = i8_pair_bf162(r);                      // bytes 0 and 2 are in place
+    o = i8_pair_bf162(r >> 8);
+  }
+  if constexpr (SCALE) {
+    e = hmul2_u32(e, sc_e);
+    o = hmul2_u32(o, sc_o);
+  }
+}
+
+// The mma A fragment of 16 columns × k16 (rows 0-7 the even, rows 8-15 the
+// odd columns of a 16-column chunk) from its two ldmatrix.trans registers:
+// r[0] k rows 0-7, r[1] k rows 8-15 (packed: byte rows, nibble half ks).
+template <bool PACKED, bool SCALE>
+__device__ __forceinline__ void kn_a_fragment(const uint32_t* r, int ks, const uint32_t* sc,
+                                              uint32_t* a) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) widen_kn<PACKED, SCALE>(r[h], ks, sc[0], sc[1], a[2 * h], a[2 * h + 1]);
+}
+
+// widen_nk: an [n][k] byte tile through plain ldmatrix, r = k 4t .. 4t+3 of
+// one column (int8), or packed bytes whose low (ks = 0) or high (ks = 1)
+// nibbles are those k (+16·ks).  p[0] = the pair (4t, 4t+1), p[1] = (4t+2,
+// 4t+3), times the column's scale sc: the k order of an mma fragment
+// permuted, so the other operand takes the same permutation (8-byte loads).
+template <bool PACKED, bool SCALE>
+__device__ __forceinline__ void widen_nk(uint32_t r, int ks, uint32_t sc, uint32_t* p) {
+  if constexpr (PACKED) {
+    p[0] = nibble_pair_bf162(__byte_perm(r, 0, 0x4140) >> (4 * ks));
+    p[1] = nibble_pair_bf162(__byte_perm(r, 0, 0x4342) >> (4 * ks));
+  } else {
+    p[0] = i8_pair_bf162(__byte_perm(r, 0, 0x4140));
+    p[1] = i8_pair_bf162(__byte_perm(r, 0, 0x4342));
+  }
+  if constexpr (SCALE) {
+    p[0] = hmul2_u32(p[0], sc);
+    p[1] = hmul2_u32(p[1], sc);
+  }
+}
+
+// A column's (or a column pair's) f32 block scales as duplicated bf16 pairs
+__device__ __forceinline__ uint32_t bf16_dup(float s) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(s);
+  return as_u32(__halves2bfloat162(h, h));
 }
 
 constexpr int PF_BM = 128;          // CTA tile rows (M)
@@ -279,11 +359,6 @@ __device__ __forceinline__ void pf_load_stage(unsigned char* xs, const __nv_bflo
   }
 }
 
-__device__ __forceinline__ uint32_t pair_i8_scaled(uint32_t p, uint32_t sc, bool scale) {
-  const uint32_t v = i8_pair_bf162(p);
-  return scale ? as_u32(__hmul2(as_bf162(v), as_bf162(sc))) : v;
-}
-
 // d[0..63] += A · B on the tensor cores, one warpgroup: A bf16 m64 × k16 in
 // registers (each warp 16 rows, the mma.sync A fragment), B bf16 k16 × n128
 // in shared memory (K-major, 128-byte swizzle, descriptor bdesc), f32 sums
@@ -338,7 +413,7 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
 // stages by cp.async, loads PF_STAGES - 2 stages ahead, one barrier per
 // stage.  ldmatrix.trans regroups a [k][n] byte tile into k pairs of two
 // columns, which become bf16 without I2F (i8_pair_bf162,
-// biased_nibble_pair_bf162), times the block scales as bf16 (the JAX body's
+// nibble_pair_bf162), times the block scales as bf16 (the JAX body's
 // bf16(q)·bf16(s)); a warp's 16 A rows are the even (rows 0-7) and odd
 // (rows 8-15) columns of a 16-column chunk.  The A registers are rewritten
 // only after the previous stage's wgmmas have finished (a register written
@@ -384,9 +459,8 @@ qmm_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
         for (int mt = 0; mt < 2; ++mt) {
           const float2 f =
               *reinterpret_cast<const float2*>(ss + b * PF_BN + (mt ? cb1 : cb0) + 2 * g);
-          const __nv_bfloat16 e = __float2bfloat16_rn(f.x), o = __float2bfloat16_rn(f.y);
-          sc[mt][0] = as_u32(__halves2bfloat162(e, e));
-          sc[mt][1] = as_u32(__halves2bfloat162(o, o));
+          sc[mt][0] = bf16_dup(f.x);
+          sc[mt][1] = bf16_dup(f.y);
         }
       }
       if constexpr (PACKED) {
@@ -397,18 +471,7 @@ qmm_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
         for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {      // k 0-7 (a0, a1) or 8-15 (a2, a3) of the k16
-              const uint32_t u = r[2 * mt + h] ^ NIBBLE_BIAS;
-              uint32_t e = biased_nibble_pair_bf162((u >> (4 * ks)) & 0x000F000Fu);
-              uint32_t o = biased_nibble_pair_bf162((u >> (8 + 4 * ks)) & 0x000F000Fu);
-              if constexpr (!CHANNEL) {
-                e = as_u32(__hmul2(as_bf162(e), as_bf162(sc[mt][0])));
-                o = as_u32(__hmul2(as_bf162(o), as_bf162(sc[mt][1])));
-              }
-              af[2 * b + ks][mt][2 * h] = e;
-              af[2 * b + ks][mt][2 * h + 1] = o;
-            }
+            kn_a_fragment<true, !CHANNEL>(r + 2 * mt, ks, sc[mt], af[2 * b + ks][mt]);
       } else {
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
@@ -417,14 +480,7 @@ qmm_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
           ldmatrix_x4(r, ws + kr * PF_BN + ((cl ^ (kr & 7)) << 4), true);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const uint32_t q = r[2 * mt + h];
-              af[2 * b + ks][mt][2 * h] =
-                  pair_i8_scaled(__byte_perm(q, 0, 0x4240), sc[mt][0], !CHANNEL);
-              af[2 * b + ks][mt][2 * h + 1] =
-                  pair_i8_scaled(__byte_perm(q, 0, 0x4341), sc[mt][1], !CHANNEL);
-            }
+            kn_a_fragment<false, !CHANNEL>(r + 2 * mt, ks, sc[mt], af[2 * b + ks][mt]);
         }
       }
     }
@@ -523,13 +579,10 @@ qmm_mma_t_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 #pragma unroll
     for (int b = 0; b < PF_SK / BK; ++b) {
       if (kb_begin + 2 * t + b >= kb_end) break;             // uniform: the split's tail
-      uint32_t sc[4 * NQ];                                   // column scales as bf16 pairs
+      uint32_t sc[4 * NQ] = {};                              // column scales as bf16 pairs
       if constexpr (!CHANNEL) {
 #pragma unroll
-        for (int j = 0; j < 4 * NQ; ++j) {
-          const __nv_bfloat16 h = __float2bfloat16_rn(ss[b * PF_BN + wn * WN + 8 * j + g]);
-          sc[j] = as_u32(__halves2bfloat162(h, h));
-        }
+        for (int j = 0; j < 4 * NQ; ++j) sc[j] = bf16_dup(ss[b * PF_BN + wn * WN + 8 * j + g]);
       }
       uint32_t raw[NQ][4];                                   // packed: both k16 steps
       if constexpr (PACKED) {
@@ -537,8 +590,6 @@ qmm_mma_t_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
         for (int q = 0; q < NQ; ++q) {
           const int nr = wn * WN + 32 * q + 8 * lm + li;
           ldmatrix_x4(raw[q], ws + nr * 32 + ((b ^ ((nr >> 2) & 1)) << 4), false);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) raw[q][j] ^= NIBBLE_BIAS;
         }
       }
 #pragma unroll
@@ -560,32 +611,17 @@ qmm_mma_t_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
           uint32_t bf[4][2];
+          uint32_t r4[4];
           if constexpr (PACKED) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const uint32_t p0 = __byte_perm(raw[q][j], 0, 0x4140) >> (4 * ks);
-              const uint32_t p1 = __byte_perm(raw[q][j], 0, 0x4342) >> (4 * ks);
-              bf[j][0] = biased_nibble_pair_bf162(p0 & 0x000F000Fu);
-              bf[j][1] = biased_nibble_pair_bf162(p1 & 0x000F000Fu);
-            }
+            for (int j = 0; j < 4; ++j) r4[j] = raw[q][j];
           } else {
-            uint32_t r4[4];
             const int nr = wn * WN + 32 * q + 8 * lm + li;
             const int c = kk / 16;
             ldmatrix_x4(r4, ws + nr * 64 + ((c ^ ((nr >> 1) & 3)) << 4), false);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              bf[j][0] = i8_pair_bf162(__byte_perm(r4[j], 0, 0x4140));
-              bf[j][1] = i8_pair_bf162(__byte_perm(r4[j], 0, 0x4342));
-            }
           }
-          if constexpr (!CHANNEL) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                bf[j][h] = as_u32(__hmul2(as_bf162(bf[j][h]), as_bf162(sc[4 * q + j])));
-          }
+          for (int j = 0; j < 4; ++j) widen_nk<PACKED, !CHANNEL>(r4[j], ks, sc[4 * q + j], bf[j]);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -630,214 +666,424 @@ qmm_mma_t_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     }
 }
 
-// Decode variant (M <= 16): no shared-memory staging of the weight, since
-// each weight is used by exactly one thread.  Thread (tx, tk) owns columns
-// tx*8 .. tx*8+7 and, for ALL MT activation rows, two adjacent weight rows
-// of a block per 8-byte load: int8 rows 2·tk and 2·tk+1 of every block;
-// packed byte rows 2·tp and 2·tp+1 (tp = tk % 8) of every other block (tk / 8
-// picks which), i.e. rows 2·tp, 2·tp+1 (low nibbles) and 2·tp+16, 2·tp+17
-// (high nibbles).  Each weight is loaded and dequantized once and feeds MT
-// FMAs; the activations of a row pair are one bf16x2 load, and one scale
-// load serves 16 (int8) or 32 (packed) weights.  U blocks are loaded into
-// registers before any is used, to keep loads in flight.  The 16 row lanes
-// are summed at the end (a shuffle within each warp, then shared memory).
-template <int MT, bool PACKED, bool CHANNEL, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ s, Epi ep,
-                  OutT* __restrict__ out, float* __restrict__ partial,
-                  int M, int N, int K, int blocks_per_split) {
-  // blocks loaded ahead: a packed step loads as many bytes as an int8 one
-  // but twice the activations, so it holds fewer to stay at 2+ CTAs per SM
-  constexpr int U = !PACKED ? (MT <= 4 ? 4 : 2) : (MT <= 2 ? 4 : MT <= 8 ? 2 : 1);
-  constexpr int HALVES = PACKED ? 2 : 1;       // nibble halves (row pairs) per load pair
-  constexpr int BSTEP = PACKED ? 2 : 1;        // block lanes among the 16 row lanes
-  __shared__ float red[THREADS / 32][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, tk = tid / 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const int n0 = blockIdx.x * BN;
-  const int n = n0 + tx * 8;
-  const int row0 = PACKED ? (tk % 8) * 2 : tk * 2;   // first (byte) row within a block
-  const int kb_begin = blockIdx.z * blocks_per_split + (PACKED ? tk / 8 : 0);
-  const int kb_end = min(K / BK, blockIdx.z * blocks_per_split + blocks_per_split);
+// ---------------------------------------------------------------------------
+// Decode (M <= 16): a cp.async ring of raw weight bytes into mma.sync tiles
+// ---------------------------------------------------------------------------
 
-  float acc[MT][8];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+constexpr int DECODE_MAX_M = 16;   // M <= 16: qmm_decode_kernel
+constexpr int DC_BN = 256;         // columns of a CTA strip (a whole swiglu pair group)
+constexpr int DC_CTAS_PER_SM = 2;  // resident CTAs an SM, which the split plan fills
+constexpr int DC_MT = 16;          // x rows a stage holds (two n8 tiles of tokens)
+constexpr int DC_ZLOADS = 8;       // partial float4 loads in flight a thread (the finish)
+constexpr int DC_SPLIT_ALIGN = 4;  // a split's blocks: a multiple of 4 (whole stages, and
+                                   // [N, K] scale copies of 8 / 16 bytes)
 
-  if (n < N) {
-    for (int kb = kb_begin; kb < kb_end; kb += U * BSTEP) {
-      int2 wv[U][2];                 // (byte) rows row0 and row0 + 1
-      float4 sv[U][CHANNEL ? 1 : 2];
-      __nv_bfloat162 xv[U][MT][HALVES];
+// One ring stage: the raw weight bytes as a tile of ROWS rows of ROW bytes,
+// 16-byte chunk c of row r at c ^ (r & 7) — [K, N] int8 / [K/2, N] packed: 64
+// (byte) rows of the strip's 256 columns (16 KB, 64 / 128 k); [N, K] / [N,
+// K/2]: 128 bytes of each of the strip's 256 rows (32 KB, 128 / 256 k: a row's
+// DRAM reads twice as long as with 64 bytes) — their block scales (f32
+// [SB][256]; [N, K]: [256][SB]) and the x rows (bf16 [16][SK], chunk c of row
+// r at c ^ (r & 7)): the ldmatrix reads below are free of bank conflicts.
+// [K, N] keeps 3 slots, [N, K] 2 (two CTAs an SM either way).  After the
+// loop the ring holds the CTA's f32 sums (the finish tile, [DC_MT][DC_BN]).
+template <bool PACKED, bool TRANS>
+struct Dc {
+  static constexpr int ROW = TRANS ? 128 : DC_BN;     // bytes of a weight tile row
+  static constexpr int ROWS = TRANS ? DC_BN : 64;     // weight tile rows
+  static constexpr int SB = (TRANS ? 2 : 1) * (PACKED ? 4 : 2);   // 32-k blocks a stage
+  static constexpr int SK = SB * BK;                  // k a stage
+  static constexpr int W_BYTES = ROW * ROWS;
+  static constexpr int S_BYTES = SB * DC_BN * 4;
+  static constexpr int X_ROW = SK * 2;                // bytes of an x row
+  static constexpr int STAGE = W_BYTES + S_BYTES + DC_MT * X_ROW;
+  static constexpr int STAGES = TRANS ? 2 : 3;        // ring slots, loads STAGES - 1 ahead
+  static constexpr int SMEM = STAGES * STAGE;
+};
+// two CTAs an SM (228 KB of shared memory, 1 KB of it reserved per CTA)
+static_assert(DC_CTAS_PER_SM * (Dc<true, true>::SMEM + 1024 + 16) <= 233472 &&
+                  DC_CTAS_PER_SM * (Dc<true, false>::SMEM + 1024 + 16) <= 233472,
+              "two decode CTAs an SM");
+static_assert(THREADS == DC_BN && DECODE_MAX_M <= DC_MT &&
+                  DC_MT * DC_BN * 4 <= Dc<false, false>::SMEM,
+              "the finish: a thread a column, the tile in the ring");
+
+// A thread's share of every ring stage of its split, stage after stage:
+// the raw weight bytes of columns n0 .. n0+255, their block scales and x
+// rows 0 .. 8·NT - 1, zero-filled past M, N and the split's last block.  A
+// thread copies the same chunks of every stage, so their shared offsets and
+// column predicates are set up once and its global pointers advance by a
+// constant a stage.  One cp.async group a stage, committed by the caller.
+template <int NT, bool PACKED, bool CHANNEL, bool TRANS>
+struct DcLoader {
+  using C = Dc<PACKED, TRANS>;
+  static constexpr int W_ITERS = C::W_BYTES / 16 / THREADS;         // weight chunks, 4096 B apart
+  static constexpr int W_CH = C::ROW / 16;                           // chunks of a tile row
+  // [N, K]: the L2 fetches 256 bytes around each read of a row, the next
+  // stage's bytes too (measured with 64-byte stages on the H100: w13 Q8_0
+  // 15 % faster; [K, N] reads 256-byte rows already and gained nothing)
+  static constexpr bool L2_256 = TRANS;
+  static constexpr int XCH = C::SK / 8;                              // chunks of an x row
+  static constexpr int X_ITERS = (8 * NT * XCH + THREADS - 1) / THREADS;
+  static constexpr int X_RSTEP = THREADS / XCH;                      // x rows between them
+  const int8_t* w0;          // a valid address for the chunks that read nothing
+  const float* s0;
+  const __nv_bfloat16* x0;
+  const int8_t* wp;          // the thread's first weight chunk of the next stage
+  size_t w_step, w_adv;      // bytes between its chunks of a stage; a stage's advance
+  const float* sp;           // its scale copy of the next stage
+  size_t s_adv;
+  const __nv_bfloat16* xp;   // its first x chunk of the next stage
+  size_t x_step;             // elements between its x chunks
+  uint32_t w_sm, s_sm, x_sm; // shared offsets within a stage
+  int w_blk, s_blk, x_blk;   // blocks of the chunks within a stage
+  int left;                  // blocks of the split from the next stage on
+  bool w_ok[W_ITERS], s_on, s_ok, s_vec, x_ok[X_ITERS];
+
+  __device__ __forceinline__ DcLoader(const __nv_bfloat16* x, const int8_t* w, const float* s,
+                                      int M, int N, int K, int n0, int kb_begin, int kb_end)
+      : w0(w), s0(s), x0(x) {
+    const int tid = threadIdx.x, nb = K / BK;
+    left = kb_end - kb_begin;
+    const int r = tid / W_CH, c = tid % W_CH;  // tile row r + (THREADS / W_CH)·j, chunk c
+    w_sm = r * C::ROW + ((c ^ (r & 7)) << 4);
+    if constexpr (!TRANS) {                    // byte rows of the k range, 256 columns
+      const int rows = PACKED ? BK / 2 : BK;   // byte rows of a block
+      wp = w + ((size_t)kb_begin * rows + r) * N + n0 + c * 16;
+      w_step = (size_t)(THREADS / W_CH) * N;
+      w_adv = (size_t)C::ROWS * N;
+      w_blk = 0;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int b = kb + u * BSTEP;
-        if (b < kb_end) {
-          if constexpr (PACKED) {
-            const int8_t* wb = w + ((size_t)b * (BK / 2) + row0) * N + n;
-            wv[u][0] = __ldg(reinterpret_cast<const int2*>(wb));
-            wv[u][1] = __ldg(reinterpret_cast<const int2*>(wb + N));
+      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + c * 16 < N;
+    } else {                                   // the strip's rows, ROW bytes of each
+      const size_t row = PACKED ? K / 2 : K;
+      wp = w + (size_t)(n0 + r) * row + (size_t)kb_begin * (PACKED ? BK / 2 : BK) + c * 16;
+      w_step = (THREADS / W_CH) * row;
+      w_adv = C::ROW;
+      w_blk = PACKED ? c : c / 2;
 #pragma unroll
-            for (int m = 0; m < MT; ++m)
+      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + r + (THREADS / W_CH) * j < N;
+    }
+    s_on = false;
+    if constexpr (!CHANNEL) {
+      if constexpr (TRANS) {                   // [N, K/32] → [256][SB], a row's SB floats
+        sp = s + (size_t)(n0 + tid) * nb + kb_begin;
+        s_adv = C::SB;
+        s_sm = tid * C::SB * 4;
+        s_blk = 0;
+        s_on = true;
+        s_ok = n0 + tid < N;
+        s_vec = nb % 4 == 0;                   // kb_begin % 4 == 0 (the plan): aligned
+      } else {                                 // [K/32, N] → [SB][256], 4 floats a copy
+        const int b = tid / (DC_BN / 4), c = tid % (DC_BN / 4);
+        sp = s + (size_t)(kb_begin + b) * N + n0 + c * 4;
+        s_adv = (size_t)C::SB * N;
+        s_sm = (b * DC_BN + c * 4) * 4;
+        s_blk = b;
+        s_on = tid < C::SB * DC_BN / 4;
+        s_ok = n0 + c * 4 < N;
+      }
+    }
+    const int xr = tid / XCH, xc = tid % XCH;  // x row xr + X_RSTEP·j, chunk xc
+    xp = x + (size_t)xr * K + (size_t)kb_begin * BK + xc * 8;
+    x_step = (size_t)X_RSTEP * K;
+    x_sm = xr * C::X_ROW + ((xc ^ (xr & 7)) << 4);
+    x_blk = xc / 4;
 #pragma unroll
-              for (int h = 0; h < HALVES; ++h)
-                xv[u][m][h] = m < M ? *reinterpret_cast<const __nv_bfloat162*>(
-                                          x + (size_t)m * K + b * BK + row0 + h * (BK / 2))
-                                    : __floats2bfloat162_rn(0.f, 0.f);
-          } else {   // written out apart: the shared form cost these kernels 24-44 registers
-            const int k = b * BK + tk * 2;
-            wv[u][0] = __ldg(reinterpret_cast<const int2*>(w + (size_t)k * N + n));
-            wv[u][1] = __ldg(reinterpret_cast<const int2*>(w + (size_t)(k + 1) * N + n));
+    for (int j = 0; j < X_ITERS; ++j) x_ok[j] = xr + X_RSTEP * j < M;
+  }
+
+  // the next stage into the ring slot at shared address st
+  __device__ __forceinline__ void load(uint32_t st) {
 #pragma unroll
-            for (int m = 0; m < MT; ++m)
-              xv[u][m][0] = m < M ? *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)m * K + k)
-                                  : __floats2bfloat162_rn(0.f, 0.f);
+    for (int j = 0; j < W_ITERS; ++j) {
+      const int blk = TRANS ? w_blk : (PACKED ? j : j / 2);
+      const bool ok = w_ok[j] && blk < left;
+      cp_async_s<16, L2_256>(st + w_sm + j * 4096, ok ? wp + j * w_step : w0, ok);
+    }
+    if constexpr (!CHANNEL) {
+      const uint32_t ss = st + C::W_BYTES + s_sm;
+      if constexpr (TRANS) {
+        if (s_vec) {                           // kb0 % 4 == 0: 4 blocks a 16-byte copy
+#pragma unroll
+          for (int h = 0; h < C::SB / 4; ++h) {
+            const bool ok = s_ok && 4 * h < left;
+            cp_async_s<16, L2_256>(ss + h * 16, ok ? sp + 4 * h : s0, ok);
           }
-          if constexpr (!CHANNEL) {
-            sv[u][0] = __ldg(reinterpret_cast<const float4*>(s + (size_t)b * N + n));
-            sv[u][1] = __ldg(reinterpret_cast<const float4*>(s + (size_t)b * N + n + 4));
+        } else {
+#pragma unroll
+          for (int b = 0; b < C::SB; ++b) {
+            const bool ok = s_ok && b < left;
+            cp_async_s<4>(ss + b * 4, ok ? sp + b : s0, ok);
           }
         }
+      } else if (s_on) {
+        const bool ok = s_ok && s_blk < left;
+        cp_async_s<16>(ss, ok ? sp : s0, ok);
       }
+      sp += s_adv;
+    }
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (kb + u * BSTEP >= kb_end) break;
+    for (int j = 0; j < X_ITERS; ++j) {       // rows 0 .. 8·NT - 1 (zeros past M)
+      if (X_ITERS > 1 || (int)threadIdx.x < 8 * NT * XCH) {
+        const bool ok = x_ok[j] && x_blk < left;
+        cp_async_s<16>(st + C::W_BYTES + C::S_BYTES + x_sm + j * X_RSTEP * C::X_ROW,
+                       ok ? xp + j * x_step : x0, ok);
+      }
+    }
+    wp += w_adv;
+    xp += C::SK;
+    left -= C::SB;
+  }
+};
+
+// The end of a decode CTA: its f32 sums of columns n0 .. n0+255 (tile, row
+// m at m·DC_BN, in shared memory) through the split partials and the strip's
+// counter when K is split, then the epilogue (notes at the top).  The
+// partials move as float4s (a thread 4 columns of a row); one thread fences
+// the CTA's partial (ordered by the barrier) and takes the ticket; the
+// strip's last CTA issues every partial load of a thread (up to DC_ZLOADS)
+// before it sums them in split order, so the finish costs a few L2 round
+// trips, not one a row and split.
+template <int NT>
+__device__ __forceinline__ void dc_finish(float* tile, const Epi& ep, void* out,
+                                          float* partial, int* counters, int M, int N,
+                                          int splits, bool swiglu) {
+  constexpr int P = (8 * NT * DC_BN / 4 + THREADS - 1) / THREADS;  // float4s a thread
+  constexpr int ZB = (DC_ZLOADS + P - 1) / P;                      // splits a round
+  __shared__ int last;
+  const int tid = threadIdx.x, strip = blockIdx.x, n0 = strip * DC_BN;
+  if (splits > 1) {
 #pragma unroll
-        for (int h = 0; h < HALVES; ++h)
+    for (int p = 0; p < P; ++p) {
+      const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
+      if (m < M && n0 + c < N)                 // N % 16 == 0: all 4 columns or none
+        *reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * M + m) * N + n0 + c) =
+            *reinterpret_cast<const float4*>(tile + m * DC_BN + c);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();                         // the CTA's partial before its ticket
+      last = atomicAdd(counters + strip, 1) == splits - 1;
+      if (last) counters[strip] = 0;           // every split has taken its ticket
+      __threadfence();
+    }
+    __syncthreads();
+    if (!last) return;
+    const size_t zs = (size_t)M * N;           // a split's stride
+    float4 v[P];
+    bool ok[P];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int8_t* wb = reinterpret_cast<const int8_t*>(&wv[u][r]);
-            float wf[8];
-            if constexpr (PACKED) {
+    for (int p = 0; p < P; ++p) {
+      const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
+      v[p] = make_float4(0.f, 0.f, 0.f, 0.f);
+      ok[p] = m < M && n0 + c < N;
+    }
+    for (int z0 = 0; z0 < splits; z0 += ZB) {
+      float4 q[ZB][P];
 #pragma unroll
-              for (int j = 0; j < 8; ++j)
-                wf[j] = static_cast<float>(h == 0 ? lo_nibble(wb[j]) : hi_nibble(wb[j]));
-            } else {
+      for (int j = 0; j < ZB; ++j)
 #pragma unroll
-              for (int j = 0; j < 8; ++j) wf[j] = static_cast<float>(wb[j]);
-            }
-            if constexpr (!CHANNEL) {
-              const float sc[8] = {sv[u][0].x, sv[u][0].y, sv[u][0].z, sv[u][0].w,
-                                   sv[u][1].x, sv[u][1].y, sv[u][1].z, sv[u][1].w};
+        for (int p = 0; p < P; ++p) {
+          const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
+          if (ok[p] && z0 + j < splits)
+            q[j][p] = __ldcg(reinterpret_cast<const float4*>(partial + (z0 + j) * zs +
+                                                             (size_t)m * N + n0 + c));
+        }
 #pragma unroll
-              for (int j = 0; j < 8; ++j) wf[j] *= sc[j];
-            }
+      for (int j = 0; j < ZB; ++j)             // in split order: the same bits every call
 #pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              const float xm = r == 0 ? __low2float(xv[u][m][h]) : __high2float(xv[u][m][h]);
-#pragma unroll
-              for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xm, wf[j], acc[m][j]);
-            }
+        for (int p = 0; p < P; ++p)
+          if (ok[p] && z0 + j < splits) {
+            v[p].x += q[j][p].x;
+            v[p].y += q[j][p].y;
+            v[p].z += q[j][p].z;
+            v[p].w += q[j][p].w;
           }
-      }
     }
-  }
-
-  // lanes l and l+16 of a warp hold row lanes 2w and 2w+1 of the same columns
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], 16);
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= M) break;   // uniform across the block
-    if (lane < 16) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp][tx * 8 + j] = acc[m][j];
-    }
-    __syncthreads();
-    const int col = n0 + tid;
-    if (tid < BN && col < N) {
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < THREADS / 32; ++i) v += red[i][tid];
-      if (partial != nullptr) {
-        partial[((size_t)blockIdx.z * M + m) * N + col] = v;
-      } else {
-        store_out(out + (size_t)m * N + col, direct_epi<CHANNEL>(v, col, ep));
-      }
+    for (int p = 0; p < P; ++p) {
+      const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
+      if (ok[p]) *reinterpret_cast<float4*>(tile + m * DC_BN + c) = v[p];
     }
     __syncthreads();
   }
+  const int col = n0 + tid;                    // a thread a column from here
+  const float cs = ep.ch_scale != nullptr && col < N ? ep.ch_scale[col] : 1.f;
+  const float cb = ep.bias != nullptr && col < N ? ep.bias[col] : 0.f;
+  if (!swiglu) {
+    if (col < N)
+      for (int m = 0; m < M; ++m)
+        store_kind(out, (size_t)m * N + col, epi_float_col(tile[m * DC_BN + tid], cs, cb, ep),
+                   ep);
+    return;
+  }
+  for (int m = 0; m < M; ++m)                  // swiglu: N % 256 == 0, the strip is whole
+    tile[m * DC_BN + tid] = epi_float_col(tile[m * DC_BN + tid], cs, cb, ep);
+  __syncthreads();
+  if (tid < SWIGLU_HALF)
+    for (int m = 0; m < M; ++m) {
+      const float h1 = tile[m * DC_BN + tid], h3 = tile[m * DC_BN + SWIGLU_HALF + tid];
+      store_kind(out, (size_t)m * (N / 2) + strip * SWIGLU_HALF + tid,
+                 h1 / (1.f + expf(-h1)) * h3, ep);
+    }
 }
 
-// TRANS decode variant (M <= 16): warp w of the CTA owns output column
-// blockIdx.x·8 + w; lane l streams bytes 16·(l + 32·i) of the column's K row
-// (int8: k .. k+15, one block scale; packed: one whole block, k = g·32 + j
-// from the low nibbles and g·32 + 16 + j from the high ones), U loads ahead.
-template <int MT, bool PACKED, bool CHANNEL, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-qmm_t_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ s, Epi ep, OutT* __restrict__ out,
-                    float* __restrict__ partial, int M, int N, int K, int) {
-  constexpr int U = 4;
-  const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
-  if (n >= N) return;                            // whole warp
-  const int row_bytes = PACKED ? K / 2 : K;
-  const int8_t* wrow = w + (size_t)n * row_bytes;
-  const float* srow = s + (size_t)n * (K / BK);
+// Decode variant (M <= 16), every layout: [K, N] int8 and [K/2, N] packed,
+// or with TRANS [N, K] int8 and [N, K/2] packed.  CTA (strip, split) owns
+// columns n0 .. n0+255 and the split's 32-k blocks; warp w owns 32 of the
+// columns as two 16-column mma tiles, over every k.  The product is taken
+// transposed, out^T[n][m] = Σ_k W[k][n] · x[m][k]: the weights are
+// m16n8k16's A, widened from the ring by ldmatrix.trans + kn_a_fragment, or
+// by ldmatrix + widen_nk with the k order of a fragment permuted; x^T is B,
+// read by ldmatrix (TRANS: 8-byte loads in the permuted order), NT n8 tiles
+// of tokens whose rows past M are zeros.  Loads run C::STAGES - 1 stages
+// ahead, one barrier a stage; then the finish (dc_finish).  STREAM: the
+// ring alone, no math and no output (the bench's copy rate).
+template <int NT, bool PACKED, bool CHANNEL, bool TRANS, bool STREAM = false>
+__global__ void __launch_bounds__(THREADS, DC_CTAS_PER_SM)
+qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                  const float* __restrict__ s, Epi ep, void* __restrict__ out,
+                  float* __restrict__ partial, int* __restrict__ counters, int M, int N,
+                  int K, int blocks_per_split, int splits, int swiglu) {
+  using C = Dc<PACKED, TRANS>;
+  extern __shared__ __align__(16) unsigned char dc_smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;      // mma fragment coordinates
+  const int lm = lane / 8, li = lane % 8;      // ldmatrix: matrix and row of this lane
+  const int n0 = blockIdx.x * DC_BN;
+  const int kb_begin = blockIdx.y * blocks_per_split;
+  const int kb_end = min(K / BK, kb_begin + blocks_per_split);
+  const int n_st = max(0, (kb_end - kb_begin + C::SB - 1) / C::SB);
+  const int cb = warp * 32;                    // this warp's columns, relative to n0
 
-  float acc[MT];
+  float acc[2][NT][4];                         // [column tile][token tile][fragment]
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
 
-  for (int base = lane * 16; base < row_bytes; base += 32 * 16 * U) {
-    int4 wv[U];
+  // blocks past the split's end are zero-filled (their scales may be real):
+  // they add zeros, so every stage runs whole
+  auto compute = [&](const unsigned char* st) {
+    const float* ss = reinterpret_cast<const float*>(st + C::W_BYTES);
+    const unsigned char* xs = st + C::W_BYTES + C::S_BYTES;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int off = base + u * 32 * 16;
-      wv[u] = off < row_bytes ? __ldg(reinterpret_cast<const int4*>(wrow + off))
-                              : make_int4(0, 0, 0, 0);
-    }
+    for (int b = 0; b < C::SB; ++b) {
+      uint32_t xb[NT][2][2];                   // B of the block's two k16 steps
+      if constexpr (!TRANS) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int off = base + u * 32 * 16;
-      if (off >= row_bytes) break;
-      const int8_t* q = reinterpret_cast<const int8_t*>(&wv[u]);
-      const int k0 = PACKED ? off * 2 : off;      // first k of the 16 bytes
-      const float sc = CHANNEL ? 1.f : __ldg(srow + k0 / BK);
-      float wf[PACKED ? 32 : 16];
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t r[4];                       // k 0-7, 8-15, 16-23, 24-31 of the block
+          const int row = nt * 8 + li, c = b * 4 + lm;
+          ldmatrix_x4(r, xs + row * C::X_ROW + ((c ^ (row & 7)) << 4), false);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if constexpr (PACKED) {
-          wf[j] = static_cast<float>(lo_nibble(q[j])) * sc;
-          wf[16 + j] = static_cast<float>(hi_nibble(q[j])) * sc;
-        } else {
-          wf[j] = static_cast<float>(q[j]) * sc;
+          for (int j = 0; j < 4; ++j) xb[nt][j / 2][j % 2] = r[j];
         }
+      } else {                                 // k = 16·ks + 4·tig .. +3 of the block
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const int row = nt * 8 + g, c = b * 4 + 2 * ks + tig / 2;
+            const uint2 v = *reinterpret_cast<const uint2*>(
+                xs + row * C::X_ROW + ((c ^ (row & 7)) << 4) + (tig & 1) * 8);
+            xb[nt][ks][0] = v.x;
+            xb[nt][ks][1] = v.y;
+          }
       }
+      uint32_t sc[2][2] = {};                  // [tile][even, odd column / rows g, g + 8]
+      uint32_t r[4];
+      if constexpr (!TRANS) {
+        if constexpr (!CHANNEL) {
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m >= M) break;
-        const uint4* xp = reinterpret_cast<const uint4*>(x + (size_t)m * K + k0);
+          for (int t = 0; t < 2; ++t) {
+            const float2 f =
+                *reinterpret_cast<const float2*>(ss + b * DC_BN + cb + 16 * t + 2 * g);
+            sc[t][0] = bf16_dup(f.x);
+            sc[t][1] = bf16_dup(f.y);
+          }
+        }
+        const int cl = cb / 16 + (lm >> 1);    // the chunk this lane's ldmatrix row reads
 #pragma unroll
-        for (int h = 0; h < (PACKED ? 4 : 2); ++h) {
-          const uint4 xv = __ldg(xp + h);
-          const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
+        for (int ks = 0; ks < 2; ++ks) {
+          if (!PACKED || ks == 0) {            // packed: one load, both nibble halves
+            const int kr = (PACKED ? b * 16 : b * BK + ks * 16) + li + 8 * (lm & 1);
+            ldmatrix_x4(r, st + kr * C::ROW + ((cl ^ (kr & 7)) << 4), true);
+          }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[m] = fmaf(__low2float(x2[j]), wf[h * 8 + 2 * j], acc[m]);
-            acc[m] = fmaf(__high2float(x2[j]), wf[h * 8 + 2 * j + 1], acc[m]);
+          for (int t = 0; t < 2; ++t) {
+            uint32_t a[4];
+            kn_a_fragment<PACKED, !CHANNEL>(r + 2 * t, ks, sc[t], a);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[t][nt], a, xb[nt][ks]);
+          }
+        }
+      } else {
+        if constexpr (!CHANNEL) {
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) sc[t][h] = bf16_dup(ss[(cb + 16 * t + 8 * h + g) * C::SB + b]);
+        }
+        const int nr = cb + 8 * lm + li;       // the row this lane's ldmatrix reads
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          if (!PACKED || ks == 0) {            // packed: one 16-byte block, both halves
+            const int c = PACKED ? b : 2 * b + ks;
+            ldmatrix_x4(r, st + nr * C::ROW + ((c ^ (nr & 7)) << 4), false);
+          }
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            uint32_t p0[2], p1[2];             // rows g and g + 8 of the tile
+            widen_nk<PACKED, !CHANNEL>(r[2 * t], ks, sc[t][0], p0);
+            widen_nk<PACKED, !CHANNEL>(r[2 * t + 1], ks, sc[t][1], p1);
+            const uint32_t a[4] = {p0[0], p1[0], p0[1], p1[1]};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[t][nt], a, xb[nt][ks]);
           }
         }
       }
     }
+  };
+
+  DcLoader<NT, PACKED, CHANNEL, TRANS> loader(x, w, s, M, N, K, n0, kb_begin, kb_end);
+  const uint32_t ring = smem_u32(dc_smem);
+#pragma unroll
+  for (int t = 0; t < C::STAGES - 1; ++t) {
+    if (t < n_st) loader.load(ring + t * C::STAGE);
+    cp_async_commit();
   }
+  for (int t = 0; t < n_st; ++t) {
+    cp_async_wait<C::STAGES - 2>();            // stage t has landed (later ones may not)
+    __syncthreads();                           // ... for every thread; stage t-1's slot is free
+    const int nt = t + C::STAGES - 1;
+    if (nt < n_st) loader.load(ring + (nt % C::STAGES) * C::STAGE);
+    cp_async_commit();
+    if constexpr (!STREAM) compute(dc_smem + (t % C::STAGES) * C::STAGE);
+  }
+  cp_async_wait<0>();
+  if constexpr (!STREAM) {
+    __syncthreads();                           // the ring becomes the finish tile
+    // acc[t][nt][e]: token 8·nt + 2·tig + (e & 1); [K, N]: column cb + 16t + 2g
+    // (e < 2) or + 1 (e >= 2); TRANS: column cb + 16t + g (e < 2) or + 8
+    float* tile = reinterpret_cast<float*>(dc_smem);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= M || lane != m % 32) continue;
-    if (partial != nullptr) partial[(size_t)m * N + n] = acc[m];
-    else store_out(out + (size_t)m * N + n, direct_epi<CHANNEL>(acc[m], n, ep));
+      for (int nt = 0; nt < NT; ++nt) {
+        float* row = tile + (8 * nt + 2 * tig) * DC_BN;
+        const int c = TRANS ? cb + 16 * t + g : cb + 16 * t + 2 * g;
+        const int c2 = TRANS ? c + 8 : c + 1;
+        row[c] = acc[t][nt][0];
+        row[DC_BN + c] = acc[t][nt][1];
+        row[c2] = acc[t][nt][2];
+        row[DC_BN + c2] = acc[t][nt][3];
+      }
+    __syncthreads();
+    dc_finish<NT>(tile, ep, out, partial, counters, M, N, splits, swiglu != 0);
   }
 }
 
@@ -875,13 +1121,17 @@ struct Launch {
   const void *x, *w, *s;
   Epi ep;              // ep.ch_scale: the channel scales (or null: block / none)
   void* out;
-  float* partial;      // workspace [splits, M, N], or null: the GEMM kernel writes `out`
+  float* partial;      // workspace [splits, M, N], or null (see workspace_floats)
+  int* counters;       // decode: one per 256-column strip, zero between launches
   int M, N, K, splits, blocks_per_split;
   bool swiglu;
   cudaStream_t stream;
 };
 
+long long reduce_launches = 0;   // qmm_reduce launches of this library (host count)
+
 void reduce(const Launch& a) {
+  ++reduce_launches;
   const size_t n = (size_t)a.M * (a.swiglu ? a.N / 2 : a.N);
   const unsigned grid = static_cast<unsigned>((n + 255) / 256);
   if (a.swiglu)
@@ -890,59 +1140,65 @@ void reduce(const Launch& a) {
     qmm_reduce<false><<<grid, 256, 0, a.stream>>>(a.partial, a.ep, a.out, a.M, a.N, a.splits);
 }
 
-// kernel: qmm_decode_kernel<MT, ...> or qmm_t_decode_kernel<MT, ...> (M <=
-// 16; the TRANS decode kernel takes 8 columns per CTA and no M tiles or
-// splits) or qmm_wgmma_kernel / qmm_mma_t_kernel (M > 16: 128-token tiles, M
-// the fastest grid dimension, so the CTAs in flight share each weight tile
-// and x stays in L2)
-template <typename OutT, typename Kernel>
-void launch(Kernel kernel, const Launch& a, bool t_decode = false, int smem = 0) {
-  dim3 grid = t_decode ? dim3((a.N + THREADS / 32 - 1) / (THREADS / 32))
-              : smem ? dim3((a.M + PF_BM - 1) / PF_BM, (a.N + PF_BN - 1) / PF_BN, a.splits)
-                     : dim3((a.N + BN - 1) / BN, 1, a.splits);
-  if (smem && cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-                  cudaSuccess)
+// qmm_decode_kernel (M <= 16): grid (strips, splits), one launch whatever
+// the epilogue
+template <bool PACKED, bool CHANNEL, bool TRANS, bool STREAM = false>
+void launch_decode(const Launch& a) {
+  auto kernel = qmm_decode_kernel<1, PACKED, CHANNEL, TRANS, STREAM>;
+  if constexpr (!STREAM) {
+    if (a.M > 8) kernel = qmm_decode_kernel<2, PACKED, CHANNEL, TRANS, STREAM>;
+  }
+  constexpr int smem = Dc<PACKED, TRANS>::SMEM;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+      cudaSuccess)
     return;                                      // the error stays for run() to return
-  const bool ws = a.partial != nullptr;
+  const dim3 grid((a.N + DC_BN - 1) / DC_BN, a.splits);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), static_cast<const int8_t*>(a.w),
+      static_cast<const float*>(a.s), a.ep, a.out, a.partial, a.counters, a.M, a.N, a.K,
+      a.blocks_per_split, a.splits, a.swiglu ? 1 : 0);
+}
+
+// qmm_wgmma_kernel / qmm_mma_t_kernel (M > 16): 128-token tiles, M the
+// fastest grid dimension, so the CTAs in flight share each weight tile and x
+// stays in L2; qmm_reduce after it when the workspace is in use
+template <typename OutT, typename Kernel>
+void launch_prefill(Kernel kernel, const Launch& a, int smem) {
+  const dim3 grid((a.M + PF_BM - 1) / PF_BM, (a.N + PF_BN - 1) / PF_BN, a.splits);
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+      cudaSuccess)
+    return;
   kernel<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), static_cast<const int8_t*>(a.w),
       static_cast<const float*>(a.s), a.ep, static_cast<OutT*>(a.out), a.partial, a.M, a.N,
       a.K, a.blocks_per_split);
-  if (ws && cudaPeekAtLastError() == cudaSuccess) reduce(a);
+  if (a.partial != nullptr && cudaPeekAtLastError() == cudaSuccess) reduce(a);
 }
-
-constexpr int DECODE_MAX_M = 16;   // M <= 16: qmm_decode_kernel, one M tile
 
 template <bool PACKED, bool CHANNEL, bool TRANS, typename OutT>
-void dispatch_m(const Launch& a) {
-#define CSINN2_QMM(MT)                                                                   \
-  if constexpr (TRANS)                                                                   \
-    launch<OutT>(qmm_t_decode_kernel<MT, PACKED, CHANNEL, OutT>, a, true);               \
-  else                                                                                   \
-    launch<OutT>(qmm_decode_kernel<MT, PACKED, CHANNEL, OutT>, a)
-  if (a.M <= 1) { CSINN2_QMM(1); }
-  else if (a.M <= 2) { CSINN2_QMM(2); }
-  else if (a.M <= 4) { CSINN2_QMM(4); }
-  else if (a.M <= 8) { CSINN2_QMM(8); }
-  else if (a.M <= DECODE_MAX_M) { CSINN2_QMM(16); }
-  else if constexpr (TRANS)
-    launch<OutT>(qmm_mma_t_kernel<PACKED, CHANNEL, OutT>, a, false, Pf<PACKED>::SMEM);
+void dispatch_prefill(const Launch& a) {
+  if constexpr (TRANS)
+    launch_prefill<OutT>(qmm_mma_t_kernel<PACKED, CHANNEL, OutT>, a, Pf<PACKED>::SMEM);
   else
-    launch<OutT>(qmm_wgmma_kernel<PACKED, CHANNEL, OutT>, a, false, Pf<PACKED>::SMEM);
-#undef CSINN2_QMM
+    launch_prefill<OutT>(qmm_wgmma_kernel<PACKED, CHANNEL, OutT>, a, Pf<PACKED>::SMEM);
 }
 
-// The GEMM kernels write f32 (partials, or the output) or bf16; an integer
-// output always goes through the workspace and qmm_reduce.
+// The prefill kernels write f32 (partials, or the output) or bf16; an
+// integer output always goes through the workspace and qmm_reduce.
 template <bool PACKED, bool TRANS>
 void dispatch_t(const Launch& a, bool channel) {
+  if (a.M <= DECODE_MAX_M) {
+    if (channel) launch_decode<PACKED, true, TRANS>(a);
+    else launch_decode<PACKED, false, TRANS>(a);
+    return;
+  }
   const bool bf16 = a.ep.out_kind == OUT_BF16 && a.partial == nullptr;
   if (channel) {
-    if (bf16) dispatch_m<PACKED, true, TRANS, __nv_bfloat16>(a);
-    else dispatch_m<PACKED, true, TRANS, float>(a);
+    if (bf16) dispatch_prefill<PACKED, true, TRANS, __nv_bfloat16>(a);
+    else dispatch_prefill<PACKED, true, TRANS, float>(a);
   } else {
-    if (bf16) dispatch_m<PACKED, false, TRANS, __nv_bfloat16>(a);
-    else dispatch_m<PACKED, false, TRANS, float>(a);
+    if (bf16) dispatch_prefill<PACKED, false, TRANS, __nv_bfloat16>(a);
+    else dispatch_prefill<PACKED, false, TRANS, float>(a);
   }
 }
 
@@ -964,13 +1220,17 @@ struct SplitK {
 constexpr long long PF_BLOCK_COST = 1260;
 constexpr int PF_MAX_SPLITS = 16;
 
-// Split K across CTAs.  Decode: until the grid holds about 4 CTAs per SM
-// (weight-stream bound: more loads in flight); the TRANS decode kernel is
-// not split.  Prefill: the split count (at most PF_MAX_SPLITS, at least one
-// 64-k stage a split) that minimises the waves of CTAs on the busiest SM
-// times each CTA's blocks, plus the partials' cost: with 172 tiles (w13 at
-// M <= 128) on 132 SMs, one split leaves 40 SMs two whole tiles.
-cudaError_t plan_split_k(int M, int N, int K, bool trans, int device, SplitK* plan) {
+// Split K across CTAs; the plan does not depend on the weight layout.
+// Decode: as many splits (of a multiple of DC_SPLIT_ALIGN blocks) as let
+// the strips' CTAs fill the card's DC_CTAS_PER_SM slots an SM in one wave
+// (w13: 86 strips × 3 splits on 132 SMs; wo: 16 × 16; w2: 16 × 15), since
+// the weight stream needs every SM's loads in flight and a second wave would
+// leave a tail.  Prefill: the split count
+// (at most PF_MAX_SPLITS, at least one 64-k stage a split) that minimises
+// the waves of CTAs on the busiest SM times each CTA's blocks, plus the
+// partials' cost: with 172 tiles (w13 at M <= 128) on 132 SMs, one split
+// leaves 40 SMs two whole tiles.
+cudaError_t plan_split_k(int M, int N, int K, int device, SplitK* plan) {
   static int sm_count[64];   // per device, read once
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (sm_count[device] == 0) {
@@ -999,53 +1259,70 @@ cudaError_t plan_split_k(int M, int N, int K, bool trans, int device, SplitK* pl
     }
     return cudaSuccess;
   }
-  if (trans) {
-    plan->splits = 1;
-    plan->blocks_per_split = n_blocks;
-    return cudaSuccess;
-  }
-  const int tiles = (N + BN - 1) / BN;
-  const int want = std::max(1, std::min(n_blocks, (4 * sms + tiles - 1) / tiles));
-  const int bps = std::max(1, (n_blocks + want - 1) / want);
+  const int strips = (N + DC_BN - 1) / DC_BN;
+  const int want = std::max(1, std::min(n_blocks, DC_CTAS_PER_SM * sms / strips));
+  const int bps = (std::max(1, (n_blocks + want - 1) / want) + DC_SPLIT_ALIGN - 1) /
+                  DC_SPLIT_ALIGN * DC_SPLIT_ALIGN;
   plan->blocks_per_split = bps;
   plan->splits = std::max(1, (n_blocks + bps - 1) / bps);
   return cudaSuccess;
 }
 
-// Floats of f32 workspace for [M,K]·[K,N] on `device`: the split-K partial
-// sums, also needed without a split when the swiglu epilogue pairs columns
-// or the epilogue goes through qmm_reduce (reduce_epi: an integer output,
-// an epilogue_scale, or a channel scale with a bias); 0 when none of these.
-long long workspace_floats(int M, int N, int K, bool swiglu, bool reduce_epi, bool trans,
-                           int device, cudaError_t* err) {
+// Floats of f32 workspace for [M,K]·[K,N] on `device`: the split partial
+// sums [splits, M, N].  Decode: when K is split or the swiglu epilogue pairs
+// columns.  Prefill: also without a split when the epilogue goes through
+// qmm_reduce (reduce_epi: an integer output, an epilogue_scale, or a channel
+// scale with a bias).  0 when none of these.
+long long workspace_floats(int M, int N, int K, bool swiglu, bool reduce_epi, int device,
+                           cudaError_t* err) {
   SplitK plan;
-  *err = plan_split_k(M, N, K, trans, device, &plan);
+  *err = plan_split_k(M, N, K, device, &plan);
   if (*err != cudaSuccess) return -1;
-  return plan.splits > 1 || swiglu || reduce_epi ? (long long)plan.splits * M * N : 0;
+  const bool need = plan.splits > 1 || swiglu || (M > DECODE_MAX_M && reduce_epi);
+  return need ? (long long)plan.splits * M * N : 0;
 }
 
-// The body of each library's C entry point: plan, check the workspace,
-// launch, and return the launch's CUDA error.  scale_kind: 0 block, 1
-// channel, 2 none; out_kind: epilogue.cuh OutKind.
+// The body of each library's C entry point: plan, check the workspace and
+// the decode counters, launch, and return the launch's CUDA error.
+// scale_kind: 0 block, 1 channel, 2 none; out_kind: epilogue.cuh OutKind.
 template <bool PACKED>
 int run(const void* x, const void* w, const void* s, const void* bias, void* out, int out_kind,
         int scale_kind, int swiglu, int trans, float e, int has_e, float zp, void* workspace,
-        long long ws_floats, int M, int N, int K, int device, void* stream) {
+        long long ws_floats, void* counters, int counter_slots, int M, int N, int K,
+        int device, void* stream) {
   SplitK plan;
   const bool reduce_epi = out_kind >= OUT_I8 || has_e || (scale_kind == 1 && bias != nullptr);
-  cudaError_t err = plan_split_k(M, N, K, trans != 0, device, &plan);
+  cudaError_t err = plan_split_k(M, N, K, device, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long need =
-      workspace_floats(M, N, K, swiglu != 0, reduce_epi, trans != 0, device, &err);
+  const long long need = workspace_floats(M, N, K, swiglu != 0, reduce_epi, device, &err);
   if (need > 0 && (workspace == nullptr || ws_floats < need))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= DECODE_MAX_M && plan.splits > 1 &&
+      (counters == nullptr || (N + DC_BN - 1) / DC_BN > counter_slots))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool channel = scale_kind != 0;
   Epi ep{scale_kind == 1 ? static_cast<const float*>(s) : nullptr,
          static_cast<const float*>(bias), e, has_e, zp, out_kind};
   Launch a{x, w, s, ep, out, need > 0 ? static_cast<float*>(workspace) : nullptr,
-           M, N, K, plan.splits, plan.blocks_per_split, swiglu != 0,
-           static_cast<cudaStream_t>(stream)};
+           static_cast<int*>(counters), M, N, K, plan.splits, plan.blocks_per_split,
+           swiglu != 0, static_cast<cudaStream_t>(stream)};
   dispatch<PACKED>(a, channel, trans != 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decode ring alone (qmm_decode_kernel<…, STREAM>: no math, no output)
+// over a block-scaled [K, N] / [K/2, N] weight, its scales and x (M <= 8),
+// with the decode plan: the copy rate the kernel's loads reach.
+template <bool PACKED>
+int run_ring(const void* x, const void* w, const void* s, int M, int N, int K, int device,
+             void* stream) {
+  if (M < 1 || M > 8) return static_cast<int>(cudaErrorInvalidValue);
+  SplitK plan;
+  const cudaError_t err = plan_split_k(M, N, K, device, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Launch a{x, w, s, Epi{}, nullptr, nullptr, nullptr, M, N, K, plan.splits,
+           plan.blocks_per_split, false, static_cast<cudaStream_t>(stream)};
+  launch_decode<PACKED, false, false, true>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

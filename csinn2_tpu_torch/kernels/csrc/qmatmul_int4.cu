@@ -10,8 +10,18 @@
 extern "C" int quant_matmul_int4(const void* x, const void* w, const void* s, const void* bias,
                                  void* out, int out_kind, int scale_kind, int swiglu, int trans,
                                  float e, int has_e, float zp, void* workspace,
-                                 long long ws_floats, int M, int N, int K, int device,
-                                 void* stream) {
+                                 long long ws_floats, void* counters, int counter_slots, int M,
+                                 int N, int K, int device, void* stream) {
   return run<true>(x, w, s, bias, out, out_kind, scale_kind, swiglu, trans, e, has_e, zp,
-                   workspace, ws_floats, M, N, K, device, stream);
+                   workspace, ws_floats, counters, counter_slots, M, N, K, device, stream);
 }
+
+// As quant_matmul_int8_ring, over a Q4_0 [K/2, N] weight.
+extern "C" int quant_matmul_int4_ring(const void* x, const void* w, const void* s, int M, int N,
+                                      int K, int device, void* stream) {
+  return run_ring<true>(x, w, s, M, N, K, device, stream);
+}
+
+// qmm_reduce launches of this library so far (a host count: the decode
+// kernel finishes its splits itself and never launches it)
+extern "C" long long quant_matmul_int4_reduce_launches() { return reduce_launches; }

@@ -23,13 +23,15 @@ of the JAX function is ported:
     kernels/requant.py.
 
 Numerics: the plain version dequantizes and accumulates in f32.  On the
-card the decode kernels (M <= 16) do the same; the prefill kernel (M > 16)
-forms block-scaled weights as bf16(q)·bf16(s) rounded to bf16, as the TPU
-kernel does, and accumulates in f32 (`gemm_plan` mirrors its launch plan).  The float epilogue follows what the JAX
-kernel's compiled code computes (XLA on the CPU): the last multiply before
-the bias add is one fused multiply-add, fma(acc·s, e, b) or fma(acc, s, b);
-the plain version emulates it in f64 (the product of two f32 is exact there)
-and rounds once.
+card every float-x kernel (the decode kernel at M <= 16, the prefill
+kernels above) forms block-scaled weights as bf16(q)·bf16(s) rounded to
+bf16, as the TPU kernel does, and accumulates in f32 on the tensor cores;
+the decode kernel sums its K splits in split order in the same launch
+(`gemm_plan` mirrors the launch plan, `workspace_floats` the workspace).
+The float epilogue follows what the JAX kernel's compiled code computes
+(XLA on the CPU): the last multiply before the bias add is one fused
+multiply-add, fma(acc·s, e, b) or fma(acc, s, b); the plain version
+emulates it in f64 (the product of two f32 is exact there) and rounds once.
 """
 
 from __future__ import annotations
@@ -238,11 +240,16 @@ def launch_key(scale_mode: str, packed_int4: bool, swiglu: bool, *,
 DECODE_MAX_M = 16     # csrc/qmatmul.cuh and qmatmul_int8dot.cu: the M <= 16 variants
 SCALE_KINDS = {"block": 0, "channel": 1, "none": 2}
 
-# csrc/qmatmul.cuh's prefill kernel (M > 16): CTA tile, k per stage, ring
-# depth, and the cost model of its split plan
+# csrc/qmatmul.cuh's prefill kernels (M > 16): CTA tile, k per stage, ring
+# depth, and the cost model of their split plan
 PF_BM, PF_BN, PF_SK, PF_STAGES = 128, 256, 64, 5
 PF_BLOCK_COST, PF_MAX_SPLITS = 1260, 16
+# its decode kernel (M <= 16): strip columns, resident CTAs an SM, x rows a
+# stage holds, and a decode split's blocks (a multiple of DC_SPLIT_ALIGN)
+DC_BN, DC_CTAS_PER_SM, DC_MT, DC_SPLIT_ALIGN = 256, 2, 16, 4
 SMEM_LIMIT = 232448   # bytes of dynamic shared memory a CTA may have on sm_90
+SM_SMEM = 233472      # bytes of shared memory an SM has (1024 reserved per CTA)
+COUNTER_SLOTS = 4096  # decode strip counters a device buffer holds: N <= 2^20
 
 
 def prefill_smem(packed_int4: bool) -> int:
@@ -254,14 +261,32 @@ def prefill_smem(packed_int4: bool) -> int:
     return PF_STAGES * stage + 1024
 
 
+def decode_stages(w_transposed: bool) -> int:
+    """Ring slots of the decode kernel: 3 of 16 KB stages for [K, N], 2 of
+    32 KB for [N, K]."""
+    return 2 if w_transposed else 3
+
+
+def decode_smem(packed_int4: bool, w_transposed: bool) -> int:
+    """Dynamic shared memory of the decode kernel: its stages of raw weight
+    bytes (64 per column of [K, N], 128 per row of [N, K]), their f32 block
+    scales and DC_MT bf16 x rows."""
+    row = 128 if w_transposed else 64
+    sb = (2 if w_transposed else 1) * (4 if packed_int4 else 2)
+    stage = row * DC_BN + sb * DC_BN * 4 + DC_MT * sb * BLOCK * 2
+    return decode_stages(w_transposed) * stage
+
+
 def gemm_plan(M: int, N: int, K: int, w_transposed: bool, n_sm: int) -> dict:
     """The launch plan of csrc/qmatmul.cuh plan_split_k, mirrored: kernel
-    ("decode", "t_decode" or "prefill"), splits and 32-k blocks per split,
-    and for the prefill kernel its tile and stages.  Decode (M <= 16): split
-    K until about 4 CTAs of 128 columns per SM ([N, K]: no split).  Prefill:
-    the split count (<= PF_MAX_SPLITS, a 64-k stage at least per split) that
-    minimises waves of CTAs on the busiest SM × blocks per CTA, plus the
-    partials' cost."""
+    ("decode" and "t_decode", the [K, N] and [N, K] layouts of one kernel,
+    or "prefill"), splits and 32-k blocks per split, the grid, and for the
+    prefill kernel its tile and stages.  Decode (M <= 16): as many splits (of
+    a multiple of DC_SPLIT_ALIGN blocks) as let the 256-column strips fill
+    DC_CTAS_PER_SM CTAs an SM in one wave; one counter slot a strip.  Prefill: the split count (<= PF_MAX_SPLITS,
+    a 64-k stage at least per split) that minimises waves of CTAs on the
+    busiest SM × blocks per CTA, plus the partials' cost.  The plan does not
+    depend on the weight layout."""
     nb = K // BLOCK
     if M > DECODE_MAX_M:
         tiles = -(-M // PF_BM) * -(-N // PF_BN)
@@ -277,33 +302,36 @@ def gemm_plan(M: int, N: int, K: int, w_transposed: bool, n_sm: int) -> dict:
         return dict(kernel="prefill", splits=best[1], blocks_per_split=best[2],
                     tile=(PF_BM, PF_BN), stage_k=PF_SK, stages=PF_STAGES,
                     grid=(-(-M // PF_BM), -(-N // PF_BN), best[1]))
-    if w_transposed:
-        return dict(kernel="t_decode", splits=1, blocks_per_split=nb)
-    tiles = -(-N // 128)
-    want = max(1, min(nb, -(-(4 * n_sm) // tiles)))
-    bps = max(1, -(-nb // want))
-    return dict(kernel="decode", splits=max(1, -(-nb // bps)), blocks_per_split=bps)
+    strips = -(-N // DC_BN)
+    want = max(1, min(nb, DC_CTAS_PER_SM * n_sm // strips))
+    bps = -(-max(1, -(-nb // want)) // DC_SPLIT_ALIGN) * DC_SPLIT_ALIGN
+    sp = max(1, -(-nb // bps))
+    return dict(kernel="t_decode" if w_transposed else "decode", splits=sp,
+                blocks_per_split=bps, strip=DC_BN, stages=decode_stages(w_transposed),
+                grid=(strips, sp), counter_slots=strips)
 
 
 def workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
-                     w_transposed: bool, n_sm: int) -> int:
+                     n_sm: int) -> int:
     """f32 workspace the float-x kernels need (csrc/qmatmul.cuh
-    workspace_floats, mirrored): [splits, M, N] partial sums when K is
-    split, when the swiglu epilogue pairs columns, or when the epilogue
-    goes through qmm_reduce; else 0."""
-    sp = gemm_plan(M, N, K, w_transposed, n_sm)["splits"]
-    return sp * M * N if (sp > 1 or swiglu or reduce_epi) else 0
+    workspace_floats, mirrored): the [splits, M, N] partial sums when K is
+    split or the swiglu epilogue pairs columns, and at prefill also when the
+    epilogue goes through qmm_reduce (the decode kernel applies every
+    epilogue itself); else 0."""
+    sp = gemm_plan(M, N, K, False, n_sm)["splits"]      # the same for both layouts
+    need = sp > 1 or swiglu or (M > DECODE_MAX_M and reduce_epi)
+    return sp * M * N if need else 0
 
 
 def kernel_workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
-                            w_transposed: bool, device: int) -> int:
+                            device: int) -> int:
     """The same number from the CUDA library (quant_matmul_workspace): the
     card checks the mirror against it."""
     fn = _build.c_function("qmatmul", "quant_matmul_workspace",
-                           (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_int),),
+                           (ctypes.c_int,) * 6 + (ctypes.POINTER(ctypes.c_int),),
                            restype=ctypes.c_longlong)
     err = ctypes.c_int(0)
-    n = fn(M, N, K, int(swiglu), int(reduce_epi), int(w_transposed), device, ctypes.byref(err))
+    n = fn(M, N, K, int(swiglu), int(reduce_epi), device, ctypes.byref(err))
     _build.check("qmatmul", err.value, "quant_matmul workspace")
     return n
 
@@ -317,15 +345,34 @@ def _device_index(x) -> int:
     return x.device.index if x.device.index is not None else torch.cuda.current_device()
 
 
+# (device index, stream) → the decode kernel's strip counters: int32
+# [COUNTER_SLOTS], zeroed once, left at zero by every launch (its last CTA of
+# a strip resets the strip's count), so a launch needs no host work besides
+# itself; one buffer a stream, since concurrent launches may not share one.
+_counters: dict = {}
+
+
+def strip_counters(device: torch.device, stream) -> torch.Tensor:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None:
+        buf = _counters[key] = torch.zeros((COUNTER_SLOTS,), dtype=torch.int32,
+                                           device=torch.device("cuda", index))
+    return buf
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of csrc/qmatmul.cu quant_matmul_int8 (and _int4) and of
+# C signatures of csrc/qmatmul.cu quant_matmul_int8 (and _int4), of their
+# decode ring alone (quant_matmul_int8_ring, _int4_ring) and of
 # csrc/qmatmul_int8dot.cu quant_matmul_int8dot
-_FLOAT_ARGTYPES = (_VP,) * 5 + (_CI,) * 4 + (_CF, _CI, _CF, _VP, ctypes.c_longlong) \
-    + (_CI,) * 4 + (_VP,)
+_FLOAT_ARGTYPES = (_VP,) * 5 + (_CI,) * 4 + (_CF, _CI, _CF, _VP, ctypes.c_longlong, _VP) \
+    + (_CI,) * 5 + (_VP,)
+_RING_ARGTYPES = (_VP,) * 3 + (_CI,) * 4 + (_VP,)
 _INT8DOT_ARGTYPES = (_VP, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CF, _CI, _CF) + (_CI,) * 3 + (_VP,)
 
 
@@ -418,12 +465,14 @@ def _launch_float(x, w_q, scales, bias, out, M, N, K, *, scale_mode, out_dtype,
                    [torch.bfloat16, torch.int8, torch.float32, torch.float32])
     kind = OUT_KINDS[out_dtype][0]
     device = _device_index(x)
-    # as csrc/qmatmul.cuh run(): epilogues past one rounding go through the reduce
+    stream = torch.cuda.current_stream(x.device)
+    # as csrc/qmatmul.cuh run(): prefill epilogues past one rounding go through the reduce
     reduce_epi = (not out_dtype.is_floating_point or epilogue_scale is not None
                   or (scale_mode == "channel" and bias is not None))
-    n_ws = workspace_floats(M, N, K, swiglu, reduce_epi, w_transposed, _sm_count(device))
+    n_ws = workspace_floats(M, N, K, swiglu, reduce_epi, _sm_count(device))
     workspace = (torch.empty((n_ws,), dtype=torch.float32, device=x.device)
                  if n_ws else None)
+    counters = strip_counters(x.device, stream) if M <= DECODE_MAX_M else None
     lib, entry = ("qmatmul_int4", "quant_matmul_int4") if packed_int4 \
         else ("qmatmul", "quant_matmul_int8")
     fn = _build.c_function(lib, entry, _FLOAT_ARGTYPES)
@@ -431,9 +480,38 @@ def _launch_float(x, w_q, scales, bias, out, M, N, K, *, scale_mode, out_dtype,
              kind, SCALE_KINDS[scale_mode], int(swiglu), int(w_transposed),
              float(epilogue_scale if epilogue_scale is not None else 1.0),
              int(epilogue_scale is not None), float(out_zp),
-             _ptr(workspace), n_ws, M, N, K, device,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _ptr(workspace), n_ws, _ptr(counters), COUNTER_SLOTS, M, N, K, device,
+             stream.cuda_stream)
     _build.check(lib, err, "quant_matmul")
+
+
+def reduce_launches() -> int:
+    """qmm_reduce launches so far, as both float-x libraries count them (the
+    prefill kernels' second launch; the decode kernel launches none)."""
+    return sum(_build.c_function(lib, f"quant_matmul_{name}_reduce_launches", (),
+                                 restype=ctypes.c_longlong)()
+               for lib, name in (("qmatmul", "int8"), ("qmatmul_int4", "int4")))
+
+
+def decode_ring_stream(x, w_q, scales, packed_int4: bool) -> None:
+    """The decode kernel's cp.async ring alone over a block-scaled [K, N]
+    int8 or [K/2, N] packed weight, its scales and x (M <= 8): the same
+    plan and loads, no math, nothing written.  A timing aid (the copy rate
+    the kernel's loads reach), not counted in launch_counts."""
+    M, K = x.shape
+    N = w_q.shape[1]
+    if not (x.is_cuda and 1 <= M <= 8 and K % BLOCK == 0 and N % 16 == 0
+            and tuple(w_q.shape) == ((K // 2, N) if packed_int4 else (K, N))
+            and tuple(scales.shape) == (K // BLOCK, N)):
+        raise ValueError("decode_ring_stream: a CUDA x [M <= 8, K] and a block-scaled "
+                         "[K, N] / [K/2, N] weight")
+    _check_tensors([x, w_q, scales], [torch.bfloat16, torch.int8, torch.float32])
+    lib, entry = ("qmatmul_int4", "quant_matmul_int4_ring") if packed_int4 \
+        else ("qmatmul", "quant_matmul_int8_ring")
+    fn = _build.c_function(lib, entry, _RING_ARGTYPES)
+    err = fn(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), M, N, K, _device_index(x),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "decode_ring_stream")
 
 
 # weight layouts of csrc/qmatmul_int8dot.cu

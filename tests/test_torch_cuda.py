@@ -22,8 +22,11 @@ MobileNetV1 session fused against unfused; the prefill GEMM kernels in
 every float-x mode at M 17-2048 with ragged N and K (integer outputs and
 1e-4 bias checks against the function the kernel computes, its bf16 w·s),
 swiglu on the [N, K] layouts, the GEMM plan's Python mirror against the
-library, the split-KV decode_attention across its chunk edges; and the
-wrappers' argument checks.
+library, the split-KV decode_attention across its chunk edges; the decode
+GEMM (M <= 16) in every float-x mode, layout and output type at M 1-16,
+ragged N and K, swiglu at the 7B width, bit-identical repeated calls, its
+strip counters left at zero after refused and ragged launches, and its ring
+alone; and the wrappers' argument checks.
 
 Every test needs a CUDA device and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -90,11 +93,11 @@ def test_quant_matmul_tails(gen, dev, M, K, N, odt):
 
 
 def _kernel_numerics_ref(x, w, s, bias, **kw):
-    """The function the kernel computes: quant_matmul_ref, except that the
-    prefill kernels (M > 16) form block-scaled weights as bf16(bf16(q) ·
+    """The function the kernels compute: quant_matmul_ref, except that they
+    (decode and prefill) form block-scaled weights as bf16(bf16(q) ·
     bf16(s)), as the JAX body does (csrc/qmatmul.cuh, Numerics); the
     epilogue and the output cast are the plain version's."""
-    if x.shape[0] <= 16 or kw.get("scale_mode") != "block":
+    if kw.get("scale_mode") != "block":
         return quant_matmul_ref(x, w, s, bias, **kw)
     from csinn2_tpu_torch.kernels import qmatmul as tq
     K = x.shape[1]
@@ -114,7 +117,7 @@ def _kernel_numerics_ref(x, w, s, bias, **kw):
 
 def test_quant_matmul_bias(gen, dev):
     """A bias on the decode kernel (M = 4) and the prefill kernel (M = 64),
-    each against the function it computes (the prefill kernel's bf16 w·s)."""
+    each against the function it computes (their bf16 w·s)."""
     x, w, s = _qmm_case(gen, dev, 4, 256, 160)
     bias = torch.randn(160, generator=gen, device=dev)
     for M in (4, 64):
@@ -912,18 +915,160 @@ def test_swiglu_on_every_layout(gen, dev, mode, M):
 def test_gemm_plan_mirror_matches_the_library(dev):
     """kernels/qmatmul.py workspace_floats (the Python mirror of the plan)
     equals the CUDA library's quant_matmul_workspace for every projection of
-    Llama-2-7B and 13B at M 1-2048, both layouts, with and without the
-    reduce."""
+    Llama-2-7B and 13B at M 1-2048, with and without the swiglu pairs and
+    the reduce."""
     from csinn2_tpu_torch.kernels import qmatmul as tq
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000),
               (5120, 15360), (5120, 5120), (5120, 27648), (13824, 5120), (352, 400)]
     for K, N in shapes:
-        for M in (1, 4, 8, 16, 17, 32, 128, 512, 2048):
-            for trans in (False, True):
-                for reduce_epi in (False, True):
-                    want = tq.kernel_workspace_floats(M, N, K, False, reduce_epi, trans, 0)
-                    assert tq.workspace_floats(M, N, K, False, reduce_epi, trans, n_sm) == want
+        for M in (1, 2, 3, 4, 8, 9, 16, 17, 32, 128, 512, 2048):
+            for swiglu, reduce_epi in ((False, False), (False, True), (True, False)):
+                want = tq.kernel_workspace_floats(M, N, K, swiglu, reduce_epi, 0)
+                assert tq.workspace_floats(M, N, K, swiglu, reduce_epi, n_sm) == want
+
+
+# -- the eighth slice: the decode GEMM (M <= 16) on the cp.async ring and mma.sync -----
+
+# output dtype → (out_zp, scale factor that puts the outputs at ~10 LSB)
+DC_OUTS = {torch.bfloat16: None, torch.float32: None, torch.int8: (3.0, 1),
+           torch.uint8: (128.0, 1), torch.int16: (-5.0, 30), torch.int32: (0.0, 1)}
+
+
+def _decode_args(mode, odt, s):
+    """The scales and epilogue arguments of an output type: integer outputs
+    take scales (or, with none, an epilogue_scale) that put them at ~10
+    LSB, the float ones a bias (where the layout takes one) and an
+    epilogue_scale."""
+    if DC_OUTS[odt] is None:
+        return s, dict(epilogue_scale=0.5)
+    zp, f = DC_OUTS[odt]
+    lim = PF_MODES[mode][3]
+    if s is None:
+        return s, dict(out_zp=zp, epilogue_scale=0.004 * f)
+    return s * ((8 if lim > 8 else 130) * f), dict(out_zp=zp)
+
+
+def _check_decode(y, x, w, s, bias, odt, kw):
+    ref = _kernel_numerics_ref(x, w, s, bias, out_dtype=odt, **kw)
+    if DC_OUTS[odt] is not None:               # 1 LSB: the f32 sums in another order
+        d = (y.long() - ref.long()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.05
+        return
+    _agree(y, quant_matmul_ref(x, w, s, bias, out_dtype=odt, **kw))
+    yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
+    slack = 2.0 ** -8 * np.abs(rf) if odt == torch.bfloat16 else 0.0
+    assert np.all(np.abs(yf - rf) <= 1e-4 * np.abs(rf).max() + slack)
+
+
+@pytest.mark.parametrize("mode", list(PF_MODES))
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 16])
+@pytest.mark.parametrize("odt", list(DC_OUTS))
+def test_decode_gemm_every_mode(gen, dev, mode, M, odt):
+    """The decode kernel in every float-x mode and layout, at every decode
+    batch class, with every output type: N = 400 (a multiple of 16, not of
+    the 256-column strip), K = 1056 = 32 · 33 (not a multiple of a ring
+    stage; split in 33), against the function it computes (integer outputs
+    within 1 LSB) and the plain version's gates."""
+    K, N = 1056, 400
+    x, w, s, kw = _pf_case(gen, dev, mode, M, K, N)
+    s, extra = _decode_args(mode, odt, s)
+    bias = None
+    if DC_OUTS[odt] is None and not (kw["packed_int4"] and kw["w_transposed"]):
+        bias = torch.randn(N, generator=gen, device=dev)
+    key = launch_key(kw["scale_mode"], kw["packed_int4"], False,
+                     w_transposed=kw["w_transposed"]) + ".decode"
+    before = launch_counts[key]
+    y = quant_matmul(x, w, s, bias, out_dtype=odt, **kw, **extra)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert y.dtype == odt and y.shape == (M, N)
+    _check_decode(y, x, w, s, bias, odt, dict(kw, **extra))
+
+
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0", "int4_channel", "t_q8_0", "t_q4_0_packed"])
+@pytest.mark.parametrize("K,N", [(32, 16), (96, 48), (32 * 7, 272), (32 * 257, 48),
+                                 (11008, 4112)])
+@pytest.mark.parametrize("M", [2, 16])
+def test_decode_gemm_ragged(gen, dev, mode, K, N, M):
+    """One block (no split), a strip of 16 columns, a last strip of 16 of
+    256, K = 32 · 257 split into blocks of a stage's tail, the 7B w2 K with
+    17 strips: every split non-empty, the ragged edges zero-filled."""
+    x, w, s, kw = _pf_case(gen, dev, mode, M, K, N)
+    y = quant_matmul(x, w, s, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    _check_decode(y, x, w, s, None, torch.float32, kw)
+
+
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0", "int8_channel", "int4_channel", "t_q8_0",
+                                  "t_q4_0_packed"])
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_decode_swiglu_7b_width(gen, dev, mode, M):
+    """swiglu at the 7B w13 of the swiglu128 layout (K 4096, N 22528: 88
+    strips, each a whole pair group, split in 3): the pair formed in the
+    strip's last CTA."""
+    x, w, s, kw = _pf_case(gen, dev, mode, M, 4096, 22528)
+    before = launch_counts["quant_matmul_swiglu.decode"] if not kw["w_transposed"] else None
+    y = quant_matmul(x, w, s, out_dtype=torch.bfloat16, swiglu=True, **kw)
+    torch.cuda.synchronize()
+    if before is not None:
+        assert launch_counts["quant_matmul_swiglu.decode"] == before + 1
+    assert y.shape == (M, 11264)
+    _agree(y, quant_matmul_ref(x, w, s, out_dtype=torch.bfloat16, swiglu=True, **kw))
+    ref = _kernel_numerics_ref(x, w, s, None, out_dtype=torch.float32, swiglu=True, **kw)
+    assert np.abs(y.float().cpu().numpy() - ref.cpu().numpy()).max() \
+        <= 2.0 ** -7 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0", "int8_channel", "t_q8_0", "t_q4_0_packed"])
+@pytest.mark.parametrize("K,N,M", [(4096, 4096, 4), (11008, 4096, 9), (4096, 22016, 1)])
+def test_decode_gemm_is_deterministic(gen, dev, mode, K, N, M):
+    """The 7B wo, w2 and w13 (16, 16 and 3 splits): two calls give the same
+    bits, since the strip's last CTA sums the partials in split order."""
+    x, w, s, kw = _pf_case(gen, dev, mode, M, K, N)
+    a = quant_matmul(x, w, s, out_dtype=torch.float32, **kw)
+    b = quant_matmul(x, w, s, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _agree(a, quant_matmul_ref(x, w, s, out_dtype=torch.float32, **kw))
+
+
+def test_decode_counters_stay_zero(gen, dev):
+    """The strip counters are zero after every launch: after a launch the
+    library refuses (a workspace too small: nothing runs), after ragged and
+    swiglu launches, and a call after each is correct."""
+    import ctypes
+    from csinn2_tpu_torch.kernels import _build
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    stream = torch.cuda.current_stream(dev)
+    counters = tq.strip_counters(dev, stream)
+    x, w, s, kw = _pf_case(gen, dev, "q8_0", 4, 4096, 4096)
+    out = torch.empty((4, 4096), device=dev)
+    ws = torch.empty((16,), device=dev)
+    fn = _build.c_function("qmatmul", "quant_matmul_int8", tq._FLOAT_ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), None, out.data_ptr(), 0, 0, 0, 0,
+             1.0, 0, 0.0, ws.data_ptr(), ctypes.c_longlong(16), counters.data_ptr(),
+             tq.COUNTER_SLOTS, 4, 4096, 4096, dev.index or 0, stream.cuda_stream)
+    assert err != 0                            # refused before any launch
+    cases = [("q8_0", 4, 4096, 4096, False), ("t_q4_0_packed", 16, 32 * 257, 48, False),
+             ("q4_0", 3, 352, 768, True), ("int8_channel", 9, 1056, 4112, False)]
+    for mode, M, K, N, swiglu in cases:
+        x, w, s, kw = _pf_case(gen, dev, mode, M, K, N)
+        y = quant_matmul(x, w, s, out_dtype=torch.float32, swiglu=swiglu, **kw)
+        torch.cuda.synchronize()
+        assert int(torch.count_nonzero(counters)) == 0
+        _agree(y, quant_matmul_ref(x, w, s, out_dtype=torch.float32, swiglu=swiglu, **kw))
+
+
+def test_decode_ring_stream(gen, dev):
+    """The ring alone (timing aid) runs at a 7B shape and writes nothing."""
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    for mode in ("q8_0", "q4_0"):
+        x, w, s, kw = _pf_case(gen, dev, mode, 8, 4096, 22016)
+        tq.decode_ring_stream(x, w, s, kw["packed_int4"])
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        tq.decode_ring_stream(x.repeat(2, 1), w, s, True)     # M = 16
 
 
 @pytest.mark.parametrize("int8", [True, False])

@@ -384,9 +384,24 @@ def _plan_invariants(M, N, K, trans, n_sm=132):
         for packed in (False, True):
             assert tq.prefill_smem(packed) <= tq.SMEM_LIMIT
         assert p["grid"] == (-(-M // tq.PF_BM), -(-N // tq.PF_BN), sp) and p["grid"][1] <= 65535
+    else:
+        assert M <= tq.DECODE_MAX_M
+        strips = -(-N // tq.DC_BN)
+        for packed in (False, True):                          # two CTAs an SM
+            smem = tq.decode_smem(packed, trans)
+            assert tq.DC_CTAS_PER_SM * (smem + 1024) <= tq.SM_SMEM and smem <= tq.SMEM_LIMIT
+            assert smem >= tq.DC_MT * tq.DC_BN * 4                # the finish tile fits
+        assert p["counter_slots"] == strips <= tq.COUNTER_SLOTS
+        assert p["grid"] == (strips, sp) and sp <= 65535
+        assert bps % tq.DC_SPLIT_ALIGN == 0                   # whole stages, aligned scales
+        # one wave: the CTAs fit the card's slots, unless the strips alone do not
+        assert strips * sp <= tq.DC_CTAS_PER_SM * n_sm or sp == 1
     for swiglu, reduce_epi in ((False, False), (True, False), (False, True)):
-        ws = tq.workspace_floats(M, N, K, swiglu, reduce_epi, trans, n_sm)
-        assert ws == (sp * M * N if (sp > 1 or swiglu or reduce_epi) else 0)
+        ws = tq.workspace_floats(M, N, K, swiglu, reduce_epi, n_sm)
+        through_ws = sp > 1 or swiglu or (reduce_epi and p["kernel"] == "prefill")
+        assert ws == (sp * M * N if through_ws else 0)
+        if through_ws:                                        # every split's partial tile
+            assert ws >= sp * M * N
     return p
 
 
@@ -415,11 +430,105 @@ def test_gemm_plan_ragged(M, N, K):
 def test_gemm_plan_7b_choices():
     """The plan's choices at the 7B shapes on a 132-SM H100: w13 at M = 128
     (86 tiles of 128 × 256) splits K in 3, w2 (16 tiles) in 8; at M = 2048
-    (1376 tiles) nothing is split."""
+    (1376 tiles) nothing is split.  Decode (M = 4): w13's 86 strips of 256
+    columns take 3 splits of 44 blocks (258 CTAs in the 264 slots of two
+    an SM; splits end on 4-block boundaries), wo's 16 strips 16 splits, w2's
+    16 strips 15, wqkv's 48 strips 5."""
     plan = lambda M, K, N: tq.gemm_plan(M, N, K, False, 132)
     assert (plan(128, 4096, 22016)["splits"], plan(128, 11008, 4096)["splits"]) == (3, 8)
     assert plan(2048, 4096, 22016)["splits"] == 1 and plan(2048, 11008, 4096)["splits"] == 1
-    assert plan(4, 4096, 22016) == dict(kernel="decode", splits=4, blocks_per_split=32)
+    assert plan(4, 4096, 22016) == dict(kernel="decode", splits=3, blocks_per_split=44,
+                                        strip=256, stages=3, grid=(86, 3), counter_slots=86)
+    assert [plan(4, K, N)["splits"] for K, N in ((4096, 4096), (11008, 4096), (4096, 12288))] \
+        == [16, 15, 5]
+
+
+@pytest.mark.parametrize("proj", list(LLAMA_PROJ))
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 9, 16])
+@pytest.mark.parametrize("trans", [False, True])
+def test_decode_plan_llama_projections(proj, M, trans):
+    """The decode kernel's plan at every Llama-2-7B and 13B projection and
+    every decode batch: shared memory within a CTA's 227 KB and two CTAs an
+    SM, every split non-empty, one counter slot a strip, a workspace that
+    holds every split's partial tile; the plan is the same for both
+    layouts and every M <= 16."""
+    K, N = LLAMA_PROJ[proj]
+    p = _plan_invariants(M, N, K, trans)
+    assert p["kernel"] == ("t_decode" if trans else "decode")
+    q = tq.gemm_plan(1, N, K, not trans, 132)
+    assert (p["splits"], p["blocks_per_split"]) == (q["splits"], q["blocks_per_split"])
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 16, 32), (3, 48, 96), (5, 400, 352), (9, 2064, 1056),
+                                   (16, 30000, 4096), (2, 4112, 11008), (13, 272, 32 * 257)])
+def test_decode_plan_ragged(M, N, K):
+    """Ragged M, N (a multiple of 16, not of the 256-column strip) and K (32
+    × odd, not a multiple of a ring stage), on two SM counts."""
+    _plan_invariants(M, N, K, False)
+    _plan_invariants(M, N, K, True, n_sm=114)
+
+
+def _decode_emulation(x, q_kn, s_blocks, scale_mode, *, bias=None, epilogue_scale=None,
+                      swiglu=False, n_sm=132):
+    """What the card's decode kernel (csrc/qmatmul.cuh qmm_decode_kernel)
+    computes, in numpy: x in bf16; block-scaled weights bf16(bf16(q) ·
+    bf16(s)), channel / none weights exact; per K split of gemm_plan, an f32
+    sum over k16 steps in k order (each step's 16 products summed exactly,
+    as one mma, then rounded into the f32 sum); the split partials summed in
+    split order in f32; then the plain version's epilogue and swiglu pairs."""
+    M, K = x.shape
+    N = q_kn.shape[1]
+    plan = tq.gemm_plan(M, N, K, False, n_sm)
+    xb = _bf16(x).astype(np.float64)
+    if scale_mode == "block":
+        w = _bf16(q_kn.astype(np.float32) * np.repeat(_bf16(s_blocks), 32, axis=0))
+    else:
+        w = q_kn.astype(np.float32)
+    w = w.astype(np.float64)
+    kb = plan["blocks_per_split"] * 32
+    total = np.zeros((M, N), np.float32)
+    for z in range(plan["splits"]):
+        acc = np.zeros((M, N), np.float32)
+        for k0 in range(z * kb, min(K, (z + 1) * kb), 16):
+            acc = (acc + xb[:, k0:k0 + 16] @ w[k0:k0 + 16]).astype(np.float32)
+        total = (total + acc).astype(np.float32)
+    s_t = None if scale_mode != "channel" else torch.from_numpy(s_blocks)
+    y = tq._fma_epilogue(torch.from_numpy(total), s_t, scale_mode, epilogue_scale,
+                         None if bias is None else torch.from_numpy(bias))
+    return (tq.swiglu_pairs(y) if swiglu else y).numpy()
+
+
+DECODE_NUMERICS = {  # label → (scale_mode, packed_int4, w_transposed, swiglu)
+    "block": ("block", False, False, False), "channel": ("channel", False, False, False),
+    "none": ("none", False, False, False), "packed": ("block", True, False, False),
+    "nk_int8": ("block", False, True, False), "nk_packed": ("block", True, True, False),
+    "swiglu": ("block", True, False, True)}
+
+
+@pytest.mark.parametrize("mode", list(DECODE_NUMERICS))
+@pytest.mark.parametrize("M", [1, 3, 4, 8, 16])
+def test_decode_numerics_match_jax_kernel(rng, mode, M):
+    """The numpy emulation of the decode kernel's numerics against the JAX
+    kernel in interpret mode (both bf16(q)·bf16(s), f32 sums in another
+    order): within 2e-6·max|y| in every mode and layout.  For the block
+    modes JAX's f32 reference (the port's plain version) misses the kernel
+    by more than 50 times that; for channel and none, whose products are
+    exact in both, only the summation order differs."""
+    scale_mode, packed, trans, swiglu = DECODE_NUMERICS[mode]
+    K, N = 1056, 512                             # 33 blocks: a ragged last split
+    x, w, s, _ = _any_case(rng, M, K, N, scale_mode=scale_mode, packed_int4=packed,
+                           w_transposed=trans)
+    kw = dict(scale_mode=scale_mode, packed_int4=packed, w_transposed=trans, swiglu=swiglu)
+    want = _jax_any(x, w, s, None, bm=-(-M // 8) * 8, bn=N if swiglu else 128, bk=96, **kw)
+    q = tq._weight_kn(_t(w), K, packed, trans).numpy()
+    got = _decode_emulation(x, q, s.T if (trans and s is not None) else s, scale_mode,
+                            swiglu=swiglu)
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 2e-6 * scale
+    if scale_mode == "block":
+        f32 = np.asarray(jax_qmm_ref(x, w, s, **kw))
+        assert np.abs(f32 - want).max() > 50 * 2e-6 * scale
 
 
 def test_launch_keys_name_each_new_family():
