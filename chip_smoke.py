@@ -68,14 +68,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      default decode's (cosine >= 0.999), decode tokens/s beside phase 4's;
  10. the probe path: the port's Q4_0 dequant-strategy probe
      (csinn2_tpu_torch.examples.int4_dequant_probe, the eleven kernels of
-     kernels/int4_probe.py beside cur(quant_matmul)) at the four Llama-2-7B
+     kernels/int4_probe.py beside cur(quant_matmul); the eight plane kinds
+     on the decode GEMM's tensor-core skeleton) at the four Llama-2-7B
      decode shapes (wqkv, w13, w2, wo; M = 8), every variant timed cold
      (rotating over weight copies that exceed twice the L2) and no row
      above 105 % of its own bytes bound; then each kernel held against its
      plain version on the card at every shape (stream bit for bit, the
      others within 1e-5·max|y|), timed beside the plain version and
-     torch.matmul on the dequantized bf16 weight (cold); then the tile
-     tuner's geometry sweep of the andmask kernel at the four shapes.
+     torch.matmul on the dequantized bf16 weight (cold), with its factor
+     over cur and over torch.matmul; then the tile tuner's split-length
+     sweep of the andmask kernel at the four shapes.
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -1331,8 +1333,10 @@ def cnn_path(records, gpu_line: str):
 def check_probe_kernels(records, results, gpu_line):
     """Each probe kernel against its plain version on the card at the four
     shapes (the probe's inputs), timed beside the plain version (warm) and
-    torch.matmul on the dequantized bf16 [K, N] weight (cold); the record of
-    each is the w13 shape, with the probe's cold kernel time."""
+    torch.matmul on the dequantized bf16 [K, N] weight (cold), with its
+    factor over cur(quant_matmul) and over torch.matmul (the probe's cold
+    times); the record of each is the w13 shape, with the probe's cold
+    kernel time."""
     import numpy as np
     import torch
     from csinn2_tpu_torch.examples import int4_dequant_probe as probe
@@ -1341,6 +1345,7 @@ def check_probe_kernels(records, results, gpu_line):
     from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms, gpu_ms_cold, l2_bytes
     M = 8
     rng = np.random.default_rng(0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     us = {(r["name"], r["K"], r["N"]): r["us"] for r in results}
     for label, (K, N, bn, bk) in zip(probe.SHAPE_NAMES, probe.ALL_SHAPES):
         case = probe.make_case(rng, M, K, N, "cuda")
@@ -1363,19 +1368,20 @@ def check_probe_kernels(records, results, gpu_line):
                 raise AssertionError(f"int4_probe {kind} {label}: max|d| {err} against "
                                      f"max|y| {float(ref.abs().max())}")
             plain = gpu_ms(lambda: ip.kernel_ref(kind, call.tensors, M, N, K, bn, bk), reps=3)
-            ms = us[variant, K, N] * 1e-3
+            ms, cur = us[variant, K, N] * 1e-3, us[probe.CUR, K, N] * 1e-3
             b_ms, b_by = bound(ip.kernel_bytes(kind, M, N, K), 2.0 * M * N * K,
                                INT8_OPS if kind in ("intdot", "w4a8") else BF16_FLOPS)
-            cols, ksplit = ip.launch_geometry(bn, bk)
+            cols, ksplit = ip.geometry(kind, M, N, K, bn, bk, n_sm)
             shape = (f"{label} M={M} K={K} N={N} (bn {bn} bk {bk}: {cols} columns per CTA, "
                      f"{ksplit}-row splits), cold L2")
             log(f"  int4_probe_{kind} {shape}: ms={ms:.4f} plain_ms={plain:.4f} lib_ms={lib:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} max_abs_err={err:.3e}")
+                f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} max_abs_err={err:.3e} "
+                f"cur_ms={cur:.4f} x_cur={ms / cur:.2f} x_lib={ms / lib:.2f}")
             rec = records.setdefault(f"int4_probe_{kind}", {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if label == "w13":
                 rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                           shape=shape)
+                           shape=shape, cur_ms=cur)
             del call, y, ref
         del case, x, w
         torch.cuda.empty_cache()
@@ -1506,7 +1512,7 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
         for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
-                      "decode_cold"):
+                      "decode_cold", "cur_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         if name in reduce_per_step:

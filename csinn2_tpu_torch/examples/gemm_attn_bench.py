@@ -6,13 +6,15 @@ so two versions compare inside one call on one card.
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --trees OLD . . OLD
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only decode
+    python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only probe,decode --trees OLD . . OLD
 
 With --trees, each tree (a directory holding csinn2_tpu_torch/) runs this
 file in a process of its own that imports the package from that tree;
 the rows of all runs are printed as one table, then the decode GEMMs' sum
 per batch-4 decode step (32 layers × wqkv + wo + w13 + w2, cold) of each
-run, then one JSON list on the last line.  --only picks a group of cases
-(decode, prefill, attention; default all of them).  Cases:
+run and the probe rows' factors over cur, then one JSON list on the last
+line.  --only picks groups of cases, comma-separated (decode, prefill,
+attention, probe; default: all but probe).  Cases:
 
   * decode: quant_matmul at M = 1, 4, 8 and 16 on the Llama-2-7B w13 (K
     4096, N 22016; swiglu N 22528, out [M, 11264]) in the seven float-x
@@ -23,6 +25,13 @@ run, then one JSON list on the last line.  --only picks a group of cases
     Q8_0 and Q4_0 w13 bytes at M = 8 (no math: its copy rate);
   * prefill: the seven w13 modes at M = 128, Q8_0 and Q4_0 at M = 512 and
     2048; the library call is torch.matmul on the dequantized bf16 weight;
+  * probe: cur(quant_matmul) and the eight plane kinds of the Q4_0 dequant
+    probe (examples/int4_dequant_probe.py: split_i32, split_i8, i4native,
+    bitcast, andmask, andmask_bf16s, noscale, halfq8) at its four Llama-2-7B
+    decode shapes (wqkv, w13, w2, wo) and inputs, M = 8, the kernel alone,
+    cold, beside torch.matmul on the dequantized bf16 weight (cold), each
+    row's own bytes bound (kernels/int4_probe.py kernel_bytes) and its
+    cosine against the probe's golden; then the decode ring alone;
   * attention: decode attention at row 2's shape (b 4, hq = hk = 32, d 128,
     S 2048, int8 KV, kv_len 2048 / 1027 / 0 / 17) through decode_attention,
     and row 4''s (kv_len 2048 / 1027 / 1 / 17, causal) through bhsd
@@ -68,6 +77,7 @@ GROUPS = {
     + [(label, "w13", (512, 2048)) for label in ("1a q8_0", "1c q4_0")],
 }
 N_LAYERS = 32   # Llama-2-7B: the per-step sum of the decode GEMMs
+BENCH_GROUPS = ("attention", "decode", "prefill", "probe")
 
 
 def gpu_line() -> str:
@@ -174,6 +184,50 @@ def bench_ring(g, line: str):
     return rows
 
 
+PROBE_VARIANTS = ("split_i32", "split_i8", "i4native", "bitcast", "andmask", "andmask_bf16s",
+                  "noscale(timing)", "halfq8(timing)")
+
+
+def bench_probe(line: str):
+    """cur(quant_matmul) and the eight plane kinds at the probe's four
+    shapes and inputs (M = 8), cold, beside torch.matmul cold."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.examples import int4_dequant_probe as probe
+    from csinn2_tpu_torch.kernels.qmatmul import unpack_int4
+    from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms_cold, l2_bytes
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    M = 8
+    rng = np.random.default_rng(0)
+    rows = []
+    for label, (K, N, bn, bk) in zip(probe.SHAPE_NAMES, probe.ALL_SHAPES):
+        case = probe.make_case(rng, M, K, N, "cuda")
+        x, w = case["x"], case["weights"]
+        n = cold_copies(K * N // 2 + (K // 32) * N * 4, l2_bytes())
+        copies = [w] + [{k: t.clone() for k, t in w.items()} for _ in range(n - 1)]
+        deq = (unpack_int4(w["wp"], K).float().reshape(K // 32, 32, N)
+               * w["s"][:, None]).reshape(K, N).to(torch.bfloat16)
+        dcopies = [deq] + [deq.clone() for _ in range(cold_copies(deq.numel() * 2, l2_bytes()) - 1)]
+        lib = gpu_ms_cold([lambda d=d: torch.matmul(x, d) for d in dcopies])
+        del dcopies, deq
+        table = probe.variant_table(M, K, N, bn, bk)
+        for name in (probe.CUR,) + PROBE_VARIANTS:
+            spec = table[name]
+            fn, _ = probe.calls(spec, x, copies[0], M)
+            cos = cosine_similarity(fn().float().cpu().numpy(), case["gold"])
+            if "timing" not in name and name != "bitcast" and cos < 0.99:
+                raise AssertionError(f"probe {name} {label}: cos {cos}")
+            ms = gpu_ms_cold([probe.calls(spec, x, c, M)[1] for c in copies])
+            b_ms, b_by = _bound(probe.kernel_bytes(spec[0], M, N, K), 2.0 * M * N * K)
+            rows.append(dict(kind="probe", case=name, proj=label, M=M, K=K, N=N, ms=ms,
+                             ms_cold=ms, library_ms=lib, library_ms_cold=lib, bound_ms=b_ms,
+                             bound_by=b_by, cos=cos, card=line))
+            print(json.dumps(rows[-1]), flush=True)
+        del copies, case, x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
 def bench_decode_attention(g, line: str):
     import torch
     import torch.nn.functional as F
@@ -239,12 +293,15 @@ def worker(only) -> int:
     line = gpu_line()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    if only in (None, "attention"):
+    if "attention" in only:
         bench_decode_attention(g, line)
-    if only in (None, "decode"):
+    if "probe" in only:
+        bench_probe(line)
+    if "decode" in only:
         bench_gemm(g, line, GROUPS["decode"])
+    if "decode" in only or "probe" in only:
         bench_ring(g, line)
-    if only in (None, "prefill"):
+    if "prefill" in only:
         bench_gemm(g, line, GROUPS["prefill"])
     return 0
 
@@ -258,16 +315,29 @@ def step_sums(results):
     return {k: N_LAYERS * sum(v.values()) for k, v in sums.items() if len(v) == len(PROJ)}
 
 
+def probe_factors(results):
+    """Per run, probe shape and variant: (ms, ms / cur's ms, ms / torch.matmul's ms)."""
+    cur = {(r["run"], r["proj"]): r["ms"] for r in results
+           if r["kind"] == "probe" and r["case"].startswith("cur")}
+    return {(r["run"], r["proj"], r["case"]): (r["ms"], r["ms"] / cur[r["run"], r["proj"]],
+                                               r["ms"] / r["library_ms"])
+            for r in results if r["kind"] == "probe" and (r["run"], r["proj"]) in cur}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs="*", default=None,
                     help="repository trees to time in turns (default: this one)")
-    ap.add_argument("--only", choices=("decode", "prefill", "attention"), default=None,
-                    help="one group of cases (default: all)")
+    ap.add_argument("--only", default="attention,decode,prefill",
+                    help="groups of cases, comma-separated: " + ", ".join(BENCH_GROUPS)
+                    + " (default: all but probe)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(BENCH_GROUPS):
+        ap.error(f"--only: unknown groups {sorted(only - set(BENCH_GROUPS))}")
     if args.worker:
-        return worker(args.only)
+        return worker(only)
     here = Path(__file__).resolve().parents[2]
     trees = [Path(t).resolve() for t in (args.trees or [str(here)])]
     results = []
@@ -275,9 +345,7 @@ def main(argv=None) -> int:
         if not (tree / "csinn2_tpu_torch").is_dir():
             raise SystemExit(f"gemm_attn_bench: no csinn2_tpu_torch/ under {tree}")
         env = dict(os.environ, PYTHONPATH=str(tree))
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--worker"]
-        if args.only:
-            cmd += ["--only", args.only]
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", "--only", args.only]
         proc = subprocess.run(cmd, cwd=str(tree), env=env, capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:
@@ -295,6 +363,9 @@ def main(argv=None) -> int:
     for (run, case), ms in sorted(step_sums(results).items()):
         print(f"run {run} decode step sum, batch 4, {case}: {N_LAYERS} x (wqkv + wo + w13 + w2) "
               f"= {ms:.4f} ms cold")
+    for (run, proj, case), (ms, x_cur, x_lib) in probe_factors(results).items():
+        print(f"run {run} probe {proj} {case:24s} {ms:.4f} ms cold: {x_cur:.2f} x cur, "
+              f"{x_lib:.2f} x torch.matmul")
     print(json.dumps(results))
     return 0
 

@@ -9,11 +9,14 @@ values q and the f32 block scales from numpy's default_rng(0) as main does,
 makes the four packs (Q4_0, re-biased, mixed, the i4native carrier) and the
 golden x @ (q·s) in f32, and runs main's variants: `cur(quant_matmul)` (the
 port's packed decode GEMM), the ten pipelines of kernels/int4_probe.py,
-w4a8 at bn 2048 and 1024, and the andmask_bn*_bk* sweep.  Each variant
-prints one line: the kernel's time (its CUDA kernel and split-K reduce
-alone, cold L2: utils/timing.gpu_ms_cold over copies of the weights), GB/s
-and % of the bytes bound of main's formula — K·N/2 + K/32·N·4 + M·K·2 bytes
-at the H100's 3.35 TB/s — then the whole function's time (the outside ops
+w4a8 at bn 2048 and 1024, and the andmask_bn*_bk* sweep (the plane kinds
+take the decode GEMM's geometry whatever the tile, so these rows repeat
+andmask's launch; kernels/int4_probe.py notes).  Each variant prints one
+line: the kernel's time (its CUDA kernel alone, with stream's, intdot's and
+w4a8's split-K reduce; cold L2: utils/timing.gpu_ms_cold over copies of the
+weights), GB/s and % of the bytes bound of main's formula — K·N/2 +
+K/32·N·4 + M·K·2 bytes at the H100's 3.35 TB/s — its factor over
+cur(quant_matmul)'s time, then the whole function's time (the outside ops
 too) and the cosine against the golden.  The card's nvidia-smi name and
 power limit come first.  SHAPES picks shapes by index, VARIANTS keeps the
 variants whose name contains one of its comma-separated words.
@@ -136,6 +139,7 @@ def probe(device="cuda", shapes: Optional[Sequence[tuple]] = None,
         if on_card:
             n = cold_copies(K * N // 2 + (K // BLOCK) * N * 4, l2_bytes())
             copies += [{k: t.clone() for k, t in case["weights"].items()} for _ in range(n - 1)]
+        cur = None
         for name, spec in variant_table(M, K, N, bn, bk).items():
             if only and not any(v in name for v in only.split(",")):
                 continue
@@ -148,10 +152,12 @@ def probe(device="cuda", shapes: Optional[Sequence[tuple]] = None,
                 pairs = [calls(spec, x, c, M) for c in copies]
                 t = gpu_ms_cold([k for _, k in pairs], reps) * 1e-3
                 t_fn = gpu_ms_cold([f for f, _ in pairs], reps) * 1e-3
+                cur = t if spec[0] == "cur" else cur
                 rec.update(us=t * 1e6, fn_us=t_fn * 1e6, gbs=nbytes / t / 1e9,
                            pct_sol=100 * sol / t)
+                vs = f"{t / cur:5.2f}x cur" if cur else ""
                 log(f"   {name:24s}: {t * 1e6:8.1f} us {nbytes / t / 1e9:6.0f} GB/s "
-                    f"{100 * sol / t:5.1f}% SOL  fn {t_fn * 1e6:8.1f} us  cos={cos:.6f}")
+                    f"{100 * sol / t:5.1f}% SOL {vs}  fn {t_fn * 1e6:8.1f} us  cos={cos:.6f}")
             else:
                 log(f"   {name:24s}: time not measured (cpu)  cos={cos:.6f}")
             out.append(rec)

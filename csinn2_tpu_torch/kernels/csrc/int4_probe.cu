@@ -3,71 +3,84 @@
 //
 // Replaces: examples/int4_dequant_probe.py, the nine bodies `_mk_call` (:75,
 // pallas_call :78) launches and `run_w4a8` (:530, pallas_call :560):
-//   K1 k1_planes<MT, EXTRACT, SCALE, PLANES, EPI>: the bf16 plane bodies,
+//   K1 k_planes<NT, KIND, WV>, the bf16 plane bodies on the tensor cores:
 //      _split_kernel :91 (shifts "i32" → EX_I32, "i8" → EX_I8),
 //      _bitcast_kernel :173 (EX_LOP3), _andmask_kernel :234 (EX_AND),
 //      _andmask_bf16s_kernel :395 (EX_AND, SC_BF16), _noscale_kernel :440
-//      (EX_AND, SC_NONE) and _halfq8_kernel :460 (EX_BYTE, one plane);
-//   K2 k2_native<MT>: _i4_kernel :141 (one unsplit plane);
+//      (EX_AND, SC_NONE), _halfq8_kernel :460 (EX_BYTE, one plane) and
+//      _i4_kernel :141 (i4native: one unsplit plane of the [K, N/2] carrier);
 //   K3 k3_stream: _stream_kernel :294;
 //   K4 k4_int8<MT, W4A8>: _intdot_kernel :327 and _w4a8_kernel :497.
 //
 // Bound.  At M <= 16 every kernel reads the packed weight once: K·N/2 bytes
 // plus the scales (f32 or bf16) and the activations, against 2·M·K·N
 // operations, so HBM bounds them all (kernels/int4_probe.py notes the
-// bytes of each).  The design is the port's decode GEMM (qmm_decode_kernel
-// in qmatmul.cuh): one CTA of 256 threads covers `cols` output columns for
-// all M rows and a K range of `ksplit` rows (split-K; the splits are
-// summed by probe_reduce), each weight is loaded once, dequantized once in
-// registers and feeds M FMAs (or dp4a), and U blocks are loaded before any
-// is used, to keep loads in flight.  The kernels differ in their dequant
-// body only, so their times rank the pipelines against quant_matmul's.
-// K1 and K2 hold M·8 f32 sums and the dequantized pairs per thread: with
-// the decode GEMM's U (2 blocks ahead at M = 8) they took 149-224 registers,
-// one CTA per SM; capped at two CTAs per SM (<= 128 registers) with one
-// block ahead they ran 22-31 % faster at w13, M = 8 (PERF.md, Findings).
+// bytes of each).
 //
-// Thread layout.  K1 and K3 (and K2) give a thread 8 adjacent columns (an
-// 8-byte load per byte row): TX = cols / 8 column groups × TK = 256 / TX row
-// lanes.  K1 takes byte rows 2·(tk % 8) and +1 of every (TK / 8)-th block: a
-// row pair holds rows j, j+1 (low nibbles) and j+16, j+17 (high nibbles),
-// whose activations are one bf16x2 load in each of x_lo and x_hi.  K2 takes
-// K rows 2·tk, 2·tk+1 of its split, TK rows pairs apart.  K4 gives a thread 4
-// columns and a whole block (16 byte rows of 4 bytes, transposed 4 × 4 with
-// __byte_perm so each column's 4 consecutive k sit in one word for dp4a):
-// TX = cols / 4, TK = 256 / TX block lanes.  The row lanes are summed
-// through shared memory at the end.
+// K1 design.  The skeleton of the port's decode GEMM, qmm_decode_kernel
+// (qmatmul.cuh), from the header both share (decode_ring.cuh): a CTA of 256
+// threads owns a 256-column strip and one K split (the split plan of
+// qmatmul.py gemm_plan by default: the strips' CTAs fill two slots an SM in
+// one wave); the raw weight bytes, their block scales and the x rows stream
+// through a 3-slot cp.async ring of 16 KB weight stages (4 quant blocks);
+// each warp widens its 32 columns from ldmatrix.trans registers into
+// mma.sync m16n8k16 A fragments (the weights are A, x^T is B: one n8 tile of
+// tokens at M <= 8, two at M <= 16), and the strip's last CTA sums the
+// splits' partials in split order in the same launch (no reduce kernel:
+// the same bits every call).  The kinds differ in their widening only, so a
+// kind's time minus cur(quant_matmul)'s is the cost of its widening.
+//   * Two-plane kinds ([K/2, N] packs): byte row j of a block holds k = j in
+//     its low nibble and k = j + 16 in its high nibble, so the low plane is
+//     the block's first k16 step and the high plane its second.  The loader
+//     stages x_lo [M, K/2] and x_hi rows as the k 0-15 and 16-31 halves of
+//     each block of an x row: x_lo is the B operand of the first step, x_hi
+//     of the second.  halfq8 runs the first step only.
+//   * i4native ([K, N/2], byte j of a row: column 2j low nibble, 2j+1 high):
+//     an ldmatrix.trans register holds four columns 4g .. 4g+3 at k, k+1,
+//     not two.  The strip's column order is permuted inside the mma tile:
+//     rows g and g + 8 of tile t are columns 4g + 2t and 4g + 2t + 1 of the
+//     warp's 32 (the low and high nibbles of bytes t and t + 2 of the
+//     register), and the finish tile's stores undo it.  x stays B.
+//   * Widening, as the JAX body and the earlier SIMT probe define it, each
+//     into the bf16 pairs (k, k+1) of columns c and c+1: EX_I32 int32 shifts,
+//     then I2F; EX_I8 __vsub4 sign extension, then I2F; EX_LOP3 (t &
+//     0x000F000F) | 0x43004300 = 128 + raw' with no conversion; EX_AND p &
+//     0x0F (= w_lo + 8) and p & 0xF0 (= 16·w_hi as a signed byte), then
+//     I2F; EX_BYTE the whole byte, then I2F.  Then times the block scale in
+//     one HMUL2 (the JAX body's bf16 multiply): SC_F32 rounds the f32 scale
+//     to bf16, SC_BF16 takes it as it is, SC_NONE multiplies by nothing.
+//     The conversions are what the probe measures: the decode GEMM's own
+//     LOP3 widening (nibble_pair_bf162) is not used here.
+//   * Timing-only kinds move the bytes the TPU moves but never reads
+//     (noscale: the scale tile; halfq8: the x_hi tile) through the ring:
+//     cp.async copies stay in the program, so they need no checksum (K3
+//     keeps its side buffer).  Their addends (EPI_S16, EPI_XHI) are added
+//     by the finish.
+//   * Narrow copies: a [K/2, N] row at N % 16 != 0 (or a [K, N/2] row at N %
+//     32 != 0) does not start on 16 bytes; those launches copy the weight in
+//     8-byte (4-byte) pieces (WV), everything else as the decode GEMM does.
 //
-// Dequant pipelines (all round w·s to bf16 with one __hmul2, as the TPU
-// bodies' bf16 multiplies do, then accumulate x·(w·s) in f32):
-//   EX_I32  int32 shifts: (p << (28 - 8j)) >> 28, >> 28 of << (24 - 8j);
-//           int → float → bf16 pairs;
-//   EX_I8   byte-lane SIMD: (p & 0x0F0F0F0F) ^ 0x08.., minus 0x08.. (__vsub4)
-//           sign-extends four nibbles per instruction; byte → float → bf16;
-//   EX_LOP3 re-biased nibbles spread into 16-bit lanes (__byte_perm), then
-//           (t & 0x000F000F) | 0x43004300 is the bf16 pair 128 + raw'
-//           exactly: no int → float conversion;
-//   EX_AND  p & 0x0F0F0F0F = w_lo + 8 and p & 0xF0F0F0F0 = 16·w_hi (signed
-//           bytes) of the mixed pack; byte → float → bf16;
-//   EX_BYTE the whole packed byte as a signed int8 (halfq8's one plane).
-// K4 masks the mixed pack the same way and sums s8×s8 in int32 with
-// __dp4a per 32-row block; p_lo + (p_hi >> 4) is exact (p_hi = 16·Σ).
-//
-// Timing-only bodies write the JAX function's value and fold the bytes the
-// TPU moves but never reads (stream: the unsampled weight rows; noscale:
-// the scale tile; halfq8: the x_hi tile) into a per-warp XOR checksum in
-// `side`, so the loads stay in the program.
+// K3 and K4 (SIMT).  A CTA of 256 threads covers `cols` output columns for
+// all M rows and a K range of `ksplit` rows; the splits are summed by
+// probe_reduce.  K3 gives a thread 8 adjacent columns (an 8-byte load per
+// byte row): TX = cols / 8 column groups × TK = 256 / TX row lanes.  K4
+// gives a thread 4 columns and a whole block (16 byte rows of 4 bytes,
+// transposed 4 × 4 with __byte_perm so each column's 4 consecutive k sit in
+// one word for dp4a): TX = cols / 4, TK = 256 / TX block lanes.  The row
+// lanes are summed through shared memory at the end.  K4 masks the mixed
+// pack as EX_AND does and sums s8×s8 in int32 with __dp4a per 32-row block;
+// p_lo + (p_hi >> 4) is exact (p_hi = 16·Σ).  K3 loads every weight byte
+// and folds the rows it does not sum into a per-warp XOR checksum in
+// `side`, so the loads stay.
 #include <algorithm>
+#include <type_traits>
 
-#include "common.cuh"
+#include "decode_ring.cuh"
 
 namespace {
 
-constexpr int BLK = 32;          // rows per quant block
-constexpr int HB = BLK / 2;      // byte rows per block
-constexpr int THREADS = 256;
+constexpr int HB = BK / 2;       // byte rows per block
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_M = 16;
 
 enum Kind { SPLIT_I32, SPLIT_I8, I4NATIVE, BITCAST, ANDMASK, ANDMASK_BF16S, STREAM, INTDOT,
             W4A8, NOSCALE, HALFQ8, N_KINDS };
@@ -76,6 +89,20 @@ enum Scale { SC_F32, SC_BF16, SC_NONE };
 // what is added to the finished sum: nothing, s16[(K/bk-1)·bk/32, (n/bn)·bn]
 // (noscale), x_hi[0, (K/bk-1)·bk/2] (halfq8), xw[m, n] (stream)
 enum Epi { EPI_NONE, EPI_S16, EPI_XHI, EPI_XW };
+
+__host__ __device__ constexpr bool is_planes(int k) {
+  return k != STREAM && k != INTDOT && k != W4A8;
+}
+__host__ __device__ constexpr int ex_of(int k) {
+  return k == SPLIT_I32 || k == I4NATIVE ? EX_I32 : k == SPLIT_I8 ? EX_I8
+         : k == BITCAST ? EX_LOP3 : k == HALFQ8 ? EX_BYTE : EX_AND;
+}
+__host__ __device__ constexpr int sc_of(int k) {
+  return k == ANDMASK_BF16S || k == HALFQ8 ? SC_BF16 : k == NOSCALE ? SC_NONE : SC_F32;
+}
+__host__ __device__ constexpr int epi_of(int k) {   // a plane kind's addend
+  return k == NOSCALE ? EPI_S16 : k == HALFQ8 ? EPI_XHI : EPI_NONE;
+}
 
 struct Args {
   const void* xa;        // x_lo bf16/int8 [M, K/2], or x [M, K] (i4native bf16, w4a8 int8)
@@ -86,14 +113,15 @@ struct Args {
   const float* xw;       // stream: [M, N]
   float* out;            // [M, N]
   float* partial;        // [splits, M, N] or null (one split: the kernel writes out)
-  uint32_t* side;        // checksum words [grid CTAs · WARPS] or null
+  uint32_t* side;        // stream: checksum words [grid CTAs · WARPS]
+  int* counters;         // K1: one per 256-column strip, zero between launches
   int M, N, K, cols, blocks_per_split, splits, tile_bn, tile_bk;
 };
 
 template <int EPI>
 __device__ __forceinline__ float addend(const Args& a, int m, int col) {
   if constexpr (EPI == EPI_S16) {
-    const int row = (a.K / a.tile_bk - 1) * (a.tile_bk / BLK);
+    const int row = (a.K / a.tile_bk - 1) * (a.tile_bk / BK);
     return __bfloat162float(
         static_cast<const __nv_bfloat16*>(a.s)[(size_t)row * a.N + (col / a.tile_bn) * a.tile_bn]);
   } else if constexpr (EPI == EPI_XHI) {
@@ -143,226 +171,160 @@ __device__ __forceinline__ void write_checksum(const Args& a, uint32_t chk) {
     a.side[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * WARPS + threadIdx.x / 32] = chk;
 }
 
-__device__ __forceinline__ __nv_bfloat162 bits_bf162(uint32_t u) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-
-__device__ __forceinline__ __nv_bfloat162 int_pair(int a, int b) {
-  return __floats2bfloat162_rn(static_cast<float>(a), static_cast<float>(b));
+// int → float → the bf16 pair (a, b), as a register
+__device__ __forceinline__ uint32_t int_pair(int a, int b) {
+  return as_u32(__floats2bfloat162_rn(static_cast<float>(a), static_cast<float>(b)));
 }
 
 __device__ __forceinline__ int sbyte(uint32_t v, int i) {
   return static_cast<int8_t>(static_cast<uint8_t>(v >> (8 * i)));
 }
 
-// The plane values of columns 2h and 2h+1 of word q (bytes = 4 columns):
-// lo and hi as bf16 pairs (EX_BYTE: lo only).
+// The two-plane kinds' widening of an ldmatrix.trans register r of a [K/2,
+// N] pack: bytes (j, c), (j, c+1), (j+1, c), (j+1, c+1) of byte rows j, j+1
+// and columns c, c+1, whose low (ks = 0) or high (ks = 1) nibbles are the
+// plane values (EX_BYTE: the whole bytes, ks = 0).  e = column c's pair (k,
+// k+1), o = column c+1's, unscaled.
 template <int EX>
-__device__ __forceinline__ void extract(uint32_t q, int h, __nv_bfloat162& lo, __nv_bfloat162& hi) {
+__device__ __forceinline__ void widen_plane(uint32_t r, int ks, uint32_t& e, uint32_t& o) {
   if constexpr (EX == EX_I32) {
-    const int p = static_cast<int>(q);
-    lo = int_pair((p << (28 - 16 * h)) >> 28, (p << (20 - 16 * h)) >> 28);
-    hi = int_pair((p << (24 - 16 * h)) >> 28, (p << (16 - 16 * h)) >> 28);
+    const int p = static_cast<int>(r);
+    e = int_pair((p << (28 - 4 * ks)) >> 28, (p << (12 - 4 * ks)) >> 28);
+    o = int_pair((p << (20 - 4 * ks)) >> 28, (p << (4 - 4 * ks)) >> 28);
   } else if constexpr (EX == EX_I8) {
-    const uint32_t l4 = __vsub4((q & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-    const uint32_t h4 = __vsub4(((q >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-    lo = int_pair(sbyte(l4, 2 * h), sbyte(l4, 2 * h + 1));
-    hi = int_pair(sbyte(h4, 2 * h), sbyte(h4, 2 * h + 1));
+    const uint32_t v = __vsub4(((r >> (4 * ks)) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+    e = int_pair(sbyte(v, 0), sbyte(v, 2));
+    o = int_pair(sbyte(v, 1), sbyte(v, 3));
   } else if constexpr (EX == EX_LOP3) {
-    const uint32_t t = __byte_perm(q, 0u, h ? 0x4342u : 0x4140u);   // bytes 2h, 2h+1 → 16-bit lanes
-    lo = bits_bf162((t & 0x000F000Fu) | 0x43004300u);
-    hi = bits_bf162(((t >> 4) & 0x000F000Fu) | 0x43004300u);
+    e = ((r >> (4 * ks)) & 0x000F000Fu) | 0x43004300u;
+    o = ((r >> (8 + 4 * ks)) & 0x000F000Fu) | 0x43004300u;
   } else if constexpr (EX == EX_AND) {
-    const uint32_t l8 = q & 0x0F0F0F0Fu, h8 = q & 0xF0F0F0F0u;
-    lo = int_pair(sbyte(l8, 2 * h), sbyte(l8, 2 * h + 1));
-    hi = int_pair(sbyte(h8, 2 * h), sbyte(h8, 2 * h + 1));
+    const uint32_t v = r & (ks ? 0xF0F0F0F0u : 0x0F0F0F0Fu);
+    e = int_pair(sbyte(v, 0), sbyte(v, 2));
+    o = int_pair(sbyte(v, 1), sbyte(v, 3));
   } else {   // EX_BYTE
-    lo = int_pair(sbyte(q, 2 * h), sbyte(q, 2 * h + 1));
-    hi = lo;
+    e = int_pair(sbyte(r, 0), sbyte(r, 2));
+    o = int_pair(sbyte(r, 1), sbyte(r, 3));
   }
 }
 
-__device__ __forceinline__ uint32_t xor_words(uint4 v) { return v.x ^ v.y ^ v.z ^ v.w; }
+// i4native's widening of an ldmatrix.trans register of the [K, N/2]
+// carrier: bytes (k, 2g), (k, 2g+1), (k+1, 2g), (k+1, 2g+1) of a 16-byte
+// chunk, columns 4g .. 4g+3 at k, k+1.  Tile t takes bytes t and t + 2: e =
+// column 4g + 2t (their low nibbles), o = column 4g + 2t + 1 (high); int32
+// shifts, then I2F.
+__device__ __forceinline__ void widen_native(uint32_t r, int t, uint32_t& e, uint32_t& o) {
+  const int p = static_cast<int>(r);
+  e = int_pair((p << (28 - 8 * t)) >> 28, (p << (12 - 8 * t)) >> 28);
+  o = int_pair((p << (24 - 8 * t)) >> 28, (p << (8 - 8 * t)) >> 28);
+}
 
-// K1: the bf16 plane bodies on a [K/2, N] pack; x_lo/x_hi bf16 [M, K/2].
-template <int MT, int EX, int SC, int PLANES, int EPI>
-__global__ void __launch_bounds__(THREADS, 2) k1_planes(Args a) {
-  constexpr int U = MT <= 2 ? 2 : 1;
-  constexpr bool CHK_S = SC == SC_NONE;        // noscale: scale tile moved, not read
-  constexpr bool CHK_XHI = PLANES == 1;        // halfq8: x_hi tile moved, not read
-  const int TX = a.cols / 8, TK = THREADS / TX;
-  const int tid = threadIdx.x, tx = tid % TX, tk = tid / TX;
-  const int n = blockIdx.x * a.cols + tx * 8;
-  const int row0 = (tk % 8) * 2;               // byte-row pair within a block
-  const int bstep = TK / 8;                    // blocks side by side
-  const int G = a.K / BLK, half_k = a.K / 2;
-  const int kb_split = blockIdx.y * a.blocks_per_split;
-  const int kb_end = min(G, kb_split + a.blocks_per_split);
-  const __nv_bfloat16* xlo = static_cast<const __nv_bfloat16*>(a.xa);
-  const __nv_bfloat16* xhi = static_cast<const __nv_bfloat16*>(a.xb);
+// K1's ring: the decode GEMM's [K/2, N] stage (NATIVE: [K, N/2]) with the
+// kind's scale type; x from its block halves except for i4native
+template <int KIND>
+using PlaneRing = Dc<true, false, sc_of(KIND) == SC_F32 ? 4 : 2, KIND == I4NATIVE>;
 
-  float acc[MT][8];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-  uint32_t chk = 0;
+// K1: CTA (strip, split); warp w owns columns cb = 32w .. 32w + 31 of the
+// strip as two mma tiles over every k (notes at the top).
+template <int NT, int KIND, int WV>
+__global__ void __launch_bounds__(THREADS, DC_CTAS_PER_SM) k_planes(Args a) {
+  constexpr int SC = sc_of(KIND);
+  constexpr bool NATIVE = KIND == I4NATIVE;
+  constexpr int PLANES = KIND == HALFQ8 ? 1 : 2;   // k16 steps of a block that are read
+  using ST = std::conditional_t<SC == SC_F32, float, __nv_bfloat16>;
+  using C = PlaneRing<KIND>;
+  extern __shared__ __align__(16) unsigned char dc_smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;      // mma fragment coordinates
+  const int lm = lane / 8, li = lane % 8;      // ldmatrix: matrix and row of this lane
+  const int n0 = blockIdx.x * DC_BN;
+  const int kb_begin = blockIdx.y * a.blocks_per_split;
+  const int kb_end = min(a.K / BK, kb_begin + a.blocks_per_split);
+  const int n_st = max(0, (kb_end - kb_begin + C::SB - 1) / C::SB);
+  const int cb = warp * 32;
+  // rows g and g + 8 of tile t are columns cc[t] and cc[t] + 1 of the strip
+  const int cc[2] = {NATIVE ? cb + 4 * g : cb + 2 * g, NATIVE ? cb + 4 * g + 2 : cb + 16 + 2 * g};
 
-  if (n < a.N) {
-    for (int kb = kb_split + tk / 8; kb < kb_end; kb += U * bstep) {
-      int2 wv[U][2];
-      uint4 sv[U][2];                          // f32: 8 floats; bf16: sv[u][0] holds 8
-      __nv_bfloat162 xl[U][MT], xh[U][MT];
+  float acc[2][NT][4];                         // [column tile][token tile][fragment]
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int b = kb + u * bstep;
-        if (b < kb_end) {
-          const int8_t* wb = a.w + ((size_t)b * HB + row0) * a.N + n;
-          wv[u][0] = __ldg(reinterpret_cast<const int2*>(wb));
-          wv[u][1] = __ldg(reinterpret_cast<const int2*>(wb + a.N));
-          if constexpr (SC == SC_F32) {
-            const float* sp = static_cast<const float*>(a.s) + (size_t)b * a.N + n;
-            sv[u][0] = __ldg(reinterpret_cast<const uint4*>(sp));
-            sv[u][1] = __ldg(reinterpret_cast<const uint4*>(sp + 4));
-          } else {
-            sv[u][0] = __ldg(reinterpret_cast<const uint4*>(
-                static_cast<const __nv_bfloat16*>(a.s) + (size_t)b * a.N + n));
-          }
+  for (int t = 0; t < 2; ++t)
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const size_t xi = (size_t)m * half_k + b * HB + row0;
-            const bool live = m < a.M;
-            xl[u][m] = live ? *reinterpret_cast<const __nv_bfloat162*>(xlo + xi)
-                            : __floats2bfloat162_rn(0.f, 0.f);
-            xh[u][m] = live ? *reinterpret_cast<const __nv_bfloat162*>(xhi + xi)
-                            : __floats2bfloat162_rn(0.f, 0.f);
-          }
-        }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
+
+  // blocks past the split's end are zero-filled (weights, scales and x):
+  // they add zeros, so every stage runs whole
+  auto compute = [&](const unsigned char* st) {
+    const unsigned char* ss = st + C::W_BYTES;
+    const unsigned char* xs = ss + C::S_BYTES;
+#pragma unroll
+    for (int b = 0; b < C::SB; ++b) {
+      uint32_t xb[NT][2][2];                   // B of the block's two k16 steps
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t r[4];                         // k 0-7, 8-15, 16-23, 24-31 of the block
+        const int row = nt * 8 + li, c = b * 4 + lm;
+        ldmatrix_x4(r, xs + row * C::X_ROW + ((c ^ (row & 7)) << 4), false);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xb[nt][j / 2][j % 2] = r[j];
       }
+      uint32_t sc[2][2] = {};                  // [tile][rows g, g + 8]
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (kb + u * bstep >= kb_end) break;
-        // the scales of the 8 columns as 4 bf16 pairs
-        __nv_bfloat162 sp[4];
+      for (int t = 0; t < 2; ++t) {
         if constexpr (SC == SC_F32) {
-          sp[0] = __floats2bfloat162_rn(__uint_as_float(sv[u][0].x), __uint_as_float(sv[u][0].y));
-          sp[1] = __floats2bfloat162_rn(__uint_as_float(sv[u][0].z), __uint_as_float(sv[u][0].w));
-          sp[2] = __floats2bfloat162_rn(__uint_as_float(sv[u][1].x), __uint_as_float(sv[u][1].y));
-          sp[3] = __floats2bfloat162_rn(__uint_as_float(sv[u][1].z), __uint_as_float(sv[u][1].w));
+          const float2 f = *reinterpret_cast<const float2*>(ss + (b * DC_BN + cc[t]) * 4);
+          sc[t][0] = bf16_dup(f.x);
+          sc[t][1] = bf16_dup(f.y);
         } else if constexpr (SC == SC_BF16) {
-          sp[0] = bits_bf162(sv[u][0].x);
-          sp[1] = bits_bf162(sv[u][0].y);
-          sp[2] = bits_bf162(sv[u][0].z);
-          sp[3] = bits_bf162(sv[u][0].w);
-        } else {
-          chk ^= xor_words(sv[u][0]);
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(ss + (b * DC_BN + cc[t]) * 2);
+          sc[t][0] = __byte_perm(v, 0, 0x1010);
+          sc[t][1] = __byte_perm(v, 0, 0x3232);
         }
-        if constexpr (CHK_XHI) {
+      }
+      uint32_t r[4];
+      if constexpr (!NATIVE) {                 // byte rows 0-7 / 8-15 of the tiles' chunks
+        const int kr = b * HB + li + 8 * (lm & 1), cl = cb / 16 + (lm >> 1);
+        ldmatrix_x4(r, st + kr * C::ROW + ((cl ^ (kr & 7)) << 4), true);
+      } else {                                 // k rows 0-7 .. 24-31 of the warp's chunk
+        const int kr = b * BK + 8 * lm + li;
+        ldmatrix_x4(r, st + kr * C::ROW + ((warp ^ (kr & 7)) << 4), true);
+      }
 #pragma unroll
-          for (int m = 0; m < MT; ++m) chk ^= *reinterpret_cast<const uint32_t*>(&xh[u][m]);
-        }
+      for (int ks = 0; ks < PLANES; ++ks)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const uint32_t words[2] = {static_cast<uint32_t>(wv[u][r].x),
-                                     static_cast<uint32_t>(wv[u][r].y)};
+        for (int t = 0; t < 2; ++t) {
+          uint32_t af[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {       // column pair i: columns 2i, 2i+1
-            __nv_bfloat162 lo, hi;
-            extract<EX>(words[i / 2], i % 2, lo, hi);
+          for (int h = 0; h < 2; ++h) {        // k 0-7 (h = 0) and 8-15 of the step
+            uint32_t e, o;
+            if constexpr (NATIVE) widen_native(r[2 * ks + h], t, e, o);
+            else widen_plane<ex_of(KIND)>(r[2 * t + h], ks, e, o);
             if constexpr (SC != SC_NONE) {
-              lo = __hmul2(lo, sp[i]);
-              if constexpr (PLANES == 2) hi = __hmul2(hi, sp[i]);
+              e = hmul2_u32(e, sc[t][0]);
+              o = hmul2_u32(o, sc[t][1]);
             }
-            const float l0 = __low2float(lo), l1 = __high2float(lo);
-            const float h0 = __low2float(hi), h1 = __high2float(hi);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              const float xa = r == 0 ? __low2float(xl[u][m]) : __high2float(xl[u][m]);
-              acc[m][2 * i] = fmaf(xa, l0, acc[m][2 * i]);
-              acc[m][2 * i + 1] = fmaf(xa, l1, acc[m][2 * i + 1]);
-              if constexpr (PLANES == 2) {
-                const float xb = r == 0 ? __low2float(xh[u][m]) : __high2float(xh[u][m]);
-                acc[m][2 * i] = fmaf(xb, h0, acc[m][2 * i]);
-                acc[m][2 * i + 1] = fmaf(xb, h1, acc[m][2 * i + 1]);
-              }
-            }
+            af[2 * h] = e;
+            af[2 * h + 1] = o;
           }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[t][nt], af, xb[nt][ks]);
         }
-      }
     }
+  };
+
+  DcLoader<NT, true, false, false, ST, !NATIVE, NATIVE, WV> loader(
+      static_cast<const __nv_bfloat16*>(a.xa), a.w, static_cast<const ST*>(a.s), a.M, a.N, a.K,
+      n0, kb_begin, kb_end, static_cast<const __nv_bfloat16*>(a.xb));
+  dc_ring<C>(loader, n_st, dc_smem, compute);
+  float* tile = reinterpret_cast<float*>(dc_smem);
+  dc_tile_store<NT>(tile, acc, cc, 1, tig);
+  if (!dc_sum_splits<NT>(tile, a.partial, a.counters, a.M, a.N, a.splits)) return;
+  const int col = n0 + tid;                    // a thread a column from here
+  if (col < a.N) {
+    const float add = addend<epi_of(KIND)>(a, 0, col);
+    for (int m = 0; m < a.M; ++m) a.out[(size_t)m * a.N + col] = tile[m * DC_BN + tid] + add;
   }
-  if constexpr (CHK_S || CHK_XHI) write_checksum(a, chk);
-  finish<MT, 8, EPI>(acc, a, tx, tk, TK);
-}
-
-// K2: one unsplit plane on the [K, N/2] carrier of jnp.int4 [K, N] (byte j
-// of a row: column 2j low, 2j+1 high); x bf16 [M, K]; f32 block scales.
-template <int MT>
-__global__ void __launch_bounds__(THREADS, 2) k2_native(Args a) {
-  constexpr int U = MT <= 2 ? 2 : 1;
-  const int TX = a.cols / 8, TK = THREADS / TX;
-  const int tid = threadIdx.x, tx = tid % TX, tk = tid / TX;
-  const int n = blockIdx.x * a.cols + tx * 8;
-  const int G = a.K / BLK, row_bytes = a.N / 2;
-  const int k_lo = blockIdx.y * a.blocks_per_split * BLK;
-  const int k_hi = min(G, (blockIdx.y + 1) * a.blocks_per_split) * BLK;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.xa);
-  const float* s = static_cast<const float*>(a.s);
-
-  float acc[MT][8];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-
-  if (n < a.N) {
-    for (int k = k_lo + 2 * tk; k < k_hi; k += 2 * TK * U) {
-      uint32_t wv[U][2];
-      uint4 sv[U][2];
-      __nv_bfloat162 xv[U][MT];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int kk = k + u * 2 * TK;
-        if (kk < k_hi) {
-          const int8_t* wr = a.w + (size_t)kk * row_bytes + n / 2;
-          wv[u][0] = __ldg(reinterpret_cast<const uint32_t*>(wr));
-          wv[u][1] = __ldg(reinterpret_cast<const uint32_t*>(wr + row_bytes));
-          const float* sp = s + (size_t)(kk / BLK) * a.N + n;
-          sv[u][0] = __ldg(reinterpret_cast<const uint4*>(sp));
-          sv[u][1] = __ldg(reinterpret_cast<const uint4*>(sp + 4));
-#pragma unroll
-          for (int m = 0; m < MT; ++m)
-            xv[u][m] = m < a.M ? *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)m * a.K + kk)
-                               : __floats2bfloat162_rn(0.f, 0.f);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (k + u * 2 * TK >= k_hi) break;
-        const float f[8] = {__uint_as_float(sv[u][0].x), __uint_as_float(sv[u][0].y),
-                            __uint_as_float(sv[u][0].z), __uint_as_float(sv[u][0].w),
-                            __uint_as_float(sv[u][1].x), __uint_as_float(sv[u][1].y),
-                            __uint_as_float(sv[u][1].z), __uint_as_float(sv[u][1].w)};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int p = static_cast<int>(wv[u][r]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {        // byte j: columns 2j (low), 2j+1 (high)
-            __nv_bfloat162 v = int_pair((p << (28 - 8 * j)) >> 28, (p << (24 - 8 * j)) >> 28);
-            v = __hmul2(v, __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]));
-            const float w0 = __low2float(v), w1 = __high2float(v);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              const float xm = r == 0 ? __low2float(xv[u][m]) : __high2float(xv[u][m]);
-              acc[m][2 * j] = fmaf(xm, w0, acc[m][2 * j]);
-              acc[m][2 * j + 1] = fmaf(xm, w1, acc[m][2 * j + 1]);
-            }
-          }
-        }
-      }
-    }
-  }
-  finish<MT, 8, EPI_NONE>(acc, a, tx, tk, TK);
 }
 
 // K3: the pure weight stream.  Every byte row of the split is loaded; rows
@@ -373,7 +335,7 @@ __global__ void __launch_bounds__(THREADS) k3_stream(Args a) {
   const int TX = a.cols / 8, TK = THREADS / TX;
   const int tid = threadIdx.x, tx = tid % TX, tk = tid / TX;
   const int n = blockIdx.x * a.cols + tx * 8;
-  const int G = a.K / BLK;
+  const int G = a.K / BK;
   const int r_lo = blockIdx.y * a.blocks_per_split * HB;
   const int r_hi = min(G, (blockIdx.y + 1) * a.blocks_per_split) * HB;
   const int tile_rows = a.tile_bk / 2, every = a.tile_bk / 16, n_tiles = a.K / a.tile_bk;
@@ -430,7 +392,7 @@ __global__ void __launch_bounds__(THREADS) k4_int8(Args a) {
   const int TX = a.cols / 4, TK = THREADS / TX;
   const int tid = threadIdx.x, tx = tid % TX, tk = tid / TX;
   const int n = blockIdx.x * a.cols + tx * 4;
-  const int G = a.K / BLK;
+  const int G = a.K / BK;
   const int kb_end = min(G, (blockIdx.y + 1) * a.blocks_per_split);
   const int8_t* xa = static_cast<const int8_t*>(a.xa);
   const int8_t* xb = static_cast<const int8_t*>(a.xb);
@@ -468,7 +430,7 @@ __global__ void __launch_bounds__(THREADS) k4_int8(Args a) {
         if (m >= a.M) break;
         int4 xl, xh;
         if constexpr (W4A8_X) {
-          const int8_t* xr = xa + (size_t)m * a.K + kb * BLK;
+          const int8_t* xr = xa + (size_t)m * a.K + kb * BK;
           xl = __ldg(reinterpret_cast<const int4*>(xr));
           xh = __ldg(reinterpret_cast<const int4*>(xr + HB));
         } else {
@@ -509,17 +471,42 @@ __global__ void probe_reduce(Args a) {
 
 using KernelFn = void (*)(Args);
 
+// A K1 instantiation and its dynamic shared memory (the ring)
+struct PlaneKernel {
+  KernelFn fn;
+  int smem;
+};
+
+template <int KIND>
+PlaneKernel plane_kernel(int M, bool wide) {
+  // narrow copies: [K, N/2] rows start on 4 bytes, [K/2, N] rows on 8 (N % 8 == 0)
+  constexpr int NARROW = KIND == I4NATIVE ? 4 : 8;
+  const KernelFn fn = M <= 8 ? (wide ? k_planes<1, KIND, 16> : k_planes<1, KIND, NARROW>)
+                             : (wide ? k_planes<2, KIND, 16> : k_planes<2, KIND, NARROW>);
+  return {fn, PlaneRing<KIND>::SMEM};
+}
+
+// The K1 kernel of (kind, M, N): 16-byte weight copies where every row
+// starts on 16 bytes
+PlaneKernel select_planes(int kind, int M, int N) {
+  const bool wide = N % (kind == I4NATIVE ? 32 : 16) == 0;
+  switch (kind) {
+    case SPLIT_I32: return plane_kernel<SPLIT_I32>(M, wide);
+    case SPLIT_I8: return plane_kernel<SPLIT_I8>(M, wide);
+    case I4NATIVE: return plane_kernel<I4NATIVE>(M, wide);
+    case BITCAST: return plane_kernel<BITCAST>(M, wide);
+    case ANDMASK: return plane_kernel<ANDMASK>(M, wide);
+    case ANDMASK_BF16S: return plane_kernel<ANDMASK_BF16S>(M, wide);
+    case NOSCALE: return plane_kernel<NOSCALE>(M, wide);
+    case HALFQ8: return plane_kernel<HALFQ8>(M, wide);
+    default: return {nullptr, 0};
+  }
+}
+
+// K3 and K4 (one instantiation per M class)
 template <int MT>
 KernelFn select_mt(int kind) {
   switch (kind) {
-    case SPLIT_I32: return k1_planes<MT, EX_I32, SC_F32, 2, EPI_NONE>;
-    case SPLIT_I8: return k1_planes<MT, EX_I8, SC_F32, 2, EPI_NONE>;
-    case BITCAST: return k1_planes<MT, EX_LOP3, SC_F32, 2, EPI_NONE>;
-    case ANDMASK: return k1_planes<MT, EX_AND, SC_F32, 2, EPI_NONE>;
-    case ANDMASK_BF16S: return k1_planes<MT, EX_AND, SC_BF16, 2, EPI_NONE>;
-    case NOSCALE: return k1_planes<MT, EX_AND, SC_NONE, 2, EPI_S16>;
-    case HALFQ8: return k1_planes<MT, EX_BYTE, SC_BF16, 1, EPI_XHI>;
-    case I4NATIVE: return k2_native<MT>;
     case STREAM: return k3_stream;
     case INTDOT: return k4_int8<MT, false>;
     case W4A8: return k4_int8<MT, true>;
@@ -527,7 +514,7 @@ KernelFn select_mt(int kind) {
   }
 }
 
-KernelFn select_kernel(int kind, int M) {
+KernelFn select_simt(int kind, int M) {
   if (M <= 1) return select_mt<1>(kind);
   if (M <= 2) return select_mt<2>(kind);
   if (M <= 4) return select_mt<4>(kind);
@@ -535,23 +522,17 @@ KernelFn select_kernel(int kind, int M) {
   return select_mt<16>(kind);
 }
 
-void launch(KernelFn fn, dim3 grid, cudaStream_t stream, const Args& a) {
-  fn<<<grid, THREADS, 0, stream>>>(a);
-}
-
-int epi_of(int kind) {
-  return kind == NOSCALE ? EPI_S16 : kind == HALFQ8 ? EPI_XHI : kind == STREAM ? EPI_XW : EPI_NONE;
-}
-
-bool valid_geometry(int M, int N, int K, int cols, int ksplit) {
-  return M >= 1 && M <= MAX_M && N > 0 && N % 8 == 0 && K > 0 && K % BLK == 0 &&
-         (cols == 32 || cols == 64 || cols == 128 || cols == 256) && ksplit > 0 &&
-         ksplit % BLK == 0;
+// K1 strips are DC_BN columns; K3 and K4 take any power of two 32 .. 256
+bool valid_geometry(int kind, int M, int N, int K, int cols, int ksplit) {
+  const bool cols_ok = is_planes(kind) ? cols == DC_BN
+                                       : cols == 32 || cols == 64 || cols == 128 || cols == 256;
+  return M >= 1 && M <= DECODE_MAX_M && N > 0 && N % 8 == 0 && K > 0 && K % BK == 0 && cols_ok &&
+         ksplit > 0 && ksplit % BK == 0;
 }
 
 int n_splits(int K, int ksplit) {
-  const int bps = ksplit / BLK;
-  return (K / BLK + bps - 1) / bps;
+  const int bps = ksplit / BK;
+  return (K / BK + bps - 1) / bps;
 }
 
 }  // namespace
@@ -559,61 +540,90 @@ int n_splits(int K, int ksplit) {
 // f32 workspace floats (the split-K partials) for this launch geometry; 0
 // when one split covers K (the kernel writes the output itself).
 extern "C" long long int4_probe_workspace(int M, int N, int K, int cols, int ksplit) {
-  if (!valid_geometry(M, N, K, cols, ksplit)) return 0;
+  if (M < 1 || N <= 0 || K < BK || cols <= 0 || ksplit < BK) return 0;
   const int splits = n_splits(K, ksplit);
   return splits > 1 ? (long long)splits * M * N : 0;
 }
 
-// checksum words: one per warp of each CTA
+// stream's checksum words: one per warp of each CTA
 extern "C" long long int4_probe_side_words(int N, int K, int cols, int ksplit) {
-  if (cols <= 0 || ksplit < BLK || K < BLK) return 0;
+  if (cols <= 0 || ksplit < BK || K < BK) return 0;
   return (long long)((N + cols - 1) / cols) * n_splits(K, ksplit) * WARPS;
 }
 
-// Launch the kernel of `kind` (enum Kind) and, under a split, probe_reduce.
-// tile_bn / tile_bk: the TPU tile whose elements noscale, halfq8 and stream
-// read.  Returns the launch's CUDA error.
+// Launch the kernel of `kind` (enum Kind): K1 (the plane kinds) in one
+// launch, with `counters` (int32, counter_slots >= ceil(N / 256) when K is
+// split; zero before the launch and left zero by it, one stream at a time);
+// K3 / K4 and, under a split, probe_reduce.  cols / ksplit: the CTA's
+// columns (K1: 256) and K rows per split; tile_bn / tile_bk: the TPU tile
+// whose elements noscale, halfq8 and stream read.  Returns the launch's CUDA
+// error.
 extern "C" int int4_probe_launch(int kind, const void* xa, const void* xb, const void* sx,
                                  const void* w, const void* s, const void* xw, void* out,
                                  void* workspace, long long ws_floats, void* side,
-                                 long long side_words, int M, int N, int K, int cols, int ksplit,
-                                 int tile_bn, int tile_bk, void* stream) {
-  if (kind < 0 || kind >= N_KINDS || !valid_geometry(M, N, K, cols, ksplit) || tile_bn <= 0 ||
-      tile_bk < BLK || tile_bk % BLK || tile_bk > K)
+                                 long long side_words, void* counters, int counter_slots, int M,
+                                 int N, int K, int cols, int ksplit, int tile_bn, int tile_bk,
+                                 void* stream) {
+  if (kind < 0 || kind >= N_KINDS || !valid_geometry(kind, M, N, K, cols, ksplit) ||
+      tile_bn <= 0 || tile_bk < BK || tile_bk % BK || tile_bk > K)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int splits = n_splits(K, ksplit);
+  const int splits = n_splits(K, ksplit), strips = (N + cols - 1) / cols;
   const long long need = int4_probe_workspace(M, N, K, cols, ksplit);
   if ((need > 0 && (workspace == nullptr || ws_floats < need)) ||
-      side == nullptr || side_words < int4_probe_side_words(N, K, cols, ksplit))
+      (kind == STREAM &&
+       (side == nullptr || side_words < int4_probe_side_words(N, K, cols, ksplit))) ||
+      (is_planes(kind) && splits > 1 && (counters == nullptr || counter_slots < strips)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{xa, xb, static_cast<const float*>(sx), static_cast<const int8_t*>(w), s,
          static_cast<const float*>(xw), static_cast<float*>(out),
          need > 0 ? static_cast<float*>(workspace) : nullptr, static_cast<uint32_t*>(side),
-         M, N, K, cols, ksplit / BLK, splits, tile_bn, tile_bk};
+         static_cast<int*>(counters), M, N, K, cols, ksplit / BK, splits, tile_bn, tile_bk};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  launch(select_kernel(kind, M), dim3((N + cols - 1) / cols, splits), st, a);
+  const dim3 grid(strips, splits);
+  if (is_planes(kind)) {
+    const PlaneKernel k = select_planes(kind, M, N);
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(k.fn), cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    k.fn<<<grid, THREADS, k.smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  select_simt(kind, M)<<<grid, THREADS, 0, st>>>(a);
   if (need > 0 && cudaPeekAtLastError() == cudaSuccess) {
     const dim3 rgrid(static_cast<unsigned>(((size_t)M * N + THREADS - 1) / THREADS));
-    const int epi = epi_of(kind);
-    launch(epi == EPI_S16 ? probe_reduce<EPI_S16> : epi == EPI_XHI ? probe_reduce<EPI_XHI>
-           : epi == EPI_XW ? probe_reduce<EPI_XW> : probe_reduce<EPI_NONE>, rgrid, st, a);
+    if (kind == STREAM) probe_reduce<EPI_XW><<<rgrid, THREADS, 0, st>>>(a);
+    else probe_reduce<EPI_NONE><<<rgrid, THREADS, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread, static shared memory and CTAs per SM of the kernel
-// that serves (kind, M): the tile tuner's fit check.
-extern "C" int int4_probe_attrs(int kind, int M, int device, int* regs, int* smem, int* ctas) {
-  if (kind < 0 || kind >= N_KINDS || M < 1 || M > MAX_M)
+// Registers per thread, static and dynamic shared memory and CTAs per SM
+// (with that dynamic shared memory) of the kernel that serves (kind, M) at a
+// 16-byte aligned N: the tile tuner's fit check.
+extern "C" int int4_probe_attrs(int kind, int M, int device, int* regs, int* smem, int* dyn_smem,
+                                int* ctas) {
+  if (kind < 0 || kind >= N_KINDS || M < 1 || M > DECODE_MAX_M)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const KernelFn fn = select_kernel(kind, M);
+  KernelFn fn;
+  int dyn = 0;
+  if (is_planes(kind)) {
+    const PlaneKernel k = select_planes(kind, M, 32 * DC_BN);
+    fn = k.fn;
+    dyn = k.smem;
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    fn = select_simt(kind, M);
+  }
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(fn));
   if (e != cudaSuccess) return static_cast<int>(e);
   *regs = attr.numRegs;
   *smem = static_cast<int>(attr.sharedSizeBytes);
+  *dyn_smem = dyn;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, reinterpret_cast<const void*>(fn), THREADS, 0));
+      ctas, reinterpret_cast<const void*>(fn), THREADS, dyn));
 }

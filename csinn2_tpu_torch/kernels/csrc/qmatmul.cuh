@@ -42,13 +42,15 @@
 // product taken transposed (the weights are A, x^T is B: one n8 tile for M
 // <= 8, two for M <= 16).  The split plan fills the card's CTA slots in one
 // wave; the last CTA of each strip finishes the split sums in the same
-// launch.  At prefill (M > 16) the 2·M·K·N flops and, at M <= 128, the
-// weight stream bound it: the prefill kernels (their notes below) stream x
-// and the raw quantized bytes through a 5-stage cp.async ring in shared
-// memory (134-171 KB, one CTA of 128 tokens × 256 columns an SM) and widen
-// the weights in registers, into wgmma A operands (qmm_wgmma_kernel, [K, N]
-// layouts) or mma.sync B fragments (qmm_mma_t_kernel, [N, K] layouts).  TMA
-// loads and a producer warp are later work.  One pair of widening functions
+// launch.  Its ring, loader and split finish are in decode_ring.cuh, which
+// the Q4_0 dequant probes (int4_probe.cu) share.  At prefill (M > 16) the
+// 2·M·K·N flops and, at M <= 128, the weight stream bound it: the prefill
+// kernels (their notes below) stream x and the raw quantized bytes through a
+// 5-stage cp.async ring in shared memory (134-171 KB, one CTA of 128 tokens ×
+// 256 columns an SM) and widen the weights in registers, into wgmma A
+// operands (qmm_wgmma_kernel, [K, N] layouts) or mma.sync B fragments
+// (qmm_mma_t_kernel, [N, K] layouts).  TMA loads and a producer warp are
+// later work.  One pair of widening functions
 // serves all of them: widen_kn for [k][n] bytes regrouped by ldmatrix.trans,
 // widen_nk for [n][k] bytes through plain ldmatrix.
 //
@@ -71,43 +73,16 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "decode_ring.cuh"
 #include "epilogue.cuh"
 
 namespace {
 
-constexpr int BK = 32;
-constexpr int THREADS = 256;
 constexpr int SWIGLU_HALF = 128;   // columns per half of a swiglu pair
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p, bool trans) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (trans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a · b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ uint32_t pack_bf162(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&v);
 }
 
 // lop3.b32: any bitwise function of three words, by its truth table (the
@@ -135,37 +110,9 @@ __device__ __forceinline__ float direct_epi(float v, int col, const Epi& ep) {
 // Prefill (M > 16): a multi-stage cp.async pipeline into tensor-core tiles
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// BYTES (16, 8 or 4) from global to the shared address dst, asynchronously;
-// ok == false fills zeros and reads nothing.  L2_256: ask the L2 to fetch the
-// whole 256-byte block around src (the next stages of a row that a stage
-// reads in short pieces).
-template <int BYTES, bool L2_256 = false>
-__device__ __forceinline__ void cp_async_s(uint32_t dst, const void* src, bool ok) {
-  const int n = ok ? BYTES : 0;
-  if constexpr (BYTES == 16 && L2_256)
-    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n));
-  else if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-  else if constexpr (L2_256)
-    asm volatile("cp.async.ca.shared.global.L2::256B [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(src), "n"(BYTES), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
-                 "n"(BYTES), "r"(n));
-}
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
   cp_async_s<BYTES>(smem_u32(dst), src, ok);
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // bf16 pair (b0, b1) from int8 bytes b0 (bits 0-7) and b1 (bits 16-23) of
@@ -187,10 +134,6 @@ __device__ __forceinline__ uint32_t i8_pair_bf162(uint32_t p) {
 __device__ __forceinline__ uint32_t nibble_pair_bf162(uint32_t p) {
   const uint32_t v = lop3<LOP3_AND_XOR>(p, 0x000F000Fu, 0x43084308u);
   return as_u32(__hsub2(as_bf162(v), as_bf162(0x43084308u)));   // 0x4308: 136
-}
-
-__device__ __forceinline__ uint32_t hmul2_u32(uint32_t a, uint32_t b) {
-  return as_u32(__hmul2(as_bf162(a), as_bf162(b)));
 }
 
 // The widening of every GEMM kernel here: raw weight bytes as ldmatrix
@@ -248,12 +191,6 @@ __device__ __forceinline__ void widen_nk(uint32_t r, int ks, uint32_t sc, uint32
     p[0] = hmul2_u32(p[0], sc);
     p[1] = hmul2_u32(p[1], sc);
   }
-}
-
-// A column's (or a column pair's) f32 block scales as duplicated bf16 pairs
-__device__ __forceinline__ uint32_t bf16_dup(float s) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(s);
-  return as_u32(__halves2bfloat162(h, h));
 }
 
 constexpr int PF_BM = 128;          // CTA tile rows (M)
@@ -670,244 +607,16 @@ qmm_mma_t_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 // Decode (M <= 16): a cp.async ring of raw weight bytes into mma.sync tiles
 // ---------------------------------------------------------------------------
 
-constexpr int DECODE_MAX_M = 16;   // M <= 16: qmm_decode_kernel
-constexpr int DC_BN = 256;         // columns of a CTA strip (a whole swiglu pair group)
-constexpr int DC_CTAS_PER_SM = 2;  // resident CTAs an SM, which the split plan fills
-constexpr int DC_MT = 16;          // x rows a stage holds (two n8 tiles of tokens)
-constexpr int DC_ZLOADS = 8;       // partial float4 loads in flight a thread (the finish)
-constexpr int DC_SPLIT_ALIGN = 4;  // a split's blocks: a multiple of 4 (whole stages, and
-                                   // [N, K] scale copies of 8 / 16 bytes)
-
-// One ring stage: the raw weight bytes as a tile of ROWS rows of ROW bytes,
-// 16-byte chunk c of row r at c ^ (r & 7) — [K, N] int8 / [K/2, N] packed: 64
-// (byte) rows of the strip's 256 columns (16 KB, 64 / 128 k); [N, K] / [N,
-// K/2]: 128 bytes of each of the strip's 256 rows (32 KB, 128 / 256 k: a row's
-// DRAM reads twice as long as with 64 bytes) — their block scales (f32
-// [SB][256]; [N, K]: [256][SB]) and the x rows (bf16 [16][SK], chunk c of row
-// r at c ^ (r & 7)): the ldmatrix reads below are free of bank conflicts.
-// [K, N] keeps 3 slots, [N, K] 2 (two CTAs an SM either way).  After the
-// loop the ring holds the CTA's f32 sums (the finish tile, [DC_MT][DC_BN]).
-template <bool PACKED, bool TRANS>
-struct Dc {
-  static constexpr int ROW = TRANS ? 128 : DC_BN;     // bytes of a weight tile row
-  static constexpr int ROWS = TRANS ? DC_BN : 64;     // weight tile rows
-  static constexpr int SB = (TRANS ? 2 : 1) * (PACKED ? 4 : 2);   // 32-k blocks a stage
-  static constexpr int SK = SB * BK;                  // k a stage
-  static constexpr int W_BYTES = ROW * ROWS;
-  static constexpr int S_BYTES = SB * DC_BN * 4;
-  static constexpr int X_ROW = SK * 2;                // bytes of an x row
-  static constexpr int STAGE = W_BYTES + S_BYTES + DC_MT * X_ROW;
-  static constexpr int STAGES = TRANS ? 2 : 3;        // ring slots, loads STAGES - 1 ahead
-  static constexpr int SMEM = STAGES * STAGE;
-};
-// two CTAs an SM (228 KB of shared memory, 1 KB of it reserved per CTA)
-static_assert(DC_CTAS_PER_SM * (Dc<true, true>::SMEM + 1024 + 16) <= 233472 &&
-                  DC_CTAS_PER_SM * (Dc<true, false>::SMEM + 1024 + 16) <= 233472,
-              "two decode CTAs an SM");
-static_assert(THREADS == DC_BN && DECODE_MAX_M <= DC_MT &&
-                  DC_MT * DC_BN * 4 <= Dc<false, false>::SMEM,
-              "the finish: a thread a column, the tile in the ring");
-
-// A thread's share of every ring stage of its split, stage after stage:
-// the raw weight bytes of columns n0 .. n0+255, their block scales and x
-// rows 0 .. 8·NT - 1, zero-filled past M, N and the split's last block.  A
-// thread copies the same chunks of every stage, so their shared offsets and
-// column predicates are set up once and its global pointers advance by a
-// constant a stage.  One cp.async group a stage, committed by the caller.
-template <int NT, bool PACKED, bool CHANNEL, bool TRANS>
-struct DcLoader {
-  using C = Dc<PACKED, TRANS>;
-  static constexpr int W_ITERS = C::W_BYTES / 16 / THREADS;         // weight chunks, 4096 B apart
-  static constexpr int W_CH = C::ROW / 16;                           // chunks of a tile row
-  // [N, K]: the L2 fetches 256 bytes around each read of a row, the next
-  // stage's bytes too (measured with 64-byte stages on the H100: w13 Q8_0
-  // 15 % faster; [K, N] reads 256-byte rows already and gained nothing)
-  static constexpr bool L2_256 = TRANS;
-  static constexpr int XCH = C::SK / 8;                              // chunks of an x row
-  static constexpr int X_ITERS = (8 * NT * XCH + THREADS - 1) / THREADS;
-  static constexpr int X_RSTEP = THREADS / XCH;                      // x rows between them
-  const int8_t* w0;          // a valid address for the chunks that read nothing
-  const float* s0;
-  const __nv_bfloat16* x0;
-  const int8_t* wp;          // the thread's first weight chunk of the next stage
-  size_t w_step, w_adv;      // bytes between its chunks of a stage; a stage's advance
-  const float* sp;           // its scale copy of the next stage
-  size_t s_adv;
-  const __nv_bfloat16* xp;   // its first x chunk of the next stage
-  size_t x_step;             // elements between its x chunks
-  uint32_t w_sm, s_sm, x_sm; // shared offsets within a stage
-  int w_blk, s_blk, x_blk;   // blocks of the chunks within a stage
-  int left;                  // blocks of the split from the next stage on
-  bool w_ok[W_ITERS], s_on, s_ok, s_vec, x_ok[X_ITERS];
-
-  __device__ __forceinline__ DcLoader(const __nv_bfloat16* x, const int8_t* w, const float* s,
-                                      int M, int N, int K, int n0, int kb_begin, int kb_end)
-      : w0(w), s0(s), x0(x) {
-    const int tid = threadIdx.x, nb = K / BK;
-    left = kb_end - kb_begin;
-    const int r = tid / W_CH, c = tid % W_CH;  // tile row r + (THREADS / W_CH)·j, chunk c
-    w_sm = r * C::ROW + ((c ^ (r & 7)) << 4);
-    if constexpr (!TRANS) {                    // byte rows of the k range, 256 columns
-      const int rows = PACKED ? BK / 2 : BK;   // byte rows of a block
-      wp = w + ((size_t)kb_begin * rows + r) * N + n0 + c * 16;
-      w_step = (size_t)(THREADS / W_CH) * N;
-      w_adv = (size_t)C::ROWS * N;
-      w_blk = 0;
-#pragma unroll
-      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + c * 16 < N;
-    } else {                                   // the strip's rows, ROW bytes of each
-      const size_t row = PACKED ? K / 2 : K;
-      wp = w + (size_t)(n0 + r) * row + (size_t)kb_begin * (PACKED ? BK / 2 : BK) + c * 16;
-      w_step = (THREADS / W_CH) * row;
-      w_adv = C::ROW;
-      w_blk = PACKED ? c : c / 2;
-#pragma unroll
-      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + r + (THREADS / W_CH) * j < N;
-    }
-    s_on = false;
-    if constexpr (!CHANNEL) {
-      if constexpr (TRANS) {                   // [N, K/32] → [256][SB], a row's SB floats
-        sp = s + (size_t)(n0 + tid) * nb + kb_begin;
-        s_adv = C::SB;
-        s_sm = tid * C::SB * 4;
-        s_blk = 0;
-        s_on = true;
-        s_ok = n0 + tid < N;
-        s_vec = nb % 4 == 0;                   // kb_begin % 4 == 0 (the plan): aligned
-      } else {                                 // [K/32, N] → [SB][256], 4 floats a copy
-        const int b = tid / (DC_BN / 4), c = tid % (DC_BN / 4);
-        sp = s + (size_t)(kb_begin + b) * N + n0 + c * 4;
-        s_adv = (size_t)C::SB * N;
-        s_sm = (b * DC_BN + c * 4) * 4;
-        s_blk = b;
-        s_on = tid < C::SB * DC_BN / 4;
-        s_ok = n0 + c * 4 < N;
-      }
-    }
-    const int xr = tid / XCH, xc = tid % XCH;  // x row xr + X_RSTEP·j, chunk xc
-    xp = x + (size_t)xr * K + (size_t)kb_begin * BK + xc * 8;
-    x_step = (size_t)X_RSTEP * K;
-    x_sm = xr * C::X_ROW + ((xc ^ (xr & 7)) << 4);
-    x_blk = xc / 4;
-#pragma unroll
-    for (int j = 0; j < X_ITERS; ++j) x_ok[j] = xr + X_RSTEP * j < M;
-  }
-
-  // the next stage into the ring slot at shared address st
-  __device__ __forceinline__ void load(uint32_t st) {
-#pragma unroll
-    for (int j = 0; j < W_ITERS; ++j) {
-      const int blk = TRANS ? w_blk : (PACKED ? j : j / 2);
-      const bool ok = w_ok[j] && blk < left;
-      cp_async_s<16, L2_256>(st + w_sm + j * 4096, ok ? wp + j * w_step : w0, ok);
-    }
-    if constexpr (!CHANNEL) {
-      const uint32_t ss = st + C::W_BYTES + s_sm;
-      if constexpr (TRANS) {
-        if (s_vec) {                           // kb0 % 4 == 0: 4 blocks a 16-byte copy
-#pragma unroll
-          for (int h = 0; h < C::SB / 4; ++h) {
-            const bool ok = s_ok && 4 * h < left;
-            cp_async_s<16, L2_256>(ss + h * 16, ok ? sp + 4 * h : s0, ok);
-          }
-        } else {
-#pragma unroll
-          for (int b = 0; b < C::SB; ++b) {
-            const bool ok = s_ok && b < left;
-            cp_async_s<4>(ss + b * 4, ok ? sp + b : s0, ok);
-          }
-        }
-      } else if (s_on) {
-        const bool ok = s_ok && s_blk < left;
-        cp_async_s<16>(ss, ok ? sp : s0, ok);
-      }
-      sp += s_adv;
-    }
-#pragma unroll
-    for (int j = 0; j < X_ITERS; ++j) {       // rows 0 .. 8·NT - 1 (zeros past M)
-      if (X_ITERS > 1 || (int)threadIdx.x < 8 * NT * XCH) {
-        const bool ok = x_ok[j] && x_blk < left;
-        cp_async_s<16>(st + C::W_BYTES + C::S_BYTES + x_sm + j * X_RSTEP * C::X_ROW,
-                       ok ? xp + j * x_step : x0, ok);
-      }
-    }
-    wp += w_adv;
-    xp += C::SK;
-    left -= C::SB;
-  }
-};
-
 // The end of a decode CTA: its f32 sums of columns n0 .. n0+255 (tile, row
 // m at m·DC_BN, in shared memory) through the split partials and the strip's
-// counter when K is split, then the epilogue (notes at the top).  The
-// partials move as float4s (a thread 4 columns of a row); one thread fences
-// the CTA's partial (ordered by the barrier) and takes the ticket; the
-// strip's last CTA issues every partial load of a thread (up to DC_ZLOADS)
-// before it sums them in split order, so the finish costs a few L2 round
-// trips, not one a row and split.
+// counter when K is split (dc_sum_splits; only the strip's last CTA goes on),
+// then the epilogue (notes at the top).
 template <int NT>
 __device__ __forceinline__ void dc_finish(float* tile, const Epi& ep, void* out,
                                           float* partial, int* counters, int M, int N,
                                           int splits, bool swiglu) {
-  constexpr int P = (8 * NT * DC_BN / 4 + THREADS - 1) / THREADS;  // float4s a thread
-  constexpr int ZB = (DC_ZLOADS + P - 1) / P;                      // splits a round
-  __shared__ int last;
+  if (!dc_sum_splits<NT>(tile, partial, counters, M, N, splits)) return;
   const int tid = threadIdx.x, strip = blockIdx.x, n0 = strip * DC_BN;
-  if (splits > 1) {
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
-      if (m < M && n0 + c < N)                 // N % 16 == 0: all 4 columns or none
-        *reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * M + m) * N + n0 + c) =
-            *reinterpret_cast<const float4*>(tile + m * DC_BN + c);
-    }
-    __syncthreads();
-    if (tid == 0) {
-      __threadfence();                         // the CTA's partial before its ticket
-      last = atomicAdd(counters + strip, 1) == splits - 1;
-      if (last) counters[strip] = 0;           // every split has taken its ticket
-      __threadfence();
-    }
-    __syncthreads();
-    if (!last) return;
-    const size_t zs = (size_t)M * N;           // a split's stride
-    float4 v[P];
-    bool ok[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
-      v[p] = make_float4(0.f, 0.f, 0.f, 0.f);
-      ok[p] = m < M && n0 + c < N;
-    }
-    for (int z0 = 0; z0 < splits; z0 += ZB) {
-      float4 q[ZB][P];
-#pragma unroll
-      for (int j = 0; j < ZB; ++j)
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
-          if (ok[p] && z0 + j < splits)
-            q[j][p] = __ldcg(reinterpret_cast<const float4*>(partial + (z0 + j) * zs +
-                                                             (size_t)m * N + n0 + c));
-        }
-#pragma unroll
-      for (int j = 0; j < ZB; ++j)             // in split order: the same bits every call
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-          if (ok[p] && z0 + j < splits) {
-            v[p].x += q[j][p].x;
-            v[p].y += q[j][p].y;
-            v[p].z += q[j][p].z;
-            v[p].w += q[j][p].w;
-          }
-    }
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
-      if (ok[p]) *reinterpret_cast<float4*>(tile + m * DC_BN + c) = v[p];
-    }
-    __syncthreads();
-  }
   const int col = n0 + tid;                    // a thread a column from here
   const float cs = ep.ch_scale != nullptr && col < N ? ep.ch_scale[col] : 1.f;
   const float cb = ep.bias != nullptr && col < N ? ep.bias[col] : 0.f;
@@ -1050,39 +759,15 @@ qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
   };
 
   DcLoader<NT, PACKED, CHANNEL, TRANS> loader(x, w, s, M, N, K, n0, kb_begin, kb_end);
-  const uint32_t ring = smem_u32(dc_smem);
-#pragma unroll
-  for (int t = 0; t < C::STAGES - 1; ++t) {
-    if (t < n_st) loader.load(ring + t * C::STAGE);
-    cp_async_commit();
-  }
-  for (int t = 0; t < n_st; ++t) {
-    cp_async_wait<C::STAGES - 2>();            // stage t has landed (later ones may not)
-    __syncthreads();                           // ... for every thread; stage t-1's slot is free
-    const int nt = t + C::STAGES - 1;
-    if (nt < n_st) loader.load(ring + (nt % C::STAGES) * C::STAGE);
-    cp_async_commit();
-    if constexpr (!STREAM) compute(dc_smem + (t % C::STAGES) * C::STAGE);
-  }
-  cp_async_wait<0>();
+  dc_ring<C>(loader, n_st, dc_smem, [&](const unsigned char* st) {
+    if constexpr (!STREAM) compute(st);
+  });
   if constexpr (!STREAM) {
-    __syncthreads();                           // the ring becomes the finish tile
-    // acc[t][nt][e]: token 8·nt + 2·tig + (e & 1); [K, N]: column cb + 16t + 2g
-    // (e < 2) or + 1 (e >= 2); TRANS: column cb + 16t + g (e < 2) or + 8
+    // [K, N]: rows g and g + 8 of tile t are columns cb + 16t + 2g and + 1;
+    // TRANS: cb + 16t + g and + 8
+    const int col[2] = {TRANS ? cb + g : cb + 2 * g, TRANS ? cb + 16 + g : cb + 16 + 2 * g};
     float* tile = reinterpret_cast<float*>(dc_smem);
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float* row = tile + (8 * nt + 2 * tig) * DC_BN;
-        const int c = TRANS ? cb + 16 * t + g : cb + 16 * t + 2 * g;
-        const int c2 = TRANS ? c + 8 : c + 1;
-        row[c] = acc[t][nt][0];
-        row[DC_BN + c] = acc[t][nt][1];
-        row[c2] = acc[t][nt][2];
-        row[DC_BN + c2] = acc[t][nt][3];
-      }
-    __syncthreads();
+    dc_tile_store<NT>(tile, acc, col, TRANS ? 8 : 1, tig);
     dc_finish<NT>(tile, ep, out, partial, counters, M, N, splits, swiglu != 0);
   }
 }

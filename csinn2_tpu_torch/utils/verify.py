@@ -1,4 +1,5 @@
-"""Golden-output verification metrics (a copy of csinn2_tpu/utils/verify.py).
+"""Golden-output verification metrics (a copy of csinn2_tpu/utils/verify.py,
+plus the port's own check_bf16_output).
 
 Mirrors the reference's accuracy gate (ref: result_verify_f32,
 tests/utils/test_utils.c:157-190): per-element abs/rel error, plus
@@ -83,3 +84,58 @@ def verify(out, golden, tol: float = 1e-4, min_cosine: float = 0.99,
         kl_div=kl, cosine_sim=cos,
         mismatches=int(bad.sum()), total=int(bad.size), passed=bool(passed),
     )
+
+
+def _bf16_order(v: np.ndarray) -> np.ndarray:
+    """bf16 values (held exactly in f32) as integers whose difference counts
+    the bf16 values between them (+0 and -0 both 0)."""
+    u = (np.ascontiguousarray(v, np.float32).view(np.uint32) >> 16).astype(np.int64)
+    mag = u & 0x7FFF
+    return np.where(u & 0x8000, -mag, mag)
+
+
+def _bf16_value(o: np.ndarray) -> np.ndarray:
+    """The bf16 value (as float64) of an order integer of _bf16_order."""
+    bits = np.where(o < 0, 0x8000 | -o, o).astype(np.uint32) << 16
+    return bits.view(np.float32).astype(np.float64)
+
+
+def check_bf16_output(got_bf16, got_f32, want_bf16, want_f32, tol) -> None:
+    """Hold a bf16 output to a reference's bf16 output where the two f32
+    sums agree only within `tol` (another summation order).  Raises
+    AssertionError unless:
+      1. |got_f32 - want_f32| <= tol everywhere;
+      2. got_bf16 is exactly got_f32 rounded to bf16 (nearest even);
+      3. got_bf16 equals want_bf16, except where want_f32 lies within tol of
+         every bf16 rounding midpoint between the two: one ulp apart where
+         want_f32 is that close to their midpoint (two f32 sums on either
+         side of it round apart), more only where tol spans several ulps
+         (a sum that cancels to far below the tolerance's scale).
+    Arrays are numpy (bf16 values as float32); tol a scalar or an array
+    broadcast to their shape."""
+    import torch
+    g32, w32 = (np.asarray(a, np.float32) for a in (got_f32, want_f32))
+    gb, wb = (np.asarray(a, np.float32) for a in (got_bf16, want_bf16))
+    assert g32.shape == w32.shape == gb.shape == wb.shape, \
+        f"shapes {g32.shape} {w32.shape} {gb.shape} {wb.shape}"
+    tol = np.broadcast_to(np.asarray(tol, np.float64), g32.shape)
+
+    def first(bad, what):
+        if bad.any():
+            i = tuple(int(j) for j in np.argwhere(bad)[0])
+            raise AssertionError(
+                f"{what} at {i} ({int(bad.sum())} elements): got bf16 {gb[i]!r} f32 {g32[i]!r}, "
+                f"want bf16 {wb[i]!r} f32 {w32[i]!r}, tol {tol[i]!r}")
+
+    first(~(np.abs(g32.astype(np.float64) - w32) <= tol), "f32 sums differ by more than tol")
+    rounded = torch.from_numpy(g32.copy()).to(torch.bfloat16).float().numpy()
+    first(rounded.view(np.uint32) != gb.view(np.uint32), "bf16 output is not bf16(its f32 sum)")
+    og, ow = _bf16_order(gb), _bf16_order(wb)
+    step = np.sign(og - ow)
+    # the first and the last midpoint between the two outputs (the same one
+    # when they are one ulp apart)
+    m_first = (_bf16_value(ow) + _bf16_value(ow + step)) / 2
+    m_last = (_bf16_value(og) + _bf16_value(og - step)) / 2
+    w64 = w32.astype(np.float64)
+    near = (np.abs(w64 - m_first) <= tol) & (np.abs(w64 - m_last) <= tol)
+    first((og != ow) & ~near, "bf16 outputs differ away from a rounding midpoint")

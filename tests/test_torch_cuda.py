@@ -15,7 +15,11 @@ CPU path, with and without CSINN2_DECODE_ATTN=flash;
 the op API's CUDA tier in a GRAPH session; the eleven Q4_0 dequant-probe
 kernels (kernels/int4_probe.py) at M 1, 5, 8 and 16, N not a multiple of the
 CTA's columns, K a multiple of 32 but not of the split, in three launch
-geometries; fused_dsconv (bit for bit) at odd H and
+geometries, and the eight plane kinds' tensor-core kernel at the ring's
+tails (N off the 256-column strip and off 16 / 32 bytes a row, splits that
+end mid-stage, an odd number of blocks), bit-identical repeated calls, its
+dynamic shared memory and two CTAs an SM, and every split the tile tuner
+sweeps; fused_dsconv (bit for bit) at odd H and
 W, C in {3, 8, 17, 1024}, O not a multiple of 8, k 3 and 5, stride 1 and 2,
 pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, and a small
 MobileNetV1 session fused against unfused; the prefill GEMM kernels in
@@ -50,7 +54,7 @@ from csinn2_tpu_torch.kernels import int4_probe as ip  # noqa: E402
 from csinn2_tpu_torch.kernels import launch_counts  # noqa: E402
 from csinn2_tpu_torch.kernels.qmatmul import (launch_key, pack_int4, quant_matmul,  # noqa: E402
                                               quant_matmul_ref)
-from csinn2_tpu_torch.utils.verify import cosine_similarity, verify  # noqa: E402
+from csinn2_tpu_torch.utils.verify import check_bf16_output, cosine_similarity, verify  # noqa: E402
 
 
 @pytest.fixture
@@ -766,14 +770,16 @@ def test_op_api_cuda_tier_on_the_card(dev):
 
 # -- the Q4_0 dequant probes (kernels/int4_probe.py) ---------------------------------
 
-# (K, N, bn, bk): bn selects 128, 64 and 256 columns per CTA; K = 11, 33 and
-# 10 blocks against splits of 4, 16 and 2 blocks; N not a multiple of cols
+# (K, N, bn, bk): for stream, intdot and w4a8 bn selects 128, 64 and 256
+# columns per CTA and K = 11, 33 and 10 blocks meet splits of 4, 16 and 2
+# blocks; the plane kinds take 256-column strips and the decode plan (4-block
+# splits, the last one short); N not a multiple of the columns, nor of 16
 PROBE_SHAPES = [(352, 200, 4096, 128), (1056, 264, 2048, 512), (320, 520, 8192, 64)]
 PROBE_CARRIER = {"split_i32": "q4_0", "split_i8": "q4_0", "stream": "q4_0",
                  "i4native": "native", "bitcast": "biased"}
 
 
-def _probe_case(gen, dev, kind, M, K, N, bn, bk):
+def _probe_case(gen, dev, kind, M, K, N, bn, bk, ksplit=None):
     x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randint(-8, 8, (K, N), generator=gen, device=dev, dtype=torch.int8)
     q[:, :8] = -8
@@ -782,7 +788,22 @@ def _probe_case(gen, dev, kind, M, K, N, bn, bk):
             "biased": ip.pack_int4_biased}.get(PROBE_CARRIER.get(kind), ip.pack_int4_mixed)
     if kind in ("andmask_bf16s", "noscale", "halfq8"):
         s = s.to(torch.bfloat16)
-    return ip.prepare(kind, x, pack(q), s, M, bn, bk)
+    return ip.prepare(kind, x, pack(q), s, M, bn, bk, ksplit=ksplit)
+
+
+def _probe_agrees(call):
+    """One launch of the call's kernel (counted), against its plain version
+    within 1e-5·max|y| (the same bf16 plane values; f32 sums in another
+    order); returns the kernel's output."""
+    key = f"int4_probe_{call.kind}"
+    before = launch_counts[key]
+    y = call.kernel()
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    ref = ip.kernel_ref(call.kind, call.tensors, call.M, call.N, call.K, call.bn, call.bk)
+    assert y.shape == (call.M, call.N) and y.dtype == torch.float32
+    assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    return y
 
 
 @pytest.mark.parametrize("shape", PROBE_SHAPES, ids=lambda s: "K{}_N{}_bn{}_bk{}".format(*s))
@@ -794,17 +815,16 @@ def test_int4_probe_kernels(gen, dev, kind, M, shape):
     1e-5·max|y| (the same bf16 plane values or int32 partials; f32 sums in
     another order)."""
     call = _probe_case(gen, dev, kind, M, *shape)
-    key = f"int4_probe_{kind}"
-    before = launch_counts[key]
-    y = call.kernel()
-    torch.cuda.synchronize()
-    assert launch_counts[key] == before + 1
-    ref = ip.kernel_ref(kind, call.tensors, call.M, call.N, call.K, call.bn, call.bk)
-    assert y.shape == (M, shape[1]) and y.dtype == torch.float32
     if kind == "stream":
-        assert torch.equal(y, ref)
+        before = launch_counts["int4_probe_stream"]
+        y = call.kernel()
+        torch.cuda.synchronize()
+        assert launch_counts["int4_probe_stream"] == before + 1
+        assert y.shape == (M, shape[1]) and y.dtype == torch.float32
+        assert torch.equal(y, ip.kernel_ref(kind, call.tensors, M, call.N, call.K, call.bn,
+                                            call.bk))
     else:
-        assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+        _probe_agrees(call)
     full = call()
     assert torch.isfinite(full).all()
 
@@ -827,12 +847,83 @@ def test_int4_probe_rejects_bad_args(gen, dev):
 
 
 def test_int4_probe_attrs_and_cold_timing(gen, dev):
+    """The tuner's fit check: the plane kinds report their ring as dynamic
+    shared memory (3 stages of 16 KB weights, the scales, 16 x rows) and
+    keep two CTAs an SM with it; the SIMT kinds have none."""
     from csinn2_tpu_torch.utils.timing import gpu_ms, gpu_ms_cold
-    attrs = ip.kernel_attrs("andmask", 8)
-    assert 0 < attrs["regs"] <= 255 and attrs["ctas_per_sm"] >= 1
+    for kind in ip.KINDS:
+        for M in (1, 8, 16):
+            attrs = ip.kernel_attrs(kind, M)
+            assert 0 < attrs["regs"] <= 255 and attrs["ctas_per_sm"] >= 1, (kind, M, attrs)
+            if kind in ip.PLANE_KINDS:
+                s_bytes = 2 if kind in ("andmask_bf16s", "noscale", "halfq8") else 4
+                assert attrs["dyn_smem"] == 3 * (16384 + 4 * 256 * s_bytes + 16 * 256), attrs
+                assert attrs["ctas_per_sm"] >= 2 and attrs["regs"] <= 128, (kind, M, attrs)
+            else:
+                assert attrs["dyn_smem"] == 0
     calls = [_probe_case(gen, dev, "andmask", 8, 1024, 512, 4096, 512) for _ in range(3)]
     assert gpu_ms_cold([c.kernel for c in calls], reps=6) > 0
     assert gpu_ms(calls[0].kernel, reps=4) > 0
+
+
+# (K, N, ksplit): 11 blocks in 3-block splits (every split ends mid-stage) at
+# N % 16 = 8 (8-byte weight copies; i4native 4-byte); 33 blocks, the plan, N
+# = 288 (a 32-column second strip, 16-byte copies); 13 blocks in 5-block
+# splits at N % 32 = 16 (i4native 4-byte copies, the others 16-byte); the 7B
+# w2 depth with 17 strips, the plan
+PLANE_TAILS = [(352, 200, 96), (1056, 288, None), (416, 272, 160), (11008, 4112, None)]
+
+
+@pytest.mark.parametrize("shape", PLANE_TAILS, ids=lambda s: "K{}_N{}_ks{}".format(*s))
+@pytest.mark.parametrize("M", [2, 9, 16])
+@pytest.mark.parametrize("kind", list(ip.PLANE_KINDS))
+def test_int4_probe_plane_tails(gen, dev, kind, M, shape):
+    """The plane kinds' tensor-core kernel at the ring's tails against its
+    plain version; the strip counters are zero after each launch."""
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    K, N, ksplit = shape
+    call = _probe_case(gen, dev, kind, M, K, N, 2048, 32 * (K // 64), ksplit=ksplit)
+    _probe_agrees(call)
+    counters = tq.strip_counters(dev, torch.cuda.current_stream(dev))
+    assert int(torch.count_nonzero(counters)) == 0
+    assert torch.isfinite(call()).all()
+
+
+@pytest.mark.parametrize("kind", list(ip.PLANE_KINDS))
+def test_int4_probe_plane_is_deterministic(gen, dev, kind):
+    """The 7B wo (16 splits) and w13 (3 splits) at M = 8: two calls give the
+    same bits, since the strip's last CTA sums the partials in split order."""
+    for K, N in ((4096, 4096), (4096, 22016)):
+        call = _probe_case(gen, dev, kind, 8, K, N, N, 512)
+        a = _probe_agrees(call)
+        b = call.kernel()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_int4_tile_tuner_splits_launch(gen, dev):
+    """Every split length the tile tuner sweeps launches and agrees with the
+    plain version (andmask, M = 8)."""
+    from csinn2_tpu_torch.examples import int4_tile_tune as tuner
+    n_sm = torch.cuda.get_device_properties(dev.index or 0).multi_processor_count
+    for K, N in ((2048, 4096), (4096, 1024)):
+        cands = tuner.splits(8, N, K, n_sm)
+        assert cands[0] == ip.plane_geometry(8, N, K, n_sm)[1] and len(cands) >= 4
+        for ksplit in cands:
+            _probe_agrees(_probe_case(gen, dev, "andmask", 8, K, N, N, 512, ksplit=ksplit))
+
+
+def test_int4_probe_plan_matches_the_library(dev):
+    """The plane kinds' default split (kernels/qmatmul.py gemm_plan) is the
+    decode GEMM library's: the workspaces match at the probe's 7B shapes."""
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for K, N in ((4096, 12288), (4096, 22016), (11008, 4096), (4096, 4096)):
+        for M in (1, 8, 16):
+            cols, ksplit = ip.plane_geometry(M, N, K, n_sm)
+            splits = -(-K // ksplit)
+            assert cols == 256 and splits * M * N == tq.kernel_workspace_floats(
+                M, N, K, False, False, 0)
 
 
 # -- the seventh slice: the redesigned prefill GEMM and split-KV decode ---------------
@@ -957,8 +1048,12 @@ def _check_decode(y, x, w, s, bias, odt, kw):
         return
     _agree(y, quant_matmul_ref(x, w, s, bias, out_dtype=odt, **kw))
     yf, rf = y.float().cpu().numpy(), ref.float().cpu().numpy()
-    slack = 2.0 ** -8 * np.abs(rf) if odt == torch.bfloat16 else 0.0
-    assert np.all(np.abs(yf - rf) <= 1e-4 * np.abs(rf).max() + slack)
+    if odt != torch.bfloat16:
+        assert np.all(np.abs(yf - rf) <= 1e-4 * np.abs(rf).max())
+        return
+    y32 = quant_matmul(x, w, s, bias, out_dtype=torch.float32, **kw).cpu().numpy()
+    r32 = _kernel_numerics_ref(x, w, s, bias, out_dtype=torch.float32, **kw).cpu().numpy()
+    check_bf16_output(yf, y32, rf, r32, 1e-4 * np.abs(r32).max())
 
 
 @pytest.mark.parametrize("mode", list(PF_MODES))

@@ -20,7 +20,12 @@ Gates:
   * the slice: the port's probe program with device="cpu" gives every
     variant of main (cur(quant_matmul), the w4a8 geometries and the andmask
     sweep included) the JAX function's cosine against the golden within
-    1e-4."""
+    1e-4;
+  * the tensor-core kernel of the eight plane kinds, modelled in numpy: its
+    widening of ldmatrix.trans register words and its A-fragment → (k,
+    column) map (i4native's permuted columns included) give the JAX body's
+    bf16 plane values bit for bit; its geometry is the decode GEMM's split
+    plan, and kernel_bytes counts the tiles the timing-only kinds move."""
 
 import functools
 import importlib.util
@@ -36,6 +41,7 @@ import torch
 from csinn2_tpu.kernels.qmatmul import quant_matmul as jax_qmm
 from csinn2_tpu_torch.examples import int4_dequant_probe as tprobe
 from csinn2_tpu_torch.kernels import int4_probe as T
+from csinn2_tpu_torch.kernels import qmatmul as tq
 from csinn2_tpu_torch.kernels.qmatmul import pack_int4 as t_pack_int4
 from csinn2_tpu_torch.utils.verify import cosine_similarity
 
@@ -204,6 +210,37 @@ def test_launch_geometry():
     assert T.launch_geometry(128, 256) == (32, 256)
 
 
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_plane_geometry_is_the_decode_plan(M):
+    """The plane kinds take the decode GEMM's 256-column strip and split plan
+    (on the H100's 132 SMs: wqkv 5 splits, w13 3, w2 15, wo 16), the SIMT
+    kinds the TPU tile's geometry; a ksplit sets the split length."""
+    want = {(4096, 12288): 896, (4096, 22016): 1408, (11008, 4096): 768, (4096, 4096): 256}
+    for (K, N), rows in want.items():
+        plan = tq.gemm_plan(M, N, K, False, 132)
+        assert T.plane_geometry(M, N, K, 132) == (256, rows) \
+            == (plan["strip"], plan["blocks_per_split"] * 32)
+        for kind in T.PLANE_KINDS:
+            assert T.geometry(kind, M, N, K, 5504, 512, 132) == (256, rows)
+            assert T.geometry(kind, M, N, K, 5504, 512, 132, ksplit=96) == (256, 96)
+        for kind in ("stream", "intdot", "w4a8"):
+            assert T.geometry(kind, M, N, K, 5504, 512, 132) == (128, 512)
+    assert set(T.PLANE_KINDS) | {"stream", "intdot", "w4a8"} == set(T.KINDS)
+
+
+def test_ksplit_override_checks():
+    x = torch.zeros((8, 512), dtype=torch.bfloat16)
+    w = torch.zeros((256, 64), dtype=torch.int8)
+    s = torch.zeros((16, 64))
+    call = T.prepare("andmask", x, w, s, 8, 128, 256, ksplit=96)
+    assert call.ksplit == 96 and T.prepare("andmask", x, w, s, 8, 128, 256).ksplit is None
+    for bad in (0, 48, -32):
+        with pytest.raises(ValueError, match="ksplit"):
+            T.prepare("andmask", x, w, s, 8, 128, 256, ksplit=bad)
+    with pytest.raises(ValueError, match="ksplit"):
+        T.prepare("stream", x, w, s, 8, 128, 256, ksplit=128)
+
+
 def test_kernel_bytes():
     K, N = 4096, 22016
     base = K * N // 2 + M * N * 4
@@ -212,6 +249,171 @@ def test_kernel_bytes():
     assert T.kernel_bytes("stream", M, N, K) == base + M * N * 4
     assert T.kernel_bytes("w4a8", M, N, K) == base + K // 32 * N * 4 + M * K
     assert T.kernel_bytes("intdot", M, N, K) == base + K // 32 * N * 4 + M * K + M * K // 8
+    # the timing-only kinds move the tiles they do not read: the bf16 scales
+    # (noscale) and x_hi (halfq8)
+    for kind in ("noscale", "halfq8"):
+        assert T.kernel_bytes(kind, M, N, K) == base + K // 32 * N * 2 + M * K * 2
+    for kind in ("split_i32", "split_i8", "bitcast", "i4native"):
+        assert T.kernel_bytes(kind, M, N, K) == base + K // 32 * N * 4 + M * K * 2
+
+
+# -- the tensor-core kernel K1 (csrc/int4_probe.cu k_planes), modelled in numpy ------
+#
+# A CTA's strip is 256 columns, warp w owns columns 32w .. 32w + 31 as two
+# m16n8k16 tiles.  ldmatrix.x4.trans hands lane (g, tig) of matrix j a word
+# of the bytes (r, c), (r, c+1), (r+1, c), (r+1, c+1) of a 16-byte chunk,
+# r = 2·tig, c = 2·g.  The model builds those words from a block's bytes,
+# widens them as each kind's CUDA code does (integer ops on the words, I2F
+# as an exact int → bf16, HMUL2 as the product rounded to bf16), places each
+# A-fragment pair at the (k, column) the kernel's finish stores it at, and
+# holds the plane matrix bit for bit to the JAX body's.
+
+def _bf16(v):
+    """Round to bf16 (nearest even), as float64."""
+    return torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def _trans_word(tile, r0, c0, g, tig):
+    """The ldmatrix.trans word of lane (g, tig) for the 8 × 16-byte matrix at
+    tile rows r0 .. r0+7, bytes c0 .. c0+15 (little-endian byte order)."""
+    r, c = r0 + 2 * tig, c0 + 2 * g
+    b = [tile[r, c], tile[r, c + 1], tile[r + 1, c], tile[r + 1, c + 1]]
+    return sum(int(v) << (8 * i) for i, v in enumerate(np.asarray(b, np.uint8)))
+
+
+def _sbyte(word, i):
+    return int(np.int8(np.uint8((word >> (8 * i)) & 0xFF)))
+
+
+def _sra(word, left):
+    """(int32(word) << left) >> 28, arithmetic."""
+    v = np.int64((word << left) & 0xFFFFFFFF)
+    return int(((v ^ 0x80000000) - 0x80000000) >> 28)
+
+
+def _widen_plane(ex, r, ks):
+    """csrc/int4_probe.cu widen_plane: (e, o) = the unscaled pairs (k, k+1) of
+    columns c and c+1, as float pairs (exact values of the bf16 results)."""
+    if ex == "i32":
+        return ((_sra(r, 28 - 4 * ks), _sra(r, 12 - 4 * ks)),
+                (_sra(r, 20 - 4 * ks), _sra(r, 4 - 4 * ks)))
+    if ex == "i8":
+        t = ((r >> (4 * ks)) & 0x0F0F0F0F) ^ 0x08080808
+        v = sum((((t >> (8 * i)) & 0xFF) - 8) % 256 << (8 * i) for i in range(4))   # __vsub4
+        return (_sbyte(v, 0), _sbyte(v, 2)), (_sbyte(v, 1), _sbyte(v, 3))
+    if ex == "lop3":
+        def pair(bits):
+            return tuple(np.array([bits & 0xFFFF, bits >> 16], np.uint16)
+                         .astype(np.uint32).__lshift__(16).view(np.float32).astype(float))
+        return (pair(((r >> (4 * ks)) & 0x000F000F) | 0x43004300),
+                pair(((r >> (8 + 4 * ks)) & 0x000F000F) | 0x43004300))
+    if ex == "and":
+        v = r & (0xF0F0F0F0 if ks else 0x0F0F0F0F)
+        return (_sbyte(v, 0), _sbyte(v, 2)), (_sbyte(v, 1), _sbyte(v, 3))
+    assert ex == "byte"
+    return (_sbyte(r, 0), _sbyte(r, 2)), (_sbyte(r, 1), _sbyte(r, 3))
+
+
+def _widen_native(r, t):
+    """csrc/int4_probe.cu widen_native: columns 4g + 2t (e) and + 1 (o)."""
+    return ((_sra(r, 28 - 8 * t), _sra(r, 12 - 8 * t)),
+            (_sra(r, 24 - 8 * t), _sra(r, 8 - 8 * t)))
+
+
+# kind → (widening, scale: "f32" rounded to bf16, "bf16" as it is, or None)
+K1_KINDS = {"split_i32": ("i32", "f32"), "split_i8": ("i8", "f32"), "bitcast": ("lop3", "f32"),
+            "andmask": ("and", "f32"), "andmask_bf16s": ("and", "bf16"),
+            "noscale": ("and", None), "halfq8": ("byte", "bf16"), "i4native": ("i32", "f32")}
+
+
+def _model_block(kind, tile, s_cols):
+    """The plane values [k, n] one block's stage gives the mma A fragments,
+    placed at the k and the column the kernel assigns them (each once).
+    tile: the block's bytes — [16, 256] of a [K/2, N] pack, or [32, 128] of
+    the [K, N/2] carrier; s_cols: the block's scales [256] (f32 or bf16)."""
+    ex, sc = K1_KINDS[kind]
+    native = kind == "i4native"
+    planes = 1 if kind == "halfq8" else 2
+    out = np.full((32 if planes == 2 or native else 16, 256), np.nan)
+    scale = None if sc is None else _bf16(s_cols.float().numpy() if sc == "f32"
+                                          else s_cols.float().numpy())
+    for w in range(8):
+        cb = 32 * w
+        for lane in range(32):
+            g, tig = lane // 4, lane % 4
+            for ks in range(planes):
+                for t in range(2):
+                    col = cb + 4 * g + 2 * t if native else cb + 16 * t + 2 * g
+                    for h in range(2):                 # k 0-7 and 8-15 of the step
+                        if native:                      # matrix 2ks + h: k rows 16ks + 8h ..
+                            r = _trans_word(tile, 16 * ks + 8 * h, 16 * w, g, tig)
+                            e, o = _widen_native(r, t)
+                        else:                           # matrix 2t + h: byte rows 8h .., chunk
+                            r = _trans_word(tile, 8 * h, cb + 16 * t, g, tig)
+                            e, o = _widen_plane(ex, r, ks)
+                        k = 16 * ks + 8 * h + 2 * tig
+                        for n, pair in ((col, e), (col + 1, o)):
+                            v = np.asarray(pair, float)
+                            if scale is not None:
+                                v = _bf16(v * scale[n])
+                            assert np.isnan(out[k:k + 2, n]).all()
+                            out[k:k + 2, n] = v
+    assert not np.isnan(out).any()
+    return out
+
+
+def _jax_block_planes(kind, p, q, s):
+    """The JAX body's dequantized plane values [k, n] of one block (k < 16:
+    the low plane of byte row k, else the high plane of byte row k - 16;
+    halfq8: the one plane of the 16 byte rows; i4native: the 32 rows of
+    jnp.int4), as examples/int4_dequant_probe.py computes them."""
+    pj, sj = jnp.asarray(p), jnp.asarray(s)
+    s16 = sj.astype(jnp.bfloat16)
+    if kind == "split_i32":                                          # :103-108
+        p32 = pj.astype(jnp.int32)
+        lo, hi = ((p32 << 28) >> 28).astype(jnp.bfloat16), (p32 >> 4).astype(jnp.bfloat16)
+    elif kind == "split_i8":                                         # :110-111
+        lo, hi = ((pj << 4) >> 4).astype(jnp.bfloat16), (pj >> 4).astype(jnp.bfloat16)
+    elif kind == "bitcast":                                          # :199-203
+        p16 = pj.astype(jnp.int16)
+        lo = jax.lax.bitcast_convert_type((p16 & 0xF) | 0x4300, jnp.bfloat16)
+        hi = jax.lax.bitcast_convert_type(((p16 >> 4) & 0xF) | 0x4300, jnp.bfloat16)
+    elif kind in ("andmask", "andmask_bf16s", "noscale"):            # :247-251, :450-451
+        lo = (pj & jnp.int8(0x0F)).astype(jnp.bfloat16)
+        hi = (pj & jnp.int8(-16)).astype(jnp.bfloat16)
+    elif kind == "halfq8":                                           # :469-471
+        return np.asarray(pj.astype(jnp.bfloat16) * s16, np.float64)
+    else:                                                            # i4native, :149-151
+        w4 = jax.jit(lambda a: a.astype(jnp.int4))(jnp.asarray(q))
+        return np.asarray(w4.astype(jnp.bfloat16) * s16, np.float64)
+    if kind != "noscale":
+        lo, hi = lo * s16, hi * s16
+    return np.concatenate([np.asarray(lo, np.float64), np.asarray(hi, np.float64)])
+
+
+@pytest.mark.parametrize("kind", list(K1_KINDS))
+def test_k1_widening_and_fragment_map_match_jax_planes(kind):
+    """K1's widening of ldmatrix.trans words and its A-fragment → (k, column)
+    map, including i4native's permuted column order, give the JAX body's
+    bf16 plane values bit for bit on one block of a 256-column strip (every
+    byte value in every nibble position, scales of every magnitude)."""
+    rng = np.random.default_rng(3)
+    q = rng.integers(-8, 8, (32, 256)).astype(np.int8)
+    q[:16, :16] = np.arange(-8, 8)[None, :]
+    q[16:, 16:32] = np.arange(-8, 8)[:, None]
+    s = (rng.random((1, 256)) * 0.02 + 0.001).astype(np.float32)
+    s[0, :4] = (3e-3, 1.0, 7.5, 1e-5)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    scale = st.to(torch.bfloat16) if K1_KINDS[kind][1] == "bf16" else st
+    if kind == "i4native":
+        pack = T.pack_int4_native(qt)                    # [32, 128]
+    else:
+        pack = {"split_i32": t_pack_int4, "split_i8": t_pack_int4,
+                "bitcast": T.pack_int4_biased}.get(kind, T.pack_int4_mixed)(qt)   # [16, 256]
+    got = _model_block(kind, pack.numpy(), scale[0])
+    want = _jax_block_planes(kind, pack.numpy(), q, s[:1].repeat(16 if kind != "i4native"
+                                                                 else 32, 0))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_argument_checks():
