@@ -49,9 +49,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      fused logits equal to unfused ones bit for bit (batch 128 and 1), to
      the port's CPU plain path within the fc's 1 LSB (batch 1), cosine
      >= 0.99 against forward_f32 (bench.py's gate); img/s at batch 128 and
-     batch-1 latency, fused and unfused (CUDA events); each of the 13 block
-     shapes of fused_dsconv against fused_dsconv_ref (bit for bit), timed
-     beside its bound, the plain version and the unfused pair.
+     batch-1 latency, fused and unfused (CUDA events), and the fused_dsconv
+     launches over those runs; each of the 13 block shapes of fused_dsconv
+     against fused_dsconv_ref (bit for bit), timed beside its bound, the
+     plain version and the unfused pair, and their sum against the summed
+     bound.
   8. the op API's CUDA tier (kernels/autodispatch.py) at Llama-2-7B width:
      ops.fullyconnected on Q8_0 and Q4_0 block tensors of one layer's four
      projections (wqkv, wo, w13, w2; made on the card from a seed) at M = 128
@@ -81,8 +83,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
-versions at 7B shapes; the modes without a package caller (rows 1b' and
-1d) are then driven once each through quant_matmul, which is their path.
+versions at 7B shapes, then times the int8-x GEMM (row 1d) cold at w13, M
+= 1-2048, in the float and requantize epilogues beside its bound and
+torch._int_mm's faster operand layout; the modes without a package caller
+(rows 1b' and 1d, the int8-x swiglu) are then driven once each through
+quant_matmul, which is their path.
 Each path's run zeroes the launch counts just before it and reads them just
 after.  No phase uses torch.profiler: once it has traced,
 host-side launches stay slower for the rest of the process, which would skew
@@ -303,6 +308,17 @@ def check_gemm_plan():
                 n += 1
     log(f"  GEMM plan mirror = library workspace at {n} 7B cases; w13 M=128: "
         f"{tq.gemm_plan(128, 22016, 4096, False, n_sm)}")
+    n = 0
+    for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)):
+        for M in (1, 4, 8, 16, 17, 128, 512, 2048):
+            want = tq.kernel_int8dot_plan(M, N, K, 0)
+            got = tq.int8dot_plan(M, N, K, n_sm)
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"int8-x GEMM plan mirror M={M} K={K} N={N}: {got}, "
+                                     f"the library {want}")
+            n += 1
+    log(f"  int8-x GEMM plan mirror = library at {n} 7B cases; w13 M=128: "
+        f"{tq.int8dot_plan(128, 22016, 4096, n_sm)}")
 
 
 def _kv_case(g, b, hk, S, d, scale):
@@ -498,9 +514,9 @@ NEW_QMM = {  # kind → (launch_counts name, label)
     "t_int8_channel": ("quant_matmul_t", "INT8_CHANNEL [N,K]"),
     "t_packed": ("quant_matmul_t", "Q4_0 packed [N,K/2] + [N,K/32]"),
 }
-# the case each new kernel's record shows (w13; decode M = 4)
-NEW_RECORD = {"quant_matmul_int8dot": "int8dot", "quant_matmul_requant": "requant",
-              "quant_matmul_none": "none", "quant_matmul_t": "t_q8_0"}
+# the case each new kernel's record shows (w13; decode M = 4); the int8-x
+# kernels' records come from check_int8dot_cold
+NEW_RECORD = {"quant_matmul_none": "none", "quant_matmul_t": "t_q8_0"}
 
 
 def _x_for(g, kind, M, K):
@@ -510,24 +526,88 @@ def _x_for(g, kind, M, K):
     return torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
 
 
+def _int_mm_x(x):
+    """x as torch._int_mm takes it: it refuses M <= 16, so x zero-padded to 32
+    rows there."""
+    import torch
+    if x.shape[0] > 16:
+        return x
+    return torch.cat([x, x.new_zeros((32 - x.shape[0], x.shape[1]))])
+
+
 def int_mm_ms(x, w):
-    """torch._int_mm's time on the same int8 operands (int32 sums only).  It
-    refuses M <= 16, so there it takes x zero-padded to 32 rows."""
+    """torch._int_mm's time on the same int8 operands (int32 sums only), warm."""
     import torch
     from csinn2_tpu_torch.utils.timing import gpu_ms
-    if x.shape[0] <= 16:
-        xp = torch.zeros((32, x.shape[1]), dtype=x.dtype, device=x.device)
-        xp[:x.shape[0]] = x
-        log(f"  (torch._int_mm refuses M <= 16: timed on x{tuple(x.shape)} zero-padded to "
-            "32 rows)")
-        return gpu_ms(lambda: torch._int_mm(xp, w))
-    return gpu_ms(lambda: torch._int_mm(x, w))
+    xp = _int_mm_x(x)
+    return gpu_ms(lambda: torch._int_mm(xp, w))
+
+
+def check_int8dot_cold(records):
+    """Row 1d on its redesigned kernels: the int8-x GEMM at w13 (INT8_CHANNEL
+    [K, N] weight) at M = 1, 4, 8, 16, 128, 512 and 2048 in the float
+    epilogue (channel scale, f32 out) and the requantize (int32 bias,
+    rq_mult → int8), bit for bit the plain version, timed cold (weight
+    copies beyond twice the L2) beside its bound and torch._int_mm's faster
+    operand layout, cold: w [K, N], or the [N, K] copy's .t() view, which
+    cuBLASLt takes column-major (x zero-padded to 32 rows at M <= 16).  The
+    records of quant_matmul_int8dot and quant_matmul_requant: M = 4, with
+    the prefill rows under "prefill"."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.core.quant import quantize_multiplier
+    from csinn2_tpu_torch.kernels.qmatmul import quant_matmul, quant_matmul_ref
+    from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms, gpu_ms_cold, l2_bytes
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    K, N = 4096, 22016
+    w = torch.randint(-128, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    s = torch.rand((N,), generator=g, device="cuda") * 1e-3 + 1e-5
+    bias = torch.randint(-2**18, 2**18, (N,), generator=g, device="cuda", dtype=torch.int32)
+    mult, shift = quantize_multiplier(np.random.default_rng(4).uniform(1e-6, 1e-4, N))
+    epilogues = {
+        "quant_matmul_int8dot": ("float: channel, f32 out", s, None, dict(scale_mode="channel")),
+        "quant_matmul_requant": ("requant: int32 bias, rq_mult -> int8", None, bias,
+                                 dict(scale_mode="none", out_dtype=torch.int8, out_zp=3.0,
+                                      rq_mult=torch.from_numpy(mult).cuda(),
+                                      rq_shift=torch.from_numpy(shift).cuda()))}
+    copies = [w] + [w.clone() for _ in range(cold_copies(w.numel(), l2_bytes()) - 1)]
+    lib_layouts = {"w [K,N]": copies, "[N,K].t()": [c.t().contiguous().t() for c in copies]}
+    for M in (1, 4, 8, 16, 128, 512, 2048):
+        x = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+        xp = _int_mm_x(x)
+        libs = {name: gpu_ms_cold([lambda c=c: torch._int_mm(xp, c) for c in cs])
+                for name, cs in lib_layouts.items()}
+        lib_name = min(libs, key=libs.get)
+        for key, (label, sc, b, kw) in epilogues.items():
+            y = quant_matmul(x, w, sc, b, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(y, quant_matmul_ref(x, w, sc, b, **kw)):
+                raise AssertionError(f"{key} w13 M={M}: {int((y != quant_matmul_ref(x, w, sc, b, **kw)).sum())} outputs differ")
+            ms = gpu_ms_cold([lambda c=c: quant_matmul(x, c, sc, b, **kw) for c in copies])
+            plain = gpu_ms(lambda: quant_matmul_ref(x, w, sc, b, **kw), reps=3)
+            nbytes = M * K + K * N + 8 * N + M * N * y.element_size()
+            b_ms, b_by = bound(nbytes, 2.0 * M * N * K, INT8_OPS)
+            log(f"  {key} {label} w13 M={M:4d} cold: ms={ms:.4f} plain_ms={plain:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} torch._int_mm "
+                f"{libs['w [K,N]']:.4f} (w [K,N]) / {libs['[N,K].t()']:.4f} ([N,K].t()): "
+                f"x{ms / libs[lib_name]:.2f} of the faster; bit for bit")
+            rec = records.setdefault(key, {"max_abs_err": 0.0})
+            row = dict(ms=ms, plain_ms=plain, library_ms=libs[lib_name], bound_ms=b_ms,
+                       bound_by=b_by, library_layout=lib_name)
+            if M == 4:
+                rec.update(row, shape=f"{label} w13 M=4 K={K} N={N} [K,N], cold (library: "
+                                      f"torch._int_mm, x zero-padded to 32 rows, {lib_name})")
+            elif M > 16:
+                rec.setdefault("prefill", {})[f"M={M}"] = row
+    del copies, lib_layouts
 
 
 def kernel_api_path():
-    """The path of the modes no package caller reaches (rows 1b' and 1d):
-    the public kernel API, quant_matmul, once per mode at each 7B shape.
-    Returns the launch counts of exactly these calls."""
+    """The path of the modes no package caller reaches (rows 1b' and 1d,
+    the int8-x swiglu too): the public kernel API, quant_matmul, once per
+    mode at each 7B shape.  Returns the launch counts of exactly these
+    calls."""
     import torch
     from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
     from csinn2_tpu_torch.kernels.qmatmul import quant_matmul
@@ -538,6 +618,8 @@ def kernel_api_path():
         for _, K, N, Ms in NEW_SHAPES:
             w, s, b, kw, _ = _new_qmm_case(g, kind, K, N)
             calls += [(_x_for(g, kind, M, K), w, s, b, kw) for M in Ms]
+            if kind == "int8dot" and N % 256 == 0:     # the swiglu pairs (w13)
+                calls += [(_x_for(g, kind, M, K), w, s, b, dict(kw, swiglu=True)) for M in Ms]
     torch.cuda.synchronize()
     reset_launch_counts()
     for x, w, s, b, kw in calls:
@@ -1200,7 +1282,7 @@ def check_dsconv_blocks(records, sess, xin, fwd_ms, gpu_line):
     import torch
     from csinn2_tpu_torch.kernels import dsblock as ds
     from csinn2_tpu_torch.utils.timing import gpu_ms
-    worst, total = None, 0.0
+    worst, total, total_bound = None, 0.0, 0.0
     for i, (node, arrays, graph_out) in enumerate(_block_calls(sess, xin)):
         metas = [t.meta for t in node.inputs]
         args, kw = ds.fused_args(arrays, metas, node.params, node.out_qinfo, **node.extra)
@@ -1230,13 +1312,15 @@ def check_dsconv_blocks(records, sess, xin, fwd_ms, gpu_line):
         log(f"  fused_dsconv {shape}: ms={ms:.4f} plain_ms={plain:.4f} "
             f"unfused_pair_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f}")
         total += ms
+        total_bound += b_ms
         if worst is None or ms > worst["ms"]:
             # no single PyTorch call computes the block: library_ms is null,
             # and the unfused pair stands beside it
             worst = dict(ms=ms, plain_ms=plain, library_ms=None, unfused_pair_ms=lib,
                          bound_ms=b_ms, bound_by=b_by, shape=shape, max_abs_err=0.0)
-    records["fused_dsconv"] = worst
-    log(f"  13 fused_dsconv launches: {total:.4f} ms of the {fwd_ms:.4f} ms fused "
+    records["fused_dsconv"] = dict(worst, blocks_ms=total, blocks_bound_ms=total_bound)
+    log(f"  13 fused_dsconv launches: {total:.4f} ms against a summed bound of "
+        f"{total_bound:.4f} ms ({total_bound / total:.3f}), of the {fwd_ms:.4f} ms fused "
         f"forward at batch {CNN_BATCH} ({100 * total / fwd_ms:.1f} %) [{gpu_line}]")
 
 
@@ -1319,8 +1403,14 @@ def cnn_path(records, gpu_line: str):
         log(f"  {'fused  ' if fused else 'unfused'}: batch {CNN_BATCH} {CNN_BATCH / t128:.1f} "
             f"img/s ({t128 * 1e3:.3f} ms/forward), batch 1 latency {t1 * 1e3:.3f} ms "
             f"(CUDA events, median of 2x3 x {{10, 50}} runs, host gaps included) [{gpu_line}]")
+    # the phase's launches since the main path's reset, before the per-block
+    # comparisons (13 a fused forward)
+    phase = launch_counts["fused_dsconv"]
+    log(f"  fused_dsconv launches over the phase's sessions and timings: {phase} "
+        f"({phase // 13} fused forwards of 13)")
     check_dsconv_blocks(records, sess[True, CNN_BATCH], xin[CNN_BATCH],
                         statistics.median(times[True, CNN_BATCH]) * 1e3, gpu_line)
+    records["fused_dsconv"]["launches_phase"] = phase
     del sess, out
     torch.cuda.empty_cache()
     return counts
@@ -1452,6 +1542,7 @@ def main() -> int:
     check_quant_matmul(records)
     check_attention(records)
     check_new_quant_matmul(records)
+    check_int8dot_cold(records)
     check_flash_bhsd(records)
     check_attention_dims(records)
     torch.cuda.empty_cache()
@@ -1512,7 +1603,8 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"]}
         for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
-                      "decode_cold", "cur_ms"):
+                      "decode_cold", "cur_ms", "library_layout", "blocks_ms",
+                      "blocks_bound_ms", "launches_phase"):
             if extra in r:
                 entry[extra] = r[extra]
         if name in reduce_per_step:

@@ -7,14 +7,16 @@ so two versions compare inside one call on one card.
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --trees OLD . . OLD
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only decode
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only probe,decode --trees OLD . . OLD
+    python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only int8,dsconv --trees OLD . . OLD
 
 With --trees, each tree (a directory holding csinn2_tpu_torch/) runs this
 file in a process of its own that imports the package from that tree;
 the rows of all runs are printed as one table, then the decode GEMMs' sum
 per batch-4 decode step (32 layers × wqkv + wo + w13 + w2, cold) of each
-run and the probe rows' factors over cur, then one JSON list on the last
-line.  --only picks groups of cases, comma-separated (decode, prefill,
-attention, probe; default: all but probe).  Cases:
+run, the probe rows' factors over cur and the 13 fused_dsconv blocks' sum,
+then one JSON list on the last line.  --only picks groups of cases,
+comma-separated (decode, prefill, attention, probe, int8, dsconv; default:
+attention, decode, prefill).  Cases:
 
   * decode: quant_matmul at M = 1, 4, 8 and 16 on the Llama-2-7B w13 (K
     4096, N 22016; swiglu N 22528, out [M, 11264]) in the seven float-x
@@ -32,6 +34,18 @@ attention, probe; default: all but probe).  Cases:
     cold, beside torch.matmul on the dequantized bf16 weight (cold), each
     row's own bytes bound (kernels/int4_probe.py kernel_bytes) and its
     cosine against the probe's golden; then the decode ring alone;
+  * int8: the int8-x GEMM (int8 x, INT8_CHANNEL weights) on the w13 in its
+    three layouts ([K, N], [N, K], packed [K/2, N]) at M = 1, 4, 8, 16 and
+    128, in the float epilogue (channel scale, f32 out) and the requantize
+    (int32 bias, rq_mult → int8), cold, each bit for bit its plain version;
+    the library call is torch._int_mm on the faster of its two operand
+    layouts (w [K, N], and the [N, K] copy's .t() view, which cuBLASLt
+    takes column-major), x zero-padded to 32 rows at M <= 16 (it refuses
+    fewer), cold;
+  * dsconv: fused_dsconv at MobileNetV1's 13 block shapes (alpha 1.0, 224)
+    at batch 128 and 1, warm, each bit for bit fused_dsconv_ref; bound =
+    max(the bytes of x, the weights, the output / 3.35 TB/s, N·Ho·Wo·(k²·C
+    + 2·C·O) / 1979 TOP/s int8); no library call computes the block;
   * attention: decode attention at row 2's shape (b 4, hq = hk = 32, d 128,
     S 2048, int8 KV, kv_len 2048 / 1027 / 0 / 17) through decode_attention,
     and row 4''s (kv_len 2048 / 1027 / 1 / 17, causal) through bhsd
@@ -56,6 +70,7 @@ from pathlib import Path
 
 HBM = 3.35e12
 BF16 = 989e12
+INT8 = 1979e12
 K7, N13, NSW = 4096, 22016, 22528
 # label → (scale_mode, packed_int4, w_transposed, swiglu)
 GEMM_MODES = {"1a q8_0": ("block", False, False, False),
@@ -77,7 +92,12 @@ GROUPS = {
     + [(label, "w13", (512, 2048)) for label in ("1a q8_0", "1c q4_0")],
 }
 N_LAYERS = 32   # Llama-2-7B: the per-step sum of the decode GEMMs
-BENCH_GROUPS = ("attention", "decode", "prefill", "probe")
+BENCH_GROUPS = ("attention", "decode", "prefill", "probe", "int8", "dsconv")
+I8_MS = (1, 4, 8, 16, 128)
+# MobileNetV1's 13 depthwise-separable blocks (alpha 1.0, 224): (H, C, O, stride)
+MOBILENET_BLOCKS = ((112, 32, 64, 1), (112, 64, 128, 2), (56, 128, 128, 1),
+                    (56, 128, 256, 2), (28, 256, 256, 1), (28, 256, 512, 2)) \
+    + ((14, 512, 512, 1),) * 5 + ((14, 512, 1024, 2), (7, 1024, 1024, 1))
 
 
 def gpu_line() -> str:
@@ -86,8 +106,8 @@ def gpu_line() -> str:
                           text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM, flops / BF16
+def _bound(nbytes: float, flops: float, peak: float = BF16):
+    tb, tf = nbytes / HBM, flops / peak
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
@@ -228,6 +248,95 @@ def bench_probe(line: str):
     return rows
 
 
+def bench_int8(g, line: str):
+    """The int8-x GEMM on the w13 in its three layouts and two epilogues,
+    cold, beside torch._int_mm's faster operand layout (cold)."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.core.quant import quantize_multiplier
+    from csinn2_tpu_torch.kernels.qmatmul import pack_int4, quant_matmul, quant_matmul_ref
+    from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms_cold, l2_bytes
+    K, N = K7, N13
+    s = torch.rand((N,), generator=g, device="cuda") * 1e-3 + 1e-5
+    bias = torch.randint(-2**18, 2**18, (N,), generator=g, device="cuda", dtype=torch.int32)
+    mult, shift = quantize_multiplier(np.random.default_rng(0).uniform(1e-6, 1e-4, N))
+    epilogues = {"float": (s, None, dict(scale_mode="channel")),
+                 "requant": (None, bias, dict(scale_mode="none", out_dtype=torch.int8,
+                                              out_zp=3.0, rq_mult=torch.from_numpy(mult).cuda(),
+                                              rq_shift=torch.from_numpy(shift).cuda()))}
+    q = torch.randint(-128, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    q4 = torch.randint(-8, 8, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    layouts = {"[K,N]": (q, dict()), "[N,K]": (q.t().contiguous(), dict(w_transposed=True)),
+               "packed [K/2,N]": (pack_int4(q4), dict(packed_int4=True))}
+    n_lib = cold_copies(K * N, l2_bytes())
+    lib_w = {"[K,N]": [q] + [q.clone() for _ in range(n_lib - 1)]}
+    lib_w["[N,K].t()"] = [c.t().contiguous().t() for c in lib_w["[K,N]"]]
+    rows = []
+    for M in I8_MS:
+        x = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+        xp = x if M > 16 else torch.cat([x, x.new_zeros((32 - M, K))])
+        lib = min(gpu_ms_cold([lambda c=c: torch._int_mm(xp, c) for c in cs])
+                  for cs in lib_w.values())
+        for lname, (w, lkw) in layouts.items():
+            copies = [w] + [w.clone() for _ in range(cold_copies(w.numel(), l2_bytes()) - 1)]
+            for ename, (sc, b, ekw) in epilogues.items():
+                kw = dict(ekw, **lkw)
+                y = quant_matmul(x, w, sc, b, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(y, quant_matmul_ref(x, w, sc, b, **kw)):
+                    raise AssertionError(f"int8 {lname} {ename} M={M}: differs from the plain "
+                                         "version")
+                cold = gpu_ms_cold([lambda c=c: quant_matmul(x, c, sc, b, **kw) for c in copies])
+                nbytes = M * K + w.numel() + 8 * N + M * N * y.element_size()
+                b_ms, b_by = _bound(nbytes, 2.0 * M * N * K, INT8)
+                rows.append(dict(kind="int8", case=f"{lname} {ename}", proj="w13", M=M, K=K,
+                                 N=N, ms=cold, ms_cold=cold, library_ms=lib,
+                                 library_ms_cold=lib, bound_ms=b_ms, bound_by=b_by, cos=1.0,
+                                 card=line))
+                print(json.dumps(rows[-1]), flush=True)
+            del copies
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bench_dsconv(g, line: str):
+    """fused_dsconv at MobileNetV1's 13 block shapes, batch 128 and 1, warm."""
+    import torch
+    from csinn2_tpu_torch.kernels import dsblock as ds
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    oc_view = hasattr(ds, "ds_plan")       # trees that read the [O, C] weight uncopied
+    rows = []
+    for batch in (128, 1):
+        for i, (H, C, O, stride) in enumerate(MOBILENET_BLOCKS):
+            ri = lambda shape: torch.randint(-128, 128, shape, generator=g, device="cuda",
+                                             dtype=torch.int8)
+            rf = lambda n, a: (torch.rand(n, generator=g, device="cuda") + 0.1) * a
+            x, dw, pw_oc = ri((batch, H, H, C)), ri((9, C)), ri((O, C))
+            args = (x, dw, rf(C, 1.5e-4), torch.randn(C, generator=g, device="cuda"),
+                    pw_oc.t() if oc_view else pw_oc.t().contiguous(), rf(O, 4e-4 / C ** 0.5),
+                    torch.randn(O, generator=g, device="cuda") * 0.5)
+            kw = dict(k=3, stride=stride, pads=(1, 1, 1, 1) if stride == 1 else (0, 1, 0, 1),
+                      mid_scale=6.0 / 255.0, mid_relu=False, mid_relu6=True, out_relu=False,
+                      out_relu6=True, out_scale=0.05, out_dtype=torch.int8)
+            y = ds.fused_dsconv(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ds.fused_dsconv_ref(*args, **kw)):
+                raise AssertionError(f"dsconv block {i} batch {batch}: differs from the plain "
+                                     "version")
+            ms = gpu_ms(lambda: ds.fused_dsconv(*args, **kw))
+            _, Ho, Wo, _ = y.shape
+            nbytes = x.numel() + dw.numel() + pw_oc.numel() + 8 * (C + O) + y.numel()
+            b_ms, b_by = _bound(nbytes, batch * Ho * Wo * (9 * C + 2 * C * O), INT8)
+            rows.append(dict(kind="dsconv", case=f"block {i} C={C} O={O} s{stride}",
+                             proj=f"{H}x{H}", M=batch, K=C, N=O, ms=ms, ms_cold=ms,
+                             library_ms=0.0, library_ms_cold=0.0, bound_ms=b_ms,
+                             bound_by=b_by, cos=1.0, card=line))
+            print(json.dumps(rows[-1]), flush=True)
+            del x, dw, pw_oc, args, y
+        torch.cuda.empty_cache()
+    return rows
+
+
 def bench_decode_attention(g, line: str):
     import torch
     import torch.nn.functional as F
@@ -303,6 +412,10 @@ def worker(only) -> int:
         bench_ring(g, line)
     if "prefill" in only:
         bench_gemm(g, line, GROUPS["prefill"])
+    if "int8" in only:
+        bench_int8(g, line)
+    if "dsconv" in only:
+        bench_dsconv(g, line)
     return 0
 
 
@@ -322,6 +435,17 @@ def probe_factors(results):
     return {(r["run"], r["proj"], r["case"]): (r["ms"], r["ms"] / cur[r["run"], r["proj"]],
                                                r["ms"] / r["library_ms"])
             for r in results if r["kind"] == "probe" and (r["run"], r["proj"]) in cur}
+
+
+def dsconv_sums(results):
+    """Per run and batch: the 13 fused_dsconv blocks' ms and bounds, summed."""
+    sums = {}
+    for r in results:
+        if r["kind"] == "dsconv":
+            t = sums.setdefault((r["run"], r["M"]), [0.0, 0.0])
+            t[0] += r["ms"]
+            t[1] += r["bound_ms"]
+    return sums
 
 
 def main(argv=None) -> int:
@@ -366,6 +490,8 @@ def main(argv=None) -> int:
     for (run, proj, case), (ms, x_cur, x_lib) in probe_factors(results).items():
         print(f"run {run} probe {proj} {case:24s} {ms:.4f} ms cold: {x_cur:.2f} x cur, "
               f"{x_lib:.2f} x torch.matmul")
+    for (run, batch), (ms, b_ms) in sorted(dsconv_sums(results).items()):
+        print(f"run {run} dsconv 13 blocks, batch {batch}: {ms:.4f} ms, bound {b_ms:.4f} ms")
     print(json.dumps(results))
     return 0
 

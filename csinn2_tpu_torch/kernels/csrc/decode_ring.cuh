@@ -6,7 +6,9 @@
 // mma.sync m16n8k16 A fragments (the weights are A, x^T is B); the sums land
 // in the ring as a finish tile (dc_tile_store), and with a split the strip's
 // last CTA sums the splits' partials in split order (dc_sum_splits).  The
-// widening and the output epilogue are each kernel's own.
+// widening and the output epilogue are each kernel's own.  The int8-x
+// decode GEMM (qmatmul_int8dot.cu) shares the ring, the tile store and the
+// split finish with int32 sums (T = int: exact, wrapping adds).
 #pragma once
 
 #include "common.cuh"
@@ -307,16 +309,17 @@ __device__ __forceinline__ void dc_ring(Loader& loader, int n_st, unsigned char*
 }
 
 // The ring becomes the finish tile: acc[t][nt][e] is token 8·nt + 2·tig +
-// (e & 1) of column col[t] (e < 2) or col[t] + dcol (e >= 2).
-template <int NT>
-__device__ __forceinline__ void dc_tile_store(float* tile, const float (&acc)[2][NT][4],
+// (e & 1) of column col[t] (e < 2) or col[t] + dcol (e >= 2).  T: float
+// sums, or the int8-x kernel's int32 ones.
+template <int NT, typename T>
+__device__ __forceinline__ void dc_tile_store(T* tile, const T (&acc)[2][NT][4],
                                               const int (&col)[2], int dcol, int tig) {
   __syncthreads();                             // every warp is done with the ring
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      float* row = tile + (8 * nt + 2 * tig) * DC_BN;
+      T* row = tile + (8 * nt + 2 * tig) * DC_BN;
       const int c = col[t], c2 = c + dcol;
       row[c] = acc[t][nt][0];
       row[DC_BN + c] = acc[t][nt][1];
@@ -326,19 +329,40 @@ __device__ __forceinline__ void dc_tile_store(float* tile, const float (&acc)[2]
   __syncthreads();
 }
 
-// With a split, the CTA's f32 sums of columns n0 .. n0+255 (tile, row m at
+// Four sums of a finish tile: float4 (f32 sums) or int4 (int32 sums, added
+// as unsigned: the wrap of the TPU's int32 accumulator, in any order)
+template <typename T> struct Vec4 { using type = float4; };
+template <> struct Vec4<int> { using type = int4; };
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ void add4(int4& a, const int4& b) {
+  a.x = wrap_add(a.x, b.x);
+  a.y = wrap_add(a.y, b.y);
+  a.z = wrap_add(a.z, b.z);
+  a.w = wrap_add(a.w, b.w);
+}
+
+// With a split, the CTA's sums of columns n0 .. n0+255 (tile, row m at
 // m·DC_BN, in shared memory) through the split partials [splits, M, N] and
 // the strip's counter: false in every CTA but the strip's last, whose tile
-// then holds the sums of all splits.  The partials move as float4s (a thread
-// 4 columns of a row; N % 4 == 0); one thread fences the CTA's partial
-// (ordered by the barrier) and takes the ticket; the strip's last CTA issues
-// every partial load of a thread (up to DC_ZLOADS) before it sums them in
-// split order, so the finish costs a few L2 round trips, not one a row and
-// split, and gives the same bits every call.
-template <int NT>
-__device__ __forceinline__ bool dc_sum_splits(float* tile, float* partial, int* counters, int M,
+// then holds the sums of all splits.  The partials move as float4s / int4s
+// (a thread 4 columns of a row; N % 4 == 0); one thread fences the CTA's
+// partial (ordered by the barrier) and takes the ticket; the strip's last
+// CTA issues every partial load of a thread (up to DC_ZLOADS) before it sums
+// them in split order, so the finish costs a few L2 round trips, not one a
+// row and split, and gives the same bits every call.
+template <int NT, typename T = float>
+__device__ __forceinline__ bool dc_sum_splits(T* tile, T* partial, int* counters, int M,
                                               int N, int splits) {
-  constexpr int P = (8 * NT * DC_BN / 4 + THREADS - 1) / THREADS;  // float4s a thread
+  using V = typename Vec4<T>::type;
+  constexpr int P = (8 * NT * DC_BN / 4 + THREADS - 1) / THREADS;  // vectors a thread
   constexpr int ZB = (DC_ZLOADS + P - 1) / P;                      // splits a round
   __shared__ int last;
   const int tid = threadIdx.x, strip = blockIdx.x, n0 = strip * DC_BN;
@@ -347,8 +371,8 @@ __device__ __forceinline__ bool dc_sum_splits(float* tile, float* partial, int* 
     for (int p = 0; p < P; ++p) {
       const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
       if (m < M && n0 + c < N)                 // N % 4 == 0: all 4 columns or none
-        *reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * M + m) * N + n0 + c) =
-            *reinterpret_cast<const float4*>(tile + m * DC_BN + c);
+        *reinterpret_cast<V*>(partial + ((size_t)blockIdx.y * M + m) * N + n0 + c) =
+            *reinterpret_cast<const V*>(tile + m * DC_BN + c);
     }
     __syncthreads();
     if (tid == 0) {
@@ -360,40 +384,35 @@ __device__ __forceinline__ bool dc_sum_splits(float* tile, float* partial, int* 
     __syncthreads();
     if (!last) return false;
     const size_t zs = (size_t)M * N;           // a split's stride
-    float4 v[P];
+    V v[P];
     bool ok[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
-      v[p] = make_float4(0.f, 0.f, 0.f, 0.f);
+      v[p] = V{};
       ok[p] = m < M && n0 + c < N;
     }
     for (int z0 = 0; z0 < splits; z0 += ZB) {
-      float4 q[ZB][P];
+      V q[ZB][P];
 #pragma unroll
       for (int j = 0; j < ZB; ++j)
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
           if (ok[p] && z0 + j < splits)
-            q[j][p] = __ldcg(reinterpret_cast<const float4*>(partial + (z0 + j) * zs +
-                                                             (size_t)m * N + n0 + c));
+            q[j][p] = __ldcg(reinterpret_cast<const V*>(partial + (z0 + j) * zs +
+                                                        (size_t)m * N + n0 + c));
         }
 #pragma unroll
       for (int j = 0; j < ZB; ++j)             // in split order: the same bits every call
 #pragma unroll
         for (int p = 0; p < P; ++p)
-          if (ok[p] && z0 + j < splits) {
-            v[p].x += q[j][p].x;
-            v[p].y += q[j][p].y;
-            v[p].z += q[j][p].z;
-            v[p].w += q[j][p].w;
-          }
+          if (ok[p] && z0 + j < splits) add4(v[p], q[j][p]);
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int i = tid + p * THREADS, m = i / (DC_BN / 4), c = i % (DC_BN / 4) * 4;
-      if (ok[p]) *reinterpret_cast<float4*>(tile + m * DC_BN + c) = v[p];
+      if (ok[p]) *reinterpret_cast<V*>(tile + m * DC_BN + c) = v[p];
     }
     __syncthreads();
   }

@@ -14,6 +14,8 @@
 // chain of core.quant.requantize_int) in 64-bit integers.
 #pragma once
 
+#include <climits>
+
 #include "common.cuh"
 
 enum OutKind : int { OUT_F32 = 0, OUT_BF16 = 1, OUT_I8 = 2, OUT_U8 = 3, OUT_I16 = 4, OUT_I32 = 5 };
@@ -70,20 +72,23 @@ __device__ __forceinline__ void store_kind(void* out, size_t idx, float v, const
   }
 }
 
-// core.quant.requantize_int on one int32 accumulator (bias already added)
+// core.quant.requantize_int on one int32 accumulator (bias already added),
+// without a branch: the saturating left shift; SRDHM, whose nudge and
+// truncating division by 2^31 come to (x·mult + 2^30) >> 31 for either sign
+// of the product (an arithmetic shift); the rounding right shift in 32-bit
+// integers, whose result past a shift of 31 is 0 (-1 for INT_MIN >> 32).
 __device__ __forceinline__ int requant_fixed(int acc, int mult, int shift, int zp, int qmin,
                                              int qmax) {
-  const int left = shift > 0 ? shift : 0;
-  const int right = shift < 0 ? -shift : 0;
-  long long x = static_cast<long long>(acc) << (left & 63);
-  x = x < -2147483648LL ? -2147483648LL : (x > 2147483647LL ? 2147483647LL : x);
-  const long long prod = x * static_cast<long long>(mult);
-  const long long q = prod + (prod >= 0 ? (1LL << 30) : (1LL - (1LL << 30)));
-  x = q >= 0 ? (q >> 31) : -((-q) >> 31);     // C-truncating division by 2^31
-  x = x < -2147483648LL ? -2147483648LL : (x > 2147483647LL ? 2147483647LL : x);
-  const long long mask = (1LL << (right & 63)) - 1;
-  const long long threshold = (mask >> 1) + (x < 0 ? 1 : 0);
-  x = (x >> (right & 63)) + ((x & mask) > threshold ? 1 : 0);
-  x += zp;
-  return static_cast<int>(x < qmin ? qmin : (x > qmax ? qmax : x));
+  const int left = shift > 0 ? shift : 0, right = shift < 0 ? -shift : 0;
+  const long long v = static_cast<long long>(acc) << (left & 63);
+  const int x = v < INT_MIN ? INT_MIN : (v > INT_MAX ? INT_MAX : static_cast<int>(v));
+  const long long h = (static_cast<long long>(x) * mult + (1LL << 30)) >> 31;
+  const int y = h > INT_MAX ? INT_MAX : static_cast<int>(h);      // h >= INT_MIN
+  const int r = right < 31 ? right : 31;
+  const int mask = static_cast<int>((1u << r) - 1u);
+  const int threshold = (mask >> 1) + (y < 0 ? 1 : 0);
+  int z = (y >> r) + ((y & mask) > threshold ? 1 : 0);
+  if (right > 31) z = right == 32 && y == INT_MIN ? -1 : 0;
+  z += zp;
+  return z < qmin ? qmin : (z > qmax ? qmax : z);
 }

@@ -40,8 +40,11 @@ from csinn2_tpu_torch.kernels.qconv import (_conv2d_quant, _depthwise_quant, che
 from csinn2_tpu_torch.ops.params import Conv2dParams
 from csinn2_tpu_torch.ops.registry import registry
 
-TP = 32          # csrc/dsblock.cu: output pixels per CTA
-OT = 64          # csrc/dsblock.cu: output channels per pointwise tile
+# csrc/dsblock.cu: output channels of a pointwise tile, the weight ring's
+# slots, the largest pointwise k chunk; a CTA's dynamic shared memory limit,
+# an SM's shared memory and the part of it reserved per CTA
+OT, STAGES, KC_MAX = 64, 3, 128
+SMEM_LIMIT, SM_SMEM, CTA_RESERVED = 232448, 233472, 1024
 
 
 def out_hw(H: int, W: int, k: int, stride: int, pads) -> Tuple[int, int]:
@@ -121,14 +124,65 @@ def fused_dsconv_ref(x, dw_w, effd, bd, pw_w, effp, bp, *, k: int, stride: int,
     return q.to(torch.int8)
 
 
-def _o_chunk(O: int, ctas: int, device: torch.device) -> int:
-    """Output channels per CTA: all of O, split into OT-multiples until the
-    grid has about two CTAs per SM (the depthwise tile is recomputed for each
-    chunk: k² against OT·(chunk/OT) MACs per (pixel, channel))."""
-    tiles = -(-O // OT)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = min(tiles, max(1, -(-2 * sms // ctas)))
-    return -(-tiles // splits) * OT
+def smem_bytes(P: int, C: int, W: int, ck: int, halo_rows: int, kc: int, k: int) -> int:
+    """A CTA's dynamic shared memory (csrc/dsblock.cu layout_of, mirrored):
+    the mid tile [P][C padded to 32, + 16], the weight ring, the out tile,
+    the halo rows of a CK-channel chunk, its depthwise weights and the
+    pixels' tap origins, each 16-byte aligned."""
+    cp = -(-C // 32) * 32
+    up16 = lambda n: -(-n // 16) * 16
+    return (P * (cp + 16) + STAGES * OT * (kc + 16) + P * (OT + 16)
+            + up16(halo_rows * W * ck) + up16(k * k * ck) + P * 16)
+
+
+def ds_plan(N: int, H: int, W: int, C: int, O: int, k: int, stride: int, pads,
+            n_sm: int) -> dict:
+    """The launch plan of csrc/dsblock.cu: P, the output pixels of a CTA (128,
+    or 64 where 128-pixel tiles would not fill the SMs once or C >= 512,
+    whose 128-pixel mid tile leaves the halo a few narrow chunks); the halo rows a
+    P-pixel tile may need (D output rows past its first, each at most
+    max(stride, J) input rows on, J the step across an image boundary, plus
+    k); the pointwise k chunk; the widest depthwise channel chunk CK (a power
+    of two, a multiple of 16 when C is) that keeps two CTAs an SM, else one;
+    and o_chunk, the output channels of a CTA: all of O, split into OT
+    multiples while the grid stays within two CTAs an SM (each chunk
+    recomputes the depthwise tile)."""
+    Ho, Wo = out_hw(H, W, k, stride, pads)
+    NP = N * Ho * Wo
+    P = 128 if -(-NP // 128) >= n_sm and C < 512 else 64
+    cp = -(-C // 32) * 32
+    kc = min(cp, KC_MAX)
+    span = (P + Wo - 2) // Wo
+    halo_rows = min(span * max(stride, H - (Ho - 1) * stride) + k, N * H)
+    ck_min = 16 if C % 16 == 0 else 4
+    ck_max = max(ck_min, 1 << (-(-C // 4) * 4 - 1).bit_length())
+    for limit in (SM_SMEM // 2 - CTA_RESERVED, SMEM_LIMIT):
+        ck = ck_max
+        while ck >= ck_min and smem_bytes(P, C, W, ck, halo_rows, kc, k) > limit:
+            ck //= 2
+        if ck >= ck_min:
+            break
+    else:
+        raise ValueError(f"fused_dsconv: a {P}-pixel tile of W={W}, C={C} does not fit "
+                         "shared memory")
+    tiles = -(-NP // P)
+    o_tiles = -(-O // OT)
+    o_chunk = -(-o_tiles // min(o_tiles, max(1, 2 * n_sm // tiles))) * OT
+    return dict(P=P, o_chunk=o_chunk, ck=ck, halo_rows=halo_rows, kc=kc,
+                smem=smem_bytes(P, C, W, ck, halo_rows, kc, k), grid=(tiles, -(-O // o_chunk)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _weight_oc(pw_w: torch.Tensor) -> torch.Tensor:
+    """The pointwise weight as the kernel takes it, [O, C] contiguous: the
+    storage of a transposed view of a contiguous [O, C] as it is, a
+    contiguous [C, O] transposed into a copy."""
+    oc = pw_w.t()
+    return oc if oc.is_contiguous() else oc.contiguous()
 
 
 def fused_dsconv(x, dw_w, effd, bd, pw_w, effp, bp, *, k: int, stride: int,
@@ -136,13 +190,16 @@ def fused_dsconv(x, dw_w, effd, bd, pw_w, effp, bp, *, k: int, stride: int,
                  mid_relu: bool, mid_relu6: bool, out_relu: bool,
                  out_relu6: bool, out_scale: Optional[float], out_zp: float = 0.0,
                  out_dtype=torch.int8):
-    """x [N,H,W,C] int8 NHWC; dw_w [k*k, C] int8; pw_w [C, O] int8;
+    """x [N,H,W,C] int8 NHWC; dw_w [k*k, C] int8; pw_w [C, O] int8 (a
+    contiguous [C, O], or the transposed view of a contiguous [O, C], the
+    graph weight's own layout, which the kernel reads without a copy);
     effd/bd [C] f32 (sx·sw_dw, dw bias); effp/bp [O] f32 (s_mid·sw_pw, pw
     bias); returns [N, Ho, Wo, O] int8, or f32 when out_scale is None.
 
-    CUDA tensors (contiguous, on one device) launch csrc/dsblock.cu; CPU
-    tensors run fused_dsconv_ref.  k in (3, 5), stride in (1, 2), each pad
-    in 0..k//2, C <= 1024."""
+    CUDA tensors (contiguous but pw_w, on one device) launch
+    csrc/dsblock.cu with ds_plan's geometry; CPU tensors run
+    fused_dsconv_ref.  k in (3, 5), stride in (1, 2), each pad in 0..k//2,
+    C <= 1024."""
     _check_args(x, dw_w, effd, bd, pw_w, effp, bp, k, stride, pads, out_scale, out_dtype)
     kw = dict(k=k, stride=stride, pads=tuple(pads), mid_scale=mid_scale, mid_relu=mid_relu,
               mid_relu6=mid_relu6, out_relu=out_relu, out_relu6=out_relu6,
@@ -151,30 +208,33 @@ def fused_dsconv(x, dw_w, effd, bd, pw_w, effp, bp, *, k: int, stride: int,
         return fused_dsconv_ref(x, dw_w, effd, bd, pw_w, effp, bp, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dsconv: unsupported device {x.device}")
-    tensors = (x, dw_w, effd, bd, pw_w, effp, bp)
-    if any(t.device != x.device for t in tensors):
+    if any(t.device != x.device for t in (dw_w, effd, bd, pw_w, effp, bp)):
         raise ValueError("fused_dsconv: all tensors must be on one device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_dsconv: tensors must be contiguous")
+    if not all(t.is_contiguous() for t in (x, dw_w, effd, bd, effp, bp)) \
+            or not (pw_w.is_contiguous() or pw_w.t().is_contiguous()):
+        raise ValueError("fused_dsconv: tensors must be contiguous (pw_w: [C, O] or the "
+                         "transposed view of a contiguous [O, C])")
     N, H, W, C = x.shape
     O = pw_w.shape[1]
     Ho, Wo = out_hw(H, W, k, stride, pads)
-    if N > 65535:
-        raise ValueError(f"fused_dsconv: batch {N} > 65535")
     out = torch.empty((N, Ho, Wo, O), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    o_chunk = _o_chunk(O, N * -(-(Ho * Wo) // TP), x.device)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan = ds_plan(N, H, W, C, O, k, stride, pads, _sm_count(index))
+    tensors = (x, dw_w, effd, bd, _weight_oc(pw_w), effp, bp)
     fn = _build.c_function("dsblock", "fused_dsconv_int8",
                            (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 11
                            + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+                              ctypes.c_float, ctypes.c_float) + (ctypes.c_int,) * 5
+                           + (ctypes.c_void_p,))
     act = lambda relu, relu6: 2 if relu6 else (1 if relu else 0)
     err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), N, H, W, C, O, Ho, Wo, k,
              stride, pads[0], pads[2], _inv(mid_scale), act(mid_relu, mid_relu6),
              act(out_relu, out_relu6), int(out_scale is not None),
              _inv(out_scale) if out_scale is not None else 0.0, float(np.float32(out_zp)),
-             o_chunk, torch.cuda.current_stream(x.device).cuda_stream)
+             plan["P"], plan["o_chunk"], plan["ck"], plan["halo_rows"], plan["kc"],
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("dsblock", err, "fused_dsconv")
     _build.launch_counts["fused_dsconv"] += 1
     return out
@@ -239,7 +299,7 @@ def fused_args(arrays, metas, params, out_qinfo, *, k, mid_scale, mid_relu,
     effd = (sx * w1m.qinfo.tensors(dev)[0]).expand(C).contiguous()
     effp = (w2m.qinfo.tensors(dev)[0] * float(np.float32(mid_scale))).expand(O).contiguous()
     dw_w = w1.reshape(C, k * k).t().contiguous()          # [k*k, C]
-    pw_w = w2.reshape(O, C).t().contiguous()              # [C, O]
+    pw_w = w2.reshape(O, C).t()                           # [C, O], a view of [O, C]
     bd = b1.float().contiguous() if b1 is not None else torch.zeros(C, device=dev)
     bp = b2.float().contiguous() if b2 is not None else torch.zeros(O, device=dev)
     args = (x.contiguous(), dw_w, effd, bd, pw_w, effp, bp)

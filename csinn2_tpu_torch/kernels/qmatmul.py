@@ -14,9 +14,11 @@ of the JAX function is ported:
     csrc/qmatmul_int4.cu for packed int4), f32 accumulation;
   * an int8 x with int8 or packed [K, N] or int8 [N, K] weights and
     channel or no scales (JAX's int_dot path) through csrc/qmatmul_int8dot.cu:
-    s8×s8 products summed exactly in int32;
+    s8×s8 products summed exactly in int32 on the tensor cores (its decode
+    kernel at M <= 16 on the float decode GEMM's skeleton, `int8dot_plan`
+    mirrors its launch plan);
   * epilogues: channel scale, epilogue_scale, f32 bias, the swiglu pairs
-    (float x), and the output cast — f32/bf16, int8/uint8/int16 as
+    (float epilogue), and the output cast — f32/bf16, int8/uint8/int16 as
     clip(round(y) + out_zp), int32 as a plain cast; or, with rq_mult /
     rq_shift (int8 x and int8 weights, scale_mode "none"), an int32 bias
     added to the exact sum and the fixed-point requantize of
@@ -114,12 +116,6 @@ OUT_KINDS = {torch.float32: (0, None), torch.bfloat16: (1, None),
              torch.int16: (4, (-32768, 32767)), torch.int32: (5, None)}
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"quant_matmul {what} is not ported (ROADMAP queue B item 9b): no "
-        "caller or test of the JAX package reaches it")
-
-
 def _check_args(x, scale_mode, out_dtype, packed_int4, w_transposed, swiglu,
                 rq_mult, rq_shift, bias, w_dtype=torch.int8) -> bool:
     """The JAX wrapper's asserts as ValueError; returns int_dot (s8×s8 → s32:
@@ -146,8 +142,6 @@ def _check_args(x, scale_mode, out_dtype, packed_int4, w_transposed, swiglu,
             raise ValueError("quant_matmul: rq_mult requires int8 x and unpacked int8 w")
         if not int_out:
             raise ValueError("quant_matmul: integer out_dtype required with rq_mult")
-    if swiglu and int_dot:
-        raise _unported("swiglu on the int8 x (int_dot) path")
     return int_dot
 
 
@@ -311,6 +305,58 @@ def gemm_plan(M: int, N: int, K: int, w_transposed: bool, n_sm: int) -> dict:
                 grid=(strips, sp), counter_slots=strips)
 
 
+# csrc/qmatmul_int8dot.cu's prefill kernel (M > 16): CTA tile rows, k per
+# stage, and the cost model of its split plan
+PI_BM, PI_SK, PI_BLOCK_COST, PI_MAX_SPLITS = 128, 128, 600, 16
+
+
+def int8dot_plan(M: int, N: int, K: int, n_sm: int, counter_slots: int = None) -> dict:
+    """The launch plan of csrc/qmatmul_int8dot.cu plan_i8, mirrored: kernel
+    ("decode" at M <= 16, "prefill" above), splits, 32-k blocks per split
+    (K rounded up to 32), the grid and the int32 workspace [splits, M, N]
+    (0 without a split).  Decode: the float decode GEMM's plan over ceil(K /
+    32) blocks.  Prefill: the split count (whole 128-k stages, <=
+    PI_MAX_SPLITS) minimising waves of one-CTA-an-SM 128 × 256 tiles ×
+    blocks a split plus the partials' cost; none when the tiles outnumber
+    the counter slots."""
+    slots = COUNTER_SLOTS if counter_slots is None else counter_slots
+    nb = -(-K // BLOCK)
+    strips = -(-N // DC_BN)
+    if M <= DECODE_MAX_M:
+        plan = gemm_plan(M, N, nb * BLOCK, False, n_sm)
+        sp, bps = plan["splits"], plan["blocks_per_split"]
+        grid = (strips, sp)
+    else:
+        tiles = -(-M // PI_BM) * strips
+        sp, bps, best = 1, nb, None
+        if tiles <= slots:
+            align = PI_SK // BLOCK
+            for s in range(1, max(1, min(PI_MAX_SPLITS, nb // align)) + 1):
+                b = -(-(-(-nb // s)) // align) * align
+                if -(-nb // b) != s:
+                    continue
+                cost = -(-(tiles * s) // n_sm) * b * PI_BLOCK_COST \
+                    + (8 * s * M * N // 1000 if s > 1 else 0)
+                if best is None or cost < best:
+                    best, sp, bps = cost, s, b
+        grid = (strips, sp, -(-M // PI_BM))
+    return dict(kernel="decode" if M <= DECODE_MAX_M else "prefill", splits=sp,
+                blocks_per_split=bps, grid=grid, workspace=sp * M * N if sp > 1 else 0)
+
+
+def kernel_int8dot_plan(M: int, N: int, K: int, device: int) -> dict:
+    """The same plan from the CUDA library (quant_matmul_int8dot_plan): the
+    card checks the mirror against it."""
+    fn = _build.c_function("qmatmul_int8dot", "quant_matmul_int8dot_plan",
+                           (ctypes.c_int,) * 5 + (ctypes.POINTER(ctypes.c_int),) * 3,
+                           restype=ctypes.c_longlong)
+    sp, bps, err = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    n = fn(M, N, K, device, COUNTER_SLOTS, ctypes.byref(sp), ctypes.byref(bps),
+           ctypes.byref(err))
+    _build.check("qmatmul_int8dot", err.value, "quant_matmul_int8dot plan")
+    return dict(splits=sp.value, blocks_per_split=bps.value, workspace=n)
+
+
 def workspace_floats(M: int, N: int, K: int, swiglu: bool, reduce_epi: bool,
                      n_sm: int) -> int:
     """f32 workspace the float-x kernels need (csrc/qmatmul.cuh
@@ -373,7 +419,8 @@ _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLOAT_ARGTYPES = (_VP,) * 5 + (_CI,) * 4 + (_CF, _CI, _CF, _VP, ctypes.c_longlong, _VP) \
     + (_CI,) * 5 + (_VP,)
 _RING_ARGTYPES = (_VP,) * 3 + (_CI,) * 4 + (_VP,)
-_INT8DOT_ARGTYPES = (_VP, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CF, _CI, _CF) + (_CI,) * 3 + (_VP,)
+_INT8DOT_ARGTYPES = (_VP, _VP, _CI, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _VP, _CI, _CF, _CI,
+                     _CF, _CI, _VP, ctypes.c_longlong, _VP) + (_CI,) * 5 + (_VP,)
 
 
 def _check_tensors(tensors, dtypes):
@@ -407,7 +454,7 @@ def quant_matmul(x, w_q, scales=None, bias=None, *, scale_mode: str = "channel",
         K % 32 == 0, N % 16 == 0 (swiglu: N % 256 == 0).
       * int_dot path (x int8, w int8 and not packed [N, K/2], channel or
         none scales): bias f32, or int32 with rq_mult; K % 16 == 0 (packed:
-        % 32), N % 16 == 0.
+        % 32), N % 16 == 0 (swiglu: N % 256 == 0).
     CPU tensors (and meta tensors, whose shapes a recording graph infers):
     quant_matmul_ref."""
     int_dot = _check_args(x, scale_mode, out_dtype, packed_int4, w_transposed, swiglu,
@@ -519,28 +566,34 @@ W_KN, W_NK, W_PACKED_KN = 0, 1, 2
 
 
 def _launch_int8dot(x, w_q, scales, bias, out, M, N, K, *, scale_mode, out_dtype,
-                    epilogue_scale, packed_int4, w_transposed, out_zp, rq_mult, rq_shift,
-                    **_):
+                    epilogue_scale, packed_int4, w_transposed, out_zp, swiglu, rq_mult,
+                    rq_shift):
     requant = rq_mult is not None
-    rq = None
-    if requant:
-        # per-channel (mult, shift) as int32 [2, N] on the card; scalars are
-        # filled there (a host copy per call would wait for the queue)
-        def row(v):
-            if isinstance(v, torch.Tensor):
-                return v.to(device=x.device, dtype=torch.int32).reshape(-1).expand(N)
-            if np.ndim(v) == 0:
-                return torch.full((N,), int(v), dtype=torch.int32, device=x.device)
-            return torch.as_tensor(np.asarray(v, np.int32), device=x.device).expand(N)
-        rq = torch.stack([row(rq_mult), row(rq_shift)]).contiguous()
-    _check_tensors([x, w_q, scales, bias, rq],
+
+    def per_channel(v):
+        """(int32 [N] on the card or None, the scalar when None): a scalar
+        rides by value; a per-channel array is used as it lies when it is
+        already an int32 [N] on the card (a host copy per call would wait
+        for the queue)."""
+        if not isinstance(v, torch.Tensor) and np.ndim(v) == 0:
+            return None, int(v)
+        t = torch.as_tensor(v).to(device=x.device, dtype=torch.int32).reshape(-1)
+        return t.expand(N).contiguous(), 0
+    mult, mult_s = per_channel(rq_mult) if requant else (None, 0)
+    shift, shift_s = per_channel(rq_shift) if requant else (None, 0)
+    _check_tensors([x, w_q, scales, bias, mult, shift],
                    [torch.int8, torch.int8, torch.float32,
-                    torch.int32 if requant else torch.float32, torch.int32])
+                    torch.int32 if requant else torch.float32, torch.int32, torch.int32])
     layout = W_NK if w_transposed else (W_PACKED_KN if packed_int4 else W_KN)
+    device = _device_index(x)
+    stream = torch.cuda.current_stream(x.device)
+    n_ws = int8dot_plan(M, N, K, _sm_count(device))["workspace"]
+    workspace = torch.empty((n_ws,), dtype=torch.int32, device=x.device) if n_ws else None
     fn = _build.c_function("qmatmul_int8dot", "quant_matmul_int8dot", _INT8DOT_ARGTYPES)
-    err = fn(x.data_ptr(), w_q.data_ptr(), layout, _ptr(scales), _ptr(bias), _ptr(rq),
-             out.data_ptr(), OUT_KINDS[out_dtype][0],
+    err = fn(x.data_ptr(), w_q.data_ptr(), layout, _ptr(scales), _ptr(bias), int(requant),
+             _ptr(mult), _ptr(shift), mult_s, shift_s, out.data_ptr(), OUT_KINDS[out_dtype][0],
              float(epilogue_scale if epilogue_scale is not None else 1.0),
-             int(epilogue_scale is not None), float(out_zp), M, N, K,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             int(epilogue_scale is not None), float(out_zp), int(swiglu), _ptr(workspace),
+             n_ws, strip_counters(x.device, stream).data_ptr(), COUNTER_SLOTS, M, N, K,
+             device, stream.cuda_stream)
     _build.check("qmatmul_int8dot", err, "quant_matmul (int8 x)")

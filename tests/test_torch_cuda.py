@@ -21,8 +21,14 @@ end mid-stage, an odd number of blocks), bit-identical repeated calls, its
 dynamic shared memory and two CTAs an SM, and every split the tile tuner
 sweeps; fused_dsconv (bit for bit) at odd H and
 W, C in {3, 8, 17, 1024}, O not a multiple of 8, k 3 and 5, stride 1 and 2,
-pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, and a small
-MobileNetV1 session fused against unfused; the prefill GEMM kernels in
+pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, a small
+MobileNetV1 session fused against unfused, MobileNetV1's 13 block shapes at
+batch 2 and ragged shapes (Ho·Wo off the pixel tile, C off 32 and 16, O off
+the 64-channel tile, C = 1024 with k = 5, tiles across images), each with the
+pointwise weight as a contiguous [C, O] and as the view of an [O, C]; the
+int8-x GEMM at K, N and M off its blocks, strips, splits and tiles in both
+epilogues, bit for bit and across two calls, its swiglu pairs, and its
+plan's mirror; the prefill GEMM kernels in
 every float-x mode at M 17-2048 with ragged N and K (integer outputs and
 1e-4 bias checks against the function the kernel computes, its bf16 w·s),
 swiglu on the [N, K] layouts, the GEMM plan's Python mirror against the
@@ -411,6 +417,79 @@ def test_quant_matmul_int8dot_rejects_bad_args(gen, dev):
         quant_matmul(x, w, s, out_dtype=torch.int8, rq_mult=1, rq_shift=0, **kw)   # scales
 
 
+# -- the tenth slice: the int8-x GEMM on int8 tensor cores ---------------------------
+# (layout, K, N): K off the 32-k block (K % 32 = 16), the split edges of a
+# long K on few strips, N off the 256-column strip, packed K % 64 = 32
+I8_RAGGED = [("kn", 1040, 272), ("nk", 1040, 272), ("packed", 1056, 272),
+             ("kn", 12304, 528), ("nk", 12304, 528), ("packed", 12320, 528),
+             ("kn", 4096, 1552), ("nk", 4096, 1552), ("packed", 4096, 1552)]
+
+
+def _i8_requant_args(dev, N, odt=torch.int8):
+    from csinn2_tpu_torch.core.quant import quantize_multiplier
+    eff = np.exp(np.random.default_rng(N).uniform(np.log(1e-6), np.log(1e-3), N))
+    mult, shift = quantize_multiplier(eff)
+    return dict(out_dtype=odt, out_zp=3.0, rq_mult=torch.from_numpy(mult).to(dev),
+                rq_shift=torch.from_numpy(shift).to(dev))
+
+
+@pytest.mark.parametrize("layout,K,N", I8_RAGGED, ids=lambda v: str(v))
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 129])
+def test_int8dot_ragged_both_epilogues(gen, dev, layout, K, N, M):
+    """The int8-x GEMM at K, N and M off its blocks, strips, splits and
+    tiles, in the float epilogue (channel scale, f32 out) and the
+    requantize (int32 bias, rq_mult → int8): bit for bit the plain version,
+    and bit for bit across two calls."""
+    x, w, s, kw = _i8_case(gen, dev, layout, M, K, N, "channel")
+    y = quant_matmul(x, w, s, **kw)
+    assert torch.equal(y, quant_matmul(x, w, s, **kw))
+    assert torch.equal(y, quant_matmul_ref(x, w, s, **kw))
+    kw["scale_mode"] = "none"
+    bias = torch.randint(-2**18, 2**18, (N,), generator=gen, device=dev, dtype=torch.int32)
+    args = dict(kw, **_i8_requant_args(dev, N))
+    key = "quant_matmul_requant." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    y = quant_matmul(x, w, None, bias, **args)
+    assert launch_counts[key] == before + 1
+    assert torch.equal(y, quant_matmul(x, w, None, bias, **args))
+    assert torch.equal(y, quant_matmul_ref(x, w, None, bias, **args))
+
+
+@pytest.mark.parametrize("layout", I8_LAYOUTS)
+@pytest.mark.parametrize("M", [4, 16, 17, 200])
+@pytest.mark.parametrize("scale_mode", ["channel", "none"])
+def test_int8dot_swiglu(gen, dev, layout, M, scale_mode):
+    """swiglu on the int8-x path (ROADMAP B.9b): the exact sum, the float
+    epilogue (· s · e, no bias: the plain version rounds as the kernel),
+    then silu(h1)·h3 over the swiglu128 pairs, bit for bit the plain
+    version (the same f32 operations: h1 / (1 + exp(-h1)) · h3)."""
+    K, N = 1056, 1536
+    x, w, s, kw = _i8_case(gen, dev, layout, M, K, N, scale_mode)
+    kw.update(swiglu=True, epilogue_scale=None if scale_mode == "channel" else 1e-4)
+    key = "quant_matmul_int8dot." + ("decode" if M <= 16 else "prefill")
+    before = launch_counts[key]
+    y = quant_matmul(x, w, s, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts[key] == before + 1
+    assert y.shape == (M, N // 2)
+    assert torch.equal(y, quant_matmul_ref(x, w, s, **kw))
+
+
+def test_int8dot_plan_mirror_matches_the_library(dev):
+    """kernels/qmatmul.py int8dot_plan (the Python mirror) equals the CUDA
+    library's quant_matmul_int8dot_plan at the 7B and 13B projections and
+    ragged shapes, M 1-2048."""
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (5120, 27648),
+              (13824, 5120), (1040, 272), (12304, 528), (80, 48)]
+    for K, N in shapes:
+        for M in (1, 4, 8, 9, 16, 17, 128, 129, 512, 2048):
+            want = tq.kernel_int8dot_plan(M, N, K, 0)
+            got = tq.int8dot_plan(M, N, K, n_sm)
+            assert {k: got[k] for k in want} == want, (M, N, K)
+
+
 def _kv(gen, dev, b, hk, S, d, int8):
     if int8:
         k = torch.randint(-127, 128, (b, S, hk, d), generator=gen, device=dev,
@@ -695,6 +774,70 @@ def test_fused_dsconv(gen, dev, C, k, stride, pads, out):
     assert y.shape == ref.shape == (N, *ds.out_hw(H, W, k, stride, pads), O)
     assert y.dtype == ref.dtype
     np.testing.assert_array_equal(y.cpu().numpy(), ref.cpu().numpy())
+
+
+# MobileNetV1's 13 depthwise-separable blocks (alpha 1.0, 224): (H, C, O, stride)
+MOBILENET_BLOCKS = [(112, 32, 64, 1), (112, 64, 128, 2), (56, 128, 128, 1),
+                    (56, 128, 256, 2), (28, 256, 256, 1), (28, 256, 512, 2)] \
+    + [(14, 512, 512, 1)] * 5 + [(14, 512, 1024, 2), (7, 1024, 1024, 1)]
+
+
+def _ds_kw(k, stride, pads):
+    return dict(k=k, stride=stride, pads=pads, mid_scale=6.0 / 255.0, mid_relu=False,
+                mid_relu6=True, out_relu=False, out_relu6=True, out_scale=0.05,
+                out_dtype=torch.int8)
+
+
+def _ds_both_forms(args, kw):
+    """fused_dsconv with the pointwise weight as a contiguous [C, O] and as
+    the transposed view of a contiguous [O, C], each bit for bit the plain
+    version; returns the output."""
+    x, dw, effd, bd, pw, effp, bp = args
+    ref = ds.fused_dsconv_ref(*args, **kw)
+    for pw_form in (pw, pw.t().contiguous().t()):
+        before = launch_counts["fused_dsconv"]
+        y = ds.fused_dsconv(x, dw, effd, bd, pw_form, effp, bp, **kw)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_dsconv"] == before + 1
+        np.testing.assert_array_equal(y.cpu().numpy(), ref.cpu().numpy())
+    return y
+
+
+@pytest.mark.parametrize("block", range(len(MOBILENET_BLOCKS)))
+def test_fused_dsconv_mobilenet_blocks(gen, dev, block):
+    """Each of MobileNetV1's 13 block shapes at batch 2 (the pads of the
+    model's graph: 1 all round at stride 1, bottom/right at stride 2), both
+    weight forms, bit for bit."""
+    H, C, O, stride = MOBILENET_BLOCKS[block]
+    args = _ds_case(gen, dev, 2, H, H, C, O, 3)
+    _ds_both_forms(args, _ds_kw(3, stride, (1, 1, 1, 1) if stride == 1 else (0, 1, 0, 1)))
+
+
+@pytest.mark.parametrize("N,H,W,C,O,k,stride", [
+    (2, 13, 13, 48, 100, 3, 1),       # Ho·Wo = 169 off the pixel tile; C % 32 = 16
+    (3, 13, 11, 40, 72, 3, 2),        # C % 16 = 8: byte copies
+    (1, 9, 7, 1024, 130, 5, 1),       # C = 1024 with k = 5; O off the 64-channel tile
+    (2, 10, 10, 1024, 64, 5, 2),
+    (5, 15, 15, 96, 200, 5, 2),
+    (130, 7, 7, 520, 70, 3, 1)])      # tiles across images, C % 32 = 8, several chunks
+def test_fused_dsconv_ragged(gen, dev, N, H, W, C, O, k, stride):
+    args = _ds_case(gen, dev, N, H, W, C, O, k)
+    _ds_both_forms(args, _ds_kw(k, stride, (k // 2, k // 2, k // 2 - 1, k // 2)))
+
+
+def test_dsconv_smem_mirror_matches_the_library(dev):
+    """kernels/dsblock.py smem_bytes (the mirror ds_plan sizes CK with)
+    equals csrc/dsblock.cu's layout at every MobileNetV1 block's plan and at
+    ragged ones."""
+    import ctypes
+    from csinn2_tpu_torch.kernels import _build
+    fn = _build.c_function("dsblock", "fused_dsconv_smem_bytes", (ctypes.c_int,) * 7)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(b, H, H, C, O, 3, s) for b in (128, 1) for H, C, O, s in MOBILENET_BLOCKS] \
+        + [(3, 13, 11, 40, 72, 5, 2), (1, 9, 7, 1024, 130, 5, 1), (2, 1, 300, 17, 9, 3, 1)]
+    for N, H, W, C, O, k, s in shapes:
+        p = ds.ds_plan(N, H, W, C, O, k, s, (k // 2,) * 4, n_sm)
+        assert fn(p["P"], C, W, p["ck"], p["halo_rows"], p["kc"], k) == p["smem"]
 
 
 def test_fused_dsconv_rejects_bad_args_on_the_card(gen, dev):

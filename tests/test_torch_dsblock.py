@@ -13,7 +13,13 @@ Gates (assert_array_equal unless stated):
     to bf16, f32 sums) is within 1 LSB of the int8 output: its sum order
     differs from XLA's, the one stated tolerance of the slice;
   * `fuse_ds_blocks` fuses the 13 pairs of MobileNetV1 and skips float
-    graphs, multi-use depthwise outputs and its off switches.
+    graphs, multi-use depthwise outputs and its off switches;
+  * the CUDA kernel's launch plan (`ds_plan`: pixel tile, halo rows, channel
+    chunk, shared memory) holds at every tile of MobileNetV1's 13 blocks and
+    ragged shapes, and a numpy emulation of its tiling (flattened pixel
+    tiles across rows and images, the halo rows staged in chunks of CK
+    channels, the depthwise sums read from them) gives the exact depthwise
+    sums; both accepted pointwise weight forms give the same output.
 
 The JAX functions run under jax.jit, as a JAX Session runs them: XLA then
 computes acc·eff + bias as one fused multiply-add and a division by a
@@ -217,6 +223,109 @@ def test_fused_dsconv_rejects_what_the_kernel_does_not_take():
         tds.fused_dsconv(big, torch.zeros((9, 1032), dtype=torch.int8), torch.ones(1032),
                          torch.zeros(1032), torch.zeros((1032, 8), dtype=torch.int8),
                          torch.ones(8), torch.zeros(8), **kw)
+
+
+# -- the CUDA kernel's geometry (csrc/dsblock.cu), checked on the CPU ----------
+
+MOBILENET_BLOCKS = [(112, 32, 64, 1), (112, 64, 128, 2), (56, 128, 128, 1),
+                    (56, 128, 256, 2), (28, 256, 256, 1), (28, 256, 512, 2),
+                    (14, 512, 512, 1), (14, 512, 1024, 2), (7, 1024, 1024, 1)]
+PLAN_CASES = [(N, H, H, C, O, 3, s, _same_pads(H, 3, s)) for N in (128, 1, 2)
+              for H, C, O, s in MOBILENET_BLOCKS] \
+    + [(3, 13, 11, 40, 72, 3, 2, (1, 1, 0, 1)), (1, 9, 7, 1024, 130, 5, 1, (2, 2, 1, 2)),
+       (130, 7, 7, 520, 70, 3, 1, (1, 1, 0, 1)), (5, 15, 15, 96, 200, 5, 2, (2, 2, 1, 2)),
+       (2, 1, 300, 17, 9, 3, 1, (1, 1, 1, 1))]
+
+
+def _tile_rows(p0, P, NP, H, Ho, Wo, k, stride, pt):
+    """csrc/dsblock.cu: the global input rows [r_lo, r_hi] of the P-pixel tile at p0."""
+    g0, g1 = p0 // Wo, (min(p0 + P, NP) - 1) // Wo
+    r_lo = g0 // Ho * H + max(0, g0 % Ho * stride - pt)
+    r_hi = g1 // Ho * H + min(H - 1, g1 % Ho * stride - pt + k - 1)
+    return r_lo, r_hi
+
+
+@pytest.mark.parametrize("N,H,W,C,O,k,stride,pads", PLAN_CASES)
+def test_ds_plan_holds_at_every_tile(N, H, W, C, O, k, stride, pads):
+    """Every tile's halo fits halo_rows, the shared memory fits a CTA (two
+    an SM where the plan says so), CK is a power of two (of 16 bytes when C
+    is), the O chunks are whole 64-channel tiles covering O."""
+    plan = tds.ds_plan(N, H, W, C, O, k, stride, pads, 132)
+    P, ck = plan["P"], plan["ck"]
+    Ho, Wo = tds.out_hw(H, W, k, stride, pads)
+    NP = N * Ho * Wo
+    for p0 in range(0, NP, P):
+        r_lo, r_hi = _tile_rows(p0, P, NP, H, Ho, Wo, k, stride, pads[0])
+        assert 0 <= r_lo <= r_hi < N * H and r_hi - r_lo + 1 <= plan["halo_rows"]
+    assert plan["smem"] == tds.smem_bytes(P, C, W, ck, plan["halo_rows"], plan["kc"], k)
+    assert plan["smem"] <= tds.SMEM_LIMIT and ck & (ck - 1) == 0 and 4 <= ck <= 1024
+    assert C % 16 or ck % 16 == 0
+    assert plan["kc"] % 32 == 0 and plan["o_chunk"] % tds.OT == 0
+    assert plan["grid"] == (-(-NP // P), -(-O // plan["o_chunk"]))
+    if N == 128 and (H, C) in [(h, c) for h, c, _, _ in MOBILENET_BLOCKS]:
+        assert 2 * (plan["smem"] + tds.CTA_RESERVED) <= tds.SM_SMEM      # two CTAs an SM
+
+
+@pytest.mark.parametrize("N,H,W,C,k,stride,pads", [
+    (3, 7, 7, 24, 3, 1, (1, 1, 1, 1)), (2, 9, 5, 20, 5, 2, (2, 2, 1, 2)),
+    (4, 6, 6, 8, 3, 2, (0, 1, 0, 1)), (1, 12, 3, 36, 5, 1, (2, 1, 2, 2))])
+def test_kernel_tiling_gives_the_depthwise_sums(N, H, W, C, k, stride, pads):
+    """A numpy emulation of csrc/dsblock.cu phase 1 with small tiles (P = 16,
+    CK = 8): per tile the halo rows [r_lo, r_hi] of the flattened NHWC input
+    in CK-channel chunks, each pixel's taps read from them at its halo row
+    n·H + ih - r_lo, skipped outside the image — the exact int32 depthwise
+    sums of fused_dsconv_ref's loop."""
+    rng = np.random.default_rng(3)
+    x = rng.integers(-128, 128, (N, H, W, C)).astype(np.int64)
+    dw = rng.integers(-128, 128, (k * k, C)).astype(np.int64)
+    Ho, Wo = tds.out_hw(H, W, k, stride, pads)
+    pt, pd, pl, pr = pads
+    xp = np.pad(x, ((0, 0), (pt, pd), (pl, pr), (0, 0)))
+    want = np.zeros((N, Ho, Wo, C), np.int64)
+    for dy in range(k):
+        for dx in range(k):
+            want += xp[:, dy:dy + (Ho - 1) * stride + 1:stride,
+                       dx:dx + (Wo - 1) * stride + 1:stride] * dw[dy * k + dx]
+    rows = x.reshape(N * H, W, C)
+    P, CK, NP = 16, 8, N * Ho * Wo
+    got = np.zeros((NP, C), np.int64)
+    for p0 in range(0, NP, P):
+        r_lo, r_hi = _tile_rows(p0, P, NP, H, Ho, Wo, k, stride, pt)
+        for c0 in range(0, C, CK):
+            halo = rows[r_lo:r_hi + 1, :, c0:c0 + CK]
+            for pix in range(p0, min(p0 + P, NP)):
+                n, rem = divmod(pix, Ho * Wo)
+                oh, ow = divmod(rem, Wo)
+                ih0, iw0 = oh * stride - pt, ow * stride - pl
+                for dy in range(k):
+                    if not 0 <= ih0 + dy < H:
+                        continue
+                    for dx in range(k):
+                        if 0 <= iw0 + dx < W:
+                            got[pix, c0:c0 + CK] += (halo[n * H + ih0 + dy - r_lo, iw0 + dx]
+                                                     * dw[dy * k + dx, c0:c0 + CK])
+    np.testing.assert_array_equal(got.reshape(N, Ho, Wo, C), want)
+
+
+def test_fused_dsconv_takes_both_weight_forms():
+    """pw_w as a contiguous [C, O] and as the transposed view of a
+    contiguous [O, C] (what fused_args passes: the graph weight's own
+    layout, no copy) give the same output; kernels that take [O, C] read
+    that view's storage as it is."""
+    rng = np.random.default_rng(2)
+    x, w1, b1, w2, b2, sx, sw1, sw2 = _case(rng, 2, 9, 7, 24, 40, 1, 3, None)
+    T = torch.from_numpy
+    dw = T(np.ascontiguousarray(w1.reshape(24, 9).T))
+    pw_oc = T(np.ascontiguousarray(w2.reshape(40, 24)))
+    kw = dict(k=3, stride=1, pads=(1, 1, 1, 1), mid_scale=0.02, mid_relu=False,
+              mid_relu6=True, out_relu=False, out_relu6=True, out_scale=0.04)
+    args = (T(x), dw, T(sw1 * np.float32(sx)), T(b1))
+    tail = (T(sw2 * np.float32(0.02)), T(b2))
+    view = pw_oc.t()
+    a = tds.fused_dsconv(*args, pw_oc.t().contiguous(), *tail, **kw)
+    b = tds.fused_dsconv(*args, view, *tail, **kw)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert tds._weight_oc(view).data_ptr() == pw_oc.data_ptr()
 
 
 # -- qconv ---------------------------------------------------------------------

@@ -309,13 +309,25 @@ def test_jax_asserts_raise_value_error(rng, bad):
             fn(xt, _t(w), _t(s), _t(b), **kw)
 
 
-def test_unreached_combination_raises_not_implemented(rng):
-    """swiglu on the int8-x (int_dot) path: accepted by the JAX wrapper,
-    reached by no caller or test of the JAX package; it names its ROADMAP
-    item."""
-    x, w, s, _ = _any_case(rng, 4, 64, 256, scale_mode="channel", int_x=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_matmul(_t(x), _t(w), _t(s), scale_mode="channel", swiglu=True)
+@pytest.mark.parametrize("scale_mode,packed", [("channel", False), ("none", False),
+                                               ("channel", True), ("none", True)],
+                         ids=["channel-kn", "none-kn", "channel-packed", "none-packed"])
+def test_unreached_combination_raises_not_implemented(rng, scale_mode, packed):
+    """swiglu on the int8-x (int_dot) path, which the port once refused
+    (ROADMAP B.9b) and now runs: the exact int32 sum, the float epilogue,
+    then the swiglu128 pairs.  The port's plain version against the JAX
+    kernel in interpret mode and JAX's f32 reference, rtol 1e-5 (atol
+    1e-5·max|y|): the sums are exact in all three, only silu's rounding
+    differs."""
+    M, K, N = 4, 64, 512
+    x, w, s, _ = _any_case(rng, M, K, N, scale_mode=scale_mode, packed_int4=packed,
+                           int_x=True)
+    kw = dict(scale_mode=scale_mode, packed_int4=packed, swiglu=True)
+    got = _port_any(x, w, s, None, **kw).numpy()
+    assert got.shape == (M, N // 2)
+    for want in (_jax_any(x, w, s, None, bn=256, bk=64, **kw),
+                 np.asarray(jax_qmm_ref(x, w, s, **kw))):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -472,6 +484,59 @@ def test_decode_plan_ragged(M, N, K):
     × odd, not a multiple of a ring stage), on two SM counts."""
     _plan_invariants(M, N, K, False)
     _plan_invariants(M, N, K, True, n_sm=114)
+
+
+def _i8_plan_invariants(M, N, K, n_sm=132):
+    """csrc/qmatmul_int8dot.cu's plan (int8dot_plan, the mirror the card
+    holds to the library): every 32-k block (K rounded up) in exactly one
+    split of whole stages, the decode geometry of the float decode GEMM at
+    M <= 16, at most PI_MAX_SPLITS prefill splits with a counter slot for
+    every tile, the int32 workspace of the splits' partials."""
+    p = tq.int8dot_plan(M, N, K, n_sm)
+    nb, strips = -(-K // 32), -(-N // tq.DC_BN)
+    sp, bps = p["splits"], p["blocks_per_split"]
+    assert sp >= 1 and sp * bps >= nb > (sp - 1) * bps
+    if M <= tq.DECODE_MAX_M:
+        assert p["kernel"] == "decode" and p["grid"] == (strips, sp)
+        assert bps % tq.DC_SPLIT_ALIGN == 0
+        assert strips * sp <= tq.DC_CTAS_PER_SM * n_sm or sp == 1
+        assert (sp, bps) == tuple(tq.gemm_plan(M, N, nb * 32, False, n_sm)[k]
+                                  for k in ("splits", "blocks_per_split"))
+    else:
+        tiles = -(-M // tq.PI_BM) * strips
+        assert p["kernel"] == "prefill" and p["grid"] == (strips, sp, -(-M // tq.PI_BM))
+        assert sp <= tq.PI_MAX_SPLITS and bps % (tq.PI_SK // 32) == 0
+        assert sp == 1 or tiles <= tq.COUNTER_SLOTS
+    assert p["workspace"] == (sp * M * N if sp > 1 else 0)
+    return p
+
+
+@pytest.mark.parametrize("proj", list(LLAMA_PROJ))
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 128, 512, 2048])
+def test_int8dot_plan_llama_projections(proj, M):
+    K, N = LLAMA_PROJ[proj]
+    _i8_plan_invariants(M, N, K)
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 272, 1040), (15, 528, 12304), (17, 272, 1040),
+                                   (129, 1552, 4096), (333, 16, 80), (2048, 48, 11008),
+                                   (40, 30000, 4112)])
+def test_int8dot_plan_ragged(M, N, K):
+    _i8_plan_invariants(M, N, K)
+    _i8_plan_invariants(M, N, K, n_sm=114)                  # another card's SM count
+
+
+def test_int8dot_plan_7b_choices():
+    """At w13 (86 strips) the 128-token prefill tiles fill 86 of 132 SMs in
+    one wave without a split (a split's int32 partials cost more than the
+    idle SMs); wqkv's 48 tiles take 2 splits; decode (M = 4) is the float
+    decode GEMM's plan, 3 splits of 44 blocks."""
+    plan = lambda M, K, N: tq.int8dot_plan(M, N, K, 132)
+    assert plan(128, 4096, 22016)["splits"] == 1 and plan(128, 4096, 12288)["splits"] == 2
+    assert plan(128, 4096, 22016)["grid"] == (86, 1, 1)
+    assert plan(2048, 4096, 22016)["splits"] == 1
+    assert plan(4, 4096, 22016) == dict(kernel="decode", splits=3, blocks_per_split=44,
+                                        grid=(86, 3), workspace=3 * 4 * 22016)
 
 
 def _decode_emulation(x, q_kn, s_blocks, scale_mode, *, bias=None, epilogue_scale=None,
