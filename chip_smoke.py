@@ -23,6 +23,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      at prefill and, split over the KV window, at flash decode, its decode
      also cold), then every attention entry point at head
      dims 16, 32, 80, 96 and 256 with an f32 and a bf16 q, int8 and bf16 KV;
+     then the head dims above 256 (the wide kernel, attn_wide_kernel): the
+     four entry points at d = 320, int8 and bf16 KV, driven once each with
+     the launch counts zeroed before and read after (their path), each held
+     against its plain version, and timed beside SDPA on the dequantized
+     K/V;
   3. model parity: a 2-layer model at full 7B width (int8 KV) over a
      128-token prompt, logits on the card against the same model through the
      port's plain path on the CPU (cosine >= 0.999), for Q8_0, Q4_0,
@@ -70,8 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      default decode's (cosine >= 0.999), decode tokens/s beside phase 4's;
  10. the probe path: the port's Q4_0 dequant-strategy probe
      (csinn2_tpu_torch.examples.int4_dequant_probe, the eleven kernels of
-     kernels/int4_probe.py beside cur(quant_matmul); the eight plane kinds
-     on the decode GEMM's tensor-core skeleton) at the four Llama-2-7B
+     kernels/int4_probe.py beside cur(quant_matmul), every one on the decode
+     GEMM's tensor-core skeleton: the eight bf16 plane kinds, intdot and
+     w4a8 on int8 tensor cores, stream the ring's copies alone) at the four Llama-2-7B
      decode shapes (wqkv, w13, w2, wo; M = 8), every variant timed cold
      (rotating over weight copies that exceed twice the L2) and no row
      above 105 % of its own bytes bound; then each kernel held against its
@@ -134,6 +140,8 @@ KERNELS = {
     "quant_matmul_requant": (I8_SOURCE, "csinn2_tpu/kernels/requant.py:40"),
     "quant_matmul_t": (QMM_SOURCE, QMM_REPLACES),
     "flash_attention_bhsd": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
+    # d > 256 in all three functions (also :142 decode_attention, :248 prefill_attention)
+    "attention_wide": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
 }
 # the probe kernels: kind → (line of the JAX body or pallas_call function in
 # examples/int4_dequant_probe.py, the probe's variant name)
@@ -849,6 +857,108 @@ def check_attention_dims(records):
         f"against the plain version, the kv_len = 0 row 0")
 
 
+WIDE_D = 320
+
+
+def check_attention_wide(records):
+    """Head dims above 256 (attn_wide_kernel): GQA 32/8 at d = 320, int8
+    (kv_scale 0.05) and bf16 KV, per-row q_offset / kv_len: the four entry
+    points at b = 2, sq = 128 over S = 512 (kv_len 128 / 461, q_offset 0 /
+    333) and decode b = 4 over S = 2048 (kv_len 2048 / 1027 / 0 / 17).  The
+    calls run once with the launch counts zeroed just before and read just
+    after (their path: no package caller reaches d > 256); then each output
+    against its plain version at the attention gate, a kv_len = 0 row 0;
+    then flash_attention bhsd at sq = S = 512 and decode_attention timed
+    beside SDPA on the dequantized, GQA-expanded K/V.  Returns the path's
+    launch counts."""
+    import torch
+    import torch.nn.functional as F
+    from csinn2_tpu_torch.kernels import flash_attention as fa
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    hq, hk, d = 32, 8, WIDE_D
+    cases = []
+    for int8 in (True, False):
+        for name in ATTN_ENTRIES:
+            dec = name == "decode_attention"
+            b, S, sq = (4, 2048, 1) if dec else (2, 512, 128)
+            if int8:
+                k, v = _kv_case(g, b, hk, S, d, 0.05)
+            else:
+                k, v = (torch.randn((b, S, hk, d), generator=g, device="cuda")
+                        .to(torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+            bhsd = name in ("flash_attention_bhsd", "decode_attention")
+            q = torch.randn((b, hq, sq, d) if bhsd else (b, sq, hq, d), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            kvl = torch.tensor([2048, 1027, 0, 17] if dec else [128, 461], dtype=torch.int32,
+                               device="cuda")
+            off = kvl - 1 if dec else torch.tensor([0, 333], dtype=torch.int32, device="cuda")
+            cases.append((name, int8, q, k, v, dict(causal=True, q_offset=off, kv_len=kvl,
+                                                    kv_scale=0.05 if int8 else None)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [_attend(name, q, k, v, kw) for name, _, q, k, v, kw in cases]   # synchronizes
+    counts = dict(launch_counts)
+    log(f"  head dim {d}: the four entry points, int8 and bf16 KV; launches {counts}")
+    if launches(counts, "attention_wide") != len(cases):
+        raise AssertionError(f"attention_wide: {launches(counts, 'attention_wide')} launches "
+                             f"for {len(cases)} calls")
+    worst = 0.0
+    for (name, int8, *_), (out, ref) in zip(cases, outs):
+        r = _verify_attn(f"attention_wide {name} d={d} int8={int8}", out, ref)
+        worst = max(worst, r.max_abs_err)
+        if name == "decode_attention" and float(out[2].abs().max()) != 0.0:
+            raise AssertionError("attention_wide: the kv_len = 0 row must output 0")
+    log(f"  head dim {d}: {len(cases)} calls against the plain version, verify(2e-2), "
+        f"cos >= 0.9999, max_abs_err {worst:.3e}")
+    rec = {"max_abs_err": worst}
+    # timing: bhsd flash at sq = S = 512 (causal), and decode at the case above
+    kv_scale = 0.05
+    for case in ("flash", "decode"):
+        b, S, sq = (1, 512, 512) if case == "flash" else (4, 2048, 1)
+        k, v = _kv_case(g, b, hk, S, d, kv_scale)
+        q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(torch.bfloat16)
+        kvl = torch.tensor([S] if case == "flash" else [2048, 1027, 0, 17], dtype=torch.int32,
+                           device="cuda")
+        if case == "flash":
+            kw = dict(causal=True, q_offset=0, kv_len=kvl, kv_scale=kv_scale)
+            run = lambda: fa.flash_attention(q, k, v, **kw)
+            plain_fn = lambda: fa._attention_ref(q, k, v, scale=1.0 / math.sqrt(d), **kw)
+        else:
+            kw = dict(q_offset=kvl - 1, kv_len=kvl, kv_scale=kv_scale)
+            run = lambda: fa.decode_attention(q, k, v, **kw)
+            plain_fn = lambda: fa._attention_ref(q, k, v, causal=False,
+                                                 scale=1.0 / math.sqrt(d), **kw)
+        ms = gpu_ms(run)
+        plain = gpu_ms(plain_fn, reps=3)
+        kd = (k.float() * kv_scale).to(torch.bfloat16).repeat_interleave(hq // hk, dim=1)
+        vd = (v.float() * kv_scale).to(torch.bfloat16).repeat_interleave(hq // hk, dim=1)
+        if case == "flash":
+            lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, is_causal=True))
+            pairs = sq * (sq + 1) // 2
+            b_ms, b_by = bound(2 * b * sq * hq * d * 2 + 2 * S * hk * d, 4.0 * pairs * hq * d)
+        else:
+            mask = (torch.arange(S, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+            lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+            n_kv = int(kvl.sum())
+            b_ms, b_by = bound(2 * b * hq * d * 2 + 2 * n_kv * hk * d, 4.0 * n_kv * hq * d)
+        shape = (f"{'flash_attention bhsd' if case == 'flash' else 'decode_attention'} b={b} "
+                 f"hq=32 hk=8 sq={sq} d={d} S={S} kv_len={kvl.tolist()}, int8 KV")
+        log(f"  attention_wide {shape} ms={ms:.4f} plain_ms={plain:.4f} lib_ms={lib:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f}")
+        if case == "flash":
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                       shape=shape)
+        else:
+            rec["decode"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                                 shape=shape)
+        del k, v, kd, vd
+    records["attention_wide"] = rec
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the op API's CUDA tier at Llama-2-7B width
 # ---------------------------------------------------------------------------
@@ -1461,7 +1571,7 @@ def check_probe_kernels(records, results, gpu_line):
             ms, cur = us[variant, K, N] * 1e-3, us[probe.CUR, K, N] * 1e-3
             b_ms, b_by = bound(ip.kernel_bytes(kind, M, N, K), 2.0 * M * N * K,
                                INT8_OPS if kind in ("intdot", "w4a8") else BF16_FLOPS)
-            cols, ksplit = ip.geometry(kind, M, N, K, bn, bk, n_sm)
+            cols, ksplit = ip.plane_geometry(M, N, K, n_sm)
             shape = (f"{label} M={M} K={K} N={N} (bn {bn} bk {bk}: {cols} columns per CTA, "
                      f"{ksplit}-row splits), cold L2")
             log(f"  int4_probe_{kind} {shape}: ms={ms:.4f} plain_ms={plain:.4f} lib_ms={lib:.4f} "
@@ -1545,9 +1655,10 @@ def main() -> int:
     check_int8dot_cold(records)
     check_flash_bhsd(records)
     check_attention_dims(records)
-    torch.cuda.empty_cache()
     # kernel name → (launch counts of the run whose path it is on, the run)
-    path_counts = {}
+    path_counts = {"attention_wide": (check_attention_wide(records),
+                                      f"phase 2 (the four entry points at d = {WIDE_D})")}
+    torch.cuda.empty_cache()
     api_counts = kernel_api_path()
     for k in ("quant_matmul_none", "quant_matmul_int8dot", "quant_matmul_requant"):
         path_counts[k] = (api_counts, "phase 2 (kernel API: no package caller)")
@@ -1604,7 +1715,7 @@ def main() -> int:
                  "library_ms": r["library_ms"], "shape": r["shape"]}
         for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
                       "decode_cold", "cur_ms", "library_layout", "blocks_ms",
-                      "blocks_bound_ms", "launches_phase"):
+                      "blocks_bound_ms", "launches_phase", "decode"):
             if extra in r:
                 entry[extra] = r[extra]
         if name in reduce_per_step:

@@ -27,13 +27,17 @@ attention, decode, prefill).  Cases:
     Q8_0 and Q4_0 w13 bytes at M = 8 (no math: its copy rate);
   * prefill: the seven w13 modes at M = 128, Q8_0 and Q4_0 at M = 512 and
     2048; the library call is torch.matmul on the dequantized bf16 weight;
-  * probe: cur(quant_matmul) and the eight plane kinds of the Q4_0 dequant
-    probe (examples/int4_dequant_probe.py: split_i32, split_i8, i4native,
-    bitcast, andmask, andmask_bf16s, noscale, halfq8) at its four Llama-2-7B
-    decode shapes (wqkv, w13, w2, wo) and inputs, M = 8, the kernel alone,
-    cold, beside torch.matmul on the dequantized bf16 weight (cold), each
-    row's own bytes bound (kernels/int4_probe.py kernel_bytes) and its
-    cosine against the probe's golden; then the decode ring alone;
+  * probe: cur(quant_matmul) and the Q4_0 dequant probe's kernels
+    (examples/int4_dequant_probe.py: the eight plane kinds split_i32,
+    split_i8, i4native, bitcast, andmask, andmask_bf16s, noscale, halfq8;
+    stream; the W4A8 pipelines intdot and w4a8, and w4a8 at main's bn 2048
+    and 1024) at its four Llama-2-7B decode shapes (wqkv, w13, w2, wo) and
+    inputs, M = 8, and at w13 also M = 1 and 16; the kernel alone, cold,
+    beside torch.matmul on the dequantized bf16 weight (cold), each row's
+    own bound (kernels/int4_probe.py kernel_bytes; intdot and w4a8 against
+    the int8 peak) and its cosine against the probe's golden, then each
+    row's factor over cur and over torch.matmul; then the decode ring
+    alone;
   * int8: the int8-x GEMM (int8 x, INT8_CHANNEL weights) on the w13 in its
     three layouts ([K, N], [N, K], packed [K/2, N]) at M = 1, 4, 8, 16 and
     128, in the float epilogue (channel scale, f32 out) and the requantize
@@ -205,22 +209,26 @@ def bench_ring(g, line: str):
 
 
 PROBE_VARIANTS = ("split_i32", "split_i8", "i4native", "bitcast", "andmask", "andmask_bf16s",
-                  "noscale(timing)", "halfq8(timing)")
+                  "noscale(timing)", "halfq8(timing)", "stream", "intdot", "w4a8", "w4a8_n2048",
+                  "w4a8_n1024")
+PROBE_EXTRA_MS = (1, 16)      # at w13, besides M = 8 at all four shapes
 
 
 def bench_probe(line: str):
-    """cur(quant_matmul) and the eight plane kinds at the probe's four
-    shapes and inputs (M = 8), cold, beside torch.matmul cold."""
+    """cur(quant_matmul) and the probe's kernels at its four shapes and
+    inputs (M = 8; w13 also at PROBE_EXTRA_MS), cold, beside torch.matmul
+    cold."""
     import numpy as np
     import torch
     from csinn2_tpu_torch.examples import int4_dequant_probe as probe
     from csinn2_tpu_torch.kernels.qmatmul import unpack_int4
     from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms_cold, l2_bytes
     from csinn2_tpu_torch.utils.verify import cosine_similarity
-    M = 8
     rng = np.random.default_rng(0)
     rows = []
-    for label, (K, N, bn, bk) in zip(probe.SHAPE_NAMES, probe.ALL_SHAPES):
+    cases = [(label, shape, 8) for label, shape in zip(probe.SHAPE_NAMES, probe.ALL_SHAPES)]
+    cases += [("w13", probe.ALL_SHAPES[1], M) for M in PROBE_EXTRA_MS]
+    for label, (K, N, bn, bk), M in cases:
         case = probe.make_case(rng, M, K, N, "cuda")
         x, w = case["x"], case["weights"]
         n = cold_copies(K * N // 2 + (K // 32) * N * 4, l2_bytes())
@@ -235,10 +243,11 @@ def bench_probe(line: str):
             spec = table[name]
             fn, _ = probe.calls(spec, x, copies[0], M)
             cos = cosine_similarity(fn().float().cpu().numpy(), case["gold"])
-            if "timing" not in name and name != "bitcast" and cos < 0.99:
+            if "timing" not in name and name not in ("bitcast", "stream") and cos < 0.99:
                 raise AssertionError(f"probe {name} {label}: cos {cos}")
             ms = gpu_ms_cold([probe.calls(spec, x, c, M)[1] for c in copies])
-            b_ms, b_by = _bound(probe.kernel_bytes(spec[0], M, N, K), 2.0 * M * N * K)
+            b_ms, b_by = _bound(probe.kernel_bytes(spec[0], M, N, K), 2.0 * M * N * K,
+                                INT8 if spec[0] in ("intdot", "w4a8") else BF16)
             rows.append(dict(kind="probe", case=name, proj=label, M=M, K=K, N=N, ms=ms,
                              ms_cold=ms, library_ms=lib, library_ms_cold=lib, bound_ms=b_ms,
                              bound_by=b_by, cos=cos, card=line))
@@ -429,12 +438,12 @@ def step_sums(results):
 
 
 def probe_factors(results):
-    """Per run, probe shape and variant: (ms, ms / cur's ms, ms / torch.matmul's ms)."""
-    cur = {(r["run"], r["proj"]): r["ms"] for r in results
+    """Per run, probe shape, M and variant: (ms, ms / cur's ms, ms / torch.matmul's ms)."""
+    cur = {(r["run"], r["proj"], r["M"]): r["ms"] for r in results
            if r["kind"] == "probe" and r["case"].startswith("cur")}
-    return {(r["run"], r["proj"], r["case"]): (r["ms"], r["ms"] / cur[r["run"], r["proj"]],
-                                               r["ms"] / r["library_ms"])
-            for r in results if r["kind"] == "probe" and (r["run"], r["proj"]) in cur}
+    return {(r["run"], r["proj"], r["M"], r["case"]):
+            (r["ms"], r["ms"] / cur[r["run"], r["proj"], r["M"]], r["ms"] / r["library_ms"])
+            for r in results if r["kind"] == "probe" and (r["run"], r["proj"], r["M"]) in cur}
 
 
 def dsconv_sums(results):
@@ -487,8 +496,8 @@ def main(argv=None) -> int:
     for (run, case), ms in sorted(step_sums(results).items()):
         print(f"run {run} decode step sum, batch 4, {case}: {N_LAYERS} x (wqkv + wo + w13 + w2) "
               f"= {ms:.4f} ms cold")
-    for (run, proj, case), (ms, x_cur, x_lib) in probe_factors(results).items():
-        print(f"run {run} probe {proj} {case:24s} {ms:.4f} ms cold: {x_cur:.2f} x cur, "
+    for (run, proj, M, case), (ms, x_cur, x_lib) in probe_factors(results).items():
+        print(f"run {run} probe {proj} M={M:<2d} {case:24s} {ms:.4f} ms cold: {x_cur:.2f} x cur, "
               f"{x_lib:.2f} x torch.matmul")
     for (run, batch), (ms, b_ms) in sorted(dsconv_sums(results).items()):
         print(f"run {run} dsconv 13 blocks, batch {batch}: {ms:.4f} ms, bound {b_ms:.4f} ms")

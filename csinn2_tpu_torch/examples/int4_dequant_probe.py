@@ -9,12 +9,11 @@ values q and the f32 block scales from numpy's default_rng(0) as main does,
 makes the four packs (Q4_0, re-biased, mixed, the i4native carrier) and the
 golden x @ (q·s) in f32, and runs main's variants: `cur(quant_matmul)` (the
 port's packed decode GEMM), the ten pipelines of kernels/int4_probe.py,
-w4a8 at bn 2048 and 1024, and the andmask_bn*_bk* sweep (the plane kinds
-take the decode GEMM's geometry whatever the tile, so these rows repeat
-andmask's launch; kernels/int4_probe.py notes).  Each variant prints one
-line: the kernel's time (its CUDA kernel alone, with stream's, intdot's and
-w4a8's split-K reduce; cold L2: utils/timing.gpu_ms_cold over copies of the
-weights), GB/s and % of the bytes bound of main's formula — K·N/2 +
+w4a8 at bn 2048 and 1024, and the andmask_bn*_bk* sweep (every kind takes
+the decode GEMM's geometry whatever the tile, so these rows repeat w4a8's
+and andmask's launches; kernels/int4_probe.py notes).  Each variant prints
+one line: the kernel's time (its one CUDA launch alone; cold L2:
+utils/timing.gpu_ms_cold over copies of the weights), GB/s and % of the bytes bound of main's formula — K·N/2 +
 K/32·N·4 + M·K·2 bytes at the H100's 3.35 TB/s — its factor over
 cur(quant_matmul)'s time, then the whole function's time (the outside ops
 too) and the cosine against the golden.  The card's nvidia-smi name and

@@ -55,6 +55,12 @@
 //   K/V rows load 16, 8 or 4 bytes at a time (`vec`, the widest width the
 //   rows and strides allow), element by element where none does.
 //
+// attention_wide_launch — the same three functions at d > 256, which the
+//   JAX functions take (they pad d to a multiple of 128, with no cap) and
+//   the kernels above do not.  Speed is no aim: attn_wide_kernel is a
+//   plain online-softmax attention on the CUDA cores, right at any d whose
+//   tiles fit shared memory (notes at the kernel).  Bound as above.
+//
 // A row whose softmax denominator is 0 (kv_len == 0, or every key masked)
 // outputs 0, never NaN.  K/V are read through (batch, head, seq) strides
 // with a contiguous last dim, so the cache's [b, S, hk, d] layout is
@@ -845,6 +851,183 @@ decode_attn_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long lo
     }
 }
 
+// ---------------------------------------------------------------------------
+// attn_wide_kernel: any head dim above 256, on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_THREADS = 128;
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr size_t WIDE_SMEM_MAX = 232448;   // dynamic shared memory a CTA may have
+
+__device__ __forceinline__ float kv_to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float kv_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Dynamic shared memory of attn_wide_kernel: a tile's K and V rows as they
+// lie (each padded to 16 bytes), then f32 q and output rows [rb][d], the
+// scores [rb][bkv] and (max, sum, rescale) [3][rb]
+__host__ __device__ inline size_t wide_smem(int d, int es, int rb, int bkv) {
+  const size_t row = (static_cast<size_t>(d) * es + 15) / 16 * 16;
+  return 2 * bkv * row + sizeof(float) * (2 * static_cast<size_t>(rb) * d +
+                                          static_cast<size_t>(rb) * bkv + 3 * rb);
+}
+
+// One CTA per (rb m rows of a KV head's GQA group, KV head, batch row); m
+// row r is (query r / group, head hkid·group + r % group), as in
+// attn_fwd_kernel, so the group's heads share every K/V row the CTA reads.
+// q is rounded to bf16 as it is staged (f32 in shared memory; the JAX
+// kernels' zero padding of d to a multiple of 128 adds nothing and is not
+// stored).  Tiles of bkv keys come into shared memory by cp.async of `vec`
+// bytes (element loads at vec = 0) through the cache's strides, int8 widened
+// exactly where it is read; a warp a (row, key) score, its lanes over d;
+// one thread a row's online softmax in f32 (log2 units: exp2), P rounded to
+// bf16 before P·V as the JAX bodies round it and l summed from the f32 p;
+// one thread a column of O·alpha + P·V.  kv_scale is folded into qk_scale
+// and out_scale.  Keys past kv_len (and past a row's position when causal)
+// are masked; a row that sees no key outputs 0.  (A two-stage ring, with a
+// warp a key for all rows at once, measured slower on the H100.)
+template <typename KV>
+__global__ void __launch_bounds__(WIDE_THREADS)
+attn_wide_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long long q_ss,
+                 long long q_sh, const KV* __restrict__ k, long long k_sb, long long k_sh,
+                 long long k_ss, const KV* __restrict__ v, long long v_sb, long long v_sh,
+                 long long v_ss, const int* __restrict__ q_offset, int off0,
+                 const int* __restrict__ kv_len, int len0, void* __restrict__ out, int o_dt,
+                 long long o_sb, long long o_ss, long long o_sh, int sq, int hq, int hk, int S,
+                 int d, int causal, int vec, int rb, int bkv, float qk_scale, float out_scale) {
+  constexpr int ES = static_cast<int>(sizeof(KV));
+  extern __shared__ __align__(16) unsigned char wsm[];
+  const int row_b = (d * ES + 15) / 16 * 16;            // bytes of a K/V row in shared memory
+  unsigned char* kt = wsm;                              // [bkv][row_b]
+  unsigned char* vt = wsm + (size_t)bkv * row_b;
+  float* qs = reinterpret_cast<float*>(wsm + (size_t)2 * bkv * row_b);   // [rb][d]
+  float* os = qs + (size_t)rb * d;                      // [rb][d]
+  float* ps = os + (size_t)rb * d;                      // [rb][bkv]: scores, then p
+  float* mrow = ps + rb * bkv;                          // [rb] each
+  float* lrow = mrow + rb;
+  float* alpha = lrow + rb;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int group = hq / hk, MR = sq * group;
+  const int m0 = blockIdx.x * rb, hkid = blockIdx.y, bi = blockIdx.z;
+  const int rows = min(rb, MR - m0);
+  const int qoff = q_offset ? q_offset[bi] : off0;
+  const int L = max(0, min(kv_len ? kv_len[bi] : len0, S));
+  const int kend = causal ? max(0, min(L, qoff + (m0 + rows - 1) / group + 1)) : L;
+  const KV* kb = k + bi * k_sb + hkid * k_sh;
+  const KV* vb = v + bi * v_sb + hkid * v_sh;
+
+  for (int i = tid; i < rows * d; i += WIDE_THREADS) {
+    const int r = m0 + i / d, c = i % d;
+    qs[i] = __bfloat162float(load_q_bf16(
+        q, bi * q_sb + (r / group) * q_ss + (hkid * group + r % group) * q_sh + c, q_dt));
+    os[i] = 0.f;
+  }
+  for (int r = tid; r < rows; r += WIDE_THREADS) {
+    mrow[r] = -INFINITY;
+    lrow[r] = 0.f;
+  }
+  const float sl = qk_scale * LOG2E;
+  const int pieces = vec ? d * ES / vec : d;            // copies a row
+
+  for (int k0 = 0; k0 < kend; k0 += bkv) {
+    const int nk = min(bkv, kend - k0);
+    __syncthreads();                                    // the last tile's reads are done
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {           // K, then V rows k0 .. k0 + nk - 1
+      const char* src = reinterpret_cast<const char*>(which ? vb + k0 * v_ss : kb + k0 * k_ss);
+      const long long rs = (which ? v_ss : k_ss) * ES;
+      unsigned char* dst = which ? vt : kt;
+      for (int i = tid; i < nk * pieces; i += WIDE_THREADS) {
+        const int j = i / pieces, pc = i % pieces;
+        const char* g = src + j * rs;
+        unsigned char* sp = dst + (size_t)j * row_b;
+        if (vec == 16) cp_async<16>(smem_u32(sp + pc * 16), g + pc * 16, true);
+        else if (vec == 8) cp_async<8>(smem_u32(sp + pc * 8), g + pc * 8, true);
+        else if (vec == 4) cp_async<4>(smem_u32(sp + pc * 4), g + pc * 4, true);
+        else reinterpret_cast<KV*>(sp)[pc] = reinterpret_cast<const KV*>(g)[pc];
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // the scores: a warp a (row, key), lanes over d
+    for (int pr = warp; pr < rows * nk; pr += WIDE_WARPS) {
+      const int r = pr / nk, j = pr % nk;
+      const float* qr = qs + (size_t)r * d;
+      const KV* kr = reinterpret_cast<const KV*>(kt + (size_t)j * row_b);
+      float dot = 0.f;
+      for (int c = lane; c < d; c += 32) dot = fmaf(qr[c], kv_to_float(kr[c]), dot);
+      dot = warp_sum(dot);
+      if (lane == 0) {
+        const bool seen = !causal || k0 + j <= qoff + (m0 + r) / group;
+        ps[r * bkv + j] = seen ? dot * sl : -INFINITY;
+      }
+    }
+    __syncthreads();
+    // the online softmax, a thread a row
+    for (int r = tid; r < rows; r += WIDE_THREADS) {
+      float mx = -INFINITY;
+      for (int j = 0; j < nk; ++j) mx = fmaxf(mx, ps[r * bkv + j]);
+      const float m_new = fmaxf(mrow[r], mx);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;   // no key seen yet: p = 0
+      float sum = 0.f;
+      for (int j = 0; j < nk; ++j) {
+        const float p = exp2f(ps[r * bkv + j] - mu);
+        sum += p;
+        ps[r * bkv + j] = __bfloat162float(__float2bfloat16_rn(p));
+      }
+      alpha[r] = exp2f(mrow[r] - mu);
+      lrow[r] = lrow[r] * alpha[r] + sum;
+      mrow[r] = m_new;
+    }
+    __syncthreads();
+    // O = O·alpha + P·V, a thread a column
+    for (int c = tid; c < d; c += WIDE_THREADS)
+      for (int r = 0; r < rows; ++r) {
+        float o = os[(size_t)r * d + c] * alpha[r];
+        for (int j = 0; j < nk; ++j)
+          o = fmaf(ps[r * bkv + j],
+                   kv_to_float(reinterpret_cast<const KV*>(vt + (size_t)j * row_b)[c]), o);
+        os[(size_t)r * d + c] = o;
+      }
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * d; i += WIDE_THREADS) {
+    const int rr = i / d, c = i % d, r = m0 + rr;
+    const float l = lrow[rr];
+    store_dt(out, bi * o_sb + (r / group) * o_ss + (hkid * group + r % group) * o_sh + c, o_dt,
+             l > 0.f ? os[i] * (out_scale / l) : 0.f);
+  }
+}
+
+// rb m rows and bkv keys a tile: 8 and 32, fewer keys (down to 8), then fewer
+// rows, then fewer keys again where a wide d needs the shared memory
+template <typename KV>
+int launch_wide(const void* q, int q_dt, const long long* qs, const void* k, const long long* ks,
+                const void* v, const long long* vs, const int* q_offset, int off0,
+                const int* kv_len, int len0, void* out, int o_dt, const long long* os, int b,
+                int sq, int hq, int hk, int S, int d, int causal, int vec, float qk_scale,
+                float out_scale, cudaStream_t stream) {
+  constexpr int ES = static_cast<int>(sizeof(KV));
+  int rb = 8, bkv = 32;
+  while (wide_smem(d, ES, rb, bkv) > WIDE_SMEM_MAX && (bkv > 1 || rb > 1)) {
+    if (bkv > 8 || rb == 1) bkv /= 2;
+    else rb /= 2;
+  }
+  const size_t smem = wide_smem(d, ES, rb, bkv);
+  if (smem > WIDE_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = attn_wide_kernel<KV>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int MR = sq * (hq / hk);
+  kern<<<dim3((MR + rb - 1) / rb, hk, b), WIDE_THREADS, smem, stream>>>(
+      q, q_dt, qs[0], qs[1], qs[2], static_cast<const KV*>(k), ks[0], ks[1], ks[2],
+      static_cast<const KV*>(v), vs[0], vs[1], vs[2], q_offset, off0, kv_len, len0, out, o_dt,
+      os[0], os[1], os[2], sq, hq, hk, S, d, causal, vec, rb, bkv, qk_scale, out_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DP, typename KV>
 int launch_fwd(const void* q, int q_dt, const long long* qs, const void* k, const long long* ks,
                const void* v, const long long* vs, const int* q_offset, int off0,
@@ -986,4 +1169,32 @@ extern "C" int attention_fwd_launch(const void* q, const long long* q_strides, i
   if (kv_int8) CSINN2_FWD(256, int8_t);
   CSINN2_FWD(256, __nv_bfloat16);
 #undef CSINN2_FWD
+}
+
+// attn_wide_kernel for any head dim (the wrappers send it d > 256): q and
+// out through strides {batch, seq, head}, each bf16, f16 or f32 (q_dt /
+// o_dt: 0 / 1 / 2); k/v [b, hk, S, d] through strides {batch, head, seq};
+// contiguous d in all; q_offset / kv_len int32 [b], or null for one off0 /
+// len0 for every row; causal or not (decode: sq = 1, not causal).  vec:
+// bytes per K/V copy (16, 8 or 4; 0: element by element), dividing
+// d·sizeof(KV), every row start and stride.  One launch, no scratch.
+extern "C" int attention_wide_launch(const void* q, const long long* q_strides, int q_dt,
+                                     const void* k, const long long* k_strides, const void* v,
+                                     const long long* v_strides, const int* q_offset, int off0,
+                                     const int* kv_len, int len0, void* out,
+                                     const long long* o_strides, int o_dt, int b, int sq, int hq,
+                                     int hk, int S, int d, int kv_int8, int causal, int vec,
+                                     float qk_scale, float out_scale, void* stream) {
+  const bool ok_vec = vec == 0 || vec == 4 || vec == 8 || vec == 16;
+  if (d < 1 || !ok_vec || !valid_dt(q_dt) || !valid_dt(o_dt) || b < 1 || sq < 1 || hk < 1 ||
+      hq % hk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_int8)
+    return launch_wide<int8_t>(q, q_dt, q_strides, k, k_strides, v, v_strides, q_offset, off0,
+                               kv_len, len0, out, o_dt, o_strides, b, sq, hq, hk, S, d, causal,
+                               vec, qk_scale, out_scale, st);
+  return launch_wide<__nv_bfloat16>(q, q_dt, q_strides, k, k_strides, v, v_strides, q_offset,
+                                    off0, kv_len, len0, out, o_dt, o_strides, b, sq, hq, hk, S, d,
+                                    causal, vec, qk_scale, out_scale, st);
 }

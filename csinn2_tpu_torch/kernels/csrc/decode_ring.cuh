@@ -8,10 +8,13 @@
 // last CTA sums the splits' partials in split order (dc_sum_splits).  The
 // widening and the output epilogue are each kernel's own.  The int8-x
 // decode GEMM (qmatmul_int8dot.cu) shares the ring, the tile store and the
-// split finish with int32 sums (T = int: exact, wrapping adds).
+// split finish with int32 sums (T = int: exact, wrapping adds), through its
+// own stage and loader (I8Dc, I8Loader, at the end), which the W4A8 probes
+// share too.
 #pragma once
 
 #include "common.cuh"
+#include "int8_frag.cuh"
 
 namespace {
 
@@ -26,6 +29,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p, bool t
   else
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
 }
 
 // d += a · b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulate
@@ -135,9 +144,9 @@ static_assert(THREADS == DC_BN && DECODE_MAX_M <= DC_MT &&
 // given as its block halves x_lo / x_hi [M, K/2] (k 0-15 and 16-31 of each
 // block), staged as the rows of x; NATIVE, the [K, N/2] carrier; WV < 16,
 // weight copies of WV bytes, for [K, N] rows whose byte stride is not a
-// multiple of 16.
+// multiple of 16; XS = false, no x rows (the weight stream alone).
 template <int NT, bool PACKED, bool CHANNEL, bool TRANS, typename ST = float, bool XH = false,
-          bool NATIVE = false, int WV = 16>
+          bool NATIVE = false, int WV = 16, bool XS = true>
 struct DcLoader {
   using C = Dc<PACKED, TRANS, (int)sizeof(ST), NATIVE>;
   static_assert(WV == 16 || !TRANS, "narrow weight copies: [K, N] layouts only");
@@ -220,7 +229,9 @@ struct DcLoader {
       }
     }
     const int xr = tid / XCH, xc = tid % XCH;  // x row xr + X_RSTEP·j, chunk xc
-    if constexpr (XH) {                        // chunk xc: block xc / 4, k 8·(xc % 4) .. +7
+    if constexpr (!XS) {
+      return;
+    } else if constexpr (XH) {                 // chunk xc: block xc / 4, k 8·(xc % 4) .. +7
       xp = ((xc & 2) ? x_hi : x) + (size_t)xr * (K / 2) + (size_t)(kb_begin + xc / 4) * (BK / 2) +
            (xc & 1) * 8;
       x_step = (size_t)X_RSTEP * (K / 2);
@@ -272,16 +283,18 @@ struct DcLoader {
       }
       sp += s_adv;
     }
+    if constexpr (XS) {
 #pragma unroll
-    for (int j = 0; j < X_ITERS; ++j) {       // rows 0 .. 8·NT - 1 (zeros past M)
-      if (X_ITERS > 1 || (int)threadIdx.x < 8 * NT * XCH) {
-        const bool ok = x_ok[j] && x_blk < left;
-        cp_async_s<16>(st + C::W_BYTES + C::S_BYTES + x_sm + j * X_RSTEP * C::X_ROW,
-                       ok ? xp + j * x_step : x0, ok);
+      for (int j = 0; j < X_ITERS; ++j) {     // rows 0 .. 8·NT - 1 (zeros past M)
+        if (X_ITERS > 1 || (int)threadIdx.x < 8 * NT * XCH) {
+          const bool ok = x_ok[j] && x_blk < left;
+          cp_async_s<16>(st + C::W_BYTES + C::S_BYTES + x_sm + j * X_RSTEP * C::X_ROW,
+                         ok ? xp + j * x_step : x0, ok);
+        }
       }
     }
     wp += w_adv;
-    xp += X_ADV;
+    if constexpr (XS) xp += X_ADV;
     left -= C::SB;
   }
 };
@@ -418,5 +431,139 @@ __device__ __forceinline__ bool dc_sum_splits(T* tile, T* partial, int* counters
   }
   return true;
 }
+
+// ---------------------------------------------------------------------------
+// The int8-x decode ring (qmatmul_int8dot.cu qmm_i8_decode_kernel, and the
+// W4A8 probes' k_int8 in int4_probe.cu): [K, N] int8, [N, K] int8 or packed
+// [K/2, N] weights and int8 x
+// ---------------------------------------------------------------------------
+
+constexpr int W_KN = 0, W_NK = 1, W_PACKED_KN = 2;
+
+// One ring stage: the raw weight bytes — [K, N]: 64 k rows × the strip's 256
+// bytes (16 KB, 64 k; chunk c of row r at c ^ kn_swz(r)); packed [K/2, N]:
+// 64 byte rows × 256 (16 KB, 128 k); [N, K]: 128 bytes of each of the
+// strip's 256 rows (32 KB, 128 k; chunk c at c ^ (n & 7)) — then the x rows
+// (int8 [16][SK], chunk c of row r at c ^ x_swz(r)).  [K, N] keeps 3 slots,
+// [N, K] 2 (two CTAs an SM either way), as the float decode GEMM.
+template <int WL>
+struct I8Dc {
+  static constexpr bool NK = WL == W_NK, PK = WL == W_PACKED_KN;
+  static constexpr int ROW = NK ? 128 : DC_BN;          // bytes of a weight tile row
+  static constexpr int ROWS = NK ? DC_BN : 64;          // weight tile rows
+  static constexpr int SB = NK || PK ? 4 : 2;           // 32-k blocks a stage
+  static constexpr int SK = SB * BK;                    // k a stage
+  static constexpr int W_BYTES = ROW * ROWS;
+  static constexpr int XCH = SK / 16;                   // 16-byte chunks of an x row
+  static constexpr int STAGE = W_BYTES + DC_MT * SK;
+  static constexpr int STAGES = NK ? 2 : 3;
+  static constexpr int SMEM = STAGES * STAGE;
+};
+static_assert(DC_CTAS_PER_SM * (I8Dc<W_NK>::SMEM + 1024 + 128) <= 233472 &&
+                  DC_CTAS_PER_SM * (I8Dc<W_PACKED_KN>::SMEM + 1024 + 128) <= 233472 &&
+                  DC_MT * DC_BN * 4 <= I8Dc<W_KN>::SMEM,
+              "two int8 decode CTAs an SM; the finish tile in the ring");
+
+// the x tile's swizzle: 8 chunks a row (128 k) at c ^ (r & 7), 4 (64 k) at
+// c ^ ((r >> 1) & 3): an ldmatrix of 8 rows reads 8 distinct bank groups
+template <int XCH>
+__device__ __forceinline__ int x_swz(int r) {
+  return XCH == 8 ? (r & 7) : ((r >> 1) & 3);
+}
+
+// A thread's share of every ring stage of its split, stage after stage: the
+// same chunks each time, zero-filled past M, N and the split's k range
+// (k_lim: the split's end, or K); one cp.async group a stage, committed by
+// the caller.  The W4A8 probes' variants: XH, x given as its block halves
+// x_lo / x_hi [M, K/2] (k 0-15 and 16-31 of each block), staged as the rows
+// of x; WV < 16, weight copies of WV bytes for [K, N] / packed rows whose
+// byte stride is not a multiple of 16.
+template <int WL, bool XH = false, int WV = 16>
+struct I8Loader {
+  using C = I8Dc<WL>;
+  static_assert(WV == 16 || !C::NK, "narrow weight copies: [K, N] layouts only");
+  static constexpr int W_CH = C::ROW / 16;               // chunks of a tile row
+  static constexpr int W_RSTEP = THREADS / W_CH;         // tile rows between a thread's chunks
+  static constexpr int W_ITERS = C::ROWS / W_RSTEP;
+  static constexpr int W_PIECES = 16 / WV;               // copies of a chunk
+  const int8_t* w0;
+  const int8_t* x0;
+  const int8_t* wp;          // the thread's first weight chunk of the next stage
+  const int8_t* xp;          // its x chunk of the next stage (x_on)
+  size_t w_step, w_adv;      // bytes between its chunks of a stage; a stage's advance
+  uint32_t w_sm, x_sm;       // shared offsets within a stage
+  int wpos, wlim;            // [K, N] / packed: the k (byte) row of its first chunk and the
+                             // split's end; [N, K]: the k of its chunks and k_lim
+  int xk, klim;              // the k of its x chunk, k_lim
+  bool w_ok[W_ITERS], x_on, x_ok;
+  bool w_okp[W_PIECES];      // WV < 16: the pieces of a chunk inside its row
+
+  __device__ __forceinline__ I8Loader(const int8_t* x, const int8_t* w, int M, int N, int K,
+                                      int n0, int kb_begin, int kb_end,
+                                      const int8_t* x_hi = nullptr)
+      : w0(w), x0(x) {
+    const int tid = threadIdx.x;
+    klim = min(K, kb_end * BK);
+    const int r = tid / W_CH, c = tid % W_CH;  // tile row r + W_RSTEP·j, chunk c
+    if constexpr (C::NK) {
+      wp = w + (size_t)(n0 + r) * K + (size_t)kb_begin * BK + c * 16;
+      w_step = (size_t)W_RSTEP * K;
+      w_adv = C::ROW;
+      w_sm = r * C::ROW + ((c ^ (r & 7)) << 4);
+      wpos = kb_begin * BK + c * 16;
+      wlim = klim;
+#pragma unroll
+      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + r + W_RSTEP * j < N;
+    } else {                                   // k (byte) rows, the strip's 256 bytes
+      const int rows_blk = C::PK ? BK / 2 : BK;
+      wp = w + ((size_t)kb_begin * rows_blk + r) * N + n0 + c * 16;
+      w_step = (size_t)W_RSTEP * N;
+      w_adv = (size_t)C::ROWS * N;
+      w_sm = r * C::ROW + ((c ^ kn_swz(r)) << 4);
+      wpos = kb_begin * rows_blk + r;
+      wlim = C::PK ? kb_end * rows_blk : klim;
+#pragma unroll
+      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + c * 16 < N;
+      if constexpr (WV < 16) {
+#pragma unroll
+        for (int p = 0; p < W_PIECES; ++p) w_okp[p] = n0 + c * 16 + p * WV < N;
+      }
+    }
+    const int xr = tid / C::XCH, xc = tid % C::XCH;
+    x_on = tid < DC_MT * C::XCH;
+    x_ok = x_on && xr < M;
+    if constexpr (XH)                          // chunk xc: block xc / 2, half xc % 2
+      xp = ((xc & 1) ? x_hi : x) + (size_t)xr * (K / 2) + (size_t)(kb_begin + xc / 2) * (BK / 2);
+    else
+      xp = x + (size_t)xr * K + (size_t)kb_begin * BK + xc * 16;
+    xk = kb_begin * BK + xc * 16;
+    x_sm = C::W_BYTES + xr * C::SK + ((xc ^ x_swz<C::XCH>(xr)) << 4);
+  }
+
+  __device__ __forceinline__ void load(uint32_t st) {
+#pragma unroll
+    for (int j = 0; j < W_ITERS; ++j) {
+      if constexpr (WV == 16) {
+        const bool ok = w_ok[j] && (C::NK ? wpos : wpos + W_RSTEP * j) < wlim;
+        cp_async_s<16, C::NK>(st + w_sm + j * (W_RSTEP * C::ROW), ok ? wp + j * w_step : w0, ok);
+      } else {
+#pragma unroll
+        for (int p = 0; p < W_PIECES; ++p) {
+          const bool ok = w_okp[p] && wpos + W_RSTEP * j < wlim;
+          cp_async_s<WV>(st + w_sm + j * (W_RSTEP * C::ROW) + p * WV,
+                         ok ? wp + j * w_step + p * WV : w0, ok);
+        }
+      }
+    }
+    if (x_on) {
+      const bool ok = x_ok && xk < klim;
+      cp_async_s<16>(st + x_sm, ok ? xp : x0, ok);
+    }
+    wp += w_adv;
+    wpos += C::NK ? C::SK : C::ROWS;
+    xp += XH ? C::SK / 2 : C::SK;
+    xk += C::SK;
+  }
+};
 
 }  // namespace

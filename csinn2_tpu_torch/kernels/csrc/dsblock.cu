@@ -40,6 +40,7 @@
 // explicit _rn intrinsic, so no flag or contraction changes it.  The sums are
 // exact int32 (tensor cores included).
 #include "common.cuh"
+#include "int8_frag.cuh"   // mma_s8
 
 namespace {
 
@@ -149,15 +150,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a · b on the tensor cores: m16n8k32, s8 inputs, exact s32 sums
-__device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int K, int S, int P>

@@ -34,7 +34,8 @@
 // ldmatrix.trans, its eight rows addressed as k rows {0,1,4,5,8,9,12,13} and
 // {2,3,6,7,10,11,14,15} so that one PRMT of the two registers gives a
 // column's k quad (weight tiles swizzled so that those rows read free of bank
-// conflicts).
+// conflicts; the fragment helpers in int8_frag.cuh, the decode ring's
+// stage and loader, I8Dc / I8Loader, in decode_ring.cuh).
 //   * M <= 16, qmm_i8_decode_kernel: the float decode GEMM's skeleton
 //     (decode_ring.cuh): 256-column strips × K splits filling two CTAs an SM,
 //     the raw weight bytes and the x rows in a cp.async ring (16 KB weight
@@ -62,55 +63,7 @@
 
 namespace {
 
-constexpr int W_KN = 0, W_NK = 1, W_PACKED_KN = 2;
 constexpr int SWIGLU_HALF = 128;       // columns per half of a swiglu pair
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
-  const uint32_t a = smem_u32(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
-// d += a · b on the tensor cores: m16n8k32, s8 inputs, s32 sums that wrap
-__device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The swizzle of a [k][256-byte] weight tile: 16-byte chunk c of row r at
-// c ^ kn_swz(r), distinct over the rows {0,1,4,5,8,9,12,13} and
-// {2,3,6,7,10,11,14,15} that one regrouping ldmatrix reads
-__device__ __forceinline__ int kn_swz(int r) { return (r & 1) | ((r >> 1) & 6); }
-
-// The k row (byte row, packed) that lane `lane` of a regrouping
-// ldmatrix.trans x4 addresses within a 32-k (16-byte-row) group: matrices 0
-// / 1 hold k rows {0,1,4,5,...} / {2,3,6,7,...} of k 0-15, matrices 2 / 3
-// those of k 16-31 (packed: 2 / 3 are the same rows of the next chunk).
-__device__ __forceinline__ int regroup_row(int lane, bool second_half_k) {
-  const int mi = lane >> 3, i = lane & 7;
-  return (second_half_k ? 16 * (mi >> 1) : 0) + 4 * (i >> 1) + (i & 1) + 2 * (mi & 1);
-}
-
-// Two ldmatrix.trans registers of k rows (4t, 4t+1) and (4t+2, 4t+3) of
-// byte columns (2g, 2g+1) → the k quads of column 2g (e) and 2g + 1 (o)
-__device__ __forceinline__ uint32_t quad_even(uint32_t r0, uint32_t r1) {
-  return __byte_perm(r0, r1, 0x6420);
-}
-__device__ __forceinline__ uint32_t quad_odd(uint32_t r0, uint32_t r1) {
-  return __byte_perm(r0, r1, 0x7531);
-}
-
-// Four packed nibbles (bits 0-3 of each byte) as int8: biased n + 8, or
-// sign-extended n
-__device__ __forceinline__ uint32_t nib_biased(uint32_t v) {
-  return (v & 0x0F0F0F0Fu) ^ 0x08080808u;
-}
-__device__ __forceinline__ uint32_t nib_signed(uint32_t v) {
-  return (nib_biased(v) + 0x78787878u) ^ 0x80808080u;
-}
 
 struct Requant {
   bool on;                 // the fixed-point requantize (else the float epilogue)
@@ -183,109 +136,6 @@ __device__ __forceinline__ void i8_tile_epilogue(int* tile, int stride, int rows
 // ---------------------------------------------------------------------------
 // Decode (M <= 16): the float decode GEMM's ring, int8 mma.sync
 // ---------------------------------------------------------------------------
-
-// One ring stage: the raw weight bytes — [K, N]: 64 k rows × the strip's 256
-// bytes (16 KB, 64 k; chunk c of row r at c ^ kn_swz(r)); packed [K/2, N]:
-// 64 byte rows × 256 (16 KB, 128 k); [N, K]: 128 bytes of each of the
-// strip's 256 rows (32 KB, 128 k; chunk c at c ^ (n & 7)) — then the x rows
-// (int8 [16][SK], chunk c of row r at c ^ x_swz(r)).  [K, N] keeps 3 slots,
-// [N, K] 2 (two CTAs an SM either way), as the float decode GEMM.
-template <int WL>
-struct I8Dc {
-  static constexpr bool NK = WL == W_NK, PK = WL == W_PACKED_KN;
-  static constexpr int ROW = NK ? 128 : DC_BN;          // bytes of a weight tile row
-  static constexpr int ROWS = NK ? DC_BN : 64;          // weight tile rows
-  static constexpr int SB = NK || PK ? 4 : 2;           // 32-k blocks a stage
-  static constexpr int SK = SB * BK;                    // k a stage
-  static constexpr int W_BYTES = ROW * ROWS;
-  static constexpr int XCH = SK / 16;                   // 16-byte chunks of an x row
-  static constexpr int STAGE = W_BYTES + DC_MT * SK;
-  static constexpr int STAGES = NK ? 2 : 3;
-  static constexpr int SMEM = STAGES * STAGE;
-};
-static_assert(DC_CTAS_PER_SM * (I8Dc<W_NK>::SMEM + 1024 + 128) <= 233472 &&
-                  DC_CTAS_PER_SM * (I8Dc<W_PACKED_KN>::SMEM + 1024 + 128) <= 233472 &&
-                  DC_MT * DC_BN * 4 <= I8Dc<W_KN>::SMEM,
-              "two int8 decode CTAs an SM; the finish tile in the ring");
-
-// the x tile's swizzle: 8 chunks a row (128 k) at c ^ (r & 7), 4 (64 k) at
-// c ^ ((r >> 1) & 3): an ldmatrix of 8 rows reads 8 distinct bank groups
-template <int XCH>
-__device__ __forceinline__ int x_swz(int r) {
-  return XCH == 8 ? (r & 7) : ((r >> 1) & 3);
-}
-
-// A thread's share of every ring stage of its split, stage after stage: the
-// same chunks each time, zero-filled past M, N and the split's k range
-// (k_lim: the split's end, or K); one cp.async group a stage, committed by
-// the caller.
-template <int WL>
-struct I8Loader {
-  using C = I8Dc<WL>;
-  static constexpr int W_CH = C::ROW / 16;               // chunks of a tile row
-  static constexpr int W_RSTEP = THREADS / W_CH;         // tile rows between a thread's chunks
-  static constexpr int W_ITERS = C::ROWS / W_RSTEP;
-  const int8_t* w0;
-  const int8_t* x0;
-  const int8_t* wp;          // the thread's first weight chunk of the next stage
-  const int8_t* xp;          // its x chunk of the next stage (x_on)
-  size_t w_step, w_adv;      // bytes between its chunks of a stage; a stage's advance
-  uint32_t w_sm, x_sm;       // shared offsets within a stage
-  int wpos, wlim;            // [K, N] / packed: the k (byte) row of its first chunk and the
-                             // split's end; [N, K]: the k of its chunks and k_lim
-  int xk, klim;              // the k of its x chunk, k_lim
-  bool w_ok[W_ITERS], x_on, x_ok;
-
-  __device__ __forceinline__ I8Loader(const int8_t* x, const int8_t* w, int M, int N, int K,
-                                      int n0, int kb_begin, int kb_end)
-      : w0(w), x0(x) {
-    const int tid = threadIdx.x;
-    klim = min(K, kb_end * BK);
-    const int r = tid / W_CH, c = tid % W_CH;  // tile row r + W_RSTEP·j, chunk c
-    if constexpr (C::NK) {
-      wp = w + (size_t)(n0 + r) * K + (size_t)kb_begin * BK + c * 16;
-      w_step = (size_t)W_RSTEP * K;
-      w_adv = C::ROW;
-      w_sm = r * C::ROW + ((c ^ (r & 7)) << 4);
-      wpos = kb_begin * BK + c * 16;
-      wlim = klim;
-#pragma unroll
-      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + r + W_RSTEP * j < N;
-    } else {                                   // k (byte) rows, the strip's 256 bytes
-      const int rows_blk = C::PK ? BK / 2 : BK;
-      wp = w + ((size_t)kb_begin * rows_blk + r) * N + n0 + c * 16;
-      w_step = (size_t)W_RSTEP * N;
-      w_adv = (size_t)C::ROWS * N;
-      w_sm = r * C::ROW + ((c ^ kn_swz(r)) << 4);
-      wpos = kb_begin * rows_blk + r;
-      wlim = C::PK ? kb_end * rows_blk : klim;
-#pragma unroll
-      for (int j = 0; j < W_ITERS; ++j) w_ok[j] = n0 + c * 16 < N;
-    }
-    const int xr = tid / C::XCH, xc = tid % C::XCH;
-    x_on = tid < DC_MT * C::XCH;
-    x_ok = x_on && xr < M;
-    xp = x + (size_t)xr * K + (size_t)kb_begin * BK + xc * 16;
-    xk = kb_begin * BK + xc * 16;
-    x_sm = C::W_BYTES + xr * C::SK + ((xc ^ x_swz<C::XCH>(xr)) << 4);
-  }
-
-  __device__ __forceinline__ void load(uint32_t st) {
-#pragma unroll
-    for (int j = 0; j < W_ITERS; ++j) {
-      const bool ok = w_ok[j] && (C::NK ? wpos : wpos + W_RSTEP * j) < wlim;
-      cp_async_s<16, C::NK>(st + w_sm + j * (W_RSTEP * C::ROW), ok ? wp + j * w_step : w0, ok);
-    }
-    if (x_on) {
-      const bool ok = x_ok && xk < klim;
-      cp_async_s<16>(st + x_sm, ok ? xp : x0, ok);
-    }
-    wp += w_adv;
-    wpos += C::NK ? C::SK : C::ROWS;
-    xp += C::SK;
-    xk += C::SK;
-  }
-};
 
 // Decode, every layout: CTA (strip, split) owns columns n0 .. n0+255 and
 // the split's 32-k blocks; warp w owns 32 of the columns as two m16 tiles.

@@ -15,6 +15,9 @@ the chunks, otherwise the query rows are split.  Launch counts:
 `prefill_attention`, `flash_attention` (bshd), `flash_attention_bhsd`, and
 `<that name>.combine` for the merge of a split launch; `decode_attention`
 (a split-KV kernel of its own, `_decode_plan`) and `decode_attention.combine`.
+A head dim above MAX_D = 256 goes, from every entry point, to one more
+kernel (`attn_wide_kernel`, a plain online-softmax attention on the CUDA
+cores: right, not fast), counted as `attention_wide.<entry point>`.
 
 Semantics shared by all (per batch row b): query i sits at position
 q_offset[b] + i; it sees keys kpos < kv_len[b] (and kpos <= its position when
@@ -24,8 +27,9 @@ maps query head h to KV head h // (hq // hk); a row that sees no key outputs
 cache's [b, S, hk, d] buffer permuted, without a copy).  q is rounded to
 bf16 first, as the JAX bodies round it (the kernels as they stage it, the
 plain path before `_attention_ref`); the output comes back in q's dtype,
-from f32 sums.  On the card: any head dim d <= 256 and a bf16, f16 or f32
-q (other float types pass through f32).
+from f32 sums.  On the card: any head dim (the JAX functions pad d to a
+multiple of 128 with no cap) and a bf16, f16 or f32 q (other float types
+pass through f32).
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ def _attention_ref(q, k, v, *, causal, q_offset, kv_len, scale, kv_scale):
 
 # q / out dtype codes of csrc/attention.cu
 _DT = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-MAX_D = 256                 # the kernels' widest head dim, as the JAX caps
+MAX_D = 256                 # the tensor-core kernels' widest head dim (wider: attn_wide_kernel)
 SPLIT_ROWS = 64             # sq·group at or below this: split-KV flash decode
 SPLIT_CHUNK = 256           # keys per CTA on the split path
 
@@ -91,9 +95,6 @@ def _check_kv(name, q, k, v):
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{name}: head dims q {d}, k {k.shape[-1]}, v {v.shape[-1]}")
-    if d > MAX_D:
-        raise NotImplementedError(f"{name}: head dim {d} (the CUDA kernels take d <= "
-                                  f"{MAX_D}, as the JAX caps; ROADMAP queue C)")
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"{name}: all tensors must be on one device")
@@ -195,7 +196,8 @@ def decode_attention(q, k, v, *, q_offset, kv_len=None,
     in q's dtype (q and k/v may be strided views with a contiguous d).
     q_offset/kv_len scalar or [b]; kv_len defaults to q_offset + 1 and is
     clamped to S.  On the card a split-KV kernel (`_decode_plan` chunks,
-    merged by a second kernel: launch count `decode_attention.combine`)."""
+    merged by a second kernel: launch count `decode_attention.combine`), or
+    the wide kernel at d > MAX_D."""
     b, hq, sq, d = q.shape
     _, hk, S, _ = k.shape
     if sq != 1 or hq % hk:
@@ -209,6 +211,9 @@ def decode_attention(q, k, v, *, q_offset, kv_len=None,
         return _attention_ref(q.to(torch.bfloat16), k, v, causal=False, q_offset=q_offset,
                               kv_len=kv_len, scale=scale,
                               kv_scale=kv_scale).to(q.dtype)
+    if d > MAX_D:                   # the wide kernel, as a one-query, non-causal call
+        return _attention_fwd("decode_attention", q, k, v, False, 0, kv_len, scale, kv_scale,
+                              bhsd=True)
     _check_kv("decode_attention", q, k, v)
     qk = _kernel_q(q)
     kvl = _per_row(kv_len, b, q.device)
@@ -245,7 +250,8 @@ def decode_attention(q, k, v, *, q_offset, kv_len=None,
 def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
                    bhsd: bool = False):
     """q [b, sq, hq, d] (bshd) or [b, hq, sq, d] (bhsd); k/v [b, hk, S, d] →
-    the output in q's layout."""
+    the output in q's layout: attn_fwd_kernel, or attn_wide_kernel at d >
+    MAX_D (launch count `attention_wide.<name>`)."""
     if bhsd:
         b, hq, sq, d = q.shape
     else:
@@ -271,6 +277,27 @@ def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
     # a per-row tensor, or one int for every row (no device copy)
     off = _per_row(q_offset, b, q.device) if isinstance(q_offset, torch.Tensor) else None
     kvl = _per_row(kv_len, b, q.device) if isinstance(kv_len, torch.Tensor) else None
+    # the kernel's (batch, seq, head) strides of q and out, in either layout
+    seq_dim, head_dim = (2, 1) if bhsd else (1, 2)
+    ll3 = ctypes.c_longlong * 3
+    vp, sp, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()
+    head = (qk.data_ptr(), ll3(qk.stride(0), qk.stride(seq_dim), qk.stride(head_dim)),
+            _DT[qk.dtype], k.data_ptr(), ll3(*k.stride()[:3]), v.data_ptr(),
+            ll3(*v.stride()[:3]), ptr(off), 0 if off is not None else int(q_offset),
+            ptr(kvl), 0 if kvl is not None else int(kv_len), out.data_ptr(),
+            ll3(out.stride(0), out.stride(seq_dim), out.stride(head_dim)), _DT[out.dtype])
+    dims = (b, sq, hq, hk, S, d, int(k.dtype == torch.int8), int(causal), _vec_bytes(k, v))
+    tail = (scale * (kv_scale if kv_scale is not None else 1.0),
+            kv_scale if kv_scale is not None else 1.0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    argtypes = (vp, sp, i32, vp, sp, vp, sp, vp, i32, vp, i32, vp, sp, i32)
+    if d > MAX_D:
+        fn = _build.c_function("attention", "attention_wide_launch",
+                               argtypes + (i32,) * 9 + (ctypes.c_float, ctypes.c_float, vp))
+        _build.check("attention", fn(*head, *dims, *tail), name)
+        _build.launch_counts[f"attention_wide.{name}"] += 1
+        return out.to(q.dtype)
     rw, kw, chunk, n_chunks = _fwd_plan(b, sq, hq, hk, S, d, _sm_count(q.device.index or 0))
     part_ml = part_acc = None
     if n_chunks > 1:
@@ -278,28 +305,10 @@ def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
         part_ml = torch.empty((b, hk, n_chunks, rows, 2), dtype=torch.float32, device=q.device)
         part_acc = torch.empty((b, hk, n_chunks, rows, d), dtype=torch.float32,
                                device=q.device)
-    # the kernel's (batch, seq, head) strides of q and out, in either layout
-    seq_dim, head_dim = (2, 1) if bhsd else (1, 2)
-    ll3 = ctypes.c_longlong * 3
-    qs = ll3(qk.stride(0), qk.stride(seq_dim), qk.stride(head_dim))
-    ks = ll3(*k.stride()[:3])
-    vs = ll3(*v.stride()[:3])
-    os_ = ll3(out.stride(0), out.stride(seq_dim), out.stride(head_dim))
-    vp, sp, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int
-    fn = _build.c_function(
-        "attention", "attention_fwd_launch",
-        (vp, sp, i32, vp, sp, vp, sp, vp, i32, vp, i32, vp, sp, i32, vp, vp) + (i32,) * 13
-        + (ctypes.c_float, ctypes.c_float, vp))
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = fn(qk.data_ptr(), qs, _DT[qk.dtype], k.data_ptr(), ks, v.data_ptr(), vs,
-             ptr(off), 0 if off is not None else int(q_offset),
-             ptr(kvl), 0 if kvl is not None else int(kv_len),
-             out.data_ptr(), os_, _DT[out.dtype], ptr(part_ml), ptr(part_acc),
-             b, sq, hq, hk, S, d, int(k.dtype == torch.int8), int(causal), _vec_bytes(k, v),
-             rw, kw, chunk, n_chunks,
-             scale * (kv_scale if kv_scale is not None else 1.0),
-             kv_scale if kv_scale is not None else 1.0,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    fn = _build.c_function("attention", "attention_fwd_launch",
+                           argtypes + (vp, vp) + (i32,) * 13
+                           + (ctypes.c_float, ctypes.c_float, vp))
+    err = fn(*head, ptr(part_ml), ptr(part_acc), *dims, rw, kw, chunk, n_chunks, *tail)
     _build.check("attention", err, name)
     _build.launch_counts[name] += 1
     if n_chunks > 1:

@@ -12,7 +12,7 @@ finishing corrections (`ProbeCall.finish`).  A CUDA tensor launches the
 kernel or raises; a CPU tensor runs the kernel's plain version
 (`kernel_ref`).  There is no fallback between the two.
 
-The kernels (one instantiation each, launch_counts key "int4_probe_<kind>"):
+The kernels (launch_counts key "int4_probe_<kind>"):
 
   kind           JAX body (examples/int4_dequant_probe.py)  weight carrier
   split_i32      _split_kernel :91, shifts "i32"   pack_int4 (Q4_0) [K/2, N]
@@ -27,14 +27,18 @@ The kernels (one instantiation each, launch_counts key "int4_probe_<kind>"):
   noscale        _noscale_kernel :440              pack_int4_mixed, bf16 s
   halfq8         _halfq8_kernel :460               pack_int4_mixed, bf16 s
 
-The eight kinds of PLANE_KINDS run one tensor-core kernel template (K1,
-csrc/int4_probe.cu k_planes) on the skeleton of the port's decode GEMM
-qmm_decode_kernel (csrc/decode_ring.cuh): 256-column strips × K splits, a
-cp.async ring of raw weight bytes, scales and x, mma.sync with the widened
-weights as A, and the strip's last CTA summing the splits in the same
-launch.  They differ in their widening only, so their times rank the
-pipelines against cur(quant_matmul)'s.  stream, intdot and w4a8 are SIMT
-kernels (K3, K4) with a reduce kernel under a split.
+Every kind runs on the skeleton of the port's decode GEMM qmm_decode_kernel
+(csrc/decode_ring.cuh): 256-column strips × K splits, a cp.async ring of
+raw weight bytes (and the scales and x a kind reads), and the strip's last
+CTA summing the splits in the same launch (one launch a call, no reduce
+kernel).  The eight kinds of PLANE_KINDS run one tensor-core template
+(csrc/int4_probe.cu k_planes: mma.sync m16n8k16 with the widened bf16
+weights as A); they differ in their widening only, so their times rank the
+pipelines against cur(quant_matmul)'s.  intdot and w4a8 run k_int8, the
+int8 decode GEMM's ring and A operand (mma.sync m16n8k32 s8 on the masked
+and sign-extended nibbles), so they rank int8 tensor cores against the bf16
+ones in the same skeleton; stream runs k_stream, the ring's weight copies
+alone with the sampled rows summed from shared memory.
 
 Numerics, as the TPU bodies compute them: the float kernels round each
 dequantized plane value w·s to bf16 (s rounded to bf16 first), then sum
@@ -52,9 +56,8 @@ byte rows per bk-row K tile, so its value depends on bk; noscale adds
 s16[(K/bk − 1)·bk/32, (n // bn)·bn] and halfq8 adds x_hi[0, (K/bk − 1)·bk/2],
 the single elements the TPU bodies read of the tiles they move.  The CUDA
 kernels also load every byte the TPU moves but does not use: noscale's
-scale tile and halfq8's x_hi tile go through the ring (cp.async copies stay
-in the program); stream loads all weight bytes and folds the rows it does
-not sum into a per-warp checksum in a side buffer, so the loads stay.
+scale tile, halfq8's x_hi tile and stream's unsampled weight rows go through
+the ring (cp.async copies stay in the program).
 
 Where the GPU differs from the TPU:
   * i4native: no GPU load unpacks sub-byte values, so the carrier of
@@ -62,25 +65,22 @@ Where the GPU differs from the TPU:
     low nibble, 2j+1 in the high, two's complement): one plane, no x split.
   * w4a8: the TPU builds a block-diagonal X′[(g, m), k] (:538-551) to get
     per-block partials out of one MXU dot.  The CUDA kernel computes the
-    same int32 partials straight from xq [M, K] with `__dp4a`, with no
-    expansion; run_w4a8 returns the JAX run_w4a8's y.
+    same int32 partials straight from xq [M, K], one m16n8k32 product a
+    block with no expansion; run_w4a8 returns the JAX run_w4a8's y.
   * intdot reads the per-block activation scales sx [M, K/32] directly
     (the TPU's lane-expanded [M, K/2] copy is a VMEM layout).
   * Geometry.  The TPU's (bn, bk) are VMEM tiles walked by a sequential
-    grid.  The plane kinds take a fixed 256-column strip and the decode
-    GEMM's split plan (`plane_geometry`: qmatmul.gemm_plan, the strips'
-    CTAs filling two slots an SM in one wave); the one knob left, the K
-    rows per split, can be set per call (`prepare(..., ksplit=...)`, the
-    tile tuner's sweep).  stream, intdot and w4a8 map the tile onto a
-    launch geometry (`launch_geometry`): a CTA of 256 threads covers `cols`
-    output columns for all M <= 16 rows and a K range of `ksplit` rows;
-    cols = bn // 32 rounded down to a power of two and clamped to [32,
-    256]; ksplit = bk.  bk is also the value's tile for stream, noscale and
-    halfq8, and bn for noscale.  The geometry does not change any other
-    kernel's value.  One difference follows: where K % bk != 0 (the JAX
-    main's w2, K = 11008 with bk = 512) the JAX grid covers only (K //
-    bk)·bk rows of K in its kernels while its corrections cover all of K;
-    the port's kernels cover all of K.
+    grid.  Every kind takes a fixed 256-column strip and the decode GEMM's
+    split plan (`plane_geometry`: qmatmul.gemm_plan, the strips' CTAs
+    filling two slots an SM in one wave); the one knob left, the K rows per
+    split, can be set per call (`prepare(..., ksplit=...)`, the tile
+    tuner's sweep).  The tile selects no geometry: the JAX main's
+    w4a8_n2048 / w4a8_n1024 variants launch the same kernel as w4a8.  bk
+    is the value's tile for stream, noscale and halfq8, and bn for noscale;
+    no other kernel's value depends on the tile.  One difference follows:
+    where K % bk != 0 (the JAX main's w2, K = 11008 with bk = 512) the JAX
+    grid covers only (K // bk)·bk rows of K in its kernels while its
+    corrections cover all of K; the port's kernels cover all of K.
 
 CUDA tensors: contiguous, M <= 16, N % 8 == 0, K % 32 == 0, bk a multiple
 of 32 and at most K; stream needs K >= 128 (its xw is x[:, :128] tiled).
@@ -105,10 +105,9 @@ HALF = BLOCK // 2
 # kind → code of csrc/int4_probe.cu (enum Kind)
 KINDS = {"split_i32": 0, "split_i8": 1, "i4native": 2, "bitcast": 3, "andmask": 4,
          "andmask_bf16s": 5, "stream": 6, "intdot": 7, "w4a8": 8, "noscale": 9, "halfq8": 10}
-# the kinds of the tensor-core kernel K1 (the others: stream K3, intdot / w4a8 K4)
+# the bf16 plane kinds of k_planes (the others: stream k_stream, intdot / w4a8 k_int8)
 PLANE_KINDS = ("split_i32", "split_i8", "i4native", "bitcast", "andmask", "andmask_bf16s",
                "noscale", "halfq8")
-MIN_COLS, MAX_COLS = 32, 256
 
 
 # -- packers (byte for byte the JAX probe's) -----------------------------------
@@ -158,31 +157,14 @@ def unpack_int4_native(w4: torch.Tensor) -> torch.Tensor:
 
 # -- geometry --------------------------------------------------------------------
 
-def launch_geometry(bn: int, bk: int) -> Tuple[int, int]:
-    """(columns per CTA, K rows per split) that the TPU tile (bn, bk)
-    selects for stream, intdot and w4a8 (see the module notes)."""
-    cols = MIN_COLS
-    while cols < MAX_COLS and 2 * cols <= bn // 32:
-        cols *= 2
-    return cols, bk
-
-
 def plane_geometry(M: int, N: int, K: int, n_sm: int,
                    ksplit: Optional[int] = None) -> Tuple[int, int]:
-    """(columns per CTA, K rows per split) of the plane kinds: the decode
-    GEMM's 256-column strip and, unless `ksplit` sets it, its split plan
+    """(columns per CTA, K rows per split) of every kind: the decode GEMM's
+    256-column strip and, unless `ksplit` sets it, its split plan
     (qmatmul.gemm_plan on n_sm SMs)."""
     if ksplit is None:
         ksplit = _qmm.gemm_plan(M, N, K, False, n_sm)["blocks_per_split"] * BLOCK
     return DC_BN, ksplit
-
-
-def geometry(kind: str, M: int, N: int, K: int, bn: int, bk: int, n_sm: int,
-             ksplit: Optional[int] = None) -> Tuple[int, int]:
-    """The launch geometry (columns per CTA, K rows per split) of a call."""
-    if kind in PLANE_KINDS:
-        return plane_geometry(M, N, K, n_sm, ksplit)
-    return launch_geometry(bn, bk)
 
 
 # -- the kernels' plain versions ---------------------------------------------------
@@ -259,7 +241,7 @@ def kernel_ref(kind: str, t: Dict[str, torch.Tensor], M: int, N: int, K: int,
 # -- the CUDA launch -------------------------------------------------------------
 
 _VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_LAUNCH_ARGTYPES = (_CI,) + (_VP,) * 8 + (_LL, _VP, _LL, _VP) + (_CI,) * 8 + (_VP,)
+_LAUNCH_ARGTYPES = (_CI,) + (_VP,) * 8 + (_LL, _VP) + (_CI,) * 7 + (_VP,)
 # the tensors each kind's kernel reads: name → dtype
 _INPUTS = {
     **{k: {"xa": torch.bfloat16, "xb": torch.bfloat16, "w": torch.int8, "s": torch.float32}
@@ -275,11 +257,10 @@ _INPUTS = {
 
 
 @functools.lru_cache(maxsize=None)
-def _sizes(M: int, N: int, K: int, cols: int, ksplit: int) -> Tuple[int, int]:
-    """(f32 workspace floats, checksum words) the kernel asks for."""
-    ws = _build.c_function("int4_probe", "int4_probe_workspace", (_CI,) * 5, restype=_LL)
-    side = _build.c_function("int4_probe", "int4_probe_side_words", (_CI,) * 4, restype=_LL)
-    return int(ws(M, N, K, cols, ksplit)), int(side(N, K, cols, ksplit))
+def _workspace_floats(M: int, N: int, K: int, ksplit: int) -> int:
+    """f32 workspace floats (the split partials) the kernel asks for."""
+    ws = _build.c_function("int4_probe", "int4_probe_workspace", (_CI,) * 4, restype=_LL)
+    return int(ws(M, N, K, ksplit))
 
 
 def _launch(kind: str, t: Dict[str, torch.Tensor], M: int, N: int, K: int,
@@ -291,23 +272,18 @@ def _launch(kind: str, t: Dict[str, torch.Tensor], M: int, N: int, K: int,
             raise ValueError(f"int4_probe {kind}: {name} must be a contiguous, 16-byte "
                              f"aligned {dt} tensor on {dev} (got {a.dtype} on {a.device})")
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    cols, ksplit = geometry(kind, M, N, K, bn, bk, _qmm._sm_count(index), ksplit)
-    n_ws, n_side = _sizes(M, N, K, cols, ksplit)
+    _, ksplit = plane_geometry(M, N, K, _qmm._sm_count(index), ksplit)
+    n_ws = _workspace_floats(M, N, K, ksplit)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = torch.empty((n_ws,), dtype=torch.float32, device=dev) if n_ws else None
     stream = torch.cuda.current_stream(dev)
-    side = counters = None
-    if kind == "stream":
-        side = torch.empty((n_side,), dtype=torch.int32, device=dev)
-    else:
-        counters = _qmm.strip_counters(dev, stream)
+    counters = _qmm.strip_counters(dev, stream)
     ptr = lambda name: t[name].data_ptr() if name in t else None
     fn = _build.c_function("int4_probe", "int4_probe_launch", _LAUNCH_ARGTYPES)
     err = fn(KINDS[kind], ptr("xa"), ptr("xb"), ptr("sx"), t["w"].data_ptr(), ptr("s"),
              ptr("xw"), out.data_ptr(), None if ws is None else ws.data_ptr(), n_ws,
-             None if side is None else side.data_ptr(), n_side,
-             None if counters is None else counters.data_ptr(), _qmm.COUNTER_SLOTS,
-             M, N, K, cols, ksplit, bn, bk, stream.cuda_stream)
+             counters.data_ptr(), _qmm.COUNTER_SLOTS, M, N, K, ksplit, bn, bk,
+             stream.cuda_stream)
     _build.check("int4_probe", err, f"int4_probe {kind}")
     _build.launch_counts[f"int4_probe_{kind}"] += 1
     return out
@@ -327,7 +303,7 @@ def kernel_bytes(kind: str, M: int, N: int, K: int) -> int:
 
 def kernel_attrs(kind: str, M: int, device: int = 0) -> Dict[str, int]:
     """Registers per thread, static and dynamic shared memory per CTA (the
-    plane kinds' ring is dynamic) and CTAs per SM with both
+    ring is dynamic) and CTAs per SM with both
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the kernel that
     serves (kind, M): the fit check of the tile tuner."""
     fn = _build.c_function("int4_probe", "int4_probe_attrs",
@@ -353,7 +329,7 @@ class ProbeCall:
     bn: int
     bk: int
     finish: Callable[[torch.Tensor], torch.Tensor]
-    ksplit: Optional[int] = None     # plane kinds: K rows per split (None: the plan)
+    ksplit: Optional[int] = None     # K rows per split (None: the decode GEMM's plan)
 
     def kernel(self) -> torch.Tensor:
         """The kernel part: the CUDA kernel for CUDA tensors, its plain
@@ -395,11 +371,10 @@ def prepare(kind: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
             bm: int, bn: int, bk: int, ksplit: Optional[int] = None) -> ProbeCall:
     """The outside ops of the JAX run_* for `kind` (x: [M, K]; w: the kind's
     carrier; s: f32 [K/32, N], bf16 for andmask_bf16s / noscale / halfq8).
-    ksplit: K rows per split of a plane kind's launch (a multiple of 32),
-    None for the decode GEMM's plan."""
-    if ksplit is not None and (kind not in PLANE_KINDS or ksplit <= 0 or ksplit % BLOCK):
-        raise ValueError(f"int4_probe {kind}: ksplit={ksplit} (plane kinds only, a positive "
-                         "multiple of 32)")
+    ksplit: K rows per split of the launch (a multiple of 32), None for the
+    decode GEMM's plan."""
+    if ksplit is not None and (ksplit <= 0 or ksplit % BLOCK):
+        raise ValueError(f"int4_probe {kind}: ksplit={ksplit} (a positive multiple of 32)")
     call = _prepare(kind, x, w, s, bm, bn, bk)
     call.ksplit = ksplit
     return call
@@ -506,8 +481,8 @@ def run_timing_variant(kern: str, x, wp, s16, bm, bn, bk):
     return prepare(kern, x, wp, s16, bm, bn, bk)()
 
 
-__all__ = ["KINDS", "PLANE_KINDS", "ProbeCall", "geometry", "kernel_attrs", "kernel_bytes",
-           "kernel_ref", "launch_geometry", "pack_int4_biased", "pack_int4_mixed",
+__all__ = ["KINDS", "PLANE_KINDS", "ProbeCall", "kernel_attrs", "kernel_bytes",
+           "kernel_ref", "pack_int4_biased", "pack_int4_mixed",
            "pack_int4_native", "plane_geometry", "prepare", "run_andmask", "run_andmask_bf16s",
            "run_bitcast", "run_i4", "run_intdot", "run_split", "run_stream",
            "run_timing_variant", "run_w4a8", "unpack_int4_native"]

@@ -214,10 +214,11 @@ def test_attention_block_matches_jax_fallback(rng, monkeypatch, quantized, branc
 
 
 @pytest.mark.parametrize("entry", ["prefill", "flash_bhsd", "decode"])
-@pytest.mark.parametrize("d,int8", [(20, True), (80, False)])
+@pytest.mark.parametrize("d,int8", [(20, True), (80, False), (320, True), (384, False)])
 def test_head_dims_and_f32_q_match_jax(rng, entry, d, int8):
-    """Head dims that are not 64 or 128 and an f32 q, which the JAX kernels
-    take (they pad d to 128 and round q to bf16) and the port's CUDA kernels
+    """Head dims that are not 64 or 128, above 256 too (320, 384: the CUDA
+    path's wide kernel), and an f32 q, which the JAX kernels take (they pad
+    d to a multiple of 128 and round q to bf16) and the port's CUDA kernels
     now take too: the plain path, which rounds q to bf16 as they do, against
     the Pallas kernels; the output in f32."""
     b, hq, hk, S = 2, 4, 2, 96

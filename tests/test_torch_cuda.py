@@ -7,19 +7,19 @@ transposed [N, K] / [N, K/2] layouts, scale_mode "none", int8 x with every
 output type, the fixed-point requantize bit for bit, epilogue_scale and
 integer outputs of a float x); attention at every head dim class up to
 256 (16, 17, 20, 32, 36, 80, 96, 256: 16-, 8-, 4-byte and element loads)
-with an f32 or bf16 q in all four entry points, odd KV lengths, GQA, bf16
+and above it (320, 384: the wide kernel) with an f32 or bf16 q in all four
+entry points, odd KV lengths, GQA, bf16
 KV, a fully masked lane, strided K/V views, bhsd flash_attention with a
 strided q, the split-KV flash decode at kv_len 0 to 2048 with sq 1 and 3,
 ragged query rows, and LlamaConfig.tiny() served on the card against the
 CPU path, with and without CSINN2_DECODE_ATTN=flash;
 the op API's CUDA tier in a GRAPH session; the eleven Q4_0 dequant-probe
-kernels (kernels/int4_probe.py) at M 1, 5, 8 and 16, N not a multiple of the
-CTA's columns, K a multiple of 32 but not of the split, in three launch
-geometries, and the eight plane kinds' tensor-core kernel at the ring's
-tails (N off the 256-column strip and off 16 / 32 bytes a row, splits that
-end mid-stage, an odd number of blocks), bit-identical repeated calls, its
-dynamic shared memory and two CTAs an SM, and every split the tile tuner
-sweeps; fused_dsconv (bit for bit) at odd H and
+kernels (kernels/int4_probe.py, every one on the decode GEMM's ring) at M 1,
+5, 8 and 16, N not a multiple of the strip, K a multiple of 32 but not of
+the split, and at the ring's tails (N off the 256-column strip and off 16 /
+32 bytes a row, splits that end mid-stage, an odd number of blocks, the 7B
+w2 depth), bit-identical repeated calls, their dynamic shared memory and
+two CTAs an SM, and every split the tile tuner sweeps; fused_dsconv (bit for bit) at odd H and
 W, C in {3, 8, 17, 1024}, O not a multiple of 8, k 3 and 5, stride 1 and 2,
 pads (0,1,0,1) and (1,1,1,1), batch 1 and 3, int8 and f32 output, a small
 MobileNetV1 session fused against unfused, MobileNetV1's 13 block shapes at
@@ -605,12 +605,13 @@ def _attend(name, q, k, v, **kw):
 
 
 @pytest.mark.parametrize("name", ENTRIES)
-@pytest.mark.parametrize("d", [16, 17, 20, 32, 36, 80, 96, 256])
+@pytest.mark.parametrize("d", [16, 17, 20, 32, 36, 80, 96, 256, 320, 384])
 @pytest.mark.parametrize("int8", [True, False])
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
 def test_attention_head_dims_and_q_dtypes(gen, dev, name, d, int8, qdt):
-    """Every head dim up to 256 and an f32 or bf16 q, as the JAX kernels take
-    them (they pad d to 128 and round q to bf16): GQA 8/2, per-row
+    """Head dims up to 256 and above (320, 384: the wide kernel) and an f32
+    or bf16 q, as the JAX kernels take them (they pad d to a multiple of 128
+    and round q to bf16): GQA 8/2, per-row
     q_offset / kv_len, K/V as permuted views of the cache layout.  d = 17 and
     20 rows are not 16-byte aligned (4-byte and element-wise loads).  The
     plain version gets q rounded to bf16, the kernels' (and the JAX bodies')
@@ -631,13 +632,27 @@ def test_attention_head_dims_and_q_dtypes(gen, dev, name, d, int8, qdt):
 
 @pytest.mark.parametrize("name", ENTRIES)
 def test_attention_rejects_head_dim_over_256(gen, dev, name):
-    """d > 256 is the one limit left (the JAX caps stop at 256 too)."""
-    k, v = _kv(gen, dev, 1, 2, 64, 320, True)
-    shape = (1, 8, 1, 320) if name in ("flash_attention_bhsd", "decode_attention") \
-        else (1, 1, 8, 320)
-    q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        _attend(name, q, k, v, causal=True, q_offset=0, kv_len=1, kv_scale=0.05)
+    """d > 256, which the JAX functions take (they pad d to a multiple of 128
+    with no cap), is no longer refused: d = 320 through the wide kernel
+    (launch count attention_wide.<entry>) against the plain version, int8
+    and bf16 KV, GQA 8/2, per-row q_offset / kv_len with a row that sees no
+    key (it outputs 0)."""
+    b, hq, hk, S, d = 3, 8, 2, 150, 320
+    sq = 1 if name == "decode_attention" else 37
+    for int8 in (True, False):
+        k, v = _kv(gen, dev, b, hk, S, d, int8)
+        shape = (b, hq, sq, d) if name in ("flash_attention_bhsd", "decode_attention") \
+            else (b, sq, hq, d)
+        q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        off = torch.tensor([0, 100, 3], dtype=torch.int32, device=dev)
+        kvl = torch.tensor([sq, 100 + sq, 0], dtype=torch.int32, device=dev)
+        before = launch_counts[f"attention_wide.{name}"]
+        out, ref = _attend(name, q, k, v, causal=True, q_offset=off, kv_len=kvl,
+                           kv_scale=0.05 if int8 else None)
+        assert launch_counts[f"attention_wide.{name}"] == before + 1
+        assert out.dtype == q.dtype and out.shape == q.shape
+        _close(out, ref)
+        assert float(out[2].abs().max()) == 0.0
 
 
 def test_attention_rejects_bad_kv(gen, dev):
@@ -913,10 +928,10 @@ def test_op_api_cuda_tier_on_the_card(dev):
 
 # -- the Q4_0 dequant probes (kernels/int4_probe.py) ---------------------------------
 
-# (K, N, bn, bk): for stream, intdot and w4a8 bn selects 128, 64 and 256
-# columns per CTA and K = 11, 33 and 10 blocks meet splits of 4, 16 and 2
-# blocks; the plane kinds take 256-column strips and the decode plan (4-block
-# splits, the last one short); N not a multiple of the columns, nor of 16
+# (K, N, bn, bk): every kind takes 256-column strips and the decode plan
+# (4-block splits, the last one short) whatever the tile, K = 11, 33 and 10
+# blocks; N not a multiple of the strip, nor of 16 (8-byte weight copies);
+# bk is stream's sampled tile (every bk/16-th byte row of each whole tile)
 PROBE_SHAPES = [(352, 200, 4096, 128), (1056, 264, 2048, 512), (320, 520, 8192, 64)]
 PROBE_CARRIER = {"split_i32": "q4_0", "split_i8": "q4_0", "stream": "q4_0",
                  "i4native": "native", "bitcast": "biased"}
@@ -990,20 +1005,22 @@ def test_int4_probe_rejects_bad_args(gen, dev):
 
 
 def test_int4_probe_attrs_and_cold_timing(gen, dev):
-    """The tuner's fit check: the plane kinds report their ring as dynamic
-    shared memory (3 stages of 16 KB weights, the scales, 16 x rows) and
-    keep two CTAs an SM with it; the SIMT kinds have none."""
+    """The tuner's fit check: every kind reports its ring as dynamic shared
+    memory, 3 stages of 16 KB weights and what else a stage holds (plane
+    kinds: 4 blocks of scales and 16 bf16 x rows; intdot / w4a8: 16 int8 x
+    rows, the f32 scales and a [16][4] sx tile; stream: nothing else), and
+    keeps two CTAs an SM with it."""
     from csinn2_tpu_torch.utils.timing import gpu_ms, gpu_ms_cold
     for kind in ip.KINDS:
         for M in (1, 8, 16):
             attrs = ip.kernel_attrs(kind, M)
-            assert 0 < attrs["regs"] <= 255 and attrs["ctas_per_sm"] >= 1, (kind, M, attrs)
             if kind in ip.PLANE_KINDS:
                 s_bytes = 2 if kind in ("andmask_bf16s", "noscale", "halfq8") else 4
-                assert attrs["dyn_smem"] == 3 * (16384 + 4 * 256 * s_bytes + 16 * 256), attrs
-                assert attrs["ctas_per_sm"] >= 2 and attrs["regs"] <= 128, (kind, M, attrs)
+                stage = 16384 + 4 * 256 * s_bytes + 16 * 256
             else:
-                assert attrs["dyn_smem"] == 0
+                stage = 16384 + {"stream": 0}.get(kind, 16 * 128 + 4 * 256 * 4 + 16 * 4 * 4)
+            assert attrs["dyn_smem"] == 3 * stage, (kind, M, attrs)
+            assert attrs["ctas_per_sm"] >= 2 and 0 < attrs["regs"] <= 128, (kind, M, attrs)
     calls = [_probe_case(gen, dev, "andmask", 8, 1024, 512, 4096, 512) for _ in range(3)]
     assert gpu_ms_cold([c.kernel for c in calls], reps=6) > 0
     assert gpu_ms(calls[0].kernel, reps=4) > 0
@@ -1019,10 +1036,11 @@ PLANE_TAILS = [(352, 200, 96), (1056, 288, None), (416, 272, 160), (11008, 4112,
 
 @pytest.mark.parametrize("shape", PLANE_TAILS, ids=lambda s: "K{}_N{}_ks{}".format(*s))
 @pytest.mark.parametrize("M", [2, 9, 16])
-@pytest.mark.parametrize("kind", list(ip.PLANE_KINDS))
+@pytest.mark.parametrize("kind", list(ip.KINDS))
 def test_int4_probe_plane_tails(gen, dev, kind, M, shape):
-    """The plane kinds' tensor-core kernel at the ring's tails against its
-    plain version; the strip counters are zero after each launch."""
+    """Every kind's kernel at the ring's tails against its plain version
+    (stream's bk = 32·(K // 64) tiles: 160, 512, 192, 5504); the strip
+    counters are zero after each launch."""
     from csinn2_tpu_torch.kernels import qmatmul as tq
     K, N, ksplit = shape
     call = _probe_case(gen, dev, kind, M, K, N, 2048, 32 * (K // 64), ksplit=ksplit)
@@ -1032,7 +1050,7 @@ def test_int4_probe_plane_tails(gen, dev, kind, M, shape):
     assert torch.isfinite(call()).all()
 
 
-@pytest.mark.parametrize("kind", list(ip.PLANE_KINDS))
+@pytest.mark.parametrize("kind", list(ip.KINDS))
 def test_int4_probe_plane_is_deterministic(gen, dev, kind):
     """The 7B wo (16 splits) and w13 (3 splits) at M = 8: two calls give the
     same bits, since the strip's last CTA sums the partials in split order."""

@@ -24,8 +24,16 @@ Gates:
   * the tensor-core kernel of the eight plane kinds, modelled in numpy: its
     widening of ldmatrix.trans register words and its A-fragment → (k,
     column) map (i4native's permuted columns included) give the JAX body's
-    bf16 plane values bit for bit; its geometry is the decode GEMM's split
-    plan, and kernel_bytes counts the tiles the timing-only kinds move."""
+    bf16 plane values bit for bit; every kind's geometry is the decode
+    GEMM's split plan, and kernel_bytes counts the tiles the timing-only
+    kinds move;
+  * the int8 kernel of intdot and w4a8, modelled in numpy: its regrouping
+    ldmatrix.trans words, masked low and sign-extended high nibbles and its
+    x tile give, through the m16n8k32 products, the JAX body's
+    p_lo + (p_hi >> 4) for every (block, column, token), every byte value in
+    every nibble position;
+  * the stream kernel's sampled byte rows, stage by stage of the ring, are
+    kernel_ref's row set at bk 64-512 and splits that end inside a tile."""
 
 import functools
 import importlib.util
@@ -203,42 +211,31 @@ def test_probe_cosines_match_jax_main(jp):
     assert want["bitcast"] < 0.999 and got["stream"] < 0.5       # inexact / timing only
 
 
-def test_launch_geometry():
-    assert [T.launch_geometry(bn, 512) for bn in (6144, 5504, 4096, 2048, 1024)] == \
-        [(128, 512), (128, 512), (128, 512), (64, 512), (32, 512)]
-    assert T.launch_geometry(22016, 256) == (256, 256)
-    assert T.launch_geometry(128, 256) == (32, 256)
-
-
 @pytest.mark.parametrize("M", [1, 8, 16])
 def test_plane_geometry_is_the_decode_plan(M):
-    """The plane kinds take the decode GEMM's 256-column strip and split plan
-    (on the H100's 132 SMs: wqkv 5 splits, w13 3, w2 15, wo 16), the SIMT
-    kinds the TPU tile's geometry; a ksplit sets the split length."""
+    """Every kind takes the decode GEMM's 256-column strip and split plan (on
+    the H100's 132 SMs: wqkv 5 splits, w13 3, w2 15, wo 16) whatever the TPU
+    tile; a ksplit sets the split length."""
     want = {(4096, 12288): 896, (4096, 22016): 1408, (11008, 4096): 768, (4096, 4096): 256}
     for (K, N), rows in want.items():
         plan = tq.gemm_plan(M, N, K, False, 132)
         assert T.plane_geometry(M, N, K, 132) == (256, rows) \
             == (plan["strip"], plan["blocks_per_split"] * 32)
-        for kind in T.PLANE_KINDS:
-            assert T.geometry(kind, M, N, K, 5504, 512, 132) == (256, rows)
-            assert T.geometry(kind, M, N, K, 5504, 512, 132, ksplit=96) == (256, 96)
-        for kind in ("stream", "intdot", "w4a8"):
-            assert T.geometry(kind, M, N, K, 5504, 512, 132) == (128, 512)
+        assert T.plane_geometry(M, N, K, 132, ksplit=96) == (256, 96)
     assert set(T.PLANE_KINDS) | {"stream", "intdot", "w4a8"} == set(T.KINDS)
 
 
-def test_ksplit_override_checks():
+@pytest.mark.parametrize("kind", ["andmask", "stream", "intdot", "w4a8"])
+def test_ksplit_override_checks(kind):
+    """Every kind takes a split length: a positive multiple of 32."""
     x = torch.zeros((8, 512), dtype=torch.bfloat16)
     w = torch.zeros((256, 64), dtype=torch.int8)
     s = torch.zeros((16, 64))
-    call = T.prepare("andmask", x, w, s, 8, 128, 256, ksplit=96)
-    assert call.ksplit == 96 and T.prepare("andmask", x, w, s, 8, 128, 256).ksplit is None
+    call = T.prepare(kind, x, w, s, 8, 128, 256, ksplit=96)
+    assert call.ksplit == 96 and T.prepare(kind, x, w, s, 8, 128, 256).ksplit is None
     for bad in (0, 48, -32):
         with pytest.raises(ValueError, match="ksplit"):
-            T.prepare("andmask", x, w, s, 8, 128, 256, ksplit=bad)
-    with pytest.raises(ValueError, match="ksplit"):
-        T.prepare("stream", x, w, s, 8, 128, 256, ksplit=128)
+            T.prepare(kind, x, w, s, 8, 128, 256, ksplit=bad)
 
 
 def test_kernel_bytes():
@@ -414,6 +411,162 @@ def test_k1_widening_and_fragment_map_match_jax_planes(kind):
     want = _jax_block_planes(kind, pack.numpy(), q, s[:1].repeat(16 if kind != "i4native"
                                                                  else 32, 0))
     np.testing.assert_array_equal(got, want)
+
+
+# -- k_int8 (csrc/int4_probe.cu: intdot and w4a8), modelled in numpy ------------------
+#
+# A stage holds a block's 16 byte rows of the strip's 256 columns; warp w owns
+# columns 32w .. 32w + 31 as two m16 tiles.  The regrouping ldmatrix.trans x4:
+# lane 8j + i addresses byte row regroup_row = 4(i >> 1) + (i & 1) + 2(j & 1)
+# of chunk 2w + (j >> 1), and lane (g, tig) receives bytes 2g, 2g + 1 of the
+# rows lanes 8j + 2tig and 8j + 2tig + 1 address.  quad_even / quad_odd (PRMT
+# 0x6420 / 0x7531) of registers 2t, 2t + 1 are byte rows 4tig .. 4tig + 3 of
+# columns 32w + 16t + 2g and + 1; the A fragments are their low nibbles as
+# they are and their high nibbles sign-extended (nib_signed), at k 4tig .. and
+# 16 + 4tig ..  The x tile row of a token is block b's x_lo, then x_hi (intdot
+# copies the 16-byte chunks from its halves, w4a8's xq lies so), and plain
+# ldmatrix gives lane (g, tig) token g's bytes 4tig .. 4tig + 3 of a chunk.
+
+def _prmt(r0, r1, sel):
+    """__byte_perm(r0, r1, sel)."""
+    b = [(r0 >> 8 * k) & 0xFF for k in range(4)] + [(r1 >> 8 * k) & 0xFF for k in range(4)]
+    return sum(b[(sel >> 4 * k) & 0xF] << 8 * k for k in range(4))
+
+
+def _nib_signed(v):
+    """csrc/int8_frag.cuh nib_signed: ((v & 0x0F0F0F0F) ^ 0x08080808) + 0x78787878,
+    then ^ 0x80808080 (four nibbles sign-extended to int8)."""
+    return ((((v & 0x0F0F0F0F) ^ 0x08080808) + 0x78787878) & 0xFFFFFFFF) ^ 0x80808080
+
+
+def _s8(word):
+    return [int(np.int8(np.uint8((word >> 8 * k) & 0xFF))) for k in range(4)]
+
+
+def _int8_a_fragments(tile):
+    """A[column, k] of one block as k_int8's fragments hold it (k < 16: the
+    low-nibble operand of byte row k, else the high-nibble one of row k - 16),
+    each element placed once.  tile: the block's bytes [16, 256]."""
+    u = tile.view(np.uint8).astype(np.int64)
+    A = np.full((256, 32), 99, np.int64)
+    regroup = lambda lane: 4 * ((lane & 7) >> 1) + (lane & 1) + 2 * ((lane >> 3) & 1)
+    for w in range(8):
+        for lane in range(32):
+            g, tig = lane // 4, lane % 4
+            regs = []
+            for j in range(4):
+                r0, r1 = regroup(8 * j + 2 * tig), regroup(8 * j + 2 * tig + 1)
+                c = 16 * (2 * w + (j >> 1)) + 2 * g
+                regs.append(u[r0, c] | u[r0, c + 1] << 8 | u[r1, c] << 16 | u[r1, c + 1] << 24)
+            for t in range(2):
+                qe, qo = _prmt(regs[2 * t], regs[2 * t + 1], 0x6420), \
+                    _prmt(regs[2 * t], regs[2 * t + 1], 0x7531)
+                col = 32 * w + 16 * t + 2 * g
+                frags = ((qe & 0x0F0F0F0F, col, 4 * tig), (qo & 0x0F0F0F0F, col + 1, 4 * tig),
+                         (_nib_signed(qe >> 4), col, 16 + 4 * tig),
+                         (_nib_signed(qo >> 4), col + 1, 16 + 4 * tig))
+                for word, n, k in frags:
+                    assert (A[n, k:k + 4] == 99).all()
+                    A[n, k:k + 4] = _s8(word)
+    assert (A != 99).all()
+    return A
+
+
+def _int8_b_fragments(xtile, b):
+    """B[k, token] of block b from the x tile [16, 128] by plain ldmatrix:
+    lane (g, tig) of matrix j takes token 8(j >> 1) + g's bytes 4tig .. 4tig + 3
+    of chunk 2b + (j & 1)."""
+    B = np.zeros((32, 16), np.int64)
+    for j in range(4):
+        for g in range(8):
+            for tig in range(4):
+                k = 16 * (j & 1) + 4 * tig
+                B[k:k + 4, 8 * (j >> 1) + g] = xtile[8 * (j >> 1) + g, 32 * b + k:32 * b + k + 4]
+    return B
+
+
+@pytest.mark.parametrize("kind", ["intdot", "w4a8"])
+def test_k_int8_fragments_match_jax_partials(kind):
+    """k_int8's A and B fragments of one 4-block stage, through the m16n8k32
+    products, give the JAX body's exact p_lo + (p_hi >> 4) per (block,
+    column, token) (examples/int4_dequant_probe.py :338-352 for intdot, the
+    same planes at :514-520 for w4a8): every byte value in every nibble
+    position (byte row 0 of each block runs through all 256 bytes over the
+    strip), activations at ±127."""
+    rng = np.random.default_rng(11)
+    q = rng.integers(-8, 8, (128, 256)).astype(np.int8)          # 4 blocks of a strip
+    for b in range(4):
+        q[32 * b, :] = np.arange(256) % 16 - 8                    # low nibble of byte row 0
+        q[32 * b + 16, :] = np.arange(256) // 16 - 8              # its high nibble
+    xq = rng.integers(-127, 128, (16, 128)).astype(np.int8)
+    xq[:, :2] = (-127, 127)
+    pack = T.pack_int4_mixed(torch.from_numpy(q)).numpy()         # [64, 256]
+    x3 = xq.reshape(16, 4, 32)
+    x_lo = x3[:, :, :16].reshape(16, 64)
+    x_hi = x3[:, :, 16:].reshape(16, 64)
+    if kind == "w4a8":                                            # xq [M, K] as it lies
+        xtile = xq.astype(np.int64)
+    else:                                                         # chunk c: half c % 2 of block c // 2
+        xtile = np.zeros((16, 128), np.int64)
+        for c in range(8):
+            src = x_hi if c % 2 else x_lo
+            xtile[:, 16 * c:16 * c + 16] = src[:, 8 * (c - c % 2):8 * (c - c % 2) + 16]
+    for b in range(4):
+        p = pack[16 * b:16 * b + 16]
+        z = _int8_a_fragments(p) @ _int8_b_fragments(xtile, b)  # [column, token]
+        pj = jnp.asarray(p)
+        l8, h8 = pj & jnp.int8(0x0F), pj & jnp.int8(-16)
+        xl, xh = jnp.asarray(x_lo[:, 16 * b:16 * b + 16]), jnp.asarray(x_hi[:, 16 * b:16 * b + 16])
+        pz = jnp.dot(xl, l8, preferred_element_type=jnp.int32) + \
+            (jnp.dot(xh, h8, preferred_element_type=jnp.int32) >> 4)   # [token, column]
+        np.testing.assert_array_equal(z.T, np.asarray(pz))
+        # and the operands themselves: w_lo + 8 and w_hi
+        A = _int8_a_fragments(p)
+        np.testing.assert_array_equal(A[:, :16].T, q[32 * b:32 * b + 16].astype(np.int64) + 8)
+        np.testing.assert_array_equal(A[:, 16:].T, q[32 * b + 16:32 * b + 32])
+
+
+# -- k_stream (csrc/int4_probe.cu), modelled: its sampled rows stage by stage --------
+
+def _stream_rows(K, bk, ksplit):
+    """The byte rows k_stream sums, split by split and stage by stage: a stage
+    is 64 byte rows (4 blocks) from the split's first; rows r = (every - row0 %
+    every) % every, + every, ... of a stage whose row 0 is byte row row0,
+    while row0 + r < lim; rows past the split's end are zero-filled there
+    (the next split sums them)."""
+    every, lim = bk // 16, K // bk * (bk // 2)
+    nb, bps = K // 32, ksplit // 32
+    rows = []
+    for kb_begin in range(0, nb, bps):
+        kb_end = min(nb, kb_begin + bps)
+        row0 = kb_begin * 16
+        for _ in range(-(-(kb_end - kb_begin) // 4)):
+            r = (every - row0 % every) % every
+            while r < 64 and row0 + r < lim:
+                if row0 + r < kb_end * 16:
+                    rows.append(row0 + r)
+                r += every
+            row0 += 64
+    return rows
+
+
+@pytest.mark.parametrize("ksplit", [96, 160, 1408])
+@pytest.mark.parametrize("bk", [64, 128, 256, 512])
+def test_stream_stage_rows_are_kernel_refs(bk, ksplit):
+    """k_stream's sampled rows are kernel_ref's: 8 rows bk/16 apart in each
+    whole bk-row tile, each once, at the 7B w2 depth (K = 11008: K % 512 !=
+    0, so the last partial tile is not sampled) with splits of 3, 5 and 44
+    blocks (3 and 5 end inside tiles and stages)."""
+    K = 11008
+    rows = _stream_rows(K, bk, ksplit)
+    want = [t * (bk // 2) + i * (bk // 16) for t in range(K // bk) for i in range(8)]
+    assert len(rows) == len(set(rows)) and sorted(rows) == want
+    # and the value: the sums of those rows, as kernel_ref forms them
+    w = torch.from_numpy(np.random.default_rng(bk).integers(-128, 128, (K // 2, 24))
+                         .astype(np.int8))
+    xw = torch.zeros((2, 24))
+    got = w[rows].to(torch.int64).sum(0).float()
+    assert torch.equal(xw + got, T.kernel_ref("stream", {"w": w, "xw": xw}, 2, 24, K, 24, bk))
 
 
 def test_argument_checks():
