@@ -23,11 +23,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      at prefill and, split over the KV window, at flash decode, its decode
      also cold), then every attention entry point at head
      dims 16, 32, 80, 96 and 256 with an f32 and a bf16 q, int8 and bf16 KV;
-     then the head dims above 256 (the wide kernel, attn_wide_kernel): the
-     four entry points at d = 320, int8 and bf16 KV, driven once each with
-     the launch counts zeroed before and read after (their path), each held
-     against its plain version, and timed beside SDPA on the dequantized
-     K/V;
+     then the head dims above 256 (attn_wide_mma_kernel, on wgmma): the
+     four entry points at d = 320 and 576, int8 and bf16 KV, driven once
+     each with the launch counts zeroed before and read after (their path:
+     a launch a call, a merge for each split-KV decode), each held against
+     its plain version, the kv_len = 0 row 0, and flash bhsd and decode at
+     both d timed beside SDPA on the dequantized K/V;
   3. model parity: a 2-layer model at full 7B width (int8 KV) over a
      128-token prompt, logits on the card against the same model through the
      port's plain path on the CPU (cosine >= 0.999), for Q8_0, Q4_0,
@@ -140,7 +141,8 @@ KERNELS = {
     "quant_matmul_requant": (I8_SOURCE, "csinn2_tpu/kernels/requant.py:40"),
     "quant_matmul_t": (QMM_SOURCE, QMM_REPLACES),
     "flash_attention_bhsd": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
-    # d > 256 in all three functions (also :142 decode_attention, :248 prefill_attention)
+    # attn_wide_mma_kernel: d > 256 in all three functions (also :142
+    # decode_attention, :248 prefill_attention)
     "attention_wide": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
 }
 # the probe kernels: kind → (line of the JAX body or pallas_call function in
@@ -857,20 +859,27 @@ def check_attention_dims(records):
         f"against the plain version, the kv_len = 0 row 0")
 
 
-WIDE_D = 320
+WIDE_DS = (320, 576)   # 576: two CTA slices of O's columns
+MLA = (128, 1, 576)    # DeepSeek-V2/V3's absorbed latent attention at decode: hq, hk, d
 
 
 def check_attention_wide(records):
-    """Head dims above 256 (attn_wide_kernel): GQA 32/8 at d = 320, int8
-    (kv_scale 0.05) and bf16 KV, per-row q_offset / kv_len: the four entry
-    points at b = 2, sq = 128 over S = 512 (kv_len 128 / 461, q_offset 0 /
-    333) and decode b = 4 over S = 2048 (kv_len 2048 / 1027 / 0 / 17).  The
-    calls run once with the launch counts zeroed just before and read just
-    after (their path: no package caller reaches d > 256); then each output
-    against its plain version at the attention gate, a kv_len = 0 row 0;
-    then flash_attention bhsd at sq = S = 512 and decode_attention timed
-    beside SDPA on the dequantized, GQA-expanded K/V.  Returns the path's
-    launch counts."""
+    """Head dims above 256 (attn_wide_mma_kernel, on wgmma): GQA 32/8 at d =
+    320 and 576, int8 (kv_scale 0.05) and bf16 KV, per-row q_offset /
+    kv_len: the four entry points at b = 2, sq = 128 over S = 512 (kv_len
+    128 / 461, q_offset 0 / 333) and decode b = 4 over S = 2048 (kv_len 2048
+    / 1027 / 0 / 17); and absorbed MLA's decode (hq 128 on one KV head, d =
+    576, the port's one d for K and V where the model's V has 512) at the
+    same decode rows.  The calls run once with the launch counts zeroed just
+    before and read just after (their path: no package caller reaches d >
+    256): one kernel launch a call, and a merge (`.combine`) for each call
+    whose plan splits the KV window (the decodes', and at d = 320 the bf16
+    prefills'); then each output against
+    its plain version at the attention gate, the kv_len = 0 row 0; then
+    flash_attention bhsd at sq = S = 512 (causal) and decode_attention at
+    both d, and the MLA decode, timed beside the plain version and SDPA on
+    the dequantized K/V (GQA-expanded; MLA's one head broadcast).  Returns
+    the path's launch counts."""
     import torch
     import torch.nn.functional as F
     from csinn2_tpu_torch.kernels import flash_attention as fa
@@ -878,10 +887,11 @@ def check_attention_wide(records):
     from csinn2_tpu_torch.utils.timing import gpu_ms
     g = torch.Generator(device="cuda")
     g.manual_seed(6)
-    hq, hk, d = 32, 8, WIDE_D
-    cases = []
-    for int8 in (True, False):
-        for name in ATTN_ENTRIES:
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases, merges = [], 0
+    gqa = [(32, 8, d, name) for d in WIDE_DS for name in ATTN_ENTRIES]
+    for hq, hk, d, name in gqa + [MLA + ("decode_attention",)]:
+        for int8 in (True, False):
             dec = name == "decode_attention"
             b, S, sq = (4, 2048, 1) if dec else (2, 512, 128)
             if int8:
@@ -892,36 +902,44 @@ def check_attention_wide(records):
             bhsd = name in ("flash_attention_bhsd", "decode_attention")
             q = torch.randn((b, hq, sq, d) if bhsd else (b, sq, hq, d), generator=g,
                             device="cuda").to(torch.bfloat16)
-            kvl = torch.tensor([2048, 1027, 0, 17] if dec else [128, 461], dtype=torch.int32,
-                               device="cuda")
+            kvl = torch.tensor([2048, 1027, 0, 17] if dec else [128, 461],
+                               dtype=torch.int32, device="cuda")
             off = kvl - 1 if dec else torch.tensor([0, 333], dtype=torch.int32, device="cuda")
-            cases.append((name, int8, q, k, v, dict(causal=True, q_offset=off, kv_len=kvl,
-                                                    kv_scale=0.05 if int8 else None)))
+            cases.append((name, hq, hk, d, int8, q, k, v,
+                          dict(causal=True, q_offset=off, kv_len=kvl,
+                               kv_scale=0.05 if int8 else None)))
+            merges += fa._wide_plan(b, sq, hq, hk, S, d, k.element_size(), n_sm).n_chunks > 1
     torch.cuda.synchronize()
     reset_launch_counts()
-    outs = [_attend(name, q, k, v, kw) for name, _, q, k, v, kw in cases]   # synchronizes
+    outs = [_attend(name, q, k, v, kw) for name, _, _, _, _, q, k, v, kw in cases]   # synchronizes
     counts = dict(launch_counts)
-    log(f"  head dim {d}: the four entry points, int8 and bf16 KV; launches {counts}")
-    if launches(counts, "attention_wide") != len(cases):
-        raise AssertionError(f"attention_wide: {launches(counts, 'attention_wide')} launches "
-                             f"for {len(cases)} calls")
+    log(f"  head dims {WIDE_DS} and MLA {MLA}: the four entry points (MLA: decode), int8 and "
+        f"bf16 KV; launches {counts}")
+    n_merge = sum(n for key, n in counts.items()
+                  if key.startswith("attention_wide.") and key.endswith(".combine"))
+    n_kernel = launches(counts, "attention_wide") - n_merge
+    if n_kernel != len(cases) or n_merge != merges or launches(counts, "attention_wide") != \
+            sum(counts.values()):
+        raise AssertionError(f"attention_wide: {n_kernel} launches and {n_merge} merges for "
+                             f"{len(cases)} calls and {merges} split plans: {counts}")
     worst = 0.0
-    for (name, int8, *_), (out, ref) in zip(cases, outs):
-        r = _verify_attn(f"attention_wide {name} d={d} int8={int8}", out, ref)
+    for (name, hq, hk, d, int8, *_), (out, ref) in zip(cases, outs):
+        r = _verify_attn(f"attention_wide {name} hq={hq} hk={hk} d={d} int8={int8}", out, ref)
         worst = max(worst, r.max_abs_err)
         if name == "decode_attention" and float(out[2].abs().max()) != 0.0:
             raise AssertionError("attention_wide: the kv_len = 0 row must output 0")
-    log(f"  head dim {d}: {len(cases)} calls against the plain version, verify(2e-2), "
-        f"cos >= 0.9999, max_abs_err {worst:.3e}")
-    rec = {"max_abs_err": worst}
+    log(f"  head dims {WIDE_DS} and MLA: {len(cases)} calls against the plain version, "
+        f"verify(2e-2), cos >= 0.9999, max_abs_err {worst:.3e}; the kv_len = 0 row 0")
+    rec = {"max_abs_err": worst, "launches_combine": n_merge}
     # timing: bhsd flash at sq = S = 512 (causal), and decode at the case above
     kv_scale = 0.05
-    for case in ("flash", "decode"):
+    timed = [(32, 8, d, case) for d in WIDE_DS for case in ("flash", "decode")]
+    for hq, hk, d, case in timed + [MLA + ("decode",)]:
         b, S, sq = (1, 512, 512) if case == "flash" else (4, 2048, 1)
         k, v = _kv_case(g, b, hk, S, d, kv_scale)
         q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(torch.bfloat16)
-        kvl = torch.tensor([S] if case == "flash" else [2048, 1027, 0, 17], dtype=torch.int32,
-                           device="cuda")
+        kvl = torch.tensor([S] if case == "flash" else [2048, 1027, 0, 17],
+                           dtype=torch.int32, device="cuda")
         if case == "flash":
             kw = dict(causal=True, q_offset=0, kv_len=kvl, kv_scale=kv_scale)
             run = lambda: fa.flash_attention(q, k, v, **kw)
@@ -933,27 +951,31 @@ def check_attention_wide(records):
                                                  scale=1.0 / math.sqrt(d), **kw)
         ms = gpu_ms(run)
         plain = gpu_ms(plain_fn, reps=3)
-        kd = (k.float() * kv_scale).to(torch.bfloat16).repeat_interleave(hq // hk, dim=1)
-        vd = (v.float() * kv_scale).to(torch.bfloat16).repeat_interleave(hq // hk, dim=1)
+        kd, vd = ((x.float() * kv_scale).to(torch.bfloat16) for x in (k, v))
+        kd, vd = ((x.expand(-1, hq, -1, -1) if hk == 1 else x.repeat_interleave(hq // hk, dim=1))
+                  for x in (kd, vd))
         if case == "flash":
             lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, is_causal=True))
             pairs = sq * (sq + 1) // 2
-            b_ms, b_by = bound(2 * b * sq * hq * d * 2 + 2 * S * hk * d, 4.0 * pairs * hq * d)
+            b_ms, b_by = bound(2 * b * sq * hq * d * 2 + 2 * S * hk * d,
+                               4.0 * pairs * hq * d)
         else:
             mask = (torch.arange(S, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
             lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
             n_kv = int(kvl.sum())
             b_ms, b_by = bound(2 * b * hq * d * 2 + 2 * n_kv * hk * d, 4.0 * n_kv * hq * d)
-        shape = (f"{'flash_attention bhsd' if case == 'flash' else 'decode_attention'} b={b} "
-                 f"hq=32 hk=8 sq={sq} d={d} S={S} kv_len={kvl.tolist()}, int8 KV")
+        shape = (f"{'flash_attention bhsd' if case == 'flash' else 'decode_attention'} "
+                 f"b={b} hq={hq} hk={hk} sq={sq} d={d} S={S} kv_len={kvl.tolist()}, int8 KV")
         log(f"  attention_wide {shape} ms={ms:.4f} plain_ms={plain:.4f} lib_ms={lib:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f}")
-        if case == "flash":
-            rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                       shape=shape)
+        times = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                     shape=shape)
+        if case == "flash" and d == WIDE_DS[0]:
+            rec.update(times)
+        elif hk == 1:
+            rec["decode_mla"] = times
         else:
-            rec["decode"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                                 shape=shape)
+            rec[case if d == WIDE_DS[0] else f"{case}_d{d}"] = times
         del k, v, kd, vd
     records["attention_wide"] = rec
     return counts
@@ -1657,7 +1679,8 @@ def main() -> int:
     check_attention_dims(records)
     # kernel name → (launch counts of the run whose path it is on, the run)
     path_counts = {"attention_wide": (check_attention_wide(records),
-                                      f"phase 2 (the four entry points at d = {WIDE_D})")}
+                                      f"phase 2 (the four entry points at d = {WIDE_DS}, "
+                                      "MLA's decode)")}
     torch.cuda.empty_cache()
     api_counts = kernel_api_path()
     for k in ("quant_matmul_none", "quant_matmul_int8dot", "quant_matmul_requant"):
@@ -1715,7 +1738,8 @@ def main() -> int:
                  "library_ms": r["library_ms"], "shape": r["shape"]}
         for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
                       "decode_cold", "cur_ms", "library_layout", "blocks_ms",
-                      "blocks_bound_ms", "launches_phase", "decode"):
+                      "blocks_bound_ms", "launches_phase", "decode", "flash_d576",
+                      "decode_d576", "launches_combine"):
             if extra in r:
                 entry[extra] = r[extra]
         if name in reduce_per_step:

@@ -8,6 +8,7 @@ so two versions compare inside one call on one card.
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only decode
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only probe,decode --trees OLD . . OLD
     python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only int8,dsconv --trees OLD . . OLD
+    python3 csinn2_tpu_torch/examples/gemm_attn_bench.py --only wide --trees OLD . . OLD
 
 With --trees, each tree (a directory holding csinn2_tpu_torch/) runs this
 file in a process of its own that imports the package from that tree;
@@ -15,8 +16,8 @@ the rows of all runs are printed as one table, then the decode GEMMs' sum
 per batch-4 decode step (32 layers × wqkv + wo + w13 + w2, cold) of each
 run, the probe rows' factors over cur and the 13 fused_dsconv blocks' sum,
 then one JSON list on the last line.  --only picks groups of cases,
-comma-separated (decode, prefill, attention, probe, int8, dsconv; default:
-attention, decode, prefill).  Cases:
+comma-separated (decode, prefill, attention, probe, int8, dsconv, wide;
+default: attention, decode, prefill).  Cases:
 
   * decode: quant_matmul at M = 1, 4, 8 and 16 on the Llama-2-7B w13 (K
     4096, N 22016; swiglu N 22528, out [M, 11264]) in the seven float-x
@@ -50,6 +51,19 @@ attention, decode, prefill).  Cases:
     at batch 128 and 1, warm, each bit for bit fused_dsconv_ref; bound =
     max(the bytes of x, the weights, the output / 3.35 TB/s, N·Ho·Wo·(k²·C
     + 2·C·O) / 1979 TOP/s int8); no library call computes the block;
+  * wide: attention at head dims above 256 (PERF.md row 2''), kv_scale 0.05
+    on int8 KV: causal bhsd flash_attention at b 1, sq = S = 512, and
+    decode_attention at b 4, S 2048, kv_len 2048 / 1027 / 0 / 17, GQA 32/8
+    at d = 320 and 576 (int8), d = 300 (int8 rows 4-byte aligned: the
+    cp.async loader) and d = 320 with bf16 KV (no widening); absorbed MLA's
+    decode (hq 128 on one KV head, d 576) with int8 and bf16 KV; warm, each
+    against its plain version at the attention gate (verify(2e-2), cosine >=
+    0.9999), beside the plain version's time; the library call is SDPA on
+    the dequantized K/V (GQA-expanded; MLA's one head broadcast), the decode
+    with the kv_len mask.  Then, in a tree with _wide_plan, the chunk sweep:
+    the d = 320 and 576 decodes, both MLA decodes and the d = 320 prefill at
+    every chunk of WIDE_CHUNKS and at the whole window (the plan's own
+    marked *);
   * attention: decode attention at row 2's shape (b 4, hq = hk = 32, d 128,
     S 2048, int8 KV, kv_len 2048 / 1027 / 0 / 17) through decode_attention,
     and row 4''s (kv_len 2048 / 1027 / 1 / 17, causal) through bhsd
@@ -96,7 +110,7 @@ GROUPS = {
     + [(label, "w13", (512, 2048)) for label in ("1a q8_0", "1c q4_0")],
 }
 N_LAYERS = 32   # Llama-2-7B: the per-step sum of the decode GEMMs
-BENCH_GROUPS = ("attention", "decode", "prefill", "probe", "int8", "dsconv")
+BENCH_GROUPS = ("attention", "decode", "prefill", "probe", "int8", "dsconv", "wide")
 I8_MS = (1, 4, 8, 16, 128)
 # MobileNetV1's 13 depthwise-separable blocks (alpha 1.0, 224): (H, C, O, stride)
 MOBILENET_BLOCKS = ((112, 32, 64, 1), (112, 64, 128, 2), (56, 128, 128, 1),
@@ -403,6 +417,115 @@ def bench_decode_attention(g, line: str):
     return rows
 
 
+WIDE_CASES = (   # (case, hq, hk, d, int8 KV, label)
+    ("flash", 32, 8, 320, True, "2'' flash d=320"),
+    ("decode", 32, 8, 320, True, "2'' decode d=320"),
+    ("flash", 32, 8, 576, True, "2'' flash d=576"),
+    ("decode", 32, 8, 576, True, "2'' decode d=576"),
+    ("decode", 128, 1, 576, True, "2'' decode mla"),
+    ("decode", 128, 1, 576, False, "2'' dec mla bf16"),
+    ("flash", 32, 8, 300, True, "2'' flash d=300"),
+    ("decode", 32, 8, 300, True, "2'' decode d=300"),
+    ("flash", 32, 8, 320, False, "2'' flash bf16"),
+    ("decode", 32, 8, 320, False, "2'' decode bf16"))
+WIDE_SWEEP = (0, 1, 3, 4, 5)   # WIDE_CASES whose chunk the sweep varies (0: a prefill)
+
+
+def bench_wide(g, line: str):
+    """Row 2'': flash bhsd and decode at d = 320, 576 and 300, absorbed MLA's
+    decode, int8 and bf16 KV, warm; then the chunk sweep."""
+    import torch
+    import torch.nn.functional as F
+    from csinn2_tpu_torch.kernels import flash_attention as fa
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    from csinn2_tpu_torch.utils.verify import verify
+    kv_scale = 0.05
+    rows = []
+
+    def inputs(case, hq, hk, d, int8):
+        b, S, sq = (1, 512, 512) if case == "flash" else (4, 2048, 1)
+        if int8:
+            kv = [torch.randint(-127, 128, (b, S, hk, d), generator=g, device="cuda",
+                                dtype=torch.int8).permute(0, 2, 1, 3) for _ in range(2)]
+        else:
+            kv = [torch.randn((b, S, hk, d), generator=g, device="cuda").to(torch.bfloat16)
+                  .permute(0, 2, 1, 3) for _ in range(2)]
+        q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(torch.bfloat16)
+        kvl = torch.tensor([S] if case == "flash" else [2048, 1027, 0, 17], dtype=torch.int32,
+                           device="cuda")
+        scale = kv_scale if int8 else None
+        if case == "flash":
+            kw = dict(causal=True, q_offset=0, kv_len=kvl, kv_scale=scale)
+            run = lambda: fa.flash_attention(q, *kv, **kw)
+        else:
+            kw = dict(causal=False, q_offset=kvl - 1, kv_len=kvl, kv_scale=scale)
+            run = lambda: fa.decode_attention(q, *kv, q_offset=kvl - 1, kv_len=kvl,
+                                              kv_scale=scale)
+        plain_fn = lambda: fa._attention_ref(q, *kv, scale=1 / math.sqrt(d), **kw)
+        return b, S, sq, q, kv, kvl, run, plain_fn
+
+    def check(label, run, plain_fn):
+        out = run()
+        torch.cuda.synchronize()
+        r = verify(out.float().cpu().numpy(), plain_fn().float().cpu().numpy(), tol=2e-2,
+                   min_cosine=0.9999)
+        if not (r.passed and r.cosine_sim >= 0.9999):
+            raise AssertionError(f"wide {label}: {r}")
+        return r.cosine_sim
+
+    for case, hq, hk, d, int8, label in WIDE_CASES:
+        b, S, sq, q, kv, kvl, run, plain_fn = inputs(case, hq, hk, d, int8)
+        cos = check(label, run, plain_fn)
+        ms = gpu_ms(run)
+        plain = gpu_ms(plain_fn, reps=3)
+        kd, vd = ((x.float() * kv_scale).to(torch.bfloat16) if int8 else x for x in kv)
+        kd, vd = ((x.expand(-1, hq, -1, -1) if hk == 1 else x.repeat_interleave(hq // hk, dim=1))
+                  for x in (kd, vd))
+        kvb = 1 if int8 else 2
+        if case == "flash":
+            lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, is_causal=True))
+            b_ms, b_by = _bound(2 * b * sq * hq * d * 2 + 2 * S * hk * d * kvb,
+                                4.0 * sq * (sq + 1) // 2 * hq * d)
+        else:
+            mask = (torch.arange(S, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+            lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+            n_kv = int(kvl.sum())
+            b_ms, b_by = _bound(2 * b * hq * d * 2 + 2 * n_kv * hk * d * kvb, 4.0 * n_kv * hq * d)
+        rows.append(dict(kind="wide", case=label, proj=f"b={b} S={S} hq={hq}", M=sq, ms=ms,
+                         ms_cold=ms, plain_ms=plain, library_ms=lib, library_ms_cold=lib,
+                         bound_ms=b_ms, bound_by=b_by, cos=cos, card=line))
+        print(json.dumps(rows[-1]), flush=True)
+        del kv, kd, vd
+        torch.cuda.empty_cache()
+    if not hasattr(fa, "_wide_plan"):      # a tree from before the plan
+        return rows
+    # the chunk sweep: each chunk of WIDE_CHUNKS and the unsplit window
+    # in place of the plan's own choice (bound as in the row above)
+    plan_fn = fa._wide_plan
+    for i in WIDE_SWEEP:
+        case, hq, hk, d, int8, label = WIDE_CASES[i]
+        b, S, sq, q, kv, kvl, run, plain_fn = inputs(case, hq, hk, d, int8)
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        own = plan_fn(b, sq, hq, hk, S, d, 1 if int8 else 2, n_sm)
+        for chunk in fa.WIDE_CHUNKS + (S,):
+            fa._wide_plan = lambda *a, c=chunk: plan_fn(*a)._replace(chunk=c,
+                                                                     n_chunks=-(-S // c))
+            try:
+                cos = check(f"{label} chunk={chunk}", run, plain_fn)
+                ms = gpu_ms(run)
+            finally:
+                fa._wide_plan = plan_fn
+            mark = "*" if chunk == own.chunk else ""
+            rows.append(dict(kind="wide", case=f"{label} c{chunk}{mark}",
+                             proj=f"b={b} S={S} hq={hq}", M=sq, ms=ms, ms_cold=ms,
+                             library_ms=0.0, library_ms_cold=0.0,
+                             bound_ms=rows[i]["bound_ms"], bound_by=rows[i]["bound_by"],
+                             cos=cos, card=line))
+            print(json.dumps(rows[-1]), flush=True)
+        del kv
+    return rows
+
+
 def worker(only) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -425,6 +548,8 @@ def worker(only) -> int:
         bench_int8(g, line)
     if "dsconv" in only:
         bench_dsconv(g, line)
+    if "wide" in only:
+        bench_wide(g, line)
     return 0
 
 

@@ -55,17 +55,38 @@
 //   K/V rows load 16, 8 or 4 bytes at a time (`vec`, the widest width the
 //   rows and strides allow), element by element where none does.
 //
-// attention_wide_launch — the same three functions at d > 256, which the
-//   JAX functions take (they pad d to a multiple of 128, with no cap) and
-//   the kernels above do not.  Speed is no aim: attn_wide_kernel is a
-//   plain online-softmax attention on the CUDA cores, right at any d whose
-//   tiles fit shared memory (notes at the kernel).  Bound as above.
+// attention_wide_launch — the same three functions at d > 256
+//   (decode_attention → _decode_attn_kernel, prefill_attention →
+//   _prefill_attn_kernel, flash_attention → _attn_kernel, which pad d to a
+//   multiple of 128 with no cap), on the tensor cores (attn_wide_mma_kernel).
+//   Bounds as above: the K/V bytes at decode (15.8 MB of int8 KV at b = 4,
+//   GQA 32/8, S = 2048, d = 320: 0.0047 ms) and at short prefill, where q
+//   and out weigh as much as the products (sq = S = 512: 23.6 MB, 0.0070
+//   ms, against 5.4 GFLOP, 0.0054 ms), the products at long prefill.  What
+//   stops the d <= 256 kernel is O: a warp holding 16 rows × d in registers
+//   (160 f32 a thread at d = 320).  So a CTA takes 64 m rows (one wgmma m64
+//   tile) and splits O over up to 3 warpgroups of 128 columns (64 f32 a
+//   thread), and over CTAs past 384 columns, each CTA recomputing S.  Both
+//   products run on wgmma with their operands in shared memory, which read
+//   a 64-row tile's operands once where mma.sync reads them for each 16
+//   rows: S = Q·Kᵀ over two warpgroups of 32 keys, whose row maxima meet in
+//   shared memory, P as bf16 in a swizzled tile, P·V with V MN-major.  The
+//   copy engine brings K/V tiles by tensor map where rows are 16-byte
+//   aligned (bf16 straight into wgmma's swizzle), cp.async elsewhere, the
+//   next tile while S runs; int8 widens once per CTA.  Where the unsplit
+//   grid is far under the SMs (the decode, a short sq·group, absorbed
+//   MLA's 128 heads on one latent head), the KV window splits over CTAs
+//   (one per chunk, column slice, KV head, row; the grid nearest 2 CTAs an
+//   SM) so its bytes stream on every SM, merged by attn_combine_kernel.  Where Q and whole K rows
+//   outgrow shared memory, Q·Kᵀ streams blocks of dims through the ring, so
+//   no d is refused for its tiles (notes at the kernel).
 //
 // A row whose softmax denominator is 0 (kv_len == 0, or every key masked)
 // outputs 0, never NaN.  K/V are read through (batch, head, seq) strides
 // with a contiguous last dim, so the cache's [b, S, hk, d] layout is
 // consumed in place (no transpose).  q and out are bf16, f16 or f32
 // (dtype codes DT_*); out is written from the f32 sums in its own dtype.
+#include <cuda.h>   // CUtensorMap; the encoder comes through the runtime
 #include <cuda_fp16.h>
 
 #include "common.cuh"
@@ -852,179 +873,661 @@ decode_attn_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long lo
 }
 
 // ---------------------------------------------------------------------------
-// attn_wide_kernel: any head dim above 256, on the CUDA cores
+// attn_wide_mma_kernel: any head dim above 256, on wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int WIDE_THREADS = 128;
-constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr int WIDE_ROWS = 64;              // m rows a CTA: one wgmma m64 tile
+constexpr int WIDE_MAX_WG = 3;             // warpgroups a CTA, 128 O columns each
+constexpr int WIDE_OW = 128;               // O columns a warpgroup: 64 f32 a thread
 constexpr size_t WIDE_SMEM_MAX = 232448;   // dynamic shared memory a CTA may have
 
-__device__ __forceinline__ float kv_to_float(int8_t x) { return static_cast<float>(x); }
-__device__ __forceinline__ float kv_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Dynamic shared memory of attn_wide_kernel: a tile's K and V rows as they
-// lie (each padded to 16 bytes), then f32 q and output rows [rb][d], the
-// scores [rb][bkv] and (max, sum, rescale) [3][rb]
-__host__ __device__ inline size_t wide_smem(int d, int es, int rb, int bkv) {
-  const size_t row = (static_cast<size_t>(d) * es + 15) / 16 * 16;
-  return 2 * bkv * row + sizeof(float) * (2 * static_cast<size_t>(rb) * d +
-                                          static_cast<size_t>(rb) * bkv + 3 * rb);
+// d[0..15] (+)= A · B, one warpgroup, m64n32k16: A and B bf16 in shared
+// memory (K-major, 128-byte swizzle, descriptors ad / bd), f32 sums; scale_d
+// = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t ad, uint64_t bd, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(ad), "l"(bd), "r"(scale_d));
 }
 
-// One CTA per (rb m rows of a KV head's GQA group, KV head, batch row); m
-// row r is (query r / group, head hkid·group + r % group), as in
-// attn_fwd_kernel, so the group's heads share every K/V row the CTA reads.
-// q is rounded to bf16 as it is staged (f32 in shared memory; the JAX
-// kernels' zero padding of d to a multiple of 128 adds nothing and is not
-// stored).  Tiles of bkv keys come into shared memory by cp.async of `vec`
-// bytes (element loads at vec = 0) through the cache's strides, int8 widened
-// exactly where it is read; a warp a (row, key) score, its lanes over d;
-// one thread a row's online softmax in f32 (log2 units: exp2), P rounded to
-// bf16 before P·V as the JAX bodies round it and l summed from the f32 p;
-// one thread a column of O·alpha + P·V.  kv_scale is folded into qk_scale
-// and out_scale.  Keys past kv_len (and past a row's position when causal)
-// are masked; a row that sees no key outputs 0.  (A two-stage ring, with a
-// warp a key for all rows at once, measured slower on the H100.)
-template <typename KV>
-__global__ void __launch_bounds__(WIDE_THREADS)
-attn_wide_kernel(const void* __restrict__ q, int q_dt, long long q_sb, long long q_ss,
-                 long long q_sh, const KV* __restrict__ k, long long k_sb, long long k_sh,
-                 long long k_ss, const KV* __restrict__ v, long long v_sb, long long v_sh,
-                 long long v_ss, const int* __restrict__ q_offset, int off0,
-                 const int* __restrict__ kv_len, int len0, void* __restrict__ out, int o_dt,
-                 long long o_sb, long long o_ss, long long o_sh, int sq, int hq, int hk, int S,
-                 int d, int causal, int vec, int rb, int bkv, float qk_scale, float out_scale) {
+// d[0..63] += A · B, one warpgroup, m64n128k16: A bf16 in shared memory
+// (K-major, 128-byte swizzle, descriptor ad), B bf16 in shared memory
+// MN-major (rows of 64 n, 128-byte swizzle, descriptor bd), f32 sums
+__device__ __forceinline__ void wgmma_ss_t_n128(float* d, uint64_t ad, uint64_t bd) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(ad), "l"(bd), "r"(1));
+}
+
+// The bf16 pair of int8 bytes `sel` (a PRMT selector putting them at bits
+// 0-7 and 16-23) of w, exact and without I2F: bits 0-6 under the exponent
+// of 128 give 128 + (x & 127), bit 7 gives 128 or 256, and one HSUB2 of
+// the two is x
+__device__ __forceinline__ uint32_t i8_pair_bf16(uint32_t w, uint32_t sel) {
+  const uint32_t p = __byte_perm(w, 0, sel);
+  const uint32_t lo = (p & 0x007F007Fu) | 0x43004300u, hi = (p & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// mbarrier of a ring stage fed by the tensor-map loads: init (one arrival
+// a phase), the arrival announcing `bytes` of loads, a box of K or V
+// [b][hk][S][d] at (dim c, row k, head h, batch bi) by the copy engine
+// (completing on the barrier), and the wait for phase `parity`
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c, int k, int h,
+                                        int bi, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(k), "r"(h), "r"(bi), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// The descriptor of a bf16 tile in the 128-byte swizzle (rows of 64
+// elements, 16-byte chunk c of row r at c ^ (r & 7), 8-row groups 1024
+// bytes apart), `lbo` bytes between 64-element blocks of the rows (used by
+// MN-major operands)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Element (r, c) of a swizzled tile of `rows` rows: [c / 64][rows][64]
+__device__ __forceinline__ int sw_at(int rows, int r, int c) {
+  return (c >> 6) * rows * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// Shared memory of one attn_wide_mma_kernel launch (bytes from a 1024-byte
+// aligned base, each region rounded up to 1024; the host sizes the launch
+// with 1024 more, and kernels/flash_attention.py _wide_smem mirrors it):
+// `stages` ring stages of [K: bkv rows × qc dims][V: bkv rows × vcols columns]
+// [Q: 64 rows × qc dims, streamed only] — bf16 swizzled tiles, or for int8
+// K/V the rows as they lie, 16 bytes apart (the widening's reads then miss
+// each other's banks), widened into one swizzled K and V tile — then Q (64
+// rows × qc dims, swizzled) unless streamed, P (64 rows × 64 keys, bf16,
+// swizzled), the exchange of the row maxima and sums ([2][2][64] f32), and
+// a stage's mbarrier each (the tensor-map loads).
+// vcols = min(128·wg, d padded to 64): a warpgroup's columns past d read
+// whatever follows the V tile and are never stored.  qc >= d: Q and whole K
+// rows stay resident (qc is d padded to 64); qc < d: Q·Kᵀ streams qc-dim
+// blocks of Q and K through the ring, so no size here grows with d.
+struct WideSmem {
+  int vcols, kraw, vraw;  // V tile columns; bytes a raw int8 row of the ring: K, V
+  size_t stage, v_off, q_off, kw_off, vw_off, qres_off, p_off, red_off, bar_off, total;
+};
+
+__host__ __device__ inline size_t wide_al(size_t x) { return (x + 1023) & ~static_cast<size_t>(1023); }
+
+__host__ __device__ inline WideSmem wide_smem(int wg, int bkv, int qc, int stages, int d, int es) {
+  WideSmem m;
+  const bool streamed = qc < d, i8 = es == 1;
+  m.vcols = min(wg * WIDE_OW, (d + 63) / 64 * 64);
+  m.kraw = qc + 16;
+  m.vraw = m.vcols + 16;
+  const size_t q = static_cast<size_t>(WIDE_ROWS) * qc * 2, k = static_cast<size_t>(bkv) * qc * 2,
+               v = static_cast<size_t>(bkv) * m.vcols * 2;
+  m.v_off = i8 ? wide_al(static_cast<size_t>(bkv) * m.kraw) : k;
+  m.q_off = m.v_off + (i8 ? wide_al(static_cast<size_t>(bkv) * m.vraw) : v);
+  m.stage = m.q_off + (streamed ? q : 0);
+  m.kw_off = stages * m.stage;
+  m.vw_off = m.kw_off + (i8 ? k : 0);
+  m.qres_off = m.vw_off + (i8 ? v : 0);
+  m.p_off = m.qres_off + (streamed ? 0 : q);
+  m.red_off = m.p_off + WIDE_ROWS * 64 * 2;
+  m.bar_off = m.red_off + 4 * WIDE_ROWS * 4;
+  m.total = m.bar_off + 16;
+  return m;
+}
+
+// Everything one launch needs, by value (the tensor maps 64-byte aligned).
+struct alignas(64) WideArgs {
+  CUtensorMap kmap, vmap;       // K / V as [b][hk][S][d] boxes of 64 dims × bkv rows, or unused
+  const void* q;
+  long long q_sb, q_ss, q_sh;   // q and out: (batch, seq, head) strides
+  const void* k;
+  long long k_sb, k_sh, k_ss;   // K and V: (batch, head, seq) strides
+  const void* v;
+  long long v_sb, v_sh, v_ss;
+  void* out;
+  long long o_sb, o_ss, o_sh;
+  const int* q_offset;
+  const int* kv_len;
+  float* part_ml;
+  float* part_acc;
+  float qk_scale, out_scale;
+  int q_dt, o_dt, off0, len0, sq, hq, hk, S, d, causal, vec;
+  int wg, slices, qc, stages, chunk, n_chunks, tma;
+};
+
+// Rows × `per` items of a loop spread over the CTA's threads, without a
+// division in the loop: item (r, c) after (r, c - 1), (r + 1, 0) after (r,
+// per - 1)
+struct Walk {
+  int r, c, dr, dc, per;
+  __device__ __forceinline__ Walk(int per_, int tid, int nthr)
+      : r(tid / per_), c(tid % per_), dr(nthr / per_), dc(nthr % per_), per(per_) {}
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= per) {
+      c -= per;
+      ++r;
+    }
+  }
+};
+
+// One CTA per (64 m rows of a KV head's GQA group, column slice of O, chunk
+// of keys, KV head, batch row); m row r is (query r / group, head hkid·group
+// + r % group), as in attn_fwd_kernel.  The CTA's wg warpgroups each own
+// 128 columns of its slice of O, 64 rows × 128 in registers (64 f32 a
+// thread, where the d <= 256 kernel would hold d / 2); slices wider than
+// 128·wg are more CTAs, each computing the same S.  Per K/V tile of bkv
+// keys, bkv / 32 warpgroups each run S = Q·Kᵀ for 32 keys on wgmma, both
+// operands in shared memory, while the next tile's loads go out and int8 V
+// widens; their row maxima meet in shared memory (a row lies in a
+// quad of lanes); they write p = 2^(s - max) as bf16 (the JAX
+// p.astype(bf16)) to a shared P tile and keep the f32 sums of their keys;
+// then every warpgroup rescales its O and adds P·V on wgmma, P K-major and
+// V MN-major from shared memory.  K/V tiles arrive in a ring of `stages`
+// stages: by tensor map where the cache's rows and strides are 16-byte
+// aligned (one thread asks for 64-dim boxes; an mbarrier a stage says they
+// landed; bf16 lands in wgmma's swizzle, bf16 V rows past kv_len are then
+// zeroed), otherwise by cp.async through the strides (`vec`-byte copies,
+// element copies at vec = 0); int8 lands raw and is widened once per CTA
+// (exact, free of bank conflicts).  Where Q and whole K
+// rows do not fit (qc < d), each tile is nblk ring steps of qc dims of Q and
+// K, S accumulating over them (the last also brings V).  No branch on the
+// warpgroup that the compiler cannot see as warp-uniform surrounds a wgmma
+// (ptxas would serialise them): the warpgroup index is a shuffled value,
+// and a warpgroup past d computes P·V on spare columns and stores nothing.
+// With n_chunks > 1 each CTA writes its (max, sum) (slice 0) and its columns
+// of the unnormalised output to f32 scratch for attn_combine_kernel.  Keys
+// past kv_len and, when causal, past a row's position are masked; only
+// tiles that may hold such keys test it.
+template <typename KV, int BKV>
+__global__ void __launch_bounds__(WIDE_MAX_WG * 128, 1)
+attn_wide_mma_kernel(const __grid_constant__ WideArgs a) {
+  constexpr bool I8 = sizeof(KV) == 1;
   constexpr int ES = static_cast<int>(sizeof(KV));
-  extern __shared__ __align__(16) unsigned char wsm[];
-  const int row_b = (d * ES + 15) / 16 * 16;            // bytes of a K/V row in shared memory
-  unsigned char* kt = wsm;                              // [bkv][row_b]
-  unsigned char* vt = wsm + (size_t)bkv * row_b;
-  float* qs = reinterpret_cast<float*>(wsm + (size_t)2 * bkv * row_b);   // [rb][d]
-  float* os = qs + (size_t)rb * d;                      // [rb][d]
-  float* ps = os + (size_t)rb * d;                      // [rb][bkv]: scores, then p
-  float* mrow = ps + rb * bkv;                          // [rb] each
-  float* lrow = mrow + rb;
-  float* alpha = lrow + rb;
+  extern __shared__ __align__(16) unsigned char wraw[];
+  unsigned char* wsm = wraw + ((1024 - (smem_u32(wraw) & 1023)) & 1023);
+  const int d = a.d, qc = a.qc;
+  const WideSmem sm = wide_smem(a.wg, BKV, qc, a.stages, d, ES);
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int group = hq / hk, MR = sq * group;
-  const int m0 = blockIdx.x * rb, hkid = blockIdx.y, bi = blockIdx.z;
-  const int rows = min(rb, MR - m0);
-  const int qoff = q_offset ? q_offset[bi] : off0;
-  const int L = max(0, min(kv_len ? kv_len[bi] : len0, S));
-  const int kend = causal ? max(0, min(L, qoff + (m0 + rows - 1) / group + 1)) : L;
-  const KV* kb = k + bi * k_sb + hkid * k_sh;
-  const KV* vb = v + bi * v_sb + hkid * v_sh;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  // warpgroup (uniform across a warp, as the compiler must see it for the
+  // wgmmas in its branches) and its warp: rows 16·wq ..
+  const int wgi = __shfl_sync(0xffffffffu, warp / 4, 0), wq = warp % 4;
+  const int group = a.hq / a.hk, MR = a.sq * group;
+  const int n_mb = (MR + WIDE_ROWS - 1) / WIDE_ROWS;
+  int bx = static_cast<int>(blockIdx.x);
+  const int ch = bx % a.n_chunks;
+  bx /= a.n_chunks;
+  const int slice = bx % a.slices;
+  const int mb = n_mb - 1 - bx / a.slices;                   // the longest rows first
+  const int hkid = blockIdx.y, bi = blockIdx.z, m0 = mb * WIDE_ROWS;
+  const int qoff = a.q_offset ? a.q_offset[bi] : a.off0;
+  const int L = max(0, min(a.kv_len ? a.kv_len[bi] : a.len0, a.S));
+  const int i_first = m0 / group, i_last = min(a.sq - 1, (m0 + WIDE_ROWS - 1) / group);
+  const int kend = a.causal ? max(0, min(L, qoff + i_last + 1)) : L;
+  const int kbeg = ch * a.chunk, kstop = min(kend, kbeg + a.chunk);
+  const bool split = a.n_chunks > 1;
+  const long long pbase = ((long long)(bi * a.hk + hkid) * a.n_chunks + ch) * MR;
 
-  for (int i = tid; i < rows * d; i += WIDE_THREADS) {
-    const int r = m0 + i / d, c = i % d;
-    qs[i] = __bfloat162float(load_q_bf16(
-        q, bi * q_sb + (r / group) * q_ss + (hkid * group + r % group) * q_sh + c, q_dt));
-    os[i] = 0.f;
+  if (split && kbeg >= kstop) {       // a chunk past these rows' window
+    if (slice == 0)
+      for (int r = m0 + tid; r < min(MR, m0 + WIDE_ROWS); r += nthr)
+        a.part_ml[(pbase + r) * 2] = -INFINITY;
+    return;
   }
-  for (int r = tid; r < rows; r += WIDE_THREADS) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.f;
-  }
-  const float sl = qk_scale * LOG2E;
-  const int pieces = vec ? d * ES / vec : d;            // copies a row
+  const int n_t = kstop > kbeg ? (kstop - kbeg + BKV - 1) / BKV : 0;
+  const int nblk = (d + qc - 1) / qc;                        // ring steps a tile
+  const bool streamed = nblk > 1;
+  const int n_steps = n_t * nblk;
+  const int cwid = a.wg * WIDE_OW, c0 = slice * cwid, cv = min(cwid, d - c0);   // O columns
+  constexpr int SW = BKV / 32;                 // warpgroups computing S: 32 keys each
+  const bool s_wg = wgi < SW;
+  const int wc0 = wgi * WIDE_OW, wcols = max(0, min(WIDE_OW, cv - wc0));   // this warpgroup's
 
-  for (int k0 = 0; k0 < kend; k0 += bkv) {
-    const int nk = min(bkv, kend - k0);
-    __syncthreads();                                    // the last tile's reads are done
-#pragma unroll
-    for (int which = 0; which < 2; ++which) {           // K, then V rows k0 .. k0 + nk - 1
-      const char* src = reinterpret_cast<const char*>(which ? vb + k0 * v_ss : kb + k0 * k_ss);
-      const long long rs = (which ? v_ss : k_ss) * ES;
-      unsigned char* dst = which ? vt : kt;
-      for (int i = tid; i < nk * pieces; i += WIDE_THREADS) {
-        const int j = i / pieces, pc = i % pieces;
-        const char* g = src + j * rs;
-        unsigned char* sp = dst + (size_t)j * row_b;
-        if (vec == 16) cp_async<16>(smem_u32(sp + pc * 16), g + pc * 16, true);
-        else if (vec == 8) cp_async<8>(smem_u32(sp + pc * 8), g + pc * 8, true);
-        else if (vec == 4) cp_async<4>(smem_u32(sp + pc * 4), g + pc * 4, true);
-        else reinterpret_cast<KV*>(sp)[pc] = reinterpret_cast<const KV*>(g)[pc];
+  const KV* kb = static_cast<const KV*>(a.k) + bi * a.k_sb + hkid * a.k_sh;
+  const KV* vb = static_cast<const KV*>(a.v) + bi * a.v_sb + hkid * a.v_sh;
+
+  // BKV rows from k0 of `ncols` elements from `col` (zeros past kv_len), as
+  // they lie (raw) or into a swizzled tile
+  auto load_rows = [&](unsigned char* dst, bool raw, int rowb, const KV* src, long long rs,
+                       int k0, int col, int ncols) {
+    const int vec = a.vec;
+    const int per = vec ? ncols * ES / vec : ncols;           // copies a row
+    for (Walk w(per, tid, nthr); w.r < BKV; w.next()) {
+      const bool ok = k0 + w.r < L;
+      const int e = vec ? w.c * (vec / ES) : w.c;               // first element of the copy
+      unsigned char* sp = dst + (raw ? w.r * rowb + e * ES : sw_at(BKV, w.r, e) * 2);
+      const KV* gp = src + (ok ? (long long)(k0 + w.r) * rs : 0) + col + e;
+      if (vec == 16)
+        cp_async<16>(smem_u32(sp), gp, ok);
+      else if (vec == 8)
+        cp_async<8>(smem_u32(sp), gp, ok);
+      else if (vec == 4)
+        cp_async<4>(smem_u32(sp), gp, ok);
+      else
+        *reinterpret_cast<KV*>(sp) = ok ? *gp : kv_zero<KV>();
+    }
+  };
+
+  // Q rows m0 .. m0 + 64, dims [col, col + ncols) as bf16 into a swizzled
+  // tile, zero past d (to the next 16) and past the last m row; 8 elements
+  // a load where q allows
+  const bool qvec = ((a.q_sb | a.q_ss | a.q_sh | static_cast<long long>(d)) & 7) == 0 &&
+                    reinterpret_cast<uintptr_t>(a.q) % (8 * (a.q_dt == DT_F32 ? 4 : 2)) == 0;
+  auto stage_q = [&](__nv_bfloat16* dst, int col, int ncols) {
+    const int n16 = (ncols + 15) / 16 * 16;
+    if (qvec) {
+      for (Walk w(n16 / 8, tid, nthr); w.r < WIDE_ROWS; w.next()) {
+        const int c = w.c * 8, r = m0 + w.r;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (r < MR && c < ncols) {
+          const long long e =
+              bi * a.q_sb + (r / group) * a.q_ss + (hkid * group + r % group) * a.q_sh + col + c;
+          if (a.q_dt == DT_BF16) {
+            val = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.q) + e);
+          } else if (a.q_dt == DT_F32) {
+            const float4 x = *reinterpret_cast<const float4*>(static_cast<const float*>(a.q) + e);
+            const float4 y = *reinterpret_cast<const float4*>(static_cast<const float*>(a.q) + e + 4);
+            val = make_uint4(pack_bf162(x.x, x.y), pack_bf162(x.z, x.w), pack_bf162(y.x, y.y),
+                             pack_bf162(y.z, y.w));
+          } else {
+            const uint4 h = *reinterpret_cast<const uint4*>(static_cast<const __half*>(a.q) + e);
+            const __half2* hp = reinterpret_cast<const __half2*>(&h);
+            val = make_uint4(pack_bf162(__low2float(hp[0]), __high2float(hp[0])),
+                             pack_bf162(__low2float(hp[1]), __high2float(hp[1])),
+                             pack_bf162(__low2float(hp[2]), __high2float(hp[2])),
+                             pack_bf162(__low2float(hp[3]), __high2float(hp[3])));
+          }
+        }
+        *reinterpret_cast<uint4*>(dst + sw_at(WIDE_ROWS, w.r, c)) = val;
+      }
+    } else {
+      for (Walk w(n16, tid, nthr); w.r < WIDE_ROWS; w.next()) {
+        const int c = w.c, r = m0 + w.r;
+        __nv_bfloat16 val = __float2bfloat16_rn(0.f);
+        if (r < MR && c < ncols)
+          val = load_q_bf16(
+              a.q, bi * a.q_sb + (r / group) * a.q_ss + (hkid * group + r % group) * a.q_sh + col + c,
+              a.q_dt);
+        dst[sw_at(WIDE_ROWS, w.r, c)] = val;
       }
     }
+  };
+
+  // ring step s (tile s / nblk, dims block s % nblk) into stage s % stages:
+  // one cp.async group; K's dims past d (to the next 16) written as 0
+  auto load_step = [&](int s) {
+    if (s >= n_steps) return;
+    const int t = s / nblk, j = s % nblk;
+    unsigned char* stg = wsm + static_cast<size_t>(s % a.stages) * sm.stage;
+    const int k0 = kbeg + t * BKV, col = j * qc, qv = min(qc, d - col);
+    const bool withv = j == nblk - 1;
+    if (a.tma) {
+      // one thread asks the copy engine for the 64-dim boxes of K and V
+      // (dims past d and rows past S read as 0)
+      if (tid == 0) {
+        const uint32_t bar = smem_u32(wsm + sm.bar_off + 8 * (s % a.stages));
+        const int nk = (qv + 63) / 64, nv = withv ? (cv + 63) / 64 : 0;
+        mbar_expect(bar, (nk + nv) * 64 * BKV * ES);
+        for (int b = 0; b < nk; ++b)
+          tma_box(smem_u32(stg + b * 64 * BKV * ES), &a.kmap, col + 64 * b, k0, hkid, bi, bar);
+        for (int b = 0; b < nv; ++b)
+          tma_box(smem_u32(stg + sm.v_off + b * 64 * BKV * ES), &a.vmap, c0 + 64 * b, k0, hkid,
+                  bi, bar);
+      }
+    } else {
+      load_rows(stg, I8, sm.kraw, kb, a.k_ss, k0, col, qv);
+      const int pad = (qv + 15) / 16 * 16 - qv;
+      if (pad)
+        for (Walk w(pad, tid, nthr); w.r < BKV; w.next()) {
+          if constexpr (I8) stg[w.r * sm.kraw + qv + w.c] = 0;
+          else reinterpret_cast<__nv_bfloat16*>(stg)[sw_at(BKV, w.r, qv + w.c)] = kv_zero<KV>();
+        }
+      if (withv) load_rows(stg + sm.v_off, I8, sm.vraw, vb, a.v_ss, k0, c0, cv);
+    }
+    if (streamed) stage_q(reinterpret_cast<__nv_bfloat16*>(stg + sm.q_off), col, qv);
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    // the scores: a warp a (row, key), lanes over d
-    for (int pr = warp; pr < rows * nk; pr += WIDE_WARPS) {
-      const int r = pr / nk, j = pr % nk;
-      const float* qr = qs + (size_t)r * d;
-      const KV* kr = reinterpret_cast<const KV*>(kt + (size_t)j * row_b);
-      float dot = 0.f;
-      for (int c = lane; c < d; c += 32) dot = fmaf(qr[c], kv_to_float(kr[c]), dot);
-      dot = warp_sum(dot);
-      if (lane == 0) {
-        const bool seen = !causal || k0 + j <= qoff + (m0 + r) / group;
-        ps[r * bkv + j] = seen ? dot * sl : -INFINITY;
-      }
+  };
+
+  // BKV raw int8 rows → a swizzled bf16 tile (exact), the first `words`
+  // 16-byte words of each row: rows `rowb` bytes apart, as cp.async lays
+  // them (16 bytes past a row's length, so that 8 neighbouring threads,
+  // taking neighbouring rows, read and write 8 distinct bank groups), or
+  // the copy engine's 64-byte box rows, boxes 64·BKV bytes apart (the loop
+  // runs over whole boxes: a word past `words` is skipped)
+  auto widen = [&](const unsigned char* raw, int rowb, __nv_bfloat16* dst, int words) {
+    const int rs = a.tma ? 64 : rowb, bs = a.tma ? 64 * BKV : 64;
+    const int nw = a.tma ? (words + 3) / 4 * 4 : words;
+    for (int idx = tid; idx < BKV * nw; idx += nthr) {
+      // box rows: a row's 4 words, then the next row (8 threads read 128
+      // contiguous bytes); padded rows: the next row's word
+      const int wr = a.tma ? idx / 4 % BKV : idx % BKV;
+      const int wc = a.tma ? idx / (4 * BKV) * 4 + idx % 4 : idx / BKV;
+      if (wc >= words) continue;
+      const uint4 x =
+          *reinterpret_cast<const uint4*>(raw + wr * rs + (wc >> 2) * bs + (wc & 3) * 16);
+      const uint4 lo = make_uint4(i8_pair_bf16(x.x, 0x4140), i8_pair_bf16(x.x, 0x4342),
+                                  i8_pair_bf16(x.y, 0x4140), i8_pair_bf16(x.y, 0x4342));
+      const uint4 hi = make_uint4(i8_pair_bf16(x.z, 0x4140), i8_pair_bf16(x.z, 0x4342),
+                                  i8_pair_bf16(x.w, 0x4140), i8_pair_bf16(x.w, 0x4342));
+      *reinterpret_cast<uint4*>(dst + sw_at(BKV, wr, wc * 16)) = lo;
+      *reinterpret_cast<uint4*>(dst + sw_at(BKV, wr, wc * 16 + 8)) = hi;
     }
+  };
+
+  if (a.tma) {
+    if (tid == 0)
+      for (int st = 0; st < a.stages; ++st) mbar_init(smem_u32(wsm + sm.bar_off + 8 * st));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     __syncthreads();
-    // the online softmax, a thread a row
-    for (int r = tid; r < rows; r += WIDE_THREADS) {
-      float mx = -INFINITY;
-      for (int j = 0; j < nk; ++j) mx = fmaxf(mx, ps[r * bkv + j]);
-      const float m_new = fmaxf(mrow[r], mx);
-      const float mu = m_new == -INFINITY ? 0.f : m_new;   // no key seen yet: p = 0
-      float sum = 0.f;
-      for (int j = 0; j < nk; ++j) {
-        const float p = exp2f(ps[r * bkv + j] - mu);
-        sum += p;
-        ps[r * bkv + j] = __bfloat162float(__float2bfloat16_rn(p));
-      }
-      alpha[r] = exp2f(mrow[r] - mu);
-      lrow[r] = lrow[r] * alpha[r] + sum;
-      mrow[r] = m_new;
-    }
-    __syncthreads();
-    // O = O·alpha + P·V, a thread a column
-    for (int c = tid; c < d; c += WIDE_THREADS)
-      for (int r = 0; r < rows; ++r) {
-        float o = os[(size_t)r * d + c] * alpha[r];
-        for (int j = 0; j < nk; ++j)
-          o = fmaf(ps[r * bkv + j],
-                   kv_to_float(reinterpret_cast<const KV*>(vt + (size_t)j * row_b)[c]), o);
-        os[(size_t)r * d + c] = o;
-      }
   }
+  load_step(0);
+  if (!streamed) stage_q(reinterpret_cast<__nv_bfloat16*>(wsm + sm.qres_off), 0, d);
+
+  int qpos[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    qpos[rr] = qoff + min((m0 + 16 * wq + g + rr * 8) / group, a.sq - 1);
+  const float sl = a.qk_scale * LOG2E;    // scores in log2 units: exp2 below
+  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(wsm + sm.p_off);   // P [64][64]
+  float* red = reinterpret_cast<float*>(wsm + sm.red_off);   // [max, sum][SW][64]
+  __nv_bfloat16* Kw = reinterpret_cast<__nv_bfloat16*>(wsm + sm.kw_off);  // widened K
+  __nv_bfloat16* Vw = reinterpret_cast<__nv_bfloat16*>(wsm + sm.vw_off);  // widened V
+  float s[16];                            // S of this warpgroup's 32 keys: n-tile n at s[4n ..]
+  float o[64];                            // O: 8-column n-tile j at o[4j ..], rows g / g + 8
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+  const int row0 = 16 * wq + g;           // this thread's rows: row0, row0 + 8
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int t = step / nblk, j = step % nblk, st = step % a.stages;
+    const bool last = j == nblk - 1;
+    const int qv = min(qc, d - j * qc), k0 = kbeg + t * BKV;
+    unsigned char* stg = wsm + static_cast<size_t>(st) * sm.stage;
+    if (a.tma) {             // this step's loads have landed ...
+      mbar_wait(smem_u32(wsm + sm.bar_off + 8 * st), (step / a.stages) & 1);
+      if (!I8 && last && k0 + BKV > L) {
+        // bf16 V rows past kv_len may hold anything (a NaN times p = 0 is
+        // NaN): zero them
+        const int r0 = max(0, L - k0), cb = (cv + 63) / 64;
+        for (int i = tid; i < (BKV - r0) * cb * 8; i += nthr) {
+          const int r = r0 + i / (cb * 8), c = i % (cb * 8);
+          *reinterpret_cast<uint4*>(stg + sm.v_off + (c / 8) * BKV * 128 + r * 128 + (c % 8) * 16) =
+              make_uint4(0, 0, 0, 0);
+        }
+      }
+    } else {
+      cp_async_wait<0>();
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // ... for wgmma too
+    __syncthreads();         // ... for every thread; the last step's buffers are free
+    const __nv_bfloat16* Kt = I8 ? Kw : reinterpret_cast<const __nv_bfloat16*>(stg);
+    const __nv_bfloat16* Vt = I8 ? Vw : reinterpret_cast<const __nv_bfloat16*>(stg + sm.v_off);
+    if (I8) {
+      widen(stg, sm.kraw, Kw, (qv + 15) / 16);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    const __nv_bfloat16* Qt = reinterpret_cast<const __nv_bfloat16*>(
+        streamed ? stg + sm.q_off : wsm + sm.qres_off);
+
+    // S (+)= Q·Kᵀ over this block's dims for keys 32·wgi .. (the S
+    // warpgroups): k16 step ks at 32-byte offsets within a 64-dim block,
+    // blocks WIDE_ROWS (Q) and BKV (K) rows apart
+    if (s_wg) {
+      const uint64_t qd = sw128_desc(Qt, 16), kd = sw128_desc(Kt + wgi * 32 * 64, 16);
+      const int nks = (qv + 15) / 16;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int ks = 0; ks < nks; ++ks) {
+        const uint32_t qo = ((ks >> 2) * WIDE_ROWS * 128 + (ks & 3) * 32) >> 4;
+        const uint32_t ko = ((ks >> 2) * BKV * 128 + (ks & 3) * 32) >> 4;
+        wgmma_ss_n32(s, qd + qo, kd + ko, j > 0 || ks > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    }
+    // the next step's loads go out, and int8 V widens, while the tensor
+    // cores take S
+    if (a.stages > 1) load_step(step + 1);
+    if (I8 && last) widen(stg + sm.v_off, sm.vraw, Vw, (cv + 15) / 16);
+    if (s_wg) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(s[i])::"memory");
+    }
+
+    if (last) {
+      // online softmax over the tile (log2 units): the S warpgroups' row
+      // maxima meet in `red`; they write p as bf16 to P and keep the sums
+      // of their keys; every warpgroup rescales its O by the same alpha
+      if (s_wg) {
+        const bool need_mask = k0 + BKV > L || (a.causal && k0 + BKV - 1 > qoff + i_first);
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = e / 2, key = k0 + wgi * 32 + n * 8 + 2 * tq + (e % 2);
+            float val = s[4 * n + e] * sl;
+            if (need_mask && !(key < L && (!a.causal || key <= qpos[rr]))) val = -INFINITY;
+            s[4 * n + e] = val;
+            mx[rr] = fmaxf(mx[rr], val);
+          }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+          if (tq == 0) red[wgi * WIDE_ROWS + row0 + rr * 8] = mx[rr];
+        }
+      }
+      __syncthreads();
+      float alpha[2], mu[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float m = -INFINITY;
+#pragma unroll
+        for (int w = 0; w < SW; ++w) m = fmaxf(m, red[w * WIDE_ROWS + row0 + rr * 8]);
+        const float m_new = fmaxf(mrow[rr], m);
+        mu[rr] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet: p = 0
+        alpha[rr] = fexp2(mrow[rr] - mu[rr]);
+        mrow[rr] = m_new;
+      }
+      if (s_wg) {
+        float psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float p0 = fexp2(s[4 * n] - mu[0]), p1 = fexp2(s[4 * n + 1] - mu[0]);
+          const float p2 = fexp2(s[4 * n + 2] - mu[1]), p3 = fexp2(s[4 * n + 3] - mu[1]);
+          psum[0] += p0 + p1;
+          psum[1] += p2 + p3;
+          const int key = wgi * 32 + n * 8 + 2 * tq;
+          *reinterpret_cast<uint32_t*>(Ps + sw_at(WIDE_ROWS, row0, key)) = pack_bf162(p0, p1);
+          *reinterpret_cast<uint32_t*>(Ps + sw_at(WIDE_ROWS, row0 + 8, key)) = pack_bf162(p2, p3);
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) lrow[rr] = lrow[rr] * alpha[rr] + psum[rr];
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // P and V, for wgmma
+      __syncthreads();
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        o[4 * n] *= alpha[0]; o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1]; o[4 * n + 3] *= alpha[1];
+      }
+      // O += P·V, both from shared memory: P's 16-key steps 32 bytes apart,
+      // V's rows of 16 keys 2048 bytes apart, its 64-column blocks BKV·128
+      // bytes apart; every warpgroup runs it (one past d on spare columns:
+      // a branch on the warpgroup would serialise the wgmmas)
+      const uint64_t pd = sw128_desc(Ps, 16);
+      const uint64_t vd = sw128_desc(Vt + (wc0 / 64) * BKV * 64, BKV * 128);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_ss_t_n128(o, pd + kk * (32 >> 4), vd + kk * (2048 >> 4));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(o[i])::"memory");
+    }
+    if (a.stages == 1) {    // one stage: the next step loads once this one is read
+      __syncthreads();
+      load_step(step + 1);
+    }
+  }
+  cp_async_wait<0>();
+
+  // the row sums: the S warpgroups' partial sums meet in `red`
+  if (s_wg)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      lrow[rr] += __shfl_xor_sync(0xffffffffu, lrow[rr], 1);
+      lrow[rr] += __shfl_xor_sync(0xffffffffu, lrow[rr], 2);
+      if (tq == 0) red[(SW + wgi) * WIDE_ROWS + row0 + rr * 8] = lrow[rr];
+    }
   __syncthreads();
-  for (int i = tid; i < rows * d; i += WIDE_THREADS) {
-    const int rr = i / d, c = i % d, r = m0 + rr;
-    const float l = lrow[rr];
-    store_dt(out, bi * o_sb + (r / group) * o_ss + (hkid * group + r % group) * o_sh + c, o_dt,
-             l > 0.f ? os[i] * (out_scale / l) : 0.f);
+  if (wcols == 0) return;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = m0 + row0 + rr * 8;
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < SW; ++w) l += red[(SW + w) * WIDE_ROWS + row0 + rr * 8];
+    if (r >= MR) continue;
+    if (split) {
+      const long long pr = pbase + r;
+      if (slice == 0 && wgi == 0 && tq == 0) {
+        a.part_ml[pr * 2] = mrow[rr];
+        a.part_ml[pr * 2 + 1] = l;
+      }
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * tq + e;
+          if (c < wcols) a.part_acc[pr * d + c0 + wc0 + c] = o[4 * n + rr * 2 + e];
+        }
+    } else {
+      const int i = r / group, h = hkid * group + r % group;
+      const long long ob = bi * a.o_sb + i * a.o_ss + h * a.o_sh + c0 + wc0;
+      const float f = l > 0.f ? a.out_scale / l : 0.f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + 2 * tq + e;
+          if (c < wcols) store_dt(a.out, ob + c, a.o_dt, o[4 * n + rr * 2 + e] * f);
+        }
+    }
   }
 }
 
-// rb m rows and bkv keys a tile: 8 and 32, fewer keys (down to 8), then fewer
-// rows, then fewer keys again where a wide d needs the shared memory
-template <typename KV>
-int launch_wide(const void* q, int q_dt, const long long* qs, const void* k, const long long* ks,
-                const void* v, const long long* vs, const int* q_offset, int off0,
-                const int* kv_len, int len0, void* out, int o_dt, const long long* os, int b,
-                int sq, int hq, int hk, int S, int d, int causal, int vec, float qk_scale,
-                float out_scale, cudaStream_t stream) {
-  constexpr int ES = static_cast<int>(sizeof(KV));
-  int rb = 8, bkv = 32;
-  while (wide_smem(d, ES, rb, bkv) > WIDE_SMEM_MAX && (bkv > 1 || rb > 1)) {
-    if (bkv > 8 || rb == 1) bkv /= 2;
-    else rb /= 2;
+// cuTensorMapEncodeTiled, through the runtime (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  const size_t smem = wide_smem(d, ES, rb, bkv);
+  return fn;
+}
+
+// The tensor map of K or V [b][hk][S][d] (element strides sb, sh, ss; d
+// contiguous) in boxes of 64 dims × bkv rows: bf16 in the 128-byte swizzle
+// (wgmma's layout), int8 as the rows lie; reads past d and S give 0
+bool kv_tensor_map(CUtensorMap* m, const void* base, int es, const long long* st, int b, int hk,
+                   int S, int d, int bkv) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(hk), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2] * es),
+                                 static_cast<cuuint64_t>(st[1] * es),
+                                 static_cast<cuuint64_t>(st[0] * es)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(bkv), 1, 1}, one[4] = {1, 1, 1, 1};
+  return enc(m, es == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             es == 1 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename KV, int BKV>
+int launch_wide(const WideArgs& a, int b, cudaStream_t stream) {
+  const size_t smem = wide_smem(a.wg, BKV, a.qc, a.stages, a.d,
+                                static_cast<int>(sizeof(KV))).total + 1024;
   if (smem > WIDE_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = attn_wide_kernel<KV>;
+  auto kern = attn_wide_mma_kernel<KV, BKV>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int MR = sq * (hq / hk);
-  kern<<<dim3((MR + rb - 1) / rb, hk, b), WIDE_THREADS, smem, stream>>>(
-      q, q_dt, qs[0], qs[1], qs[2], static_cast<const KV*>(k), ks[0], ks[1], ks[2],
-      static_cast<const KV*>(v), vs[0], vs[1], vs[2], q_offset, off0, kv_len, len0, out, o_dt,
-      os[0], os[1], os[2], sq, hq, hk, S, d, causal, vec, rb, bkv, qk_scale, out_scale);
+  const int MR = a.sq * (a.hq / a.hk), n_mb = (MR + WIDE_ROWS - 1) / WIDE_ROWS;
+  kern<<<dim3(n_mb * a.slices * a.n_chunks, a.hk, b), 128 * a.wg, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_chunks == 1) return static_cast<int>(e);
+  attn_combine_kernel<<<dim3(MR, a.hk, b), 128, 0, stream>>>(
+      a.part_ml, a.part_acc, a.out, a.o_dt, a.o_sb, a.o_ss, a.o_sh, a.sq, a.hq, a.hk, a.d,
+      a.n_chunks, a.out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1171,30 +1674,77 @@ extern "C" int attention_fwd_launch(const void* q, const long long* q_strides, i
 #undef CSINN2_FWD
 }
 
-// attn_wide_kernel for any head dim (the wrappers send it d > 256): q and
-// out through strides {batch, seq, head}, each bf16, f16 or f32 (q_dt /
+// attn_wide_mma_kernel for any head dim (the wrappers send it d > 256): q
+// and out through strides {batch, seq, head}, each bf16, f16 or f32 (q_dt /
 // o_dt: 0 / 1 / 2); k/v [b, hk, S, d] through strides {batch, head, seq};
 // contiguous d in all; q_offset / kv_len int32 [b], or null for one off0 /
 // len0 for every row; causal or not (decode: sq = 1, not causal).  vec:
 // bytes per K/V copy (16, 8 or 4; 0: element by element), dividing
-// d·sizeof(KV), every row start and stride.  One launch, no scratch.
+// d·sizeof(KV), every row start and stride; at 16 the copy engine loads
+// the tiles by tensor map.  The plan (kernels/flash_attention.py
+// _wide_plan): wg (1-3) warpgroups of 128 O columns each, `slices` CTAs
+// over the columns (128·wg each, covering d once), bkv keys a tile (32 or
+// 64), qc dims of Q and K a ring step (a multiple of 64: d padded to 64
+// keeps them resident, less streams them), 1 or 2 ring stages, and the KV
+// window cut into n_chunks chunks of `chunk`
+// keys (a multiple of bkv; chunk·n_chunks >= S); n_chunks > 1 writes f32
+// partials to part_ml [b, hk, n_chunks, sq·hq/hk, 2] and part_acc [.., d],
+// merged by attn_combine_kernel.
 extern "C" int attention_wide_launch(const void* q, const long long* q_strides, int q_dt,
                                      const void* k, const long long* k_strides, const void* v,
                                      const long long* v_strides, const int* q_offset, int off0,
                                      const int* kv_len, int len0, void* out,
-                                     const long long* o_strides, int o_dt, int b, int sq, int hq,
-                                     int hk, int S, int d, int kv_int8, int causal, int vec,
+                                     const long long* o_strides, int o_dt, float* part_ml,
+                                     float* part_acc, int b, int sq, int hq, int hk, int S, int d,
+                                     int kv_int8, int causal, int vec, int wg, int slices, int bkv,
+                                     int qc, int stages, int chunk, int n_chunks,
                                      float qk_scale, float out_scale, void* stream) {
   const bool ok_vec = vec == 0 || vec == 4 || vec == 8 || vec == 16;
-  if (d < 1 || !ok_vec || !valid_dt(q_dt) || !valid_dt(o_dt) || b < 1 || sq < 1 || hk < 1 ||
-      hq % hk != 0)
+  const bool ok_plan = wg >= 1 && wg <= WIDE_MAX_WG && slices >= 1 &&
+                       (long long)slices * wg * WIDE_OW >= d &&
+                       (long long)(slices - 1) * wg * WIDE_OW < d &&
+                       (bkv == 32 || bkv == 64) && qc >= 64 && qc % 64 == 0 && qc < d + 64 &&
+                       (stages == 1 || stages == 2) && chunk >= bkv && chunk % bkv == 0 &&
+                       n_chunks >= 1 && (long long)chunk * n_chunks >= S;
+  if (d < 1 || !ok_vec || !ok_plan || !valid_dt(q_dt) || !valid_dt(o_dt) || b < 1 || sq < 1 ||
+      hk < 1 || hq % hk != 0 || (n_chunks > 1 && (part_ml == nullptr || part_acc == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WideArgs a = {};
+  a.q = q;
+  a.q_sb = q_strides[0]; a.q_ss = q_strides[1]; a.q_sh = q_strides[2];
+  a.k = k;
+  a.k_sb = k_strides[0]; a.k_sh = k_strides[1]; a.k_ss = k_strides[2];
+  a.v = v;
+  a.v_sb = v_strides[0]; a.v_sh = v_strides[1]; a.v_ss = v_strides[2];
+  a.out = out;
+  a.o_sb = o_strides[0]; a.o_ss = o_strides[1]; a.o_sh = o_strides[2];
+  a.q_offset = q_offset;
+  a.kv_len = kv_len;
+  a.part_ml = part_ml;
+  a.part_acc = part_acc;
+  a.qk_scale = qk_scale;
+  a.out_scale = out_scale;
+  a.q_dt = q_dt; a.o_dt = o_dt; a.off0 = off0; a.len0 = len0;
+  a.sq = sq; a.hq = hq; a.hk = hk; a.S = S; a.d = d; a.causal = causal; a.vec = vec;
+  a.wg = wg; a.slices = slices; a.qc = qc; a.stages = stages; a.chunk = chunk;
+  a.n_chunks = n_chunks;
+  // rows, strides and starts 16-byte aligned: the copy engine loads the
+  // tiles by tensor map; otherwise cp.async does, `vec` bytes a copy
+  a.tma = vec == 16;
+  if (a.tma && !(kv_tensor_map(&a.kmap, k, kv_int8 ? 1 : 2, k_strides, b, hk, S, d, bkv) &&
+                 kv_tensor_map(&a.vmap, v, kv_int8 ? 1 : 2, v_strides, b, hk, S, d, bkv)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_int8)
-    return launch_wide<int8_t>(q, q_dt, q_strides, k, k_strides, v, v_strides, q_offset, off0,
-                               kv_len, len0, out, o_dt, o_strides, b, sq, hq, hk, S, d, causal,
-                               vec, qk_scale, out_scale, st);
-  return launch_wide<__nv_bfloat16>(q, q_dt, q_strides, k, k_strides, v, v_strides, q_offset,
-                                    off0, kv_len, len0, out, o_dt, o_strides, b, sq, hq, hk, S, d,
-                                    causal, vec, qk_scale, out_scale, st);
+    return bkv == 64 ? launch_wide<int8_t, 64>(a, b, st) : launch_wide<int8_t, 32>(a, b, st);
+  return bkv == 64 ? launch_wide<__nv_bfloat16, 64>(a, b, st)
+                   : launch_wide<__nv_bfloat16, 32>(a, b, st);
+}
+
+// Shared memory (bytes, the 1024 of alignment slack included) of
+// attn_wide_mma_kernel at a plan, for the plan's Python mirror
+// (kernels/flash_attention.py _wide_smem) to be held to.
+extern "C" long long attention_wide_smem(int wg, int bkv, int qc, int stages, int d,
+                                         int kv_int8) {
+  return static_cast<long long>(wide_smem(wg, bkv, qc, stages, d, kv_int8 ? 1 : 2).total) + 1024;
 }

@@ -16,8 +16,11 @@ the chunks, otherwise the query rows are split.  Launch counts:
 `<that name>.combine` for the merge of a split launch; `decode_attention`
 (a split-KV kernel of its own, `_decode_plan`) and `decode_attention.combine`.
 A head dim above MAX_D = 256 goes, from every entry point, to one more
-kernel (`attn_wide_kernel`, a plain online-softmax attention on the CUDA
-cores: right, not fast), counted as `attention_wide.<entry point>`.
+tensor-core kernel (`attn_wide_mma_kernel` on wgmma, O split over
+warpgroups and CTAs by columns; `_wide_plan` picks its shape, with a
+split-KV decode whose grid comes nearest 2 CTAs an SM), counted as
+`attention_wide.<entry point>` and `attention_wide.<entry point>.combine`
+for its merge.
 
 Semantics shared by all (per batch row b): query i sits at position
 q_offset[b] + i; it sees keys kpos < kv_len[b] (and kpos <= its position when
@@ -37,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -81,7 +84,7 @@ def _attention_ref(q, k, v, *, causal, q_offset, kv_len, scale, kv_scale):
 
 # q / out dtype codes of csrc/attention.cu
 _DT = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-MAX_D = 256                 # the tensor-core kernels' widest head dim (wider: attn_wide_kernel)
+MAX_D = 256                 # attn_fwd_kernel's widest head dim (wider: attn_wide_mma_kernel)
 SPLIT_ROWS = 64             # sq·group at or below this: split-KV flash decode
 SPLIT_CHUNK = 256           # keys per CTA on the split path
 
@@ -147,6 +150,81 @@ def _fwd_plan(b: int, sq: int, hq: int, hk: int, S: int, d: int, n_sm: int):
         return 8, 1, whole, 1
     rw = 4 if fills(64) else 2 if fills(32) else 1
     return rw, min(max_kw, 4 // rw), whole, 1
+
+
+WIDE_SMEM = 232448          # dynamic shared memory an H100 CTA may take
+WIDE_ROWS = 64              # m rows a CTA of attn_wide_mma_kernel: one wgmma m64 tile
+WIDE_MAX_WG = 3             # warpgroups a CTA
+WIDE_OW = 128               # O columns a warpgroup: 64 f32 registers a thread
+WIDE_TILES = ((64, 2), (32, 2), (64, 1), (32, 1))   # (keys a tile, ring stages)
+WIDE_CHUNKS = (512, 256, 128, 64)   # keys a CTA the split path picks from
+
+
+class WidePlan(NamedTuple):
+    """attn_wide_mma_kernel's shape: wg warpgroups of WIDE_OW O columns each
+    over 64 m rows; `slices` CTAs over O's columns (WIDE_OW·wg each); bkv
+    keys a K/V tile; qc dims of Q and K a ring step (d padded to
+    64: resident); `stages` ring stages; the KV window in n_chunks chunks of
+    `chunk` keys."""
+    wg: int
+    slices: int
+    bkv: int
+    qc: int
+    stages: int
+    chunk: int
+    n_chunks: int
+
+
+def _wide_smem(wg: int, bkv: int, qc: int, stages: int, d: int, kv_bytes: int) -> int:
+    """Shared memory of attn_wide_mma_kernel (csrc/attention.cu wide_smem,
+    plus the 1024 bytes that align it; regions rounded up to 1024): the
+    ring's stages of K (bkv × qc) and V (bkv × vw, vw = min(WIDE_OW·wg, d
+    padded to 64)) as bf16 tiles, or as int8 rows 16 bytes apart widened
+    into one bf16 K and V tile, plus a Q block (64 × qc) where qc < d
+    streams it; Q resident (64 × qc bf16) otherwise; P (64 × 64 bf16), the
+    softmax's exchange (1 KB) and the stages' mbarriers (16 bytes)."""
+    i8, streamed = kv_bytes == 1, qc < d
+    al = lambda x: -(-x // 1024) * 1024
+    vw = min(wg * WIDE_OW, -(-d // 64) * 64)
+    q, k, v = WIDE_ROWS * qc * 2, bkv * qc * 2, bkv * vw * 2
+    stage = (al(bkv * (qc + 16)) + al(bkv * (vw + 16)) if i8 else k + v) + (q if streamed else 0)
+    return (stages * stage + (k + v if i8 else 0) + (0 if streamed else q) + WIDE_ROWS * 64 * 2
+            + 4 * WIDE_ROWS * 4 + 16 + 1024)
+
+
+def _wide_plan(b: int, sq: int, hq: int, hk: int, S: int, d: int, kv_bytes: int,
+               n_sm: int) -> WidePlan:
+    """attn_wide_mma_kernel's plan at d > MAX_D.  O's columns: as few CTA
+    slices as take them at WIDE_MAX_WG warpgroups of WIDE_OW columns, then as
+    few warpgroups as take a slice's share.  Tiles: the first of WIDE_TILES
+    whose shared memory fits WIDE_SMEM with Q and whole K rows resident (qc
+    = d padded to 64), else the same over streamed blocks of 256, 128 or 64
+    dims, whose shared memory does not grow with d: every d has a plan.
+    The KV window splits in chunks of keys, one CTA each: of the whole
+    window and the chunks of WIDE_CHUNKS shorter than S, the one whose full
+    window gives a grid (b·hk·slices CTAs a block of 64 m rows, times the
+    chunks) nearest 2 CTAs an SM; on the card that chunk was the fastest of
+    the decode sweep at GQA 32/8 d = 320 and 576 and at absorbed MLA's
+    decode, 128 heads on one latent head (PERF.md row 2'').  So the decode
+    splits, and so does any grid far under the SMs; a grid already near 2
+    CTAs an SM does not.  No chunk is shorter than the one whose f32
+    partials (4 bytes a column of each m row) weigh twice its K and V rows
+    (2·kv_bytes a column of each key)."""
+    dp = -(-d // 64) * 64
+    slices = -(-d // (WIDE_MAX_WG * WIDE_OW))
+    wg = -(-d // (slices * WIDE_OW))
+    slices = -(-d // (wg * WIDE_OW))
+    cands = [(bkv, st, dp) for bkv, st in WIDE_TILES]
+    cands += [(bkv, st, qc) for qc in (256, 128, 64) if qc < d for bkv, st in WIDE_TILES]
+    bkv, stages, qc = next(c for c in cands
+                           if _wide_smem(wg, c[0], c[2], c[1], d, kv_bytes) <= WIDE_SMEM)
+    rows = sq * (hq // hk)
+    ctas = b * hk * slices * -(-rows // WIDE_ROWS)
+    chunk = min([S] + [c for c in WIDE_CHUNKS if c * kv_bytes >= rows and c < S],
+                key=lambda c: abs(ctas * -(-S // c) - 2 * n_sm))
+    if chunk < S:
+        return WidePlan(wg, slices, bkv, qc, stages, chunk, -(-S // chunk))
+    return WidePlan(wg, slices, bkv, qc, stages, max(bkv, -(-S // bkv) * bkv), 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,8 +328,9 @@ def decode_attention(q, k, v, *, q_offset, kv_len=None,
 def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
                    bhsd: bool = False):
     """q [b, sq, hq, d] (bshd) or [b, hq, sq, d] (bhsd); k/v [b, hk, S, d] →
-    the output in q's layout: attn_fwd_kernel, or attn_wide_kernel at d >
-    MAX_D (launch count `attention_wide.<name>`)."""
+    the output in q's layout: attn_fwd_kernel, or attn_wide_mma_kernel at d
+    > MAX_D (launch count `attention_wide.<name>`, its merge
+    `attention_wide.<name>.combine`)."""
     if bhsd:
         b, hq, sq, d = q.shape
     else:
@@ -293,26 +372,24 @@ def _attention_fwd(name, q, k, v, causal, q_offset, kv_len, scale, kv_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     argtypes = (vp, sp, i32, vp, sp, vp, sp, vp, i32, vp, i32, vp, sp, i32)
     if d > MAX_D:
-        fn = _build.c_function("attention", "attention_wide_launch",
-                               argtypes + (i32,) * 9 + (ctypes.c_float, ctypes.c_float, vp))
-        _build.check("attention", fn(*head, *dims, *tail), name)
-        _build.launch_counts[f"attention_wide.{name}"] += 1
-        return out.to(q.dtype)
-    rw, kw, chunk, n_chunks = _fwd_plan(b, sq, hq, hk, S, d, _sm_count(q.device.index or 0))
+        plan = _wide_plan(b, sq, hq, hk, S, d, k.element_size(), _sm_count(q.device.index or 0))
+        n_chunks, entry, key = plan.n_chunks, "attention_wide_launch", f"attention_wide.{name}"
+    else:
+        plan = _fwd_plan(b, sq, hq, hk, S, d, _sm_count(q.device.index or 0))
+        n_chunks, entry, key = plan[-1], "attention_fwd_launch", name
     part_ml = part_acc = None
     if n_chunks > 1:
         rows = sq * (hq // hk)
         part_ml = torch.empty((b, hk, n_chunks, rows, 2), dtype=torch.float32, device=q.device)
         part_acc = torch.empty((b, hk, n_chunks, rows, d), dtype=torch.float32,
                                device=q.device)
-    fn = _build.c_function("attention", "attention_fwd_launch",
-                           argtypes + (vp, vp) + (i32,) * 13
+    fn = _build.c_function("attention", entry, argtypes + (vp, vp) + (i32,) * (9 + len(plan))
                            + (ctypes.c_float, ctypes.c_float, vp))
-    err = fn(*head, ptr(part_ml), ptr(part_acc), *dims, rw, kw, chunk, n_chunks, *tail)
+    err = fn(*head, ptr(part_ml), ptr(part_acc), *dims, *plan, *tail)
     _build.check("attention", err, name)
-    _build.launch_counts[name] += 1
+    _build.launch_counts[key] += 1
     if n_chunks > 1:
-        _build.launch_counts[f"{name}.combine"] += 1
+        _build.launch_counts[f"{key}.combine"] += 1
     return out.to(q.dtype)
 
 

@@ -214,13 +214,15 @@ def test_attention_block_matches_jax_fallback(rng, monkeypatch, quantized, branc
 
 
 @pytest.mark.parametrize("entry", ["prefill", "flash_bhsd", "decode"])
-@pytest.mark.parametrize("d,int8", [(20, True), (80, False), (320, True), (384, False)])
+@pytest.mark.parametrize("d,int8", [(20, True), (80, False), (320, True), (384, False),
+                                    (576, True), (1000, False)])
 def test_head_dims_and_f32_q_match_jax(rng, entry, d, int8):
-    """Head dims that are not 64 or 128, above 256 too (320, 384: the CUDA
-    path's wide kernel), and an f32 q, which the JAX kernels take (they pad
-    d to a multiple of 128 and round q to bf16) and the port's CUDA kernels
-    now take too: the plain path, which rounds q to bf16 as they do, against
-    the Pallas kernels; the output in f32."""
+    """Head dims that are not 64 or 128, above 256 too (320, 384, 576 —
+    DeepSeek-V2/V3's absorbed latent attention scores over 576 dims — and
+    1000: the CUDA path's wide kernel), and an f32 q, which the JAX kernels take (they
+    pad d to a multiple of 128 and round q to bf16) and the port's CUDA
+    kernels now take too: the plain path, which rounds q to bf16 as they do,
+    against the Pallas kernels; the output in f32."""
     b, hq, hk, S = 2, 4, 2, 96
     sq = 1 if entry == "decode" else 12
     (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, int8)
@@ -267,6 +269,70 @@ def test_fwd_plan():
     assert plan(1, 128, 32, 32, 256) == (2, 2, 256, 1)     # row 3: 128 CTAs of 32 rows
     assert plan(1, 32, 4, 2, 128) == (4, 1, 256, 1)        # LlamaConfig.tiny() prefill
     assert plan(2, 40, 8, 4, 100) == (1, 4, 256, 1)        # 80 rows: 40 CTAs of 16
+
+
+@pytest.mark.parametrize("d", [257, 300, 320, 384, 512, 576, 1000, 2112, 4096])
+@pytest.mark.parametrize("kv_bytes", [1, 2])
+@pytest.mark.parametrize("shape", ["prefill", "long_prefill", "decode", "decode_gqa8",
+                                   "decode_mla"])
+def test_wide_plan(d, kv_bytes, shape):
+    """attn_wide_mma_kernel's plan on a 132-SM H100 (pure Python, the
+    kernel's layout mirrored by _wide_smem): every CTA's shared memory within
+    the card's 232448 bytes; O's 128 columns a warpgroup (64 f32 registers a
+    thread), at most 3 warpgroups a CTA, the column slices
+    covering d once; qc a multiple of 64, d padded to 64 where Q stays
+    resident; the chunks (a multiple of the tile) covering S; one chunk where
+    the unsplit grid already gives 2 CTAs an SM; a split's f32 partials at
+    most twice its K/V rows; the grid over a full window the nearest 2 CTAs
+    an SM of every allowed chunk's; every decode split where the unsplit
+    grid is under one CTA an SM, absorbed MLA's (128 query heads on one
+    latent head: two blocks of 64 m rows) too; at b = 4, GQA 32/8, S = 2048
+    at least one CTA an SM over a full window (256 CTAs for d <= 384)."""
+    b, sq, hq, hk, S = {"prefill": (1, 512, 32, 8, 512), "long_prefill": (1, 2048, 32, 32, 4096),
+                        "decode": (4, 1, 32, 8, 2048), "decode_gqa8": (1, 8, 64, 8, 777),
+                        "decode_mla": (4, 1, 128, 1, 2048)}[shape]
+    p = tfa._wide_plan(b, sq, hq, hk, S, d, kv_bytes, 132)
+    assert tfa._wide_smem(p.wg, p.bkv, p.qc, p.stages, d, kv_bytes) <= 232448
+    assert tfa.WIDE_OW // 2 <= 64
+    cols = p.wg * tfa.WIDE_OW
+    assert p.slices * cols >= d > (p.slices - 1) * cols
+    assert 1 <= p.wg <= 3 and p.bkv in (32, 64)
+    assert p.qc % 64 == 0 and (p.qc < d or p.qc == -(-d // 64) * 64)
+    assert p.stages in (1, 2) and p.chunk % p.bkv == 0
+    assert p.chunk * p.n_chunks >= S > p.chunk * (p.n_chunks - 1)
+    rows = sq * (hq // hk)
+    ctas = b * hk * p.slices * -(-rows // tfa.WIDE_ROWS)
+    if ctas >= 2 * 132:
+        assert p.n_chunks == 1
+    if p.n_chunks > 1:
+        assert p.chunk in tfa.WIDE_CHUNKS and p.chunk * kv_bytes >= rows and p.chunk < S
+    gap = lambda n: abs(ctas * n - 2 * 132)
+    assert all(gap(p.n_chunks) <= gap(-(-S // c)) for c in tfa.WIDE_CHUNKS + (S,)
+               if c * kv_bytes >= rows and c <= S)
+    if shape == "decode":
+        assert ctas * p.n_chunks >= 132
+    if shape.startswith("decode") and ctas < 132:
+        assert p.n_chunks > 1
+
+
+def test_wide_plan_at_the_timed_shapes():
+    """The plans of the shapes chip_smoke.py times (int8 KV): GQA 32/8 at d =
+    320 in one CTA slice of 3 warpgroups (128, 128 and 64 columns of d), Q
+    and whole K rows resident, 64-key tiles in two stages; d = 576 in two
+    slices of 384 columns, 32-key tiles; causal flash at sq = S = 512 in one
+    chunk; decode at b = 4, S = 2048 split in 8 chunks of 256 keys (d = 320)
+    or 4 of 512 (576, two slices): 256 CTAs over a full window; absorbed
+    MLA's decode (hq 128, hk 1, d 576: 16 CTAs unsplit) in 16 chunks of 128
+    keys, int8 or bf16 K/V.  Each decode chunk is the fastest of the chunk
+    sweep on the card (gemm_attn_bench.py --only wide)."""
+    plan = lambda b, sq, S, d, hq=32, hk=8, kvb=1: tuple(
+        tfa._wide_plan(b, sq, hq, hk, S, d, kvb, 132))
+    assert plan(1, 512, 512, 320) == (3, 1, 64, 320, 2, 512, 1)
+    assert plan(4, 1, 2048, 320) == (3, 1, 64, 320, 2, 256, 8)
+    assert plan(1, 512, 512, 576) == (3, 2, 32, 576, 2, 512, 1)
+    assert plan(4, 1, 2048, 576) == (3, 2, 32, 576, 2, 512, 4)
+    assert plan(4, 1, 2048, 576, 128, 1) == (3, 2, 32, 576, 2, 128, 16)
+    assert plan(4, 1, 2048, 576, 128, 1, 2) == (3, 2, 32, 576, 2, 128, 16)
 
 
 def test_kv_load_width():

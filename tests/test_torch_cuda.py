@@ -7,9 +7,10 @@ transposed [N, K] / [N, K/2] layouts, scale_mode "none", int8 x with every
 output type, the fixed-point requantize bit for bit, epilogue_scale and
 integer outputs of a float x); attention at every head dim class up to
 256 (16, 17, 20, 32, 36, 80, 96, 256: 16-, 8-, 4-byte and element loads)
-and above it (320, 384: the wide kernel) with an f32 or bf16 q in all four
-entry points, odd KV lengths, GQA, bf16
-KV, a fully masked lane, strided K/V views, bhsd flash_attention with a
+and above it (264 to 2112, and 4096 to 23243 with streamed dims: the wide
+tensor-core kernel, its split-KV decode and merge, absorbed MLA's decode
+of 128 heads on one latent head, its shared-memory mirror) with an f32
+or bf16 q in all four entry points, odd KV lengths, GQA, bf16 KV, a fully masked lane, strided K/V views, bhsd flash_attention with a
 strided q, the split-KV flash decode at kv_len 0 to 2048 with sq 1 and 3,
 ragged query rows, and LlamaConfig.tiny() served on the card against the
 CPU path, with and without CSINN2_DECODE_ATTN=flash;
@@ -605,13 +606,17 @@ def _attend(name, q, k, v, **kw):
 
 
 @pytest.mark.parametrize("name", ENTRIES)
-@pytest.mark.parametrize("d", [16, 17, 20, 32, 36, 80, 96, 256, 320, 384])
+@pytest.mark.parametrize("d", [16, 17, 20, 32, 36, 80, 96, 256, 264, 300, 320, 384, 448, 576,
+                               1000, 2112])
 @pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.float16, torch.bfloat16])
 def test_attention_head_dims_and_q_dtypes(gen, dev, name, d, int8, qdt):
-    """Head dims up to 256 and above (320, 384: the wide kernel) and an f32
-    or bf16 q, as the JAX kernels take them (they pad d to a multiple of 128
-    and round q to bf16): GQA 8/2, per-row
+    """Head dims up to 256 and above (264 to 2112: the wide tensor-core
+    kernel; 300 rows are 8-byte aligned in bf16 and 4-byte in int8, whose
+    tiles cp.async loads; 1000 and 2112 take several CTA slices of O's
+    columns, 2112 streamed blocks of dims) and
+    an f32, f16 or bf16 q, as the JAX kernels take them (they pad d to a
+    multiple of 128 and round q to bf16): GQA 8/2, per-row
     q_offset / kv_len, K/V as permuted views of the cache layout.  d = 17 and
     20 rows are not 16-byte aligned (4-byte and element-wise loads).  The
     plain version gets q rounded to bf16, the kernels' (and the JAX bodies')
@@ -631,14 +636,16 @@ def test_attention_head_dims_and_q_dtypes(gen, dev, name, d, int8, qdt):
 
 
 @pytest.mark.parametrize("name", ENTRIES)
-def test_attention_rejects_head_dim_over_256(gen, dev, name):
-    """d > 256, which the JAX functions take (they pad d to a multiple of 128
-    with no cap), is no longer refused: d = 320 through the wide kernel
-    (launch count attention_wide.<entry>) against the plain version, int8
-    and bf16 KV, GQA 8/2, per-row q_offset / kv_len with a row that sees no
+def test_attention_wide_rows_and_empty_row(gen, dev, name):
+    """d > 256 (the JAX functions pad d to a multiple of 128 with no cap) in
+    every entry point: d = 320 through attn_wide_mma_kernel (launch count
+    attention_wide.<entry>, and attention_wide.<entry>.combine where the
+    plan splits the KV window, always the decode's) against the plain
+    version, int8 and bf16 KV, GQA 8/2, per-row q_offset / kv_len with a row that sees no
     key (it outputs 0)."""
     b, hq, hk, S, d = 3, 8, 2, 150, 320
     sq = 1 if name == "decode_attention" else 37
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for int8 in (True, False):
         k, v = _kv(gen, dev, b, hk, S, d, int8)
         shape = (b, hq, sq, d) if name in ("flash_attention_bhsd", "decode_attention") \
@@ -646,13 +653,87 @@ def test_attention_rejects_head_dim_over_256(gen, dev, name):
         q = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         off = torch.tensor([0, 100, 3], dtype=torch.int32, device=dev)
         kvl = torch.tensor([sq, 100 + sq, 0], dtype=torch.int32, device=dev)
-        before = launch_counts[f"attention_wide.{name}"]
+        causal = name != "decode_attention"
+        split = fa._wide_plan(b, sq, hq, hk, S, d, k.element_size(), n_sm).n_chunks > 1
+        assert split or causal          # the decode splits its window
+        before = dict(launch_counts)
         out, ref = _attend(name, q, k, v, causal=True, q_offset=off, kv_len=kvl,
                            kv_scale=0.05 if int8 else None)
-        assert launch_counts[f"attention_wide.{name}"] == before + 1
+        key = f"attention_wide.{name}"
+        assert launch_counts[key] == before.get(key, 0) + 1
+        assert launch_counts[f"{key}.combine"] == before.get(f"{key}.combine", 0) + int(split)
+        assert launch_counts[name] == before.get(name, 0)
         assert out.dtype == q.dtype and out.shape == q.shape
         _close(out, ref)
         assert float(out[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("name", ["decode_attention", "flash_attention_bhsd"])
+def test_attention_wide_mla_decode(gen, dev, int8, name):
+    """Absorbed MLA's decode shape: 128 query heads on one latent KV head at
+    d = 576, 128 m rows (two CTA blocks of 64) a batch row, so the unsplit
+    grid is 4 CTAs a batch row and the plan splits the KV window; the merge
+    takes both blocks' rows.  kv_len 0, 1, chunk ± 1 and S in one batch; the
+    empty row outputs 0; one kernel launch and one merge a call."""
+    b, hq, hk, S, d = 5, 128, 1, 1100, 576
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fa._wide_plan(b, 1, hq, hk, S, d, 1 if int8 else 2, n_sm)
+    assert p.n_chunks > 1
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    q = torch.randn((b, hq, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+    kvl = torch.tensor([0, 1, p.chunk - 1, p.chunk + 1, S], dtype=torch.int32, device=dev)
+    key = f"attention_wide.{name}"
+    before = dict(launch_counts)
+    out, ref = _attend(name, q, k, v, causal=name != "decode_attention", q_offset=kvl - 1,
+                       kv_len=kvl, kv_scale=0.05 if int8 else None)
+    assert launch_counts[key] == before.get(key, 0) + 1
+    assert launch_counts[f"{key}.combine"] == before.get(f"{key}.combine", 0) + 1
+    _close(out, ref)
+    assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d,int8", [(4096, False), (5000, True), (19369, False), (23243, True)])
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+def test_attention_wide_streamed_dims(gen, dev, d, int8, name):
+    """Head dims whose Q and K rows outgrow shared memory: Q·Kᵀ streams
+    blocks of dims through the ring, and O takes several column slices of
+    CTAs; up to 19369 (bf16) and 23243 (int8), the widest the CUDA-core
+    kernel this one replaced could tile.  d = 5000 rows are 8-byte aligned."""
+    b, hq, hk, S = 2, 4, 2, 70
+    sq = 1 if name == "decode_attention" else 5
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fa._wide_plan(b, sq, hq, hk, S, d, 1 if int8 else 2, n_sm)
+    assert plan.qc < d and plan.slices > 1
+    k, v = _kv(gen, dev, b, hk, S, d, int8)
+    shape = (b, hq, sq, d) if name == "decode_attention" else (b, sq, hq, d)
+    q = (torch.randn(shape, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    off = torch.tensor([0, 60], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([sq, 60 + sq], dtype=torch.int32, device=dev)
+    out, ref = _attend(name, q, k, v, causal=True, q_offset=off, kv_len=kvl,
+                       kv_scale=0.05 if int8 else None)
+    _close(out, ref)
+
+
+def test_wide_smem_mirror_matches_the_library(dev):
+    """kernels/flash_attention.py _wide_smem against the library's own
+    attention_wide_smem (csrc/attention.cu wide_smem) over the plans of many
+    shapes and the tile choices around them."""
+    import ctypes
+    from csinn2_tpu_torch.kernels import _build
+    i32 = ctypes.c_int
+    lib = _build.c_function("attention", "attention_wide_smem", (i32,) * 6, ctypes.c_longlong)
+    n = 0
+    for d in (257, 300, 320, 448, 576, 1000, 2112, 4096, 19369):
+        for kvb in (1, 2):
+            for b, sq, hq, hk, S in ((1, 512, 32, 8, 512), (4, 1, 32, 8, 2048), (2, 37, 8, 2, 150)):
+                p = fa._wide_plan(b, sq, hq, hk, S, d, kvb, 132)
+                for bkv, st in fa.WIDE_TILES:
+                    for qc in {p.qc, 64}:
+                        args = (p.wg, bkv, qc, st, d)
+                        assert lib(*args, int(kvb == 1)) == fa._wide_smem(*args, kvb), args
+                        n += 1
+    assert n > 200
 
 
 def test_attention_rejects_bad_kv(gen, dev):
@@ -667,12 +748,13 @@ def test_attention_rejects_bad_kv(gen, dev):
 @pytest.mark.parametrize("hq,hk", [(4, 2), (32, 8), (64, 8)])
 @pytest.mark.parametrize("sq", [1, 3])
 @pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("d", [128, 64, 320])
 def test_attention_split_kv_decode(gen, dev, hq, hk, sq, int8, d):
     """The split-KV flash decode (sq·group <= 64; 64/8 at sq = 3 is 24 rows,
-    two warps): bhsd q, S = 2048 in 8 chunks, kv_len 0, 1, 17, 1027 and 2048
-    in one batch, causal with q_offset = kv_len - sq; a row that sees no key
-    outputs 0; one merge launch (`.combine`) per call."""
+    two warps): bhsd q, S = 2048 in 8 chunks (d = 320: the wide kernel's
+    chunks), kv_len 0, 1, 17, 1027 and 2048 in one batch, causal with
+    q_offset = kv_len - sq; a row that sees no key outputs 0; one merge
+    launch (`.combine`) per call."""
     lens = [0, 1, 17, 1027, 2048]
     b, S = len(lens), 2048
     k, v = _kv(gen, dev, b, hk, S, d, int8)
@@ -682,7 +764,8 @@ def test_attention_split_kv_decode(gen, dev, hq, hk, sq, int8, d):
     kw = dict(causal=True, q_offset=off, kv_len=kvl, kv_scale=0.05 if int8 else None)
     before = dict(launch_counts)
     out, ref = _attend("flash_attention_bhsd", q, k, v, **kw)
-    for key in ("flash_attention_bhsd", "flash_attention_bhsd.combine"):
+    name = "flash_attention_bhsd" if d <= fa.MAX_D else "attention_wide.flash_attention_bhsd"
+    for key in (name, f"{name}.combine"):
         assert launch_counts[key] == before.get(key, 0) + 1
     _close(out, ref)
     assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
@@ -1328,17 +1411,24 @@ def test_decode_ring_stream(gen, dev):
 
 
 @pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("d", [16, 17, 80, 128, 256])
+@pytest.mark.parametrize("d", [16, 17, 80, 128, 256, 576])
 @pytest.mark.parametrize("hq,hk", [(32, 32), (8, 2), (32, 8)])
 def test_decode_attention_split_kv(gen, dev, int8, d, hq, hk):
     """The split-KV decode_attention: kv_len 0, 1, chunk ± 1 and the whole
     window S across its chunks, GQA, int8 and bf16 KV as strided views of the
     cache layout, an f32 q (rounded to bf16) at d = 80; a row with kv_len 0
-    outputs 0; the merge launches once per call when the window is split."""
+    outputs 0; the merge launches once per call when the window is split
+    (d = 576: the wide kernel's split-KV decode and its merge)."""
     S = 1100
     b = 7
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    chunk, n_chunks = fa._decode_plan(b, hq, hk, S, d, 1 if int8 else 2, n_sm)
+    kvb = 1 if int8 else 2
+    if d > fa.MAX_D:
+        p = fa._wide_plan(b, 1, hq, hk, S, d, kvb, n_sm)
+        chunk, n_chunks, name = p.chunk, p.n_chunks, "attention_wide.decode_attention"
+    else:
+        chunk, n_chunks = fa._decode_plan(b, hq, hk, S, d, kvb, n_sm)
+        name = "decode_attention"
     lens = [0, 1, chunk - 1, chunk, chunk + 1, S - 1, S]
     k, v = _kv(gen, dev, b, hk, S, d, int8)
     qdt = torch.float32 if d == 80 else torch.bfloat16
@@ -1347,9 +1437,9 @@ def test_decode_attention_split_kv(gen, dev, int8, d, hq, hk):
     before = dict(launch_counts)
     out, ref = _attend("decode_attention", q, k, v, causal=False, q_offset=kvl - 1,
                        kv_len=kvl, kv_scale=0.05 if int8 else None)
-    assert launch_counts["decode_attention"] == before.get("decode_attention", 0) + 1
-    assert launch_counts["decode_attention.combine"] == \
-        before.get("decode_attention.combine", 0) + (1 if n_chunks > 1 else 0)
+    assert launch_counts[name] == before.get(name, 0) + 1
+    assert launch_counts[f"{name}.combine"] == \
+        before.get(f"{name}.combine", 0) + (1 if n_chunks > 1 else 0)
     assert out.dtype == qdt and out.shape == q.shape
     _close(out, ref)
     assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
