@@ -36,9 +36,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   4. the first slice's main path: Llama-2-7B geometry (32 layers), Q8_0
      weights made on the card from a seed, int8 KV,
      InferenceEngine(batch=4).run_queue over six greedy requests (prompts
-     5..1100 tokens, 16 new tokens each), with the kernel launch counts of
-     that run; then TTFT at prompts 128 and 1100 and decode tokens/s at
-     batch 4 (CUDA events), with the qmm_reduce launches per decode step (the
+     5..1100 tokens, 16 new tokens each), its decode chunks through the
+     engine's captured decode-step graph, with the kernel launch counts of
+     that run (the graphs' tallies, one replay a step: each kernel's
+     launches a step those of the eager step, one capture a key) and its
+     tokens equal to a rerun of the same requests through the eager loop
+     (_decode_steps_eager); then TTFT at prompts 128 and 1100 (CUDA events
+     around prefill_sample, and the device's prefill alone by
+     benchmark_prefill_device), one seeded sampled chunk (per-row
+     temperatures, top-k, top-p) through the graph equal to the eager
+     loop's, decode tokens/s at batch 4 through the graph beside the eager
+     loop (in turns, CUDA events) and by benchmark_decode_device at batch 4
+     and 1, with the qmm_reduce launches per eager decode step (the
      libraries' own count; the decode GEMM finishes its splits in one
      launch); then the engine at LlamaConfig.tiny() (head dim 16, GQA 4/2)
      on the card, with and without CSINN2_DECODE_ATTN=flash, logits against
@@ -69,7 +78,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      on the CUDA tier (quant_matmul_t, flash_attention_bhsd), outputs against
      an Api.TORCH session on the card (fc cosine >= 0.9999, SDPA
      verify(tol=2e-2, min_cosine=0.9999)), an int8 out_qinfo within 1 LSB;
-  9. phase 4's run under CSINN2_DECODE_ATTN=flash: the batched decode takes
+  9. phase 4's run under CSINN2_DECODE_ATTN=flash (read when a step graph
+     is captured): the batched decode takes
      bhsd flash_attention (32 launches per decode step, decode_attention
      none; the split-KV launches and their merges counted), tokens set
      beside phase 4's, one step's logits against the
@@ -86,7 +96,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      others within 1e-5·max|y|), timed beside the plain version and
      torch.matmul on the dequantized bf16 weight (cold), with its factor
      over cur and over torch.matmul; then the tile tuner's split-length
-     sweep of the andmask kernel at the four shapes.
+     sweep of the andmask kernel at the four shapes;
+ 11. the port's LLM examples as a user runs them, each in a process of its
+     own: csinn2_tpu_torch/examples/llama_generate.py --mode q8_0 --quant-kv
+     (2 layers, dim 256: generate, decode tokens/s host-stepped and through
+     the step graph, the Q8_0-vs-float logit cosine gate) and
+     llama7b_bench.py --mode q4_0 --layers 32 (TTFT, decode tokens/s at
+     batch 1 through the step graph, the weight-read bound); each must exit
+     0 and print PASS.
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -1192,12 +1209,17 @@ def model_parity(mode: str, swiglu: bool):
 def serve(gpu_line: str, mode: str, swiglu: bool = False, flash_decode: bool = False,
           base=None):
     """Llama-2-7B (32 layers), `mode` weights made on the card, int8 KV:
-    run_queue over the six prompts, then TTFT at prompt 128 and decode
-    tokens/s at batch 4.  flash_decode: all of it under
-    CSINN2_DECODE_ATTN=flash, with the tokens and decode rate set beside
-    `base` (the default decode's serve result) and one decode step's logits
-    against the default decode's.  Returns dict(counts of the run_queue,
-    outs, tps, steps = decode steps of the run_queue)."""
+    run_queue over the six prompts through the decode step graph, its
+    launch counts per decode step, and its tokens against a rerun through
+    the eager loop (_decode_steps_eager); then TTFT at prompts 128 and 1100
+    (host-inclusive, and on the device by benchmark_prefill_device), a
+    seeded sampled chunk through the graph against the eager loop, decode
+    tokens/s at batch 4 through the graph beside the eager loop in turns,
+    and benchmark_decode_device at batch 4 and 1.  flash_decode: all of it
+    under CSINN2_DECODE_ATTN=flash, with the tokens and decode rate set
+    beside `base` (the default decode's serve result) and one decode step's
+    logits against the default decode's.  Returns dict(counts of the
+    run_queue, outs, tps, steps = decode steps of the run_queue)."""
     with env_flag("CSINN2_DECODE_ATTN", flash_decode, "flash"):
         return _serve(gpu_line, mode, swiglu, flash_decode, base)
 
@@ -1210,7 +1232,9 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     from csinn2_tpu_torch.llm.config import LlamaConfig
     from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
     from csinn2_tpu_torch.llm.model import init_params_device
+    from csinn2_tpu_torch.utils.timing import event_ms
     cfg = LlamaConfig.llama2_7b()
+    L = cfg.n_layers
     name = f"{mode}{' +swiglu128' if swiglu else ''}"
     t0 = time.perf_counter()
     with swiglu_fusion(swiglu):
@@ -1221,8 +1245,8 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"(weights + int8 KV cache)")
     rng = np.random.default_rng(0)
-    reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, n)],
-                    max_new_tokens=16) for n in PROMPTS]
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)] for n in PROMPTS]
+    reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
 
     steps = [0]
     decode_steps = eng.decode_steps
@@ -1239,9 +1263,10 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
-    eng.decode_steps = decode_steps
+    del eng.decode_steps            # the method again (an attribute would hold eng in a cycle)
     log(f"  run_queue: {len(done)} requests, {sum(len(r.out) for r in done)} tokens "
-        f"in {wall:.3f} s (host clock, first call); launches {counts}")
+        f"in {wall:.3f} s (host clock, first call, decode step graphs captured); "
+        f"launches {counts}")
     for n, r in zip(PROMPTS, done):
         if not r.done or len(r.out) != 16 or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"{name} request of prompt {n}: done={r.done} out={r.out}")
@@ -1253,45 +1278,56 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     missing = [k for k in want if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"{name} path never launched {missing}")
-    outs = [list(r.out) for r in done]
+    # the step graph's counts: a replay a step, a capture a key, and each
+    # kernel's launches a step those of the eager step (the tallies)
+    captures = counts.get("decode_graph.capture", 0)
+    replays = counts.get("decode_graph.replay", 0)
+    per_step = {f"{qmm}.decode": (3 if swiglu else 4) * L + 1,
+                "flash_attention_bhsd" if flash_decode else "decode_attention": L}
+    if swiglu:
+        per_step["quant_matmul_swiglu.decode"] = L
+    log(f"  decode steps {steps[0]} through the step graph: replays {replays}, captures "
+        f"{captures} for {len(eng._graphs)} keys (kv_bound {sorted(k[0] for k in eng._graphs)}), "
+        f"the warm-up steps' launches (not in the kernels' counts) "
+        f"{counts.get('decode_graph.warmup', 0)}; launches a step "
+        + ", ".join(f"{k} {counts.get(k, 0) / max(steps[0], 1):g} (want {n})"
+                    for k, n in per_step.items()))
     if flash_decode:
-        n_layers = cfg.n_layers
-        log(f"  decode steps {steps[0]}: flash_attention_bhsd "
-            f"{counts.get('flash_attention_bhsd', 0)} launches (want {n_layers} x {steps[0]}), "
-            f"of them split-KV with a merge (flash_attention_bhsd.combine) "
-            f"{counts.get('flash_attention_bhsd.combine', 0)}, decode_attention "
-            f"{counts.get('decode_attention', 0)}")
-        if counts.get("decode_attention", 0) != 0 or \
-                counts.get("flash_attention_bhsd", 0) != n_layers * steps[0]:
-            raise AssertionError("flash decode launch counts")
+        log(f"  flash decode: of the flash_attention_bhsd launches, split-KV with a merge "
+            f"(flash_attention_bhsd.combine) {counts.get('flash_attention_bhsd.combine', 0)}; "
+            f"decode_attention {counts.get('decode_attention', 0)} (want 0)")
+    if replays != steps[0] or captures != len(eng._graphs) or captures == 0 or \
+            any(counts.get(k, 0) != n * steps[0] for k, n in per_step.items()) or \
+            (flash_decode and counts.get("decode_attention", 0) != 0):
+        raise AssertionError(f"{name}: decode graph counts {counts}")
+    outs = [list(r.out) for r in done]
+    # the same requests through the eager loop: the same greedy tokens
+    eng.decode_steps = eng._decode_steps_eager
+    eager = eng.run_queue([Request(prompt=p, max_new_tokens=16) for p in prompts], chunk=16)
+    del eng.decode_steps
+    eager_outs = [list(r.out) for r in eager]
+    same = sum(a == b for ra, rb in zip(outs, eager_outs) for a, b in zip(ra, rb))
+    log(f"  run_queue tokens through the step graph equal to the eager loop's: {same} of "
+        f"{sum(len(r) for r in outs)} (greedy)")
+    if outs != eager_outs:
+        raise AssertionError(f"{name}: graph tokens {outs} != eager tokens {eager_outs}")
+    if flash_decode:
         same = sum(a == b for ra, rb in zip(outs, base["outs"]) for a, b in zip(ra, rb))
         log(f"  generated tokens equal to the default decode's: {same} of "
             f"{sum(len(r) for r in outs)} (greedy; argmax ties of near-equal logits may split)")
 
-    # TTFT at prompt 128: prefill + first-token sampling, CUDA events
-    prompt = reqs[2].prompt
-    ttfts = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        tok = eng.prefill_sample(0, prompt)
-        b.record()
-        b.synchronize()
-        ttfts.append(a.elapsed_time(b))
+    # TTFT at prompt 128: prefill + first-token sampling, CUDA events (host
+    # launch gaps included), and the prefill on the device alone
+    prompt = prompts[2]
+    ttfts = [event_ms(lambda: eng.prefill_sample(0, prompt)) for _ in range(5)]
+    tok = eng.prefill_sample(0, prompt)
     logits = eng.prefill(0, prompt)
     if not (np.isfinite(logits).all() and 0 <= tok < cfg.vocab_size):
         raise AssertionError("prefill logits not finite")
     # TTFT at prompt 1100 (bucket 2048: every projection at M = 2048)
-    ttfts_long = []
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        eng.prefill_sample(0, reqs[5].prompt)
-        b.record()
-        b.synchronize()
-        ttfts_long.append(a.elapsed_time(b))
+    ttfts_long = [event_ms(lambda: eng.prefill_sample(0, prompts[5])) for _ in range(3)]
+    dev_ttft = eng.benchmark_prefill_device(n_prompt=PROMPTS[2], iters=8, reps=3) * 1e3
+    dev_ttft_long = eng.benchmark_prefill_device(n_prompt=PROMPTS[5], iters=4, reps=3) * 1e3
     # decode tokens/s at batch 4: all lanes active at position ~128
     first = {}
     for sid in range(4):
@@ -1313,32 +1349,58 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         if cos < 0.999:
             raise AssertionError(f"flash decode logits cosine {cos}")
     nxt = {sid: int(np.argmax(v)) for sid, v in step_logits.items()}
-    n_steps, rates = 32, []
-    reduces = reduce_launches()
-    for _ in range(3):
+
+    def chunk(fn, n, **kw):
         for sid in range(4):
             eng.slots[sid].pos = 129
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        eng.decode_steps(nxt, n_steps)
-        b.record()
-        b.synchronize()
-        rates.append(4 * n_steps / (a.elapsed_time(b) / 1e3))
+        return fn(nxt, n, **kw)
+
+    # one seeded sampled chunk: per-row temperatures (one lane at ~0), top-k
+    # and top-p, through the graph and through the eager loop
+    kw = dict(temperature=np.array([0.8, 1.0, 0.0, 1.3], np.float32), seed=11, top_k=40,
+              top_p=0.95)
+    got, want = chunk(eng.decode_steps, 16, **kw), chunk(eng._decode_steps_eager, 16, **kw)
+    log(f"  seeded sampled chunk (16 steps, temperatures 0.8/1.0/0/1.3, top_k 40, top_p "
+        f"0.95): graph tokens equal to the eager loop's: {got == want}")
+    if got != want:
+        raise AssertionError(f"{name}: sampled graph chunk {got} != eager {want}")
+    n_steps, rates = 32, {"graph": [], "eager": []}
+    loops = {"graph": eng.decode_steps, "eager": eng._decode_steps_eager}
+    for fn in loops.values():
+        chunk(fn, n_steps)                  # the key's capture, first calls
+    reduces = reduce_launches()
+    for order in (("graph", "eager"), ("eager", "graph"), ("graph", "eager")):
+        for k in order:
+            ms = event_ms(lambda: chunk(loops[k], n_steps))
+            rates[k].append(4 * n_steps / (ms / 1e3))
+    # the libraries' own qmm_reduce count sees the eager launches only
     reduce_per_step = (reduce_launches() - reduces) / (3 * n_steps)
+    tps, tps_eager = statistics.median(rates["graph"]), statistics.median(rates["eager"])
+    tps_dev = eng.benchmark_decode_device(iters=64, reps=3)
+    one = InferenceEngine(cfg, eng.params, batch=1, quantized_kv=True, device="cuda")
+    tps_dev1 = one.benchmark_decode_device(iters=64, reps=3)
+    del one
     ttft = statistics.median(ttfts)
-    tps = statistics.median(rates)
-    log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events) "
+    what = f"{name}{' flash decode' if flash_decode else ''}"
+    log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events "
+        f"around prefill_sample, host launch gaps included); on the device "
+        f"(benchmark_prefill_device, prefill graph, long-minus-short) {dev_ttft:.3f} ms "
         f"[{gpu_line}]")
-    log(f"  {name} TTFT prompt {PROMPTS[5]} (bucket 2048): {statistics.median(ttfts_long):.3f} ms "
-        f"(median of 3, CUDA events) [{gpu_line}]")
-    log(f"  {name}{' flash decode' if flash_decode else ''} decode batch 4 at pos ~130: "
-        f"{tps:.2f} tok/s, {4e3 / tps:.3f} ms/step (median of 3 x {n_steps} steps, CUDA "
-        f"events, incl. host launch gaps) [{gpu_line}]"
+    log(f"  {name} TTFT prompt {PROMPTS[5]} (bucket 2048): {statistics.median(ttfts_long):.3f} "
+        f"ms (median of 3, CUDA events); on the device {dev_ttft_long:.3f} ms [{gpu_line}]")
+    log(f"  {what} decode batch 4 at pos ~130: step graph {tps:.2f} tok/s, {4e3 / tps:.3f} "
+        f"ms/step; eager loop {tps_eager:.2f} tok/s, {4e3 / tps_eager:.3f} ms/step (median of "
+        f"3 x {n_steps} steps each, in turns, CUDA events around decode_steps) [{gpu_line}]"
         + (f"; default decode (phase 4) {base['tps']:.2f} tok/s" if flash_decode else ""))
-    log(f"  {name} qmm_reduce launches per decode step: {reduce_per_step:g} (the libraries' "
-        f"count over the 3 x {n_steps} steps)")
-    del eng
+    log(f"  {what} benchmark_decode_device: batch 4 {tps_dev:.2f} tok/s, batch 1 "
+        f"{tps_dev1:.2f} tok/s (64 steps from pos 16, long-minus-short, CUDA events) "
+        f"[{gpu_line}]")
+    log(f"  {name} qmm_reduce launches per eager decode step: {reduce_per_step:g} (the "
+        f"libraries' count over the 3 x {n_steps} eager steps)")
+    if tps < tps_eager:
+        raise AssertionError(f"{name}: step graph {tps} tok/s below the eager loop's "
+                             f"{tps_eager}")
+    del eng, loops, decode_steps, counted
     torch.cuda.empty_cache()
     return dict(counts=counts, outs=outs, tps=tps, steps=steps[0],
                 reduce_per_step=reduce_per_step)
@@ -1641,6 +1703,33 @@ def probe_path(records, gpu_line):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the port's LLM example programs, as a user runs them
+# ---------------------------------------------------------------------------
+
+EXAMPLES = (("llama_generate.py", ("--mode", "q8_0", "--quant-kv")),
+            ("llama7b_bench.py", ("--mode", "q4_0", "--layers", "32")))
+
+
+def examples_path(here: Path):
+    """Each example of EXAMPLES in a process of its own (it finds the
+    kernels this run built); its output is echoed, and a non-zero exit, a
+    FAIL line or no PASS line fails the phase."""
+    import torch
+    torch.cuda.empty_cache()
+    for script, args in EXAMPLES:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(here / "csinn2_tpu_torch" / "examples" / script),
+                            *args], cwd=here, capture_output=True, text=True, timeout=600)
+        lines = [line.strip() for line in r.stdout.splitlines()]
+        for line in lines:
+            log(f"  | {line}")
+        log(f"  {script} {' '.join(args)}: exit {r.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if r.returncode != 0 or "PASS" not in lines or any(x.startswith("FAIL") for x in lines):
+            raise AssertionError(f"phase 11 {script}: exit {r.returncode}\n{r.stderr[-4000:]}")
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "csinn2_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -1725,6 +1814,8 @@ def main() -> int:
     probe_counts = probe_path(records, gpu_line)
     for kind in PROBE_KERNELS:
         path_counts[f"int4_probe_{kind}"] = (probe_counts, "phase 10 (int4_dequant_probe, M=8)")
+    log("phase 11: the port's LLM examples, llama_generate.py and llama7b_bench.py")
+    examples_path(here)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

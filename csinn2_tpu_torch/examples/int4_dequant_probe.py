@@ -26,7 +26,6 @@ With device="cpu" (the tests) the plain versions run and nothing is timed.
 from __future__ import annotations
 
 import os
-import subprocess
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -34,7 +33,7 @@ import torch
 
 from csinn2_tpu_torch.kernels import int4_probe as P
 from csinn2_tpu_torch.kernels.qmatmul import pack_int4, quant_matmul
-from csinn2_tpu_torch.utils.device import resolve_device
+from csinn2_tpu_torch.utils.device import gpu_line, resolve_device
 from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms_cold, l2_bytes
 from csinn2_tpu_torch.utils.verify import cosine_similarity
 
@@ -45,13 +44,6 @@ ALL_SHAPES = [(4096, 12288, 6144, 512), (4096, 22016, 5504, 512),
               (11008, 4096, 4096, 512), (4096, 4096, 4096, 512)]
 SHAPE_NAMES = ("wqkv", "w13", "w2", "wo")
 CUR = "cur(quant_matmul)"
-
-
-def gpu_line() -> str:
-    """The card's `nvidia-smi --query-gpu=name,power.limit` line."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], check=True, capture_output=True,
-                          text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def make_case(rng: np.random.Generator, M: int, K: int, N: int, device) -> Dict:

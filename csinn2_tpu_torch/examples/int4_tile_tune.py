@@ -27,9 +27,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from csinn2_tpu_torch.examples.int4_dequant_probe import BLOCK, HBM, gpu_line, make_case
+from csinn2_tpu_torch.examples.int4_dequant_probe import BLOCK, HBM, make_case
 from csinn2_tpu_torch.kernels import int4_probe as P
-from csinn2_tpu_torch.utils.device import resolve_device
+from csinn2_tpu_torch.utils.device import gpu_line, resolve_device
 from csinn2_tpu_torch.utils.timing import cold_copies, gpu_ms_cold, l2_bytes
 
 SHAPES = ((4096, 12288), (4096, 22016), (11008, 4096), (4096, 4096))

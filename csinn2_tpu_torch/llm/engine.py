@@ -1,7 +1,7 @@
 """Inference engine on one device: bucketed one-slot prefill, on-device
-sampling, chunked batched decode and a continuous-batching scheduler —
-counterpart of csinn2_tpu/llm/engine.py (single device; the mesh and
-benchmark_* parts are not ported yet).
+sampling, chunked batched decode, a continuous-batching scheduler and the
+benchmark methods — counterpart of csinn2_tpu/llm/engine.py (single device;
+the mesh is not ported yet).
 
 Design, as in the JAX engine:
   * the KV cache is ONE static [L, B, S_max, Hk, Dh] buffer; slot (lane) b
@@ -16,13 +16,22 @@ Design, as in the JAX engine:
     bound on the largest position (rounded to 256) limits the KV read.
   * decode_steps() runs a chunk of steps with on-device sampling and moves
     the sampled tokens to the host once, at the end of the chunk; the host
-    scheduler admits prompts between chunks.
+    scheduler admits prompts between chunks.  On the card the chunk replays
+    a captured CUDA graph of one step (forward, sampling, pos + 1) — the
+    counterpart of the JAX engine's lax.scan executable — once a step; one
+    graph per key of what the JAX jit holds static (kv_bound, greedy,
+    top_k, top_p, CSINN2_DECODE_ATTN read at capture).  The
+    graphs work on static token / position / temperature buffers and the
+    engine's cache, which prefill writes in place, so an admission between
+    chunks is seen by the next replay.  On the CPU the chunk is the eager
+    loop (_decode_steps_eager), which the card's tests hold the graph to.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -36,7 +45,9 @@ from csinn2_tpu_torch.llm.model import (KVCache, _project_qkv, fuse_params,
                                         native4_params, quantize_kv, rms_norm,
                                         rope_rotate, rope_tables)
 from csinn2_tpu_torch.llm.sampling import sample_host, sample_logits
+from csinn2_tpu_torch.utils.cuda_graph import CountedGraph, capture
 from csinn2_tpu_torch.utils.device import resolve_device
+from csinn2_tpu_torch.utils.timing import long_minus_short
 
 
 def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -80,7 +91,10 @@ class InferenceEngine:
     prefill(): admits a prompt into one slot's cache rows.
     decode_step(): one token for every given slot (host-stepped).
     decode_steps(): a chunk of tokens for every given slot, sampled on the
-    device.  run_queue(): the continuous-batching scheduler over Requests.
+    device (on the card through the captured step graph).  run_queue(): the
+    continuous-batching scheduler over Requests.  benchmark_decode(),
+    benchmark_decode_device(), benchmark_prefill_device(): tokens/s and
+    seconds a prefill, as the JAX engine's methods.
 
     native_int4: as in the JAX engine, None picks the native int4 carrier
     for int4 weights on the card and True/False force it; the port has one
@@ -107,10 +121,19 @@ class InferenceEngine:
         self.cache = KVCache.create(cfg, batch, quantized=quantized_kv,
                                     scale=kv_scale, device=self.device)
         self.slots = [Slot(id=i) for i in range(batch)]
+        # the decode step graphs (on the card): key → CountedGraph, their
+        # static lanes (tokens, positions, temperatures), generator, memory
+        # pool and capture stream, all made at the first capture
+        self._graphs: Dict[tuple, CountedGraph] = {}
+        self._static = None
+
+    @staticmethod
+    def _seed_value(seed: int, salt: int) -> int:
+        return (seed * 1_000_003 + salt) % 2**63
 
     def _generator(self, seed: int, salt: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
-        g.manual_seed((seed * 1_000_003 + salt) % 2**63)
+        g.manual_seed(self._seed_value(seed, salt))
         return g
 
     # -- phases ----------------------------------------------------------------
@@ -191,30 +214,103 @@ class InferenceEngine:
                      top_p: float = 1.0) -> Dict[int, List[int]]:
         """n_steps decode steps for all given slots with on-device sampling;
         the tokens reach the host once, after the last step.  Returns
-        {slot_id: [n_steps sampled tokens]}."""
+        {slot_id: [n_steps sampled tokens]}.  On the card each step replays
+        the captured step graph of this chunk's key; on the CPU it is the
+        eager loop."""
+        chunk = self._graph_chunk if self.device.type == "cuda" else self._eager_chunk
+        return self._steps(chunk, next_tokens, n_steps, temperature, seed, top_k, top_p)
+
+    def _decode_steps_eager(self, next_tokens: Dict[int, int], n_steps: int,
+                            temperature=0.0, seed: int = 0, top_k: int = 0,
+                            top_p: float = 1.0) -> Dict[int, List[int]]:
+        """decode_steps through the eager loop on any device: the plain
+        version the card's tests and chip_smoke.py hold the graph to."""
+        return self._steps(self._eager_chunk, next_tokens, n_steps, temperature, seed,
+                           top_k, top_p)
+
+    def _steps(self, chunk, next_tokens, n_steps, temperature, seed, top_k, top_p):
         tok, pos = self._lanes(next_tokens)
-        bound = self._kv_bound(extra=n_steps + 1)
         temp = np.asarray(temperature, np.float32)        # scalar or [B]
         greedy = bool(np.all(temp <= 0))
-        temp_t = torch.as_tensor(np.maximum(temp, 1e-6), device=self.device)
-        gen = None if greedy else self._generator(seed, 0)
-        steps = []
-        for _ in range(n_steps):
-            logits, self.cache = _batched_decode_forward(
-                self.params, tok[:, None], self.cache, pos, self.cfg,
-                kv_bound=bound)
-            tok = sample_logits(logits[:, 0], gen, temperature=temp_t,
-                                top_k=top_k, top_p=top_p, greedy=greedy)
-            pos = pos + 1
-            steps.append(tok)
-        sampled = (torch.stack(steps).cpu().numpy() if steps
-                   else np.zeros((0, self.batch), np.int64))   # [n_steps, B]
+        temp_t = torch.from_numpy(np.maximum(temp, 1e-6) * np.ones(self.batch, np.float32)
+                                  ).to(self.device)       # [B]
+        if n_steps > 0:
+            sampled = chunk(tok, pos, temp_t, n_steps,
+                            self._kv_bound(extra=n_steps + 1), greedy, seed, top_k,
+                            top_p).cpu().numpy()           # [n_steps, B]
+        else:
+            sampled = np.zeros((0, self.batch), np.int64)
         out = {}
         for sid, t0 in next_tokens.items():
             seq = [int(t) for t in sampled[:, sid]]
             self.slots[sid].pos += n_steps
             self.slots[sid].tokens.extend([t0] + seq[:-1])
             out[sid] = seq
+        return out
+
+    def _eager_chunk(self, tok, pos, temp, n_steps, bound, greedy, seed,
+                     top_k, top_p) -> torch.Tensor:
+        """n_steps >= 1 steps of every lane, one chain of launches a step,
+        from lanes tok / pos [B] → the sampled tokens [n, B]."""
+        gen = None if greedy else self._generator(seed, 0)
+        steps = []
+        for _ in range(n_steps):
+            logits, _ = _batched_decode_forward(self.params, tok[:, None], self.cache, pos,
+                                                self.cfg, kv_bound=bound)
+            tok = sample_logits(logits[:, 0], gen, temperature=temp, top_k=top_k,
+                                top_p=top_p, greedy=greedy)
+            pos = pos + 1
+            steps.append(tok)
+        return torch.stack(steps)
+
+    def _graph_chunk(self, tok, pos, temp, n_steps, bound, greedy, seed,
+                     top_k, top_p) -> torch.Tensor:
+        """_eager_chunk on the card: the key's step graph (captured at its
+        first chunk) replayed n_steps times; each replay's token is copied
+        out of the static lane buffer."""
+        if greedy:
+            top_k, top_p = 0, 1.0
+        flash = os.environ.get("CSINN2_DECODE_ATTN") == "flash"
+        key = (bound, greedy, int(top_k), float(top_p), flash)
+        if self._static is None:
+            self._static = dict(
+                tok=torch.zeros((self.batch,), dtype=torch.long, device=self.device),
+                pos=torch.zeros((self.batch,), dtype=torch.int32, device=self.device),
+                temp=torch.ones((self.batch,), dtype=torch.float32, device=self.device),
+                gen=torch.Generator(device=self.device),
+                pool=torch.cuda.graph_pool_handle(),
+                stream=torch.cuda.Stream(device=self.device))
+        st = self._static
+
+        def load_lanes():
+            st["tok"].copy_(tok)
+            st["pos"].copy_(pos)
+            st["temp"].copy_(temp)
+
+        load_lanes()
+        graph = self._graphs.get(key)
+        if graph is None:
+            gen = None if greedy else st["gen"]
+
+            def step():
+                logits, _ = _batched_decode_forward(self.params, st["tok"][:, None],
+                                                    self.cache, st["pos"], self.cfg,
+                                                    kv_bound=bound)
+                nxt = sample_logits(logits[:, 0], gen, temperature=st["temp"],
+                                    top_k=top_k, top_p=top_p, greedy=greedy)
+                st["tok"].copy_(nxt)
+                st["pos"].add_(1)
+
+            graph = self._graphs[key] = capture(
+                step, "decode_graph", stream=st["stream"], pool=st["pool"],
+                generators=() if greedy else (st["gen"],))
+            load_lanes()              # the warm-up step advanced the lanes
+        if not greedy:
+            st["gen"].manual_seed(self._seed_value(seed, 0))
+        out = torch.empty((n_steps, self.batch), dtype=torch.long, device=self.device)
+        for i in range(n_steps):
+            graph.replay()
+            out[i].copy_(st["tok"])
         return out
 
     # -- continuous-batching scheduler ------------------------------------------
@@ -310,6 +406,79 @@ class InferenceEngine:
                                 temperature=temperature, seed=seed + 1,
                                 top_k=top_k, top_p=top_p)[0]
         return [first] + seq
+
+    # -- benchmarking ------------------------------------------------------------
+
+    def benchmark_decode(self, iters: int = 20, warmup: int = 3) -> float:
+        """tokens/s of a full decode batch (all slots active at position >=
+        16), host-driven: one eager decode_step a token, its logits fetched."""
+        toks = {i: 1 for i in range(self.batch)}
+        for s in self.slots:
+            s.pos = max(s.pos, 16)
+            s.active = True
+        for _ in range(warmup):
+            self.decode_step(toks)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            self.decode_step(toks)
+        return self.batch * iters / (time.perf_counter() - t0)
+
+    def _scratch(self) -> "InferenceEngine":
+        """A batch-1 engine on the same weights with a zeroed cache of this
+        engine's kind: a benchmark's own, gone with its graphs after it."""
+        c = self.cache
+        return InferenceEngine(self.cfg, self.params, batch=1,
+                               quantized_kv=c.scale is not None, kv_scale=c.scale or 0.05,
+                               fuse_weights=False, device=self.device,
+                               native_int4=self._native4)
+
+    def benchmark_prefill_device(self, n_prompt: int = 128, iters: int = 8,
+                                 reps: int = 3) -> float:
+        """Seconds of one prefill at the prompt's bucket (forward and the
+        cache writes) into slot 0 of a scratch cache, the engine's cache
+        untouched: long-minus-short over 1 and 1 + iters prefills of the
+        prompt and the prompt + 1 in turns (utils/timing.long_minus_short).
+        On the card both prompts' prefills are captured graphs and the loop
+        replays them, so the time is the device's; on the CPU the loop is
+        eager under the host clock."""
+        s = _bucket(n_prompt)
+        toks = torch.zeros((1, s), dtype=torch.long)
+        toks[0, :n_prompt] = torch.arange(n_prompt) % 997 + 1
+        toks = [toks.to(self.device), (toks + 1).to(self.device)]
+        scratch = self._scratch()
+        if self.device.type == "cuda":
+            stream, pool = torch.cuda.Stream(device=self.device), torch.cuda.graph_pool_handle()
+            graphs = [capture(lambda t=t: scratch._prefill_local(t, 0), "prefill_graph",
+                              stream=stream, pool=pool) for t in toks]
+            step = lambda i: graphs[i % 2].replay()     # noqa: E731
+        else:
+            step = lambda i: scratch._prefill_local(toks[i % 2], 0)   # noqa: E731
+
+        def run(n):
+            for i in range(n):
+                step(i)
+        return long_minus_short(run, 1, iters, reps, device=self.device)
+
+    def benchmark_decode_device(self, iters: int = 64, reps: int = 3,
+                                pos0: int = 16) -> float:
+        """tokens/s of the full batch through decode_steps' loop (the step
+        graph on the card), greedy from token 1 at position pos0 in every
+        lane: long-minus-short over base and base + iters steps (base =
+        max(iters // 16, 2)), so set-up and the tokens' fetch cancel.  As in
+        the JAX engine, batch 1 decodes on a zeroed scratch cache and leaves
+        the engine's untouched; a larger batch decodes on the engine's cache,
+        which it overwrites from pos0 on.  The slots are not changed."""
+        base = max(iters // 16, 2)
+        bound = _round256(pos0 + base + iters + 1, self.cfg.max_seq_len)
+        eng = self._scratch() if self.batch == 1 else self
+        chunk = eng._graph_chunk if self.device.type == "cuda" else eng._eager_chunk
+        tok = torch.ones((self.batch,), dtype=torch.long, device=self.device)
+        pos = torch.full((self.batch,), pos0, dtype=torch.int32, device=self.device)
+        temp = torch.ones((self.batch,), dtype=torch.float32, device=self.device)
+        dt = long_minus_short(              # seconds a step
+            lambda n: chunk(tok, pos, temp, n, bound, True, 0, 0, 1.0),
+            base, iters, reps, device=self.device)
+        return self.batch / dt
 
 
 def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,

@@ -18,3 +18,12 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.dev
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the host")
     return dev
+
+
+def gpu_line() -> str:
+    """The card's `nvidia-smi --query-gpu=name,power.limit` line, which goes
+    beside every time a program of the port prints."""
+    import subprocess
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True, capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]

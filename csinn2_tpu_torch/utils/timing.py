@@ -11,12 +11,18 @@ when those fit, and a short kernel over such a weight then reads faster than
 device memory allows.  `gpu_ms_cold` times a call the way a caller that
 streams other data in between finds it: the calls rotate over `fns`, each on
 its own copy of the inputs, made once before timing, whose total exceeds
-twice the L2 (`cold_copies` says how many copies that takes)."""
+twice the L2 (`cold_copies` says how many copies that takes).
+
+`event_ms` times one call by CUDA events on the current stream, the host's
+launch gaps included.  `long_minus_short` times a loop of n iterations at
+two lengths and returns the marginal cost of one, the engine's
+benchmark_*_device timing."""
 
 from __future__ import annotations
 
 import math
 import statistics
+import time
 from typing import Callable, Sequence
 
 
@@ -59,3 +65,41 @@ def gpu_ms(fn: Callable[[], object], reps: int = 10,
     """Median GPU time (ms) of one call of fn() over `reps` back-to-back
     calls, after one warm-up call (inputs that fit stay in L2)."""
     return gpu_ms_cold([fn], reps, sleep_cycles)
+
+
+def event_ms(fn: Callable[[], object]) -> float:
+    """Time (ms) from a CUDA event before fn() to one after it, on the
+    current stream: the device's work and the host's launch gaps."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def long_minus_short(fn: Callable[[int], object], short: int, iters: int, reps: int = 3,
+                     device="cpu", clock: Callable[[], float] = time.perf_counter) -> float:
+    """Seconds per iteration of fn(n), which runs n iterations: the least
+    time of `reps` calls at n = short + iters minus the least at n = short,
+    over iters, after one untimed call of each length (captures and other
+    first-call work).  What the two lengths share (set-up, the fetch of a
+    result) cancels.  On a CUDA device a call is timed by CUDA events on the
+    current stream, elsewhere by `clock`."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+
+    def timed(n: int) -> float:
+        if cuda:
+            return event_ms(lambda: fn(n)) / 1e3
+        t0 = clock()
+        fn(n)
+        return clock() - t0
+
+    timed(short)
+    timed(short + iters)
+    t_short = min(timed(short) for _ in range(reps))
+    t_long = min(timed(short + iters) for _ in range(reps))
+    return max(t_long - t_short, 1e-12) / iters

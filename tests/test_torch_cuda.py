@@ -13,7 +13,11 @@ of 128 heads on one latent head, its shared-memory mirror) with an f32
 or bf16 q in all four entry points, odd KV lengths, GQA, bf16 KV, a fully masked lane, strided K/V views, bhsd flash_attention with a
 strided q, the split-KV flash decode at kv_len 0 to 2048 with sq 1 and 3,
 ragged query rows, and LlamaConfig.tiny() served on the card against the
-CPU path, with and without CSINN2_DECODE_ATTN=flash;
+CPU path, with and without CSINN2_DECODE_ATTN=flash; the engine's captured
+decode-step graph against its eager loop (tiny() with and without flash
+decode, a 2-layer 7B-width Q4_0 model: greedy, seeded and top-k / top-p
+chunks, an admission between chunks, a kv_bound change, launch counts,
+captures, strip counters) and its benchmark methods;
 the op API's CUDA tier in a GRAPH session; the eleven Q4_0 dequant-probe
 kernels (kernels/int4_probe.py, every one on the decode GEMM's ring) at M 1,
 5, 8 and 16, N not a multiple of the strip, K a multiple of 32 but not of
@@ -1458,3 +1462,104 @@ def test_decode_attention_every_chunk_edge(gen, dev, kv_len):
     _close(out, ref)
     if kv_len == 0:
         assert float(out[0].abs().max()) == 0.0
+
+
+def _kernel_counts():
+    """The kernels' launch counts (the graphs' own counts left out)."""
+    return {k: n for k, n in launch_counts.items() if not k.startswith("decode_graph.")}
+
+
+def _count_diff(before, after):
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("model,flash", [("tiny", False), ("tiny", True), ("7b_2layer", False)])
+def test_decode_graph_matches_the_eager_loop(dev, monkeypatch, model, flash):
+    """decode_steps on the card (the captured step graph) against
+    _decode_steps_eager on a second engine over the same weights, chunk by
+    chunk: greedy, seeded with a per-row temperature, with top-k / top-p, a
+    prompt admitted into the third lane between chunks, the kv_bound moving
+    from 256 to 512, and a chunk whose key was seen (no capture).  Tokens
+    and positions equal, the kernels' launch counts of each chunk equal to
+    the eager loop's (one graph replay a step), one capture per new key, and
+    the decode GEMM's strip counters at zero after the replays."""
+    import dataclasses
+    from csinn2_tpu_torch.kernels import qmatmul as tq
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params, init_params_device
+    if flash:
+        monkeypatch.setenv("CSINN2_DECODE_ATTN", "flash")
+    else:
+        monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
+    if model == "tiny":
+        cfg = LlamaConfig.tiny(max_seq=640)
+        params = init_params(cfg, "q8_0", seed=5, device=dev)
+    else:
+        cfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=2, max_seq_len=640)
+        params = init_params_device(cfg, "q4_0", seed=3, device=dev)
+    graph = InferenceEngine(cfg, params, batch=3, quantized_kv=True, device=dev)
+    eager = InferenceEngine(cfg, graph.params, batch=3, quantized_kv=True, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)] for n in (240, 5, 37)]
+    nxt = {}
+    for sid in (0, 1):
+        nxt[sid] = graph.prefill_sample(sid, prompts[sid])
+        assert eager.prefill_sample(sid, prompts[sid]) == nxt[sid]
+    chunks = [(5, {}, 1),
+              (4, dict(temperature=np.array([0.7, 1.3, 0.0], np.float32), seed=3), 1),
+              (3, dict(temperature=0.9, seed=4, top_k=20, top_p=0.9), 1),
+              "admit",
+              (6, {}, 1),           # max pos 252 + 6 + 1 > 256: kv_bound 512
+              (6, {}, 0)]           # the same key: replayed, not captured
+    for chunk in chunks:
+        if chunk == "admit":
+            nxt[2] = graph.prefill_sample(2, prompts[2])
+            assert eager.prefill_sample(2, prompts[2]) == nxt[2]
+            continue
+        n, kw, captures = chunk
+        c0, g0 = _kernel_counts(), dict(launch_counts)
+        got = graph.decode_steps(dict(nxt), n, **kw)
+        c1, g1 = _kernel_counts(), dict(launch_counts)
+        want = eager._decode_steps_eager(dict(nxt), n, **kw)
+        torch.cuda.synchronize()
+        assert got == want, (chunk, got, want)
+        assert [s.pos for s in graph.slots] == [s.pos for s in eager.slots]
+        assert _count_diff(c0, c1) == _count_diff(c1, _kernel_counts())
+        assert g1.get("decode_graph.replay", 0) - g0.get("decode_graph.replay", 0) == n
+        assert g1.get("decode_graph.capture", 0) - g0.get("decode_graph.capture", 0) == captures
+        assert all(int(torch.count_nonzero(c)) == 0 for c in tq._counters.values())
+        nxt = {sid: seq[-1] for sid, seq in got.items()}
+    assert len(graph._graphs) == 4 and eager._graphs == {}
+    assert sorted({k[0] for k in graph._graphs}) == [256, 512]
+
+
+def test_engine_benchmarks_on_the_card(dev):
+    """The three benchmark methods at LlamaConfig.tiny() on the card: finite
+    positive numbers; benchmark_prefill_device and a batch-1
+    benchmark_decode_device leave the engine's cache, slots and graphs as
+    they were; batch 2 decodes through the step graph."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params
+    cfg = LlamaConfig.tiny(max_seq=640)
+    eng = InferenceEngine(cfg, init_params(cfg, "q8_0", seed=5, device=dev), batch=2,
+                          quantized_kv=True, device=dev)
+    eng.prefill(0, list(range(1, 30)))
+    k0, v0 = eng.cache.k.clone(), eng.cache.v.clone()
+    t = eng.benchmark_prefill_device(n_prompt=40, iters=2, reps=1)
+    assert np.isfinite(t) and t > 0
+    one = InferenceEngine(cfg, eng.params, batch=1, quantized_kv=True, device=dev)
+    one.prefill(0, [5, 6, 7])
+    k1 = one.cache.k.clone()
+    tps = one.benchmark_decode_device(iters=16, reps=1)
+    assert np.isfinite(tps) and tps > 0
+    assert torch.equal(one.cache.k, k1) and one._graphs == {} and one.slots[0].pos == 3
+    assert torch.equal(eng.cache.k, k0) and torch.equal(eng.cache.v, v0)
+    replays = launch_counts.get("decode_graph.replay", 0)
+    tps = eng.benchmark_decode_device(iters=16, reps=1)
+    assert np.isfinite(tps) and tps > 0
+    assert launch_counts["decode_graph.replay"] - replays == 2 * (2 + 18)
+    assert [s.pos for s in eng.slots] == [29, 0]
+    tps = eng.benchmark_decode(iters=3, warmup=1)
+    assert np.isfinite(tps) and tps > 0
