@@ -103,7 +103,34 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      the step graph, the Q8_0-vs-float logit cosine gate) and
      llama7b_bench.py --mode q4_0 --layers 32 (TTFT, decode tokens/s at
      batch 1 through the step graph, the weight-read bound); each must exit
-     0 and print PASS.
+     0 and print PASS;
+ 12. mixture of experts at Mixtral-8x7B width (dim 4096, GQA 32/8, ffn
+     14336, E = 8, top-2, vocab 32000, rope_base 1e6; max_seq_len cut to
+     2048), experts on quant_matmul: first quant_matmul at one expert's
+     shapes (w1/w3 K 4096 N 14336, w2 K 14336 N 4096) in Q8_0 and Q4_0 at M
+     = 1, 4 (cold) and 256 against its plain version, timed beside its
+     bound and torch.matmul; then 2 layers in Q8_0 and Q4_0 (int8 KV),
+     llama_forward's logits on the card against the CPU plain path (cosine
+     >= 0.999) at a 128-token prompt (dense), a 512-token prompt (routed by
+     "auto") and 512 under moe_dispatch="dense", each forward's
+     quant_matmul launches counted against layers x (4 + 3E) + 1; then all
+     32 layers in Q4_0 made on the card: a 512-token prefill and 16 greedy
+     decode steps through llama_forward at s = 1, timed by CUDA events,
+     beside the decode step's bytes bound (dense decode reads every
+     expert), launches counted; then
+     csinn2_tpu_torch/examples/moe_dispatch_probe.py in a process of its
+     own (dense vs routed at T = 8-512, bf16 experts, then Q4_0 ones),
+     which must exit 0;
+ 13. the LLM weight I/O: a 2-layer GGUF at Llama-2-7B width written by the
+     port (seeded; Q8_0 linears, one Q4_0 and one F16 linear, an F16
+     embedding, a 32000-piece vocabulary), converted by `python -m
+     csinn2_tpu_torch convert --mode q8_0` in a process of its own,
+     load_llm(device="cuda") (write, convert and load times, host clock,
+     and the load's GB/s), its logits against the float forward on the
+     pre-conversion weights (cosine >= 0.999, bench.py's real-weights
+     gate) with the forward's quant_matmul launches counted, then
+     llama_generate.py --ckpt on the directory, which must exit 0 and print
+     PASS.  Its files live in _smoke/ under the checkout and are removed.
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -1730,6 +1757,449 @@ def examples_path(here: Path):
             raise AssertionError(f"phase 11 {script}: exit {r.returncode}\n{r.stderr[-4000:]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: mixture of experts at Mixtral-8x7B width
+# ---------------------------------------------------------------------------
+
+E_MOE = 8
+
+
+def mixtral_cfg(n_layers: int, **kw):
+    """Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+    config.json: hidden 4096, 32 heads, 8 KV heads, intermediate 14336, 8
+    local experts, 2 a token, vocab 32000, rope_theta 1e6, RMSNorm eps 1e-5),
+    with max_seq_len cut from 32768 to 2048 and the depth as given."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    return LlamaConfig(dim=4096, n_layers=n_layers, n_heads=32, n_kv_heads=8, ffn_dim=14336,
+                       vocab_size=32000, max_seq_len=2048, rope_base=1e6, n_experts=E_MOE,
+                       moe_top_k=2, **kw)
+
+
+# (label, K, N) of one Mixtral expert's projections: w1 and w3, w2
+EXPERT_SHAPES = (("w1/w3", 4096, 14336), ("w2", 14336, 4096))
+EXPERT_MS = (1, 4, 256)       # dense decode at batch 1 and 4; the routed cap at T = 512
+
+
+def check_expert_gemms(records, gpu_line):
+    """quant_matmul at the expert shapes, Q8_0 and Q4_0, M = 1, 4 (cold) and
+    256: each against quant_matmul_ref, timed beside its bound, the plain
+    version and torch.matmul on the dequantized bf16 weight.  Records
+    records[key]["moe_experts"][label M] per mode."""
+    import torch
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key, quant_matmul, quant_matmul_ref
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    for mode in ("q8_0", "q4_0"):
+        scale_mode, packed = QMM_MODES[mode]
+        key = launch_key(scale_mode, packed, swiglu=False)
+        kw = dict(scale_mode=scale_mode, packed_int4=packed, out_dtype=torch.float32)
+        for label, K, N in EXPERT_SHAPES:
+            w, s, w_deq = _qmm_weights(g, mode, K, N)
+            for M in EXPERT_MS:
+                x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+                y = quant_matmul(x, w, s, **kw).cpu().numpy()
+                ref = quant_matmul_ref(x, w, s, **kw).cpu().numpy()
+                err = float(abs(y - ref).max())
+                cos, rel = cosine_similarity(y, ref), err / float(abs(ref).max())
+                if not (cos >= 0.9999 and rel <= 1e-2):
+                    raise AssertionError(f"expert {label} {mode} M={M}: cos={cos} rel={rel}")
+                if M <= 16:
+                    ms, lib = _gemm_cold(x, w, s, w_deq,
+                                         lambda wc, sc: quant_matmul(x, wc, sc, **kw))
+                else:
+                    ms = gpu_ms(lambda: quant_matmul(x, w, s, **kw))
+                    lib = gpu_ms(lambda: torch.matmul(x, w_deq))
+                plain = gpu_ms(lambda: quant_matmul_ref(x, w, s, **kw), reps=3)
+                b_ms, b_by = bound(M * K * 2 + w.numel() + s.numel() * 4 + M * N * 4,
+                                   2.0 * M * N * K)
+                rec = records.setdefault(key, {})
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+                rec.setdefault("moe_experts", {})[f"{label} M={M}"] = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                    cold=M <= 16)
+                log(f"  {key} expert {label:5s} M={M:3d} K={K:5d} N={N:5d} "
+                    f"ms={ms:.4f}{' cold' if M <= 16 else ''} plain_ms={plain:.4f} "
+                    f"lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} "
+                    f"cos={cos:.6f} max_abs_err={err:.3e} [{gpu_line}]")
+            del w, s, w_deq
+    torch.cuda.empty_cache()
+
+
+def _qmm_per_forward(cfg) -> int:
+    """quant_matmul launches of one unfused MoE llama_forward: wq, wk, wv, wo
+    and each expert's w1, w3, w2 a layer, then the lm_head."""
+    return cfg.n_layers * (4 + 3 * cfg.n_experts) + 1
+
+
+@contextlib.contextmanager
+def routes(record=None, force=None, stats=None):
+    """Wrap llm.model._gate_top_k, the router of both MoE blocks: record
+    each call's expert ids and gate logits (record=[]), or replay recorded
+    ones (force=[...]) with the router weights softmaxed from this side's
+    own gate logits, and for each call append to `stats` (tokens whose own
+    top-k set differs, how far the forced picks' lowest logit falls short of
+    the own k-th, the RMS difference of the two sides' gate logits)."""
+    import torch
+    from csinn2_tpu_torch.llm import model as tm
+    orig = tm._gate_top_k
+    calls = None if force is None else iter(force)
+
+    def wrapped(x, gate, k):
+        ids, w = orig(x, gate, k)
+        logits = torch.matmul(x.float(), gate.float())
+        if calls is None:
+            record.append((ids.cpu(), logits.cpu()))
+            return ids, w
+        forced, their = next(calls)
+        forced = forced.to(ids.device)
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        flip = (torch.sort(ids, dim=-1).values != torch.sort(forced, dim=-1).values).any(-1)
+        short = srt[..., k - 1] - logits.gather(-1, forced).min(-1).values
+        noise = (logits - their.to(logits.device)).square().mean().sqrt()
+        stats.append((flip.reshape(-1), short.reshape(-1), noise.reshape(1)))
+        return forced, torch.softmax(logits.gather(-1, forced), dim=-1)
+
+    tm._gate_top_k = wrapped
+    try:
+        yield
+    finally:
+        tm._gate_top_k = orig
+
+
+def moe_parity(mode: str, gpu_line: str):
+    """A 2-layer Mixtral-width model (`mode` weights made on the card from a
+    seed, int8 KV): llama_forward's logits on the card against the port's
+    plain path on the CPU (cosine >= 0.999) at a 128-token prompt (dense),
+    a 512-token prompt (routed by "auto") and 512 under moe_dispatch="dense",
+    each card forward's quant_matmul launches counted (zeroed just before,
+    read just after).
+
+    The router is discontinuous: where a token's k-th and (k+1)-th gate
+    logits nearly tie, the bf16 differences between the card's arithmetic
+    and the plain path's (rows 1a / 1c: bf16(q)·bf16(s) against f32 w·s)
+    can pick another expert, and that token's logits then differ as a
+    different function.  So the CPU forward replays the card's expert picks
+    (routes(), router weights from its own gate logits), which holds every
+    other piece of the forward to the gate; and the picks themselves are
+    held apart: the CPU's own top-k differs from the card's on at most 5 %
+    of (layer, token) pairs, each a near tie — the card's pick falls short
+    of the CPU's own k-th logit by at most 6 σ, σ the RMS difference of the
+    two sides' gate logits over that layer's tokens (the largest of ~10^3
+    differences of two such noises reaches ~4.7 σ).  Returns the launch
+    counts summed over the three card forwards."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key
+    from csinn2_tpu_torch.llm.model import KVCache, init_params_device, llama_forward, moe_routed
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    cfg = mixtral_cfg(2)
+    params = init_params_device(cfg, mode, seed=12, device="cuda")
+    cpu_params = _to(params, "cpu")
+    key = launch_key(*QMM_MODES[mode], swiglu=False)
+    total = {}
+    for T, dispatch in ((128, "auto"), (512, "auto"), (512, "dense")):
+        c = dataclasses.replace(cfg, moe_dispatch=dispatch)
+        toks = torch.from_numpy(np.random.default_rng(T).integers(1, c.vocab_size, (1, T)))
+        picks, stats = [], []
+        reset_launch_counts()
+        with routes(record=picks):
+            gpu, _ = llama_forward(params, toks, KVCache.create(c, 1, quantized=True,
+                                                                device="cuda"), 0, c)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        gpu = gpu.cpu().numpy()
+        t0 = time.perf_counter()
+        with routes(force=picks, stats=stats):
+            cpu, _ = llama_forward(cpu_params, toks, KVCache.create(c, 1, quantized=True,
+                                                                    device="cpu"), 0, c)
+        t_cpu = time.perf_counter() - t0
+        cos = cosine_similarity(gpu, cpu.numpy())
+        flips = torch.cat([f for f, _, _ in stats])
+        # each layer's largest shortfall over its gate-logit noise
+        worst = max(float(sh.max() / sg.clamp(min=1e-30)) for _, sh, sg in stats)
+        sigma = max(float(sg) for _, _, sg in stats)
+        n_qmm = launches(counts, key)
+        log(f"  2-layer Mixtral-width {mode} int8-KV prefill s={T} "
+            f"({'routed' if moe_routed(c, T) else 'dense'}, moe_dispatch={dispatch}): logits "
+            f"{gpu.shape} finite={bool(np.isfinite(gpu).all())} cosine(card, cpu plain on the "
+            f"card's expert picks)={cos:.6f}; the cpu's own picks differ on {int(flips.sum())} "
+            f"of {flips.numel()} (layer, token) pairs, largest shortfall {worst:.2f} sigma "
+            f"(gate-logit noise sigma up to {sigma:.3e}); {key} launches {n_qmm} (want "
+            f"{_qmm_per_forward(c)}); cpu "
+            f"plain path {t_cpu:.1f} s (host clock) [{gpu_line}]")
+        if not (np.isfinite(gpu).all() and cos >= 0.999):
+            raise AssertionError(f"MoE parity {mode} T={T} {dispatch}: cosine {cos}")
+        if flips.sum() > 0.05 * flips.numel() or worst > 6.0:
+            raise AssertionError(f"MoE parity {mode} T={T} {dispatch}: expert picks differ on "
+                                 f"{int(flips.sum())} pairs, shortfall {worst} sigma")
+        if n_qmm != _qmm_per_forward(c) or counts.get(f"{key}.prefill", 0) != n_qmm:
+            raise AssertionError(f"MoE parity {mode} T={T} {dispatch}: launches {counts}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return total
+
+
+def _decode_bytes(params, cfg, pos: int) -> int:
+    """Bytes a dense-MoE decode step at batch 1 must read: every weight
+    (every expert: the dense formulation runs all of them), the norms and
+    gates, one embedding row, and the int8 KV cache up to pos."""
+    import torch
+    from csinn2_tpu_torch.llm.model import _qweights
+    n = sum(q.values.nbytes + (0 if q.scales is None else q.scales.nbytes)
+            for q in _qweights(params))
+    n += sum(v.nbytes for lp in params["layers"] for v in lp.values()
+             if isinstance(v, torch.Tensor))
+    n += params["norm"].nbytes + cfg.dim * 2
+    return n + cfg.n_layers * 2 * pos * cfg.n_kv_heads * cfg.head_dim
+
+
+def moe_full_depth(gpu_line: str, n_layers: int = 32):
+    """Mixtral-8x7B at full depth, Q4_0 weights made on the card from a
+    seed, int8 KV: a 512-token prefill (routed by "auto") and 16 greedy
+    decode steps through llama_forward at s = 1 (dense), timed by CUDA
+    events, with the quant_matmul launches of that run (zeroed just before,
+    read just after) against layers x (4 + 3E) + 1 a forward.  Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key
+    from csinn2_tpu_torch.llm.model import KVCache, init_params_device, llama_forward
+    from csinn2_tpu_torch.utils.timing import event_ms
+    cfg = mixtral_cfg(n_layers)
+    t0 = time.perf_counter()
+    params = init_params_device(cfg, "q4_0", seed=12, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  Mixtral-8x7B ({n_layers} layers) Q4_0 weights made and quantized on the card: "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cache = KVCache.create(cfg, 1, quantized=True, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(12).integers(1, cfg.vocab_size, (1, 512)))
+    llama_forward(params, toks[:, :16], cache, 0, cfg)             # first calls
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = {}
+    pre_ms = event_ms(lambda: out.setdefault("logits", llama_forward(params, toks, cache, 0,
+                                                                     cfg)[0]))
+    nxt = int(out["logits"][0, -1].argmax())
+    step_ms, gen = [], []
+    for i in range(16):
+        tok = torch.tensor([[nxt]])
+        ms = event_ms(lambda: out.__setitem__("step", llama_forward(params, tok, cache,
+                                                                    512 + i, cfg)[0]))
+        step_ms.append(ms)
+        nxt = int(out["step"][0, -1].argmax())
+        gen.append(nxt)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    key = launch_key(*QMM_MODES["q4_0"], swiglu=False)
+    per = _qmm_per_forward(cfg)
+    finite = bool(torch.isfinite(out["logits"]).all() and torch.isfinite(out["step"]).all())
+    nbytes = _decode_bytes(params, cfg, 528)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    med = statistics.median(step_ms[1:])
+    log(f"  Mixtral-8x7B {n_layers}-layer Q4_0 int8 KV: prefill 512 tokens (routed) "
+        f"{pre_ms:.3f} ms; 16 greedy decode steps through llama_forward at s = 1 (dense) "
+        f"median {med:.3f} ms/step (first {step_ms[0]:.3f}), {1e3 / med:.2f} tok/s (CUDA "
+        f"events around each call, host launch gaps included) [{gpu_line}]")
+    log(f"  decode step bytes bound (dense decode reads every expert): {nbytes / 1e9:.3f} GB "
+        f"-> {b_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, {b_ms / med:.3f} of it; "
+        f"tokens {gen}; logits finite={finite}")
+    log(f"  launches of the run: {key}.prefill {counts.get(f'{key}.prefill', 0)} (want "
+        f"{per}), {key}.decode {counts.get(f'{key}.decode', 0)} (want {16 * per}); {counts}")
+    if not finite or not all(0 <= t < cfg.vocab_size for t in gen):
+        raise AssertionError(f"Mixtral full depth: finite={finite} tokens {gen}")
+    if counts.get(f"{key}.prefill", 0) != per or counts.get(f"{key}.decode", 0) != 16 * per:
+        raise AssertionError(f"Mixtral full depth launches {counts}")
+    del params, cache, out
+    torch.cuda.empty_cache()
+    return counts, dict(prefill_ms=pre_ms, step_ms=med, bound_ms=b_ms, layers=n_layers)
+
+
+def moe_path(here: Path, records, gpu_line: str):
+    """Phase 12.  Returns {launch_counts key: counts of the phase's card
+    runs} for quant_matmul (Q8_0 parity) and quant_matmul_q4_0 (Q4_0 parity
+    and the full-depth run)."""
+    check_expert_gemms(records, gpu_line)
+    q8 = moe_parity("q8_0", gpu_line)
+    q4 = moe_parity("q4_0", gpu_line)
+    full, summary = moe_full_depth(gpu_line)
+    records["quant_matmul_q4_0"]["moe_full_depth"] = summary
+    for k, n in full.items():
+        q4[k] = q4.get(k, 0) + n
+    for mode in ("float", "q4_0"):       # the JAX probe's bf16 experts, then Q4_0 ones
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(here / "csinn2_tpu_torch" / "examples" /
+                                                "moe_dispatch_probe.py"), "--mode", mode],
+                           cwd=here, capture_output=True, text=True, timeout=600)
+        for line in r.stdout.splitlines():
+            log(f"  | {line.strip()}")
+        log(f"  moe_dispatch_probe.py --mode {mode}: exit {r.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if r.returncode != 0:
+            raise AssertionError(f"phase 12 moe_dispatch_probe.py --mode {mode}: exit "
+                                 f"{r.returncode}\n{r.stderr[-4000:]}")
+    return {"quant_matmul": q8, "quant_matmul_q4_0": q4}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the LLM weight I/O, GGUF -> convert -> CTBM -> load_llm
+# ---------------------------------------------------------------------------
+
+def _synthetic_gguf(path: str, cfg):
+    """A GGUF at `cfg`'s widths with seeded weights (bench.py's synthetic
+    checkpoint, at Llama-2-7B width): an F16 embedding, Q8_0 linears but
+    blk.0.ffn_down in Q4_0 and blk.1.attn_v in F16, and a 32000-piece
+    SentencePiece vocabulary.  → the float tensors written (GGUF layout)."""
+    import numpy as np
+    from csinn2_tpu_torch.llm.gguf_io import write_gguf
+    rng = np.random.default_rng(13)
+    D, Fd, V = cfg.dim, cfg.ffn_dim, cfg.vocab_size
+    kvd = cfg.n_kv_heads * cfg.head_dim
+
+    def w(o, i):
+        return rng.standard_normal((o, i), dtype=np.float32) * np.float32(0.05)
+
+    t = {"token_embd.weight": w(V, D).astype(np.float16),
+         "output_norm.weight": np.ones((D,), np.float32), "output.weight": w(V, D)}
+    for i in range(cfg.n_layers):
+        b = f"blk.{i}."
+        t.update({b + "attn_norm.weight": np.ones((D,), np.float32),
+                  b + "ffn_norm.weight": np.ones((D,), np.float32),
+                  b + "attn_q.weight": w(D, D), b + "attn_k.weight": w(kvd, D),
+                  b + "attn_v.weight": w(kvd, D), b + "attn_output.weight": w(D, D),
+                  b + "ffn_gate.weight": w(Fd, D), b + "ffn_down.weight": w(D, Fd),
+                  b + "ffn_up.weight": w(Fd, D)})
+    t["blk.1.attn_v.weight"] = t["blk.1.attn_v.weight"].astype(np.float16)
+    quant = {k: "q8_0" for k, v in t.items()
+             if v.ndim == 2 and v.dtype == np.float32 and "embd" not in k}
+    quant["blk.0.ffn_down.weight"] = "q4_0"
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)] \
+        + ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)] + ["▁a", "▁b", "ab"]
+    toks += [f"tok{i}" for i in range(len(toks), V)]
+    md = {"general.architecture": "llama", "general.alignment": 32,
+          "llama.embedding_length": D, "llama.block_count": cfg.n_layers,
+          "llama.attention.head_count": cfg.n_heads,
+          "llama.attention.head_count_kv": cfg.n_kv_heads, "llama.feed_forward_length": Fd,
+          "llama.context_length": cfg.max_seq_len,
+          "llama.attention.layer_norm_rms_epsilon": cfg.norm_eps,
+          "llama.rope.freq_base": cfg.rope_base, "tokenizer.ggml.tokens": toks,
+          "tokenizer.ggml.scores": [0.0] * len(toks), "tokenizer.ggml.bos_token_id": 1,
+          "tokenizer.ggml.eos_token_id": 2}
+    write_gguf(path, md, t, quantize=quant)
+    return t
+
+
+def weight_io_path(here: Path, gpu_line: str):
+    """Phase 13: a synthetic 2-layer GGUF at Llama-2-7B width written by the
+    port, converted by `python -m csinn2_tpu_torch convert --mode q8_0` in a
+    process of its own, load_llm(device="cuda"), its llama_forward logits
+    (launch counts zeroed just before, read just after) against the float
+    forward on the dequantized pre-conversion weights on the card (cosine >=
+    0.999, bench.py's real-weights gate), then llama_generate.py --ckpt on
+    the directory (exit 0, PASS).  Files go to _smoke/ in the checkout and
+    are removed after.  Returns the forward's launch counts."""
+    import shutil
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.gguf_io import GGUFFile
+    from csinn2_tpu_torch.llm.json_io import load_llm
+    from csinn2_tpu_torch.llm.model import KVCache, QWeight, llama_forward
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    cfg = LlamaConfig(dim=4096, n_layers=2, n_heads=32, n_kv_heads=32, ffn_dim=11008,
+                      vocab_size=32000, max_seq_len=2048)
+    work = here / "_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    try:
+        gguf, out = str(work / "llama7b-2l.gguf"), str(work / "ctbm")
+        t0 = time.perf_counter()
+        _synthetic_gguf(gguf, cfg)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "csinn2_tpu_torch", "convert", gguf, out,
+                            "--mode", "q8_0"], cwd=here, capture_output=True, text=True,
+                           timeout=600)
+        t_conv = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"phase 13 convert: exit {r.returncode}\n{r.stderr[-4000:]}")
+        ctbm = os.path.getsize(os.path.join(out, "weights.ctbm"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg2, params = load_llm(out, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        log(f"  GGUF {os.path.getsize(gguf) / 1e9:.3f} GB written in {t_write:.1f} s; "
+            f"convert (CLI, own process) {t_conv:.1f} s -> weights.ctbm {ctbm / 1e9:.3f} GB; "
+            f"load_llm onto the card {t_load:.2f} s = {ctbm / t_load / 1e9:.2f} GB/s (host "
+            f"clock) [{gpu_line}]")
+        widths = ("dim", "n_layers", "n_heads", "n_kv_heads", "ffn_dim", "vocab_size",
+                  "max_seq_len", "rope_base")     # (norm_eps crosses as an f32)
+        if any(getattr(cfg2, f) != getattr(cfg, f) for f in widths):
+            raise AssertionError(f"phase 13 config {cfg2}")
+        toks = torch.arange(16)[None] % cfg.vocab_size
+        reset_launch_counts()
+        logits, _ = llama_forward(params, toks, KVCache.create(cfg, 1, device="cuda"), 0, cfg)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        logits = logits.float().cpu().numpy()
+        del params
+        gg = GGUFFile(gguf)
+
+        def fq(name):
+            return QWeight(values=torch.from_numpy(np.ascontiguousarray(gg.tensor(name).T))
+                           .to("cuda"))
+
+        def vec(name):
+            return torch.from_numpy(np.array(gg.tensor(name))).to("cuda")
+
+        gp = {"tok_embedding": vec("token_embd.weight"), "norm": vec("output_norm.weight"),
+              "output": fq("output.weight"), "layers": []}
+        for i in range(cfg.n_layers):
+            b = f"blk.{i}."
+            gp["layers"].append({
+                "attn_norm": vec(b + "attn_norm.weight"), "ffn_norm": vec(b + "ffn_norm.weight"),
+                "wq": fq(b + "attn_q.weight"), "wk": fq(b + "attn_k.weight"),
+                "wv": fq(b + "attn_v.weight"), "wo": fq(b + "attn_output.weight"),
+                "w1": fq(b + "ffn_gate.weight"), "w2": fq(b + "ffn_down.weight"),
+                "w3": fq(b + "ffn_up.weight")})
+        gg.close()
+        gold, _ = llama_forward(gp, toks, KVCache.create(cfg, 1, device="cuda"), 0, cfg)
+        gold = gold.float().cpu().numpy()
+        del gp
+        torch.cuda.empty_cache()
+        cos = cosine_similarity(logits, gold)
+        n_qmm = launches(counts, "quant_matmul")
+        log(f"  converted Q8_0 logits on the card vs the float forward on the pre-conversion "
+            f"weights: cosine {cos:.6f} (gate 0.999), finite={bool(np.isfinite(logits).all())}; "
+            f"quant_matmul launches {n_qmm} (want {cfg.n_layers * 7 + 1}); {counts}")
+        if not (np.isfinite(logits).all() and cos >= 0.999):
+            raise AssertionError(f"phase 13 logits cosine {cos}")
+        if n_qmm != cfg.n_layers * 7 + 1:
+            raise AssertionError(f"phase 13 launches {counts}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(here / "csinn2_tpu_torch" / "examples" /
+                                                "llama_generate.py"), "--ckpt", out,
+                            "--quant-kv", "--prompt", "a b ab"],
+                           cwd=here, capture_output=True, text=True, timeout=600)
+        lines = [line.strip() for line in r.stdout.splitlines()]
+        for line in lines:
+            log(f"  | {line}")
+        log(f"  llama_generate.py --ckpt: exit {r.returncode}, {time.perf_counter() - t0:.1f} s")
+        if r.returncode != 0 or "PASS" not in lines:
+            raise AssertionError(f"phase 13 llama_generate.py --ckpt: exit {r.returncode}\n"
+                                 f"{r.stderr[-4000:]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "csinn2_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -1816,6 +2286,12 @@ def main() -> int:
         path_counts[f"int4_probe_{kind}"] = (probe_counts, "phase 10 (int4_dequant_probe, M=8)")
     log("phase 11: the port's LLM examples, llama_generate.py and llama7b_bench.py")
     examples_path(here)
+    log("phase 12: MoE at Mixtral-8x7B width (E = 8, top-2), Q8_0 and Q4_0 experts on "
+        "quant_matmul, int8 KV, max_seq_len cut to 2048")
+    moe_counts = moe_path(here, records, gpu_line)
+    log("phase 13: the LLM weight I/O, a Llama-2-7B-width GGUF -> python -m csinn2_tpu_torch "
+        "convert -> load_llm -> logits, llama_generate.py --ckpt")
+    wio_counts = weight_io_path(here, gpu_line)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1838,6 +2314,13 @@ def main() -> int:
         if name.startswith("quant_matmul"):
             entry.update(launches_decode=int(counts.get(f"{name}.decode", 0)),
                          launches_prefill=int(counts.get(f"{name}.prefill", 0)))
+        if name in moe_counts:           # phase 12's card runs (zeroed before each)
+            entry["launches_moe"] = launches(moe_counts[name], name)
+            for extra in ("moe_experts", "moe_full_depth"):
+                if extra in r:
+                    entry[extra] = r[extra]
+        if name == "quant_matmul":       # phase 13's forward on the converted weights
+            entry["launches_weight_io"] = launches(wio_counts, name)
         if name in ATTENTION + ("flash_attention_bhsd",):
             # the split-KV merges of the same source, within `launches`
             entry["launches_combine"] = int(counts.get(f"{name}.combine", 0))

@@ -20,9 +20,13 @@ Layer map (ported so far):
               decode/prefill/flash attention, fused_dsconv (the fused
               depthwise→pointwise int8 block), qconv (int8 conv/fc paths)
   graph/    — graph IR, the ds_block fusion pass
-  runtime/  — Session (eager replay of the recorded graph)
+  runtime/  — Session (eager replay of the recorded graph), the CTBM
+              binary-model format (bm.py on native/bmfmt.cpp, built by g++)
   models/   — NetBuilder, MobileNetV1
-  llm/      — LlamaConfig, model forward, params bridge, sampling, engine
+  llm/      — LlamaConfig, model forward (dense and MoE), params bridge,
+              sampling, engine; weight I/O: GGUF, tokenizer, CTBM model
+              directories (json_io), converters (python -m csinn2_tpu_torch
+              convert)
   utils/    — device helper, verify metrics, config, logging, timing
 """
 

@@ -5,5 +5,6 @@
     python3 -m csinn2_tpu_torch.examples.llama_generate       # the LLM demo (--device cpu)
     python3 -m csinn2_tpu_torch.examples.llama7b_bench        # Llama-2-7B TTFT, decode tok/s
     python3 -m csinn2_tpu_torch.examples.decode_step_profile  # a decode step's kernels (card only)
+    python3 -m csinn2_tpu_torch.examples.moe_dispatch_probe   # MoE dense vs routed dispatch
 
 They run on the card unless called with device="cpu" (--device cpu)."""

@@ -69,12 +69,13 @@ def _sign4(n: torch.Tensor) -> torch.Tensor:
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
-    """[K, N] int8 values in [-8, 7] → [K/2, N] packed bytes."""
-    K = q.shape[0]
+    """[..., K, N] int8 values in [-8, 7] → [..., K/2, N] packed bytes
+    (leading dims: stacked MoE experts, each packed on its own)."""
+    *lead, K, N = q.shape
     if K % BLOCK:
         raise ValueError(f"pack_int4: K={K} is not a multiple of {BLOCK}")
-    q3 = q.reshape(K // BLOCK, BLOCK, -1)
-    return _to_byte(q3[:, :16], q3[:, 16:]).reshape(K // 2, -1)
+    q3 = q.reshape(*lead, K // BLOCK, BLOCK, N)
+    return _to_byte(q3[..., :16, :], q3[..., 16:, :]).reshape(*lead, K // 2, N)
 
 
 def pack_int4_t(qt: torch.Tensor) -> torch.Tensor:

@@ -496,6 +496,12 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     b, s = tokens.shape
     if s != 1:
         raise ValueError(f"decode takes one token per lane, got {s}")
+    if any("gate" in lp for lp in params["layers"]):
+        # the JAX engine's batched decode has no MoE branch either (its
+        # linear fails on the stacked [E, K, N] experts); MoE prefill runs
+        # through llama_forward
+        raise ValueError("the batched decode has no MoE branch: a model with "
+                         "n_experts serves prefill (llama_forward) only")
     x = params["tok_embedding"][tokens.long()]            # [b, 1, D] bf16
     hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     D = hq * dh

@@ -1,6 +1,7 @@
 """Functional Llama forward with weight-only quantized linears and a
 static-shape (optionally int8) KV cache — counterpart of
-csinn2_tpu/llm/model.py, dense path.
+csinn2_tpu/llm/model.py: the dense FFN and the mixture of experts (dense
+no-drop and capacity-routed dispatch over stacked [E, K, N] expert weights).
 
 Params are a plain dict {"tok_embedding", "norm", "output", "layers": [...]}
 whose weights are `QWeight` dataclasses holding tensors.  Unlike the JAX
@@ -50,6 +51,7 @@ class QWeight:
     """[K, N] weight: bf16 values (FLOAT); int8 values [K, N], or int4
     nibble-packed values [K/2, N] (packed=True, kernels.qmatmul.pack_int4);
     scales None, f32 [N] (channel modes) or f32 [K/32, N] (Q8_0, Q4_0).
+    Stacked MoE experts carry a leading [E] on values and scales.
     layout "swiglu128": a fused w1|w3 in 128-column pair order."""
 
     values: torch.Tensor
@@ -68,12 +70,17 @@ class QWeight:
 def quantize_weight(w: np.ndarray, mode: str, device="cuda") -> QWeight:
     """f32 [K, N] host array → QWeight on `device`, with the JAX package's
     host math (same rounding, same f16-rounded block scales, same nibble
-    packing), so the bytes are identical."""
+    packing), so the bytes are identical.  A 3-D [E, K, N] array (stacked
+    MoE experts) quantizes each expert on its own and stacks values and
+    scales on axis 0."""
     dev = resolve_device(device)
     w = np.asarray(w, np.float32)
-    if w.ndim != 2:
-        raise NotImplementedError("stacked MoE weights are not ported yet "
-                                  "(ROADMAP queue A)")
+    if w.ndim == 3:
+        parts = [quantize_weight(w[e], mode, "cpu") for e in range(w.shape[0])]
+        return QWeight(values=torch.stack([p.values for p in parts]).to(dev),
+                       scales=None if parts[0].scales is None
+                       else torch.stack([p.scales for p in parts]).to(dev),
+                       mode=mode, packed=parts[0].packed)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -111,9 +118,9 @@ def _maybe_pack(qw: QWeight) -> QWeight:
 
 
 def quantize_weight_device(w: torch.Tensor, mode: str) -> QWeight:
-    """Quantize an f32 [K, N] tensor where it lies — the counterpart of the
-    JAX package's quantize_weight_jax (same rounding, f16-rounded block
-    scales, same packing)."""
+    """Quantize an f32 [..., K, N] tensor where it lies — the counterpart of
+    the JAX package's quantize_weight_jax (same rounding, f16-rounded block
+    scales, same packing; leading dims are stacked experts)."""
     if mode == FLOAT:
         return QWeight(values=w.to(torch.bfloat16), mode=FLOAT)
     w = w.float()
@@ -121,18 +128,18 @@ def quantize_weight_device(w: torch.Tensor, mode: str) -> QWeight:
         bound = 127.0 if mode == INT8_CHANNEL else 7.0
         amax = w.abs().amax(dim=-2)                        # per out-channel
         scale = torch.where(amax == 0, torch.ones_like(amax), amax / bound)
-        q = torch.round(w / scale).clamp_(-bound - 1.0, bound).to(torch.int8)
+        q = torch.round(w / scale.unsqueeze(-2)).clamp_(-bound - 1.0, bound).to(torch.int8)
         return _maybe_pack(QWeight(values=q, scales=scale, mode=mode))
     if mode in (Q8_0, Q4_0):
         bound = 127.0 if mode == Q8_0 else 7.0
-        K, N = w.shape
-        wb = w.reshape(K // BLOCK_SIZE, BLOCK_SIZE, N)
-        d = (wb.abs().amax(dim=1, keepdim=True) / bound) \
+        *lead, K, N = w.shape
+        wb = w.reshape(*lead, K // BLOCK_SIZE, BLOCK_SIZE, N)
+        d = (wb.abs().amax(dim=-2, keepdim=True) / bound) \
             .to(torch.float16).to(torch.float32)
         q = torch.where(d == 0, torch.zeros_like(wb),
                         torch.round(wb / torch.where(d == 0, torch.ones_like(d), d)))
-        q = q.clamp_(-bound, bound).to(torch.int8).reshape(K, N)
-        return _maybe_pack(QWeight(values=q, scales=d[:, 0, :].contiguous(), mode=mode))
+        q = q.clamp_(-bound, bound).to(torch.int8).reshape(*lead, K, N)
+        return _maybe_pack(QWeight(values=q, scales=d[..., 0, :].contiguous(), mode=mode))
     raise ValueError(f"unknown weight mode {mode!r}")
 
 
@@ -316,16 +323,11 @@ def rope_rotate(x: torch.Tensor, positions, base: float, tables=None):
 # parameters
 # ---------------------------------------------------------------------------
 
-def _check_dense(cfg: LlamaConfig):
-    if cfg.n_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue A)")
-
-
 def init_params(cfg: LlamaConfig, mode: str = FLOAT, seed: int = 0,
                 scale: float = 0.02, device="cuda") -> Dict:
     """Random-init the parameter dict with the JAX package's numpy RNG
-    stream, so the same seed gives the same bytes."""
-    _check_dense(cfg)
+    stream (MoE: the gate and the stacked experts drawn after the attention
+    weights, as there), so the same seed gives the same bytes."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
@@ -340,18 +342,23 @@ def init_params(cfg: LlamaConfig, mode: str = FLOAT, seed: int = 0,
         "output": quantize_weight(w((D, cfg.vocab_size)), mode, dev),
         "layers": [],
     }
+    E = cfg.n_experts
+    ex = (E,) if E else ()                  # stacked experts' leading dim
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        lp = {
             "attn_norm": torch.ones(D, dtype=torch.float32, device=dev),
             "ffn_norm": torch.ones(D, dtype=torch.float32, device=dev),
             "wq": quantize_weight(w((D, D)), mode, dev),
             "wk": quantize_weight(w((D, kvd)), mode, dev),
             "wv": quantize_weight(w((D, kvd)), mode, dev),
             "wo": quantize_weight(w((D, D)), mode, dev),
-            "w1": quantize_weight(w((D, F_)), mode, dev),
-            "w2": quantize_weight(w((F_, D)), mode, dev),
-            "w3": quantize_weight(w((D, F_)), mode, dev),
-        })
+        }
+        if E:
+            lp["gate"] = torch.from_numpy(w((D, E))).to(dev)
+        lp["w1"] = quantize_weight(w(ex + (D, F_)), mode, dev)
+        lp["w2"] = quantize_weight(w(ex + (F_, D)), mode, dev)
+        lp["w3"] = quantize_weight(w(ex + (D, F_)), mode, dev)
+        params["layers"].append(lp)
     return params
 
 
@@ -361,8 +368,9 @@ def init_params_device(cfg: LlamaConfig, mode: str = FLOAT, seed: int = 0,
     with `seed`: only the seed crosses to the card, which at 7B takes seconds
     where the host path takes minutes.  The values are NOT those of the JAX
     package's init_params_device (torch's generator is not JAX's PRNG); use
-    init_params or llm.params.params_from_numpy for weights shared with JAX."""
-    _check_dense(cfg)
+    init_params or llm.params.params_from_numpy for weights shared with JAX.
+    MoE: the f32 gate [D, E] and the stacked experts [E, ...] follow the
+    attention weights."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -382,20 +390,26 @@ def init_params_device(cfg: LlamaConfig, mode: str = FLOAT, seed: int = 0,
         "output": gen_q((D, cfg.vocab_size)),
         "layers": [],
     }
+    E = cfg.n_experts
+    ex = (E,) if E else ()
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        lp = {
             "attn_norm": torch.ones(D, dtype=torch.float32, device=dev),
             "ffn_norm": torch.ones(D, dtype=torch.float32, device=dev),
             "wq": gen_q((D, D)), "wk": gen_q((D, kvd)), "wv": gen_q((D, kvd)),
             "wo": gen_q((D, D)),
-            "w1": gen_q((D, F_)), "w2": gen_q((F_, D)), "w3": gen_q((D, F_)),
-        })
+        }
+        if E:
+            lp["gate"] = w((D, E))
+        lp.update(w1=gen_q(ex + (D, F_)), w2=gen_q(ex + (F_, D)), w3=gen_q(ex + (D, F_)))
+        params["layers"].append(lp)
     return params
 
 
 def quantize_params(params: Dict, mode: str) -> Dict:
     """Requantize a FLOAT params dict to `mode` through the host math of
-    quantize_weight (bytes identical to the JAX package's quantize_params)."""
+    quantize_weight (bytes identical to the JAX package's quantize_params;
+    stacked experts per expert, the f32 MoE gate unchanged)."""
     def conv(qw):
         if not isinstance(qw, QWeight):
             return qw
@@ -530,26 +544,135 @@ def ffn_block(x, layer_params):
     return linear(h, lp["w2"], out_dtype=torch.bfloat16)
 
 
+def _expert_slice(qw: QWeight, e: int) -> QWeight:
+    """Expert e of a stacked weight: values[e] and scales[e] are contiguous
+    views at an offset, which quant_matmul takes without a copy."""
+    return QWeight(values=qw.values[e],
+                   scales=None if qw.scales is None else qw.scales[e],
+                   mode=qw.mode, packed=qw.packed)
+
+
+def _gate_top_k(x: torch.Tensor, gate: torch.Tensor, k: int):
+    """Router: f32 logits x @ gate (full f32 under torch's default, TF32
+    off), their top k with ties to the lower expert index as jax.lax.top_k
+    breaks them (a stable descending sort; torch.topk orders equal values in
+    no fixed way), and the softmax over the k.
+    → (expert ids [..., k], weights [..., k] f32)."""
+    logits = torch.matmul(x.float(), gate.float())
+    topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return topi[..., :k], torch.softmax(topv[..., :k], dim=-1)
+
+
+def _expert_ffn(x: torch.Tensor, lp, e: int) -> torch.Tensor:
+    """Expert e's SwiGLU on x [..., D]: f32 linears, silu(h1)·h3 in f32 cast
+    to bf16, f32 out — the JAX package's expert body."""
+    h1 = linear(x, _expert_slice(lp["w1"], e))
+    h3 = linear(x, _expert_slice(lp["w3"], e))
+    h = (F.silu(h1) * h3).to(torch.bfloat16)
+    return linear(h, _expert_slice(lp["w2"], e))
+
+
+def moe_ffn_block(x, layer_params, cfg: LlamaConfig):
+    """Top-k mixture-of-experts SwiGLU FFN, dense no-drop formulation: every
+    expert computes on all tokens and its router weight (0 where the token
+    did not pick it) scales its output.  x [b, s, D] → f32 [b, s, D].  (The
+    JAX function's EP/TP axes wait for the port's mesh.)"""
+    lp = layer_params
+    E, k = cfg.n_experts, cfg.moe_top_k
+    topi, topw = _gate_top_k(x, lp["gate"], k)
+    # the k picks are distinct experts: a scatter is the one-hot sum exactly
+    wts = torch.zeros(*topi.shape[:-1], E, dtype=torch.float32,
+                      device=x.device).scatter_(-1, topi, topw)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(lp["w1"].values.shape[0]):
+        out = out + wts[..., e:e + 1] * _expert_ffn(x, lp, e)
+    return out
+
+
+def moe_capacity(T: int, cfg: LlamaConfig, capacity_factor: float) -> int:
+    """Tokens an expert's buffer holds: the JAX package's float arithmetic."""
+    return max(1, min(T, int(np.ceil(T * cfg.moe_top_k / cfg.n_experts
+                                     * capacity_factor))))
+
+
+def moe_ffn_block_routed(x, layer_params, cfg: LlamaConfig,
+                         capacity_factor: float = 2.0):
+    """Capacity-routed MoE dispatch, the JAX package's formulation: each
+    (token, choice) pair takes the next slot of its expert's buffer of
+    cap = moe_capacity(T) rows, in token-major order; pairs past cap are
+    dropped and the token's router weights renormalized over its kept
+    choices; each expert computes on its buffer only.  The JAX function's
+    one-hot dispatch and combine einsums become a gather into the buffers
+    and a gather-sum out of them (a slot holds at most one pair, so both are
+    exact).  x [b, s, D] → f32 [b, s, D]."""
+    lp = layer_params
+    b, s, D = x.shape
+    T = b * s
+    E, k = cfg.n_experts, cfg.moe_top_k
+    xt = x.reshape(T, D)
+    topi, topw = _gate_top_k(xt, lp["gate"], k)             # [T, k]
+    cap = moe_capacity(T, cfg, capacity_factor)
+
+    # rank of each pair in its expert's queue: earlier pairs, token-major
+    # (one-hot by comparison: F.one_hot checks its input's range, which
+    # waits for the card)
+    flat = topi.reshape(T * k)
+    oh = (flat[:, None] == torch.arange(E, device=x.device)).long()
+    r = (torch.cumsum(oh, dim=0) - oh).gather(1, flat[:, None]).reshape(T, k)
+    keep = r < cap
+    kept_w = topw * keep
+    denom = kept_w.sum(dim=-1, keepdim=True)
+    kept_w = torch.where(denom > 0, kept_w / torch.clamp(denom, min=1e-9),
+                         torch.zeros_like(kept_w))
+    # a kept pair's slot in the [E·cap] buffers; a dropped one points at an
+    # extra zero row (E·cap), the JAX one-hot's zero row for r >= cap
+    slot = torch.where(keep, topi * cap + r, torch.full_like(r, E * cap))
+    tok = torch.arange(T, device=x.device)[:, None].expand(T, k)
+    xin = torch.zeros((E * cap + 1, D), dtype=torch.bfloat16, device=x.device)
+    xin[slot.reshape(-1)] = xt.to(torch.bfloat16)[tok.reshape(-1)]
+    xin = xin[:E * cap].reshape(E, cap, D)
+    ye = torch.zeros((E * cap + 1, D), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        ye[e * cap:(e + 1) * cap] = _expert_ffn(xin[e], lp, e)
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        out = out + kept_w[:, j:j + 1] * ye[slot[:, j]]
+    return out.reshape(b, s, D)
+
+
+def moe_routed(cfg: LlamaConfig, T: int) -> bool:
+    """llama_forward's dense/routed choice for T = b·s tokens: the JAX
+    package's rule (its v5e crossover: routed from 256 tokens under "auto")."""
+    return cfg.moe_dispatch == "routed" or (cfg.moe_dispatch == "auto" and T >= 256)
+
+
 def llama_forward(params, tokens, cache: KVCache, pos: int, cfg: LlamaConfig,
                   kv_bound: Optional[int] = None):
     """tokens [b, s] → (logits [b, s, V] f32, cache).  One function for
-    prefill (s = prompt) and decode (s = 1); the cache is updated in place."""
+    prefill (s = prompt) and decode (s = 1); the cache is updated in place.
+    A layer with a "gate" runs the MoE FFN, routed or dense by moe_routed."""
     emb = params["tok_embedding"]
     tokens = torch.as_tensor(tokens, device=emb.device).long()
     x = emb[tokens]                                       # [b, s, D] bf16
     # RoPE trig is position-only: once per forward, shared by all layers
     tabs = rope_tables(pos + torch.arange(tokens.shape[1], device=emb.device),
                        cfg.head_dim, cfg.rope_base)
+    routed = moe_routed(cfg, tokens.shape[0] * tokens.shape[1])
     for i, lp in enumerate(params["layers"]):
-        if "gate" in lp:
-            raise NotImplementedError("MoE is not ported yet (ROADMAP queue A)")
         lp = {**lp, "_rope_tables": tabs}
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         attn_out, cache = attention_block(h.to(torch.bfloat16), lp, cache, i,
                                           pos, cfg, kv_bound=kv_bound)
         x = x + attn_out.to(x.dtype)
-        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + ffn_block(h.to(torch.bfloat16), lp).to(x.dtype)
+        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(torch.bfloat16)
+        if "gate" not in lp:
+            ffn_out = ffn_block(h, lp)
+        elif routed:
+            ffn_out = moe_ffn_block_routed(h, lp, cfg,
+                                           capacity_factor=cfg.moe_capacity_factor)
+        else:
+            ffn_out = moe_ffn_block(h, lp, cfg)
+        x = x + ffn_out.to(x.dtype)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     logits = linear(x.to(torch.bfloat16), params["output"])
     return logits, cache

@@ -13,7 +13,8 @@ of 128 heads on one latent head, its shared-memory mirror) with an f32
 or bf16 q in all four entry points, odd KV lengths, GQA, bf16 KV, a fully masked lane, strided K/V views, bhsd flash_attention with a
 strided q, the split-KV flash decode at kv_len 0 to 2048 with sq 1 and 3,
 ragged query rows, and LlamaConfig.tiny() served on the card against the
-CPU path, with and without CSINN2_DECODE_ATTN=flash; the engine's captured
+CPU path, with and without CSINN2_DECODE_ATTN=flash; the MoE blocks (dense
+and routed, dropping tokens too) over stacked expert weights; the engine's captured
 decode-step graph against its eager loop (tiny() with and without flash
 decode, a 2-layer 7B-width Q4_0 model: greedy, seeded and top-k / top-p
 chunks, an admission between chunks, a kv_bound change, launch counts,
@@ -841,6 +842,36 @@ def test_engine_tiny_attention_on_the_card(dev, monkeypatch, flash, mode, quanti
             assert np.isfinite(gpu[sid]).all()
             assert cosine_similarity(gpu[sid], cpu[sid]) >= 0.999
         nxt = {sid: int(np.argmax(cpu[sid])) for sid in nxt}
+
+
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0", "int8"])
+@pytest.mark.parametrize("block,factor", [("dense", None), ("routed", 2.0), ("routed", 0.25)])
+def test_moe_blocks_on_the_card(dev, mode, block, factor):
+    """The MoE blocks on the card against the CPU path on the same input
+    (LlamaConfig.tiny_moe(8), 96 tokens; the routed one also dropping
+    tokens at factor 0.25): each expert's three projections launch
+    quant_matmul on views of the stacked weights, 3 E launches a call."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.model import (init_params, moe_ffn_block,
+                                            moe_ffn_block_routed)
+    cfg = LlamaConfig.tiny_moe(n_experts=8)
+    lps = [init_params(cfg, mode, seed=6, device=dv)["layers"][0] for dv in ("cpu", "cuda")]
+    x = torch.randn((2, 48, cfg.dim), generator=torch.Generator().manual_seed(6)) \
+        .to(torch.bfloat16)
+
+    def run(lp, xx):
+        if block == "dense":
+            return moe_ffn_block(xx, lp, cfg)
+        return moe_ffn_block_routed(xx, lp, cfg, capacity_factor=factor)
+
+    before = sum(n for k, n in launch_counts.items() if k.startswith("quant_matmul"))
+    gpu = run(lps[1], x.to(dev))
+    torch.cuda.synchronize()
+    after = sum(n for k, n in launch_counts.items() if k.startswith("quant_matmul"))
+    assert after - before == 3 * cfg.n_experts
+    gpu, cpu = gpu.cpu().numpy(), run(lps[0], x).numpy()
+    assert np.isfinite(gpu).all() and cosine_similarity(gpu, cpu) >= 0.9999
+    assert np.abs(gpu - cpu).max() <= 1e-2 * np.abs(cpu).max()
 
 
 def _ds_case(gen, dev, N, H, W, C, O, k):

@@ -8,8 +8,8 @@ Gates: greedy tokens equal to the JAX engine's, and the slots' positions,
 activity and token histories equal after each call; the benchmark methods
 return finite positive numbers; the long-minus-short helper returns the
 marginal cost of one iteration on a fake clock; the port's
-llama_generate.py runs at its defaults on the CPU without JAX, and its
---ckpt raises (the weight I/O is not ported)."""
+llama_generate.py runs at its defaults on the CPU without JAX, and with
+--ckpt serves a model directory converted by the port's command line."""
 
 import importlib.util
 import os
@@ -211,10 +211,47 @@ def test_llama_generate_runs_on_the_cpu_without_jax():
     assert any(line.startswith("decode throughput (eager loop, device loop)") for line in lines)
 
 
-def test_llama_generate_ckpt_is_not_ported():
-    """--ckpt needs the weight I/O (ROADMAP queue A item 8): it raises."""
+def test_llama_generate_ckpt_is_not_ported(tmp_path, capsys):
+    """--ckpt, once refused, serves a converted directory: a tiny GGUF with a
+    vocabulary, converted by `python -m csinn2_tpu_torch convert`, then
+    load_llm, its tokenizer, generate_fused and benchmark_decode_device on
+    the CPU; it prints PASS."""
+    from csinn2_tpu_torch.llm.gguf_io import write_gguf
+    cfg = TConfig.tiny(vocab=300)
+    rng = np.random.default_rng(0)
+    D, Fd, kvd = cfg.dim, cfg.ffn_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def w(o, i):
+        return (rng.standard_normal((o, i)) * 0.05).astype(np.float32)
+
+    t = {"token_embd.weight": w(cfg.vocab_size, D), "output_norm.weight": np.ones(D, np.float32),
+         "output.weight": w(cfg.vocab_size, D)}
+    for i in range(cfg.n_layers):
+        b = f"blk.{i}."
+        t.update({b + "attn_norm.weight": np.ones(D, np.float32),
+                  b + "ffn_norm.weight": np.ones(D, np.float32),
+                  b + "attn_q.weight": w(D, D), b + "attn_k.weight": w(kvd, D),
+                  b + "attn_v.weight": w(kvd, D), b + "attn_output.weight": w(D, D),
+                  b + "ffn_gate.weight": w(Fd, D), b + "ffn_down.weight": w(D, Fd),
+                  b + "ffn_up.weight": w(Fd, D)})
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)] + ["▁", "▁a", "b"]
+    toks += [f"tok{i}" for i in range(len(toks), cfg.vocab_size)]
+    md = {"general.architecture": "llama", "llama.embedding_length": D,
+          "llama.block_count": cfg.n_layers, "llama.attention.head_count": cfg.n_heads,
+          "llama.attention.head_count_kv": cfg.n_kv_heads, "llama.feed_forward_length": Fd,
+          "llama.context_length": cfg.max_seq_len, "tokenizer.ggml.tokens": toks,
+          "tokenizer.ggml.scores": [0.0] * len(toks)}
+    write_gguf(str(tmp_path / "m.gguf"), md, t,
+               quantize={k: "q8_0" for k, v in t.items() if v.ndim == 2 and "embd" not in k})
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-m", "csinn2_tpu_torch", "convert",
+                        str(tmp_path / "m.gguf"), str(tmp_path / "m"), "--mode", "q8_0"],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
     spec = importlib.util.spec_from_file_location("port_llama_generate", LLAMA_GENERATE)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mod.main(["--ckpt", "model_dir", "--device", "cpu"])
+    assert mod.main(["--ckpt", str(tmp_path / "m"), "--device", "cpu", "--quant-kv",
+                     "--tokens", "4", "--prompt", "a b"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert "PASS" in lines and any(x.startswith("prompt -> ") for x in lines), lines

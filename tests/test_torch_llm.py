@@ -355,9 +355,10 @@ def test_engine_needs_cuda_unless_cpu_asked(weights, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running its CPU forward, engine, a small
-    fused MobileNetV1 INT8 session and the Q4_0 dequant probe loads neither
-    jax nor any module of the JAX package."""
+    """Importing the port and running its CPU forward, engine, an MoE
+    forward (dense and routed), a GGUF convert / CTBM load round trip, a
+    small fused MobileNetV1 INT8 session and the Q4_0 dequant probe loads
+    neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -372,6 +373,47 @@ def test_port_imports_no_jax():
         "    eng = InferenceEngine(cfg, init_params(cfg, mode, device='cpu'), batch=1,\n"
         "                          quantized_kv=True, device='cpu')\n"
         "    assert len(eng.generate_fused([1, 2, 3], max_new_tokens=3)) == 3\n"
+        "import dataclasses, tempfile\n"
+        "import numpy as np\n"
+        "from csinn2_tpu_torch.llm.model import KVCache, llama_forward\n"
+        "for disp in ('dense', 'routed'):\n"
+        "    mcfg = dataclasses.replace(LlamaConfig.tiny_moe(4), moe_dispatch=disp)\n"
+        "    lg, _ = llama_forward(init_params(mcfg, 'q4_0', device='cpu'),\n"
+        "                          torch.arange(8)[None], KVCache.create(mcfg, 1, device='cpu'),\n"
+        "                          0, mcfg)\n"
+        "    assert lg.shape == (1, 8, mcfg.vocab_size) and bool(torch.isfinite(lg).all())\n"
+        "import csinn2_tpu_torch.__main__, csinn2_tpu_torch.examples.moe_dispatch_probe\n"
+        "from csinn2_tpu_torch.llm.gguf_io import write_gguf\n"
+        "from csinn2_tpu_torch.llm.convert import convert_gguf\n"
+        "from csinn2_tpu_torch.llm.json_io import load_llm, save_llm\n"
+        "from csinn2_tpu_torch.llm.tokenizer import load_tokenizer\n"
+        "from csinn2_tpu_torch.runtime.bm import load_bm\n"
+        "rng = np.random.default_rng(0)\n"
+        "D, V, Fd, kvd = cfg.dim, cfg.vocab_size, cfg.ffn_dim, cfg.n_kv_heads * cfg.head_dim\n"
+        "w = lambda o, i: (rng.standard_normal((o, i)) * 0.05).astype(np.float32)\n"
+        "t = {'token_embd.weight': w(V, D), 'output_norm.weight': np.ones(D, np.float32),\n"
+        "     'output.weight': w(V, D)}\n"
+        "for i in range(cfg.n_layers):\n"
+        "    b = f'blk.{i}.'\n"
+        "    t.update({b + 'attn_norm.weight': np.ones(D, np.float32),\n"
+        "              b + 'ffn_norm.weight': np.ones(D, np.float32), b + 'attn_q.weight': w(D, D),\n"
+        "              b + 'attn_k.weight': w(kvd, D), b + 'attn_v.weight': w(kvd, D),\n"
+        "              b + 'attn_output.weight': w(D, D), b + 'ffn_gate.weight': w(Fd, D),\n"
+        "              b + 'ffn_down.weight': w(D, Fd), b + 'ffn_up.weight': w(Fd, D)})\n"
+        "toks = ['<unk>', '<s>', '</s>'] + [f'<0x{i:02X}>' for i in range(256)]\n"
+        "md = {'general.architecture': 'llama', 'llama.embedding_length': D,\n"
+        "      'llama.block_count': cfg.n_layers, 'llama.attention.head_count': cfg.n_heads,\n"
+        "      'llama.attention.head_count_kv': cfg.n_kv_heads,\n"
+        "      'llama.feed_forward_length': Fd, 'tokenizer.ggml.tokens': toks}\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    write_gguf(d + '/m.gguf', md, t, quantize={'blk.0.ffn_down.weight': 'q8_0'})\n"
+        "    ccfg, cp = load_llm(convert_gguf(d + '/m.gguf', d + '/m', mode='q4_0'), device='cpu')\n"
+        "    assert load_tokenizer(d + '/m').encode('ab', bos=True)[0] == 1\n"
+        "    lg, _ = llama_forward(cp, torch.arange(4)[None], KVCache.create(ccfg, 1, device='cpu'),\n"
+        "                          0, ccfg)\n"
+        "    assert bool(torch.isfinite(lg).all())\n"
+        "    save_llm(d + '/again', ccfg, cp)\n"
+        "    assert len(load_bm(d + '/again/weights.ctbm')) == len(load_bm(d + '/m/weights.ctbm'))\n"
         "import os\n"
         "os.environ['CSINN2_FUSE_DS'] = '1'\n"
         "from csinn2_tpu_torch.core.dtypes import QuantScheme\n"

@@ -187,11 +187,15 @@ def test_tensor_from_numpy_bfloat16_bits():
 
 @pytest.mark.parametrize("mode", [jm.INT8_CHANNEL, jm.Q4_0])
 def test_unported_modes_raise(rng, mode):
-    """Every weight mode is ported for 2-D weights; stacked MoE weights
-    [E, K, N] are not (ROADMAP queue A) and raise in every mode."""
+    """Stacked MoE weights [E, K, N], once refused, now quantize per expert
+    and stack on axis 0 with the JAX package's bytes (packed int4 as
+    [E, K/2, N]); tests/test_torch_moe.py holds every mode."""
     w = rng.standard_normal((2, 64, 32)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.quantize_weight(w, mode, device="cpu")
+    jq = jm.quantize_weight(w, mode)
+    tq = tm.quantize_weight(w, mode, device="cpu")
+    assert (tq.mode, tq.packed, tuple(tq.shape)) == (jq.mode, jq.packed, (2, 64, 32))
+    assert np.array_equal(_tbytes(tq.values), _jbytes(jq.values))
+    assert np.array_equal(_tbytes(tq.scales), _jbytes(jq.scales))
 
 
 def test_device_default_needs_cuda(monkeypatch):
