@@ -131,6 +131,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      gate) with the forward's quant_matmul launches counted, then
      llama_generate.py --ckpt on the directory, which must exit 0 and print
      PASS.  Its files live in _smoke/ under the checkout and are removed.
+ 14. tensor, data and expert parallelism (csinn2_tpu_torch/parallel/), its
+     ranks spawned after phase 1's build (no rank builds a kernel) and
+     sharing the one card over gloo, whose collectives are staged through
+     the host (NCCL refuses two ranks on a device): (a) quant_matmul at a
+     rank's GEMM shapes under tp = 2 (Llama-2-7B wqkv, wo, w13, w2 with K
+     5504, lm_head; a Mixtral-8x7B expert's w1/w3 and w2 under tp = 2 x ep =
+     2) in Q8_0 and Q4_0 at M = 1, 4 (cold), 128 and 2048, and the three
+     attention kernels at 16 heads, each against its plain version, timed
+     beside its bound and torch.matmul / SDPA; (b) tp = 2: two ranks each
+     make phase 4's Q8_0 Llama-2-7B (32 layers) on the card from its seed,
+     keep their shard (InferenceEngine(batch=4, mesh=...)), run_queue over
+     phase 4's six requests: tokens identical on both ranks, the logits of
+     a 128-token prefill and of the first decode step against phase 4's
+     single-process engine (cosine >= 0.999), the share of tokens equal to
+     phase 4's, each rank's launches, the collectives a decode step and one
+     all_reduce's host-clock time (gloo's staging, not a TP speed); (c) tp =
+     2 x dp = 2 on four ranks, 7B width, 4 layers, Q4_0, requests in both dp
+     groups, against a single-process engine of the same model; (d) EP at
+     Mixtral-8x7B width (2 layers): ep = 2 on two ranks, then tp = 2 x ep = 2
+     on four, Q8_0 and Q4_0, the logits of a 128-token prompt and of one
+     decode step against the single-process llama_forward (cosine >=
+     0.999); (e) csinn2_tpu_torch/examples/multihost_dryrun.py --device cuda
+     in a process of its own (must print PASS); (f) with two cards or more,
+     (b) again over NCCL, one card a rank, through the step graph, tokens
+     equal to (b)'s — with one card it logs "NCCL path: not run" and the
+     kernels line's "mesh" record says so.
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -143,7 +169,7 @@ Each path's run zeroes the launch counts just before it and reads them just
 after.  No phase uses torch.profiler: once it has traced,
 host-side launches stay slower for the rest of the process, which would skew
 the serving phases.  The last two lines are the kernels' JSON record and the
-run's JSON result.
+run's JSON result; the kernels line also carries phase 14's summary under "mesh".
 """
 
 from __future__ import annotations
@@ -351,7 +377,7 @@ def check_gemm_plan():
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     n = 0
     for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (4096, 22528), (11008, 4096),
-                 (4096, 32000)):
+                 (4096, 32000)) + tuple((K, N) for _, K, N, _ in SHARD_SHAPES):
         for M in (1, 2, 4, 8, 16, 17, 32, 64, 128, 512, 1024, 2048):
             for swiglu, reduce_epi in ((False, False), (True, False), (False, True)):
                 want = tq.kernel_workspace_floats(M, N, K, swiglu, reduce_epi, 0)
@@ -360,7 +386,7 @@ def check_gemm_plan():
                     raise AssertionError(f"GEMM plan mirror M={M} K={K} N={N}: {got} floats, "
                                          f"the library {want}")
                 n += 1
-    log(f"  GEMM plan mirror = library workspace at {n} 7B cases; w13 M=128: "
+    log(f"  GEMM plan mirror = library workspace at {n} 7B and tp-shard cases; w13 M=128: "
         f"{tq.gemm_plan(128, 22016, 4096, False, n_sm)}")
     n = 0
     for K, N in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)):
@@ -407,16 +433,26 @@ def _decode_cold(g, b, hk, S, d, kv_scale, run, lib):
     return ms, lib_ms
 
 
-def check_attention(records):
+def check_attention(records, heads: int = 32, tag: str = None):
+    """The three attention kernels at Llama-2-7B's head dim over `heads`
+    query and KV heads (16: a rank's under tp = 2).  tag: the records go
+    under records[name][tag][shape] (the tp-shard rows of phase 14), not
+    over the kernel's own record."""
     import torch
     import torch.nn.functional as F
     from csinn2_tpu_torch.kernels import flash_attention as fa
     from csinn2_tpu_torch.utils.timing import gpu_ms
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    hq = hk = 32
+    hq = hk = heads
     d, kv_scale = 128, 0.05          # the engine's default int8 KV scale
     sm = 1.0 / math.sqrt(d)
+
+    def put(name, rec):
+        if tag is None:
+            records[name] = rec
+        else:
+            records.setdefault(name, {}).setdefault(tag, {})[rec["shape"]] = rec
 
     # decode: b=4, one lane with kv_len = 0 (an inactive continuous-batching slot)
     worst = 0.0
@@ -446,7 +482,7 @@ def check_attention(records):
         lib = gpu_ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
         n_kv = int(kv_len.clamp(max=S).sum())
         b_ms, b_by = bound(b * hq * d * 2 * 2 + 2 * n_kv * hk * d, 4.0 * n_kv * hq * d)
-        log(f"  decode_attention b={b} S={S:4d} kv_len={kv_len.tolist()} ms={ms:.4f} "
+        log(f"  decode_attention b={b} hq=hk={hq} S={S:4d} kv_len={kv_len.tolist()} ms={ms:.4f} "
             f"plain_ms={plain:.4f} lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"roofline={b_ms / ms:.3f} {r}")
         if S == 2048:
@@ -457,11 +493,12 @@ def check_attention(records):
                 lambda kd, vd: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
             log(f"  decode_attention cold (KV copies beyond twice the L2): ms={cold:.4f} "
                 f"lib_ms={lib_cold:.4f} bound_ms={b_ms:.4f} roofline={b_ms / cold:.3f}")
-            records["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                               bound_ms=b_ms, bound_by=b_by, ms_cold=cold,
-                                               library_ms_cold=lib_cold,
-                                               shape=f"b=4 hq=hk=32 d=128 S={S}")
-    records["decode_attention"]["max_abs_err"] = worst
+            put("decode_attention", dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                         bound_ms=b_ms, bound_by=b_by, ms_cold=cold,
+                                         library_ms_cold=lib_cold,
+                                         shape=f"b=4 hq=hk={hq} d=128 S={S}"))
+    rec = records["decode_attention"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), worst)
 
     # prefill (whole KV fits 8 MiB) and flash (bshd, longer prompts).  The
     # engine pads a prompt to its bucket, so run_queue gives the 128-token
@@ -493,13 +530,13 @@ def check_attention(records):
         lib = gpu_ms(lambda: F.scaled_dot_product_attention(qh, kd, vd, is_causal=True))
         pairs = sq * (sq + 1) // 2               # causal (query, key) pairs, q_offset 0
         b_ms, b_by = bound(sq * hq * d * 2 * 2 + 2 * kvl * hk * d, 4.0 * pairs * hq * d)
-        log(f"  {name} sq={sq} S={S} kv_len={kvl} ms={ms:.4f} plain_ms={plain:.4f} "
+        log(f"  {name} hq=hk={hq} sq={sq} S={S} kv_len={kvl} ms={ms:.4f} plain_ms={plain:.4f} "
             f"lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} {r}")
         worst = max(records.get(name, {}).get("max_abs_err", 0.0), r.max_abs_err)
         if record:
-            records[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                                 bound_by=b_by, shape=f"b=1 sq={sq} S={S} kv_len={kvl} "
-                                                      "hq=hk=32 d=128")
+            put(name, dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                           bound_by=b_by, shape=f"b=1 sq={sq} S={S} kv_len={kvl} "
+                                                f"hq=hk={hq} d=128"))
         records.setdefault(name, {})["max_abs_err"] = worst
         del k, v
 
@@ -1430,7 +1467,8 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     del eng, loops, decode_steps, counted
     torch.cuda.empty_cache()
     return dict(counts=counts, outs=outs, tps=tps, steps=steps[0],
-                reduce_per_step=reduce_per_step)
+                reduce_per_step=reduce_per_step, prefill_logits=logits,
+                step_logits=np.stack([step_logits[sid] for sid in range(4)]), first=first)
 
 
 def serve_tiny():
@@ -2200,6 +2238,452 @@ def weight_io_path(here: Path, gpu_line: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor, data and expert parallelism over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (label, K, N, out dtype) of a rank's GEMMs at tp = 2: the Llama-2-7B
+# projections (wqkv and w13 fused and interleaved per shard, w2's K 5504 = 172
+# blocks of 32) and a Mixtral-8x7B expert's under tp = 2 x ep = 2
+SHARD_SHAPES = (("wqkv/tp2", 4096, 6144, "bf16"), ("wo/tp2", 2048, 4096, "bf16"),
+                ("w13/tp2", 4096, 11008, "bf16"), ("w2/tp2", 5504, 4096, "bf16"),
+                ("lm_head/tp2", 4096, 16000, "f32"), ("expert w1/w3/tp2", 4096, 7168, "f32"),
+                ("expert w2/tp2", 7168, 4096, "f32"))
+SHARD_MS = (1, 4, 128, 2048)
+MESH_TIMEOUT_S = 300
+# (b)'s model cut to this depth for the cosine gate of 0.999: at 32 layers
+# the seeded random-weight 7B model amplifies rounding alone past that gate
+# (one bf16 ulp of noise on its embedding moves its logits to a cosine near
+# 0.98, _noise_floor), so there the sharded run is held to that floor
+PARITY_LAYERS = 2
+
+
+def check_shard_gemms(records, gpu_line):
+    """quant_matmul at the shard shapes, Q8_0 and Q4_0, M = 1, 4 (cold), 128
+    and 2048: each against quant_matmul_ref, timed beside its bound, the
+    plain version and torch.matmul on the dequantized bf16 weight.  Records
+    records[key]["tp_shards"][label M] per mode."""
+    import torch
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key, quant_matmul, quant_matmul_ref
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    for mode in ("q8_0", "q4_0"):
+        scale_mode, packed = QMM_MODES[mode]
+        key = launch_key(scale_mode, packed, swiglu=False)
+        for label, K, N, odt in SHARD_SHAPES:
+            odt = torch.bfloat16 if odt == "bf16" else torch.float32
+            kw = dict(scale_mode=scale_mode, packed_int4=packed, out_dtype=odt)
+            w, s, w_deq = _qmm_weights(g, mode, K, N)
+            for M in SHARD_MS:
+                x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+                y = quant_matmul(x, w, s, **kw).float().cpu().numpy()
+                ref = quant_matmul_ref(x, w, s, **kw).float().cpu().numpy()
+                err = float(abs(y - ref).max())
+                cos, rel = cosine_similarity(y, ref), err / float(abs(ref).max())
+                if not (cos >= 0.9999 and rel <= 1e-2):
+                    raise AssertionError(f"shard {label} {mode} M={M}: cos={cos} rel={rel}")
+                if M <= 16:
+                    ms, lib = _gemm_cold(x, w, s, w_deq,
+                                         lambda wc, sc: quant_matmul(x, wc, sc, **kw))
+                else:
+                    ms = gpu_ms(lambda: quant_matmul(x, w, s, **kw))
+                    lib = gpu_ms(lambda: torch.matmul(x, w_deq))
+                plain = gpu_ms(lambda: quant_matmul_ref(x, w, s, **kw), reps=3)
+                osz = 2 if odt == torch.bfloat16 else 4
+                b_ms, b_by = bound(M * K * 2 + w.numel() + s.numel() * 4 + M * N * osz,
+                                   2.0 * M * N * K)
+                rec = records.setdefault(key, {})
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+                rec.setdefault("tp_shards", {})[f"{label} M={M}"] = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                    cold=M <= 16)
+                log(f"  {key} {label:17s} M={M:4d} K={K:5d} N={N:5d} "
+                    f"ms={ms:.4f}{' cold' if M <= 16 else ''} plain_ms={plain:.4f} "
+                    f"lib_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f} "
+                    f"cos={cos:.6f} max_abs_err={err:.3e} [{gpu_line}]")
+            del w, s, w_deq
+    torch.cuda.empty_cache()
+
+
+def _mesh_prompts(cfg):
+    """Phase 4's six prompts (5..1100 tokens, seeded)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(1, cfg.vocab_size, n)] for n in PROMPTS]
+
+
+def _parity_probe(eng, cfg, first=None):
+    """The logits of a 128-token prefill into lane 0 and of one decode step
+    of all four lanes at position 128 (phase 4's sequence), fed the tokens
+    `first` (the reference's) where given, else those the engine samples
+    from its prefills."""
+    import numpy as np
+    prompt = _mesh_prompts(cfg)[2]
+    logits = eng.prefill(0, prompt)
+    if first is None:
+        first = {sid: eng.prefill_sample(sid, prompt) for sid in range(4)}
+    else:
+        for sid in range(4):
+            eng.prefill(sid, prompt)
+    step = eng.decode_step(first)
+    return dict(logits=logits, step=np.stack([step[sid] for sid in range(4)]), first=first)
+
+
+def _engine_probe(eng, cfg, n_new=16, first=None):
+    """run_queue over the six prompts with its launch counts and decode
+    steps, then _parity_probe."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.llm.engine import Request
+    prompts = _mesh_prompts(cfg)
+    steps = [0]
+    decode_steps = eng.decode_steps
+
+    def counted(next_tokens, n_steps, **kw):
+        steps[0] += n_steps
+        return decode_steps(next_tokens, n_steps, **kw)
+
+    eng.decode_steps = counted
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_queue([Request(prompt=p, max_new_tokens=n_new) for p in prompts], chunk=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    del eng.decode_steps
+    return dict(outs=[list(r.out) for r in done], slots=[r.slot for r in done], counts=counts,
+                wall=wall, steps=steps[0], **_parity_probe(eng, cfg, first))
+
+
+def _collective_ms(mesh, shape, dtype, reps=50):
+    """Host-clock ms of one all_reduce over tp of a CUDA tensor (synchronised
+    before and after each): under gloo, its staging through the host."""
+    import torch
+    from csinn2_tpu_torch.parallel.mesh import all_reduce
+    x = torch.ones(shape, dtype=dtype, device=mesh.device)
+    for _ in range(3):
+        all_reduce(x, mesh.tp_group, "timing")
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce(x, mesh.tp_group, "timing")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_engine_job(mode: str, n_layers: int, tp: int, dp: int, first: dict,
+                    parity_first: dict = None):
+    """One rank of phase 14 (b), (c) and (f): Llama-2-7B geometry at
+    n_layers, `mode` weights made whole on the card from phase 4's seed,
+    sharded by InferenceEngine(batch=4, mesh=make_mesh(tp, dp)) (the rest
+    freed), int8 KV: _engine_probe, then one 8-step decode chunk timed by
+    the host clock with its collectives counted, and one all_reduce of a
+    decode step's and of a 128-token prefill's shape timed alone.  first:
+    the single-process run's first tokens, which the decode step is fed.
+    parity_first: then the same model cut to PARITY_LAYERS, _parity_probe
+    fed these tokens (its single-process run's)."""
+    import dataclasses
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params_device
+    from csinn2_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(tp=tp, dp=dp, device="cuda")
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=n_layers)
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, init_params_device(cfg, mode, seed=0, device=mesh.device),
+                          batch=4, quantized_kv=True, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build = time.perf_counter() - t0
+    mem = torch.cuda.memory_allocated(mesh.device) / 2**30
+    out = _engine_probe(eng, cfg, first=first)
+    nxt = {sid: int(out["step"][sid].argmax()) for sid in range(4)}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.decode_steps(nxt, 8)
+    torch.cuda.synchronize()
+    out["chunk_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 8
+    out["chunk_counts"] = dict(launch_counts)
+    out.update(mesh=str(mesh), backend=mesh.backend(), graph=eng._graph, build_s=build,
+               mem_gib=mem, coords=mesh.coords, n_graphs=len(eng._graphs),
+               ar_decode_ms=_collective_ms(mesh, (eng.b_loc, 1, cfg.dim), torch.float32),
+               ar_prefill_ms=_collective_ms(mesh, (1, 128, cfg.dim), torch.bfloat16, reps=20))
+    del out["first"]
+    if parity_first is not None:
+        del eng
+        torch.cuda.empty_cache()
+        cfg2 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+        eng = InferenceEngine(cfg2, init_params_device(cfg2, mode, seed=0, device=mesh.device),
+                              batch=4, quantized_kv=True, mesh=mesh)
+        out["parity"] = _parity_probe(eng, cfg2, parity_first)
+    return out
+
+
+def mesh_moe_job(axes: dict, modes=("q8_0", "q4_0")):
+    """One rank of phase 14 (d): Mixtral-8x7B width (2 layers), each mode's
+    weights made whole on the card (seed 14), this rank's experts (and, with
+    a tp axis, its shard of each) kept; the logits of a 128-token prompt and
+    of one decode step at position 128, with the launches of the two
+    forwards."""
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.llm.model import KVCache, init_params_device
+    from csinn2_tpu_torch.parallel.ep import ep_llama_forward, shard_moe_params
+    from csinn2_tpu_torch.parallel.mesh import Mesh
+    from csinn2_tpu_torch.parallel.tp import local_config, shard_llama_params, tp_llama_forward
+    mesh = Mesh(axes, device="cuda")
+    cfg = mixtral_cfg(2)
+    out = {"mesh": str(mesh)}
+    for mode in modes:
+        full = init_params_device(cfg, mode, seed=14, device=mesh.device)
+        if "tp" in axes:
+            params, fwd = shard_llama_params(full, mesh), tp_llama_forward(mesh, cfg)
+        else:
+            params, fwd = shard_moe_params(full, mesh), ep_llama_forward(mesh, cfg)
+        del full
+        torch.cuda.empty_cache()
+        cache = KVCache.create(local_config(cfg, mesh.size("tp")), 1, quantized=True,
+                               device=mesh.device)
+        toks = _moe_tokens(cfg)
+        reset_launch_counts()
+        logits, cache = fwd(params, toks, cache, 0)
+        step, _ = fwd(params, toks[:, -1:], cache, toks.shape[1])
+        torch.cuda.synchronize()
+        out[mode] = dict(logits=logits[0, -1].float().cpu().numpy(),
+                         step=step[0, -1].float().cpu().numpy(), counts=dict(launch_counts),
+                         experts=int(params["layers"][0]["w1"].values.shape[0]))
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_tokens(cfg):
+    import torch
+    g = torch.Generator().manual_seed(14)
+    return torch.randint(1, cfg.vocab_size, (1, 128), generator=g)
+
+
+def _cos(a, b) -> float:
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    return float(cosine_similarity(a, b))
+
+
+def _check_mesh_run(label, ranks, ref, gpu_line, mode, floor=None, parity=None):
+    """Every rank's tokens equal; every rank launched the path's kernels;
+    the prefill and first-step logits of each rank against the
+    single-process run's: cosine >= 0.999, or, where `floor` (the
+    single-process run against itself with a perturbed embedding, _noise_floor)
+    is given, above the floor's cosines, with `parity` (the single-process
+    run of the model at PARITY_LAYERS) held at >= 0.999 instead; the share of
+    greedy tokens equal to the single process; each rank's launches and the
+    collectives a decode step with their host-clock staging time."""
+    import numpy as np
+    from csinn2_tpu_torch.kernels.qmatmul import launch_key
+    qmm = launch_key(*QMM_MODES[mode], swiglu=False)
+    want = (f"{qmm}.decode", f"{qmm}.prefill", "decode_attention", "prefill_attention")
+    for i, r in enumerate(ranks):
+        missing = [k for k in want if r["counts"].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label}: rank {i} never launched {missing}")
+    for r in ranks[1:]:
+        if r["outs"] != ranks[0]["outs"]:
+            raise AssertionError(f"{label}: rank tokens differ: {ranks[0]['outs']} vs {r['outs']}")
+    cos_prefill = min(_cos(r["logits"], ref["prefill_logits"]) for r in ranks)
+    cos_step = min(_cos(r["step"][i], ref["step_logits"][i]) for r in ranks for i in range(4))
+    same = sum(a == b for ra, rb in zip(ranks[0]["outs"], ref["outs"]) for a, b in zip(ra, rb))
+    total = sum(len(o) for o in ref["outs"])
+    r0 = ranks[0]
+    per_step = {k: n / 8 for k, n in r0["chunk_counts"].items() if k.startswith("all_")}
+    n_ar = sum(n for k, n in per_step.items() if k.startswith("all_reduce"))
+    log(f"  {label}: {r0['mesh']}, backend {r0['backend']}, decode through "
+        f"{'the step graph' if r0['graph'] else 'the eager loop'} ({r0['n_graphs']} graphs); "
+        f"weights made whole and sharded in {r0['build_s']:.2f} s, {r0['mem_gib']:.2f} GiB a "
+        f"rank after (weights + int8 KV + spare) [{gpu_line}]")
+    log(f"  {label}: run_queue {len(r0['outs'])} requests in {r0['wall']:.3f} s (host clock, "
+        f"{r0['steps']} decode steps) on every rank; tokens identical on all {len(ranks)} ranks; "
+        f"greedy tokens equal to the single process: {same} of {total}; lanes {r0['slots']}")
+    if floor is None:
+        gate = (0.999, 0.999)
+        log(f"  {label}: logits cosine against the single process: 128-token prefill "
+            f"{cos_prefill:.6f}, first decode step (4 lanes, the same input tokens) "
+            f"{cos_step:.6f} (gate 0.999)")
+    else:
+        gate = (floor["cos_prefill"], floor["cos_step"])
+        cp2 = min(_cos(r["parity"]["logits"], parity["logits"]) for r in ranks)
+        cs2 = min(_cos(r["parity"]["step"][i], parity["step"][i]) for r in ranks
+                  for i in range(4))
+        log(f"  {label}: logits cosine against the single process: 128-token prefill "
+            f"{cos_prefill:.6f}, first decode step (4 lanes, the same input tokens) "
+            f"{cos_step:.6f}; the single process against itself with its embedding "
+            f"perturbed by 2^-8 (at most one bf16 ulp): {gate[0]:.6f} / {gate[1]:.6f} (gate: "
+            f"above these); the same model cut to {PARITY_LAYERS} layers, sharded against "
+            f"one process: {cp2:.6f} / {cs2:.6f} (gate 0.999)")
+        if cp2 < 0.999 or cs2 < 0.999:
+            raise AssertionError(f"{label}: {PARITY_LAYERS}-layer logits cosine {cp2} / {cs2}")
+    for i, r in enumerate(ranks):
+        log(f"  {label}: rank {i} {r['coords']} launches {r['counts']}")
+    log(f"  {label}: a decode step (batch 4, 8-step chunk, host clock) {r0['chunk_ms_per_step']:.3f} "
+        f"ms with collectives a step {per_step}; one all_reduce alone (host clock around "
+        f"synchronize, median): decode shape {r0['ar_decode_ms']:.3f} ms, 128-token prefill "
+        f"shape {r0['ar_prefill_ms']:.3f} ms, so {n_ar:g} a step stage ~{n_ar * r0['ar_decode_ms']:.1f} "
+        f"ms through the host — gloo's staging, not a TP speed [{gpu_line}]")
+    if cos_prefill < gate[0] or cos_step < gate[1]:
+        raise AssertionError(f"{label}: logits cosine {cos_prefill} / {cos_step}, gate {gate}")
+    if any(not np.isfinite(r["logits"]).all() for r in ranks):
+        raise AssertionError(f"{label}: logits not finite")
+    return dict(same=same, total=total, cos_prefill=cos_prefill, cos_step=cos_step,
+                gate=gate, counts=[r["counts"] for r in ranks], ar_per_step=n_ar,
+                ar_decode_ms=r0["ar_decode_ms"], step_ms=r0["chunk_ms_per_step"])
+
+
+def _noise_floor(cfg, mode, ref):
+    """The single-process engine of phase 4's model again (its logits must
+    equal `ref`'s bit for bit) and with its embedding times (1 ± 2^-8)
+    (signs seeded; at most one bf16 ulp): the cosines of the perturbed run's
+    _parity_probe against `ref`, fed the same tokens, say how far two
+    forwards of this model that differ by rounding alone may lie apart."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.llm.engine import InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params_device
+    params = init_params_device(cfg, mode, seed=0, device="cuda")
+    eng = InferenceEngine(cfg, params, batch=4, quantized_kv=True, device="cuda")
+    again = _parity_probe(eng, cfg, ref["first"])
+    if not (np.array_equal(again["logits"], ref["prefill_logits"])
+            and np.array_equal(again["step"], ref["step_logits"])):
+        raise AssertionError("the single-process engine is not deterministic across runs")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    emb = params["tok_embedding"]
+    sign = torch.randint(0, 2, emb.shape, generator=g, device="cuda", dtype=torch.int8) * 2 - 1
+    eng.params["tok_embedding"] = (emb.float() * (1 + sign * 2.0 ** -8)).to(torch.bfloat16)
+    noisy = _parity_probe(eng, cfg, ref["first"])
+    out = dict(cos_prefill=_cos(noisy["logits"], ref["prefill_logits"]),
+               cos_step=min(_cos(noisy["step"][i], ref["step_logits"][i]) for i in range(4)))
+    del eng, params, emb, sign
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_reference(mode):
+    """The single-process llama_forward of mesh_moe_job's model: the last
+    prompt row's and the decode step's logits."""
+    import torch
+    from csinn2_tpu_torch.llm.model import KVCache, init_params_device, llama_forward
+    cfg = mixtral_cfg(2)
+    params = init_params_device(cfg, mode, seed=14, device="cuda")
+    toks = _moe_tokens(cfg)
+    cache = KVCache.create(cfg, 1, quantized=True, device="cuda")
+    logits, cache = llama_forward(params, toks, cache, 0, cfg)
+    step, _ = llama_forward(params, toks[:, -1:], cache, toks.shape[1], cfg)
+    out = dict(logits=logits[0, -1].float().cpu().numpy(), step=step[0, -1].float().cpu().numpy())
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_path(here: Path, records, gpu_line: str, q8_0_ref):
+    """Phase 14.  Returns {label: summary} for the kernels line."""
+    import dataclasses
+    import torch
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params_device
+    from csinn2_tpu_torch.parallel.launch import spawn
+    t_phase = time.perf_counter()
+    summary = {}
+    log("  (a) the kernels at a rank's shapes under tp = 2")
+    check_shard_gemms(records, gpu_line)
+    check_attention(records, heads=16, tag="tp_shards")
+    torch.cuda.empty_cache()
+
+    log("  (b) tp = 2, dp = 1: two ranks on the card over gloo, Llama-2-7B Q8_0, 32 layers, "
+        "int8 KV, run_queue batch 4 (phase 4's requests)")
+    cfg = LlamaConfig.llama2_7b()
+    floor = _noise_floor(cfg, "q8_0", q8_0_ref)
+    cfg2 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    parity = _parity_probe(InferenceEngine(cfg2, init_params_device(cfg2, "q8_0", seed=0,
+                                                                    device="cuda"),
+                                           batch=4, quantized_kv=True, device="cuda"), cfg2)
+    torch.cuda.empty_cache()
+    ranks = spawn(mesh_engine_job, 2, backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S,
+                  args=("q8_0", 32, 2, 1, q8_0_ref["first"], parity["first"]))
+    summary["tp2_q8_0"] = _check_mesh_run("(b) tp2 Q8_0", ranks, q8_0_ref, gpu_line, "q8_0",
+                                          floor, parity)
+    tp2_outs = ranks[0]["outs"]
+    del ranks
+
+    log("  (c) tp = 2 x dp = 2: four ranks on the card over gloo, Llama-2-7B width, 4 layers, "
+        "Q4_0, int8 KV, run_queue batch 4 (lanes of both dp groups)")
+    cfg4 = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=4)
+    one = InferenceEngine(cfg4, init_params_device(cfg4, "q4_0", seed=0, device="cuda"),
+                          batch=4, quantized_kv=True, device="cuda")
+    ref4 = _engine_probe(one, cfg4)
+    ref4.update(prefill_logits=ref4["logits"], step_logits=ref4["step"])
+    del one
+    torch.cuda.empty_cache()
+    ranks = spawn(mesh_engine_job, 4, backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S,
+                  args=("q4_0", 4, 2, 2, ref4["first"]))
+    if sorted({s // 2 for s in ranks[0]["slots"]}) != [0, 1]:
+        raise AssertionError(f"(c): requests did not land in both dp groups: {ranks[0]['slots']}")
+    summary["tp2dp2_q4_0"] = _check_mesh_run("(c) tp2 x dp2 Q4_0", ranks, ref4, gpu_line,
+                                             "q4_0")
+    del ranks
+
+    log("  (d) EP at Mixtral-8x7B width (2 layers, E = 8, top-2), Q8_0 and Q4_0, int8 KV: "
+        "ep = 2 on two ranks, then tp = 2 x ep = 2 on four, against the single-process "
+        "llama_forward")
+    refs = {mode: _moe_reference(mode) for mode in ("q8_0", "q4_0")}
+    for axes in ({"ep": 2}, {"ep": 2, "tp": 2}):
+        n = 2 if len(axes) == 1 else 4
+        ranks = spawn(mesh_moe_job, n, backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S,
+                      args=(axes,))
+        for mode, ref in refs.items():
+            cp = min(_cos(r[mode]["logits"], ref["logits"]) for r in ranks)
+            cs = min(_cos(r[mode]["step"], ref["step"]) for r in ranks)
+            log(f"  (d) {axes} {mode}: {ranks[0][mode]['experts']} "
+                f"experts a rank; logits cosine vs single process: 128-token prompt {cp:.6f}, "
+                f"decode step {cs:.6f} (gate 0.999); rank 0 launches {ranks[0][mode]['counts']}")
+            if cp < 0.999 or cs < 0.999:
+                raise AssertionError(f"(d) {axes} {mode}: cosine {cp} / {cs}")
+            summary[f"{'x'.join(f'{k}{v}' for k, v in axes.items())}_{mode}"] = dict(
+                cos_prefill=cp, cos_step=cs, counts=ranks[0][mode]["counts"])
+        del ranks
+
+    log("  (e) csinn2_tpu_torch/examples/multihost_dryrun.py --device cuda, a process of its own")
+    r = subprocess.run([sys.executable, str(here / "csinn2_tpu_torch" / "examples" /
+                                            "multihost_dryrun.py"), "--device", "cuda"],
+                       cwd=str(here), capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+    for line in r.stdout.strip().splitlines()[-6:]:
+        log(f"    {line}")
+    if r.returncode != 0 or "PASS" not in r.stdout:
+        raise AssertionError(f"(e) multihost_dryrun.py: exit {r.returncode}\n{r.stderr[-4000:]}")
+
+    if torch.cuda.device_count() >= 2:
+        log("  (f) (b) again over NCCL, one card a rank, through the step graph")
+        ranks = spawn(mesh_engine_job, 2, backend="nccl", device="cuda",
+                      timeout_s=MESH_TIMEOUT_S,
+                      args=("q8_0", 32, 2, 1, q8_0_ref["first"], parity["first"]))
+        summary["tp2_q8_0_nccl"] = _check_mesh_run("(f) tp2 Q8_0 NCCL", ranks, q8_0_ref,
+                                                   gpu_line, "q8_0", floor, parity)
+        if ranks[0]["outs"] != tp2_outs or not ranks[0]["graph"]:
+            raise AssertionError(f"(f) NCCL tokens {ranks[0]['outs']} != gloo's {tp2_outs}")
+        summary["nccl_path"] = "run: tokens equal to (b)'s"
+    else:
+        log(f"  (f) NCCL path: not run, {torch.cuda.device_count()} card")
+        summary["nccl_path"] = f"not run, {torch.cuda.device_count()} card"
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return summary
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "csinn2_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -2292,6 +2776,10 @@ def main() -> int:
     log("phase 13: the LLM weight I/O, a Llama-2-7B-width GGUF -> python -m csinn2_tpu_torch "
         "convert -> load_llm -> logits, llama_generate.py --ckpt")
     wio_counts = weight_io_path(here, gpu_line)
+    log("phase 14: tensor, data and expert parallelism, ranks sharing the card over gloo: "
+        "kernels at tp-shard shapes, tp = 2 Llama-2-7B Q8_0, tp = 2 x dp = 2, EP at "
+        "Mixtral-8x7B width, the multihost dryrun")
+    mesh = mesh_path(here, records, gpu_line, q8_0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -2306,7 +2794,7 @@ def main() -> int:
         for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
                       "decode_cold", "cur_ms", "library_layout", "blocks_ms",
                       "blocks_bound_ms", "launches_phase", "decode", "flash_d576",
-                      "decode_d576", "launches_combine"):
+                      "decode_d576", "launches_combine", "tp_shards"):
             if extra in r:
                 entry[extra] = r[extra]
         if name in reduce_per_step:
@@ -2321,12 +2809,22 @@ def main() -> int:
                     entry[extra] = r[extra]
         if name == "quant_matmul":       # phase 13's forward on the converted weights
             entry["launches_weight_io"] = launches(wio_counts, name)
+        # phase 14's runs, each rank's launches (run_queue; the two MoE forwards)
+        run = {"quant_matmul_q4_0": "tp2dp2_q4_0"}.get(name, "tp2_q8_0")
+        if name in ("quant_matmul", "quant_matmul_q4_0") + ATTENTION:
+            entry["launches_tp"] = [launches(c, name) for c in mesh[run]["counts"]]
+        if name in ("quant_matmul", "quant_matmul_q4_0"):
+            mode = "q8_0" if name == "quant_matmul" else "q4_0"
+            entry["launches_ep"] = {k: launches(mesh[f"{k}_{mode}"]["counts"], name)
+                                    for k in ("ep2", "ep2xtp2")}
         if name in ATTENTION + ("flash_attention_bhsd",):
             # the split-KV merges of the same source, within `launches`
             entry["launches_combine"] = int(counts.get(f"{name}.combine", 0))
         kernels.append(entry)
     print(gpu_line)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "mesh": {
+        k: ({kk: vv for kk, vv in v.items() if kk != "counts"} if isinstance(v, dict) else v)
+        for k, v in mesh.items()}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
-"""Inference engine on one device: bucketed one-slot prefill, on-device
-sampling, chunked batched decode, a continuous-batching scheduler and the
-benchmark methods — counterpart of csinn2_tpu/llm/engine.py (single device;
-the mesh is not ported yet).
+"""Inference engine: bucketed one-slot prefill, on-device sampling, chunked
+batched decode, a continuous-batching scheduler and the benchmark methods —
+counterpart of csinn2_tpu/llm/engine.py, on one device or over a (dp, tp)
+process mesh (parallel/mesh.py).
 
 Design, as in the JAX engine:
   * the KV cache is ONE static [L, B, S_max, Hk, Dh] buffer; slot (lane) b
@@ -25,12 +25,27 @@ Design, as in the JAX engine:
     engine's cache, which prefill writes in place, so an admission between
     chunks is seen by the next replay.  On the CPU the chunk is the eager
     loop (_decode_steps_eager), which the card's tests hold the graph to.
+
+Over a mesh (InferenceEngine(mesh=...)) every rank builds the engine on the
+full params and runs the same host code, multi-controller: the weights are
+fused per tp shard and sharded (parallel/tp.py), the rank's cache holds its
+hk/tp heads of its dp group's batch/dp lanes.  Prefill runs the forward on
+every rank, and only the dp group that owns the slot keeps the KV (the
+others write a spare one-lane cache); decode runs each dp group's lanes and
+gathers the logits and the sampled tokens over dp, so every rank's host
+loop sees the same tokens.  Collectives: one all_reduce over tp after wo
+and after w2 a layer, the vocab all_gather, the dp all_gather.  The decode
+chunk is the step graph where the backend can capture its collectives
+(NCCL) and the eager loop under gloo, whose collectives are staged through
+the host: chosen once, at construction, from the backend.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
+import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -45,6 +60,8 @@ from csinn2_tpu_torch.llm.model import (KVCache, _project_qkv, fuse_params,
                                         native4_params, quantize_kv, rms_norm,
                                         rope_rotate, rope_tables)
 from csinn2_tpu_torch.llm.sampling import sample_host, sample_logits
+from csinn2_tpu_torch.parallel.mesh import all_gather, all_reduce
+from csinn2_tpu_torch.parallel.tp import local_config, shard_llama_params
 from csinn2_tpu_torch.utils.cuda_graph import CountedGraph, capture
 from csinn2_tpu_torch.utils.device import resolve_device
 from csinn2_tpu_torch.utils.timing import long_minus_short
@@ -100,27 +117,56 @@ class InferenceEngine:
     for int4 weights on the card and True/False force it; the port has one
     int4 carrier (model.native4_params), so every value gives the same
     weights and the same tokens.
+
+    mesh: a parallel.mesh.Mesh with dp and tp axes; every rank passes the
+    FULL params, and the engine runs on mesh.device (`device` is not used).
+    batch % dp == 0; lanes dp_idx·batch/dp .. belong to dp group dp_idx.
     """
 
     def __init__(self, cfg: LlamaConfig, params, batch: int = 1,
                  quantized_kv: bool = False, kv_scale: float = 0.05,
                  fuse_weights: bool = True, device="cuda",
-                 native_int4: Optional[bool] = None):
-        self.device = resolve_device(device)
-        emb_dev = params["tok_embedding"].device
-        if emb_dev.type != self.device.type:
-            raise ValueError(f"params live on {emb_dev}, engine on {self.device}")
+                 native_int4: Optional[bool] = None, mesh=None):
+        self.mesh = mesh
         self.cfg = cfg
+        tp, dp = (mesh.size("tp"), mesh.size("dp")) if mesh is not None else (1, 1)
+        if batch % dp:
+            raise ValueError(f"batch {batch} is not a multiple of dp={dp}")
+        if mesh is None:
+            self.device = resolve_device(device)
+            emb_dev = params["tok_embedding"].device
+            if emb_dev.type != self.device.type:
+                raise ValueError(f"params live on {emb_dev}, engine on {self.device}")
+        else:
+            self.device = mesh.device
         if fuse_weights:
             # one GEMM for q|k|v and one for w1|w3: 7 → 4 launches per layer
-            params = fuse_params(params)
+            params = fuse_params(params, tp=tp)
+        self.lcfg = cfg                    # the config the rank's forward runs
+        if mesh is not None:
+            self.lcfg = local_config(cfg, tp)
+            params = shard_llama_params(params, mesh)
         self._native4 = bool(has_int4(params) and self.device.type == "cuda"
                              if native_int4 is None else native_int4)
         self.params = native4_params(params) if self._native4 else params
         self.batch = batch
-        self.cache = KVCache.create(cfg, batch, quantized=quantized_kv,
+        self.b_loc = batch // dp           # this rank's lanes
+        self._tp_group = mesh.tp_group if mesh is not None else None
+        self._dp_group = mesh.dp_group if mesh is not None else None
+        self.cache = KVCache.create(self.lcfg, self.b_loc, quantized=quantized_kv,
                                     scale=kv_scale, device=self.device)
+        # a dp group prefills slots it does not own into this one-lane cache
+        self._spare = None if dp == 1 else KVCache.create(
+            self.lcfg, 1, quantized=quantized_kv, scale=kv_scale, device=self.device)
         self.slots = [Slot(id=i) for i in range(batch)]
+        # decode chunks through the step graph on the card, unless the
+        # collectives are gloo's (host-staged, not capturable)
+        backend = mesh.backend() if mesh is not None else None
+        self._graph = self.device.type == "cuda" and backend != "gloo"
+        if mesh is not None:
+            print(f"InferenceEngine: {mesh}, backend {backend}: decode through "
+                  f"{'the step graph' if self._graph else 'the eager loop'}",
+                  file=sys.stderr, flush=True)
         # the decode step graphs (on the card): key → CountedGraph, their
         # static lanes (tokens, positions, temperatures), generator, memory
         # pool and capture stream, all made at the first capture
@@ -138,16 +184,24 @@ class InferenceEngine:
 
     # -- phases ----------------------------------------------------------------
 
+    def _lane0(self) -> int:
+        """The first global lane of this rank's dp group."""
+        return self.mesh.index("dp") * self.b_loc if self.mesh is not None else 0
+
     def _prefill_local(self, tokens: torch.Tensor, slot: int) -> torch.Tensor:
         """Forward a [1, bucket] prompt on the view of `slot`'s first `bound`
-        cache rows; the cache is written in place."""
+        cache rows, written in place — or, on a rank whose dp group does not
+        own the slot, of the spare cache's."""
         s = tokens.shape[1]
         bound = _round256(s, self.cfg.max_seq_len)
+        row = slot - self._lane0()
         c = self.cache
-        sub = KVCache(k=c.k[:, slot:slot + 1, :bound],
-                      v=c.v[:, slot:slot + 1, :bound], scale=c.scale)
-        logits, _ = llama_forward(self.params, tokens, sub, 0, self.cfg,
-                                  kv_bound=bound)
+        if not 0 <= row < self.b_loc:
+            c, row = self._spare, 0
+        sub = KVCache(k=c.k[:, row:row + 1, :bound],
+                      v=c.v[:, row:row + 1, :bound], scale=c.scale)
+        logits, _ = llama_forward(self.params, tokens, sub, 0, self.lcfg,
+                                  kv_bound=bound, tp_group=self._tp_group)
         return logits
 
     def prefill(self, slot_id: int, prompt: List[int]) -> np.ndarray:
@@ -189,19 +243,23 @@ class InferenceEngine:
         return _round256(mx + extra, self.cfg.max_seq_len)
 
     def _lanes(self, next_tokens: Dict[int, int]):
+        """This rank's lanes of the tokens and positions, on the device."""
         toks = torch.zeros((self.batch,), dtype=torch.long)
         pos = torch.zeros((self.batch,), dtype=torch.int32)
         for sid, tok in next_tokens.items():
             toks[sid] = tok
             pos[sid] = self.slots[sid].pos
-        return toks.to(self.device), pos.to(self.device)
+        lo = self._lane0()
+        return (toks[lo:lo + self.b_loc].to(self.device),
+                pos[lo:lo + self.b_loc].to(self.device))
 
     def decode_step(self, next_tokens: Dict[int, int]) -> Dict[int, np.ndarray]:
         """One decode step for the given {slot_id: token}; returns logits."""
         toks, pos = self._lanes(next_tokens)
         logits, self.cache = _batched_decode_forward(
-            self.params, toks[:, None], self.cache, pos, self.cfg,
-            kv_bound=self._kv_bound())
+            self.params, toks[:, None], self.cache, pos, self.lcfg,
+            kv_bound=self._kv_bound(), tp_group=self._tp_group)
+        logits = all_gather(logits, self._dp_group, 0, "dp")
         out = {}
         for sid in next_tokens:
             self.slots[sid].pos += 1
@@ -217,7 +275,7 @@ class InferenceEngine:
         {slot_id: [n_steps sampled tokens]}.  On the card each step replays
         the captured step graph of this chunk's key; on the CPU it is the
         eager loop."""
-        chunk = self._graph_chunk if self.device.type == "cuda" else self._eager_chunk
+        chunk = self._graph_chunk if self._graph else self._eager_chunk
         return self._steps(chunk, next_tokens, n_steps, temperature, seed, top_k, top_p)
 
     def _decode_steps_eager(self, next_tokens: Dict[int, int], n_steps: int,
@@ -232,12 +290,13 @@ class InferenceEngine:
         tok, pos = self._lanes(next_tokens)
         temp = np.asarray(temperature, np.float32)        # scalar or [B]
         greedy = bool(np.all(temp <= 0))
-        temp_t = torch.from_numpy(np.maximum(temp, 1e-6) * np.ones(self.batch, np.float32)
-                                  ).to(self.device)       # [B]
+        lo = self._lane0()
+        temp_b = np.maximum(temp, 1e-6) * np.ones(self.batch, np.float32)      # [B]
+        temp_t = torch.from_numpy(temp_b[lo:lo + self.b_loc]).to(self.device)  # this rank's
         if n_steps > 0:
             sampled = chunk(tok, pos, temp_t, n_steps,
-                            self._kv_bound(extra=n_steps + 1), greedy, seed, top_k,
-                            top_p).cpu().numpy()           # [n_steps, B]
+                            self._kv_bound(extra=n_steps + 1), greedy, seed, top_k, top_p)
+            sampled = all_gather(sampled, self._dp_group, 1, "dp").cpu().numpy()  # [n, B]
         else:
             sampled = np.zeros((0, self.batch), np.int64)
         out = {}
@@ -256,7 +315,8 @@ class InferenceEngine:
         steps = []
         for _ in range(n_steps):
             logits, _ = _batched_decode_forward(self.params, tok[:, None], self.cache, pos,
-                                                self.cfg, kv_bound=bound)
+                                                self.lcfg, kv_bound=bound,
+                                                tp_group=self._tp_group)
             tok = sample_logits(logits[:, 0], gen, temperature=temp, top_k=top_k,
                                 top_p=top_p, greedy=greedy)
             pos = pos + 1
@@ -273,10 +333,11 @@ class InferenceEngine:
         flash = os.environ.get("CSINN2_DECODE_ATTN") == "flash"
         key = (bound, greedy, int(top_k), float(top_p), flash)
         if self._static is None:
+            b = self.b_loc
             self._static = dict(
-                tok=torch.zeros((self.batch,), dtype=torch.long, device=self.device),
-                pos=torch.zeros((self.batch,), dtype=torch.int32, device=self.device),
-                temp=torch.ones((self.batch,), dtype=torch.float32, device=self.device),
+                tok=torch.zeros((b,), dtype=torch.long, device=self.device),
+                pos=torch.zeros((b,), dtype=torch.int32, device=self.device),
+                temp=torch.ones((b,), dtype=torch.float32, device=self.device),
                 gen=torch.Generator(device=self.device),
                 pool=torch.cuda.graph_pool_handle(),
                 stream=torch.cuda.Stream(device=self.device))
@@ -294,8 +355,8 @@ class InferenceEngine:
 
             def step():
                 logits, _ = _batched_decode_forward(self.params, st["tok"][:, None],
-                                                    self.cache, st["pos"], self.cfg,
-                                                    kv_bound=bound)
+                                                    self.cache, st["pos"], self.lcfg,
+                                                    kv_bound=bound, tp_group=self._tp_group)
                 nxt = sample_logits(logits[:, 0], gen, temperature=st["temp"],
                                     top_k=top_k, top_p=top_p, greedy=greedy)
                 st["tok"].copy_(nxt)
@@ -307,7 +368,7 @@ class InferenceEngine:
             load_lanes()              # the warm-up step advanced the lanes
         if not greedy:
             st["gen"].manual_seed(self._seed_value(seed, 0))
-        out = torch.empty((n_steps, self.batch), dtype=torch.long, device=self.device)
+        out = torch.empty((n_steps, self.b_loc), dtype=torch.long, device=self.device)
         for i in range(n_steps):
             graph.replay()
             out[i].copy_(st["tok"])
@@ -424,13 +485,17 @@ class InferenceEngine:
         return self.batch * iters / (time.perf_counter() - t0)
 
     def _scratch(self) -> "InferenceEngine":
-        """A batch-1 engine on the same weights with a zeroed cache of this
-        engine's kind: a benchmark's own, gone with its graphs after it."""
+        """An engine on the same weights with one lane a dp group (batch 1
+        on one device) and a zeroed cache of this engine's kind: a
+        benchmark's own, gone with its graphs after it."""
+        eng = copy.copy(self)
         c = self.cache
-        return InferenceEngine(self.cfg, self.params, batch=1,
-                               quantized_kv=c.scale is not None, kv_scale=c.scale or 0.05,
-                               fuse_weights=False, device=self.device,
-                               native_int4=self._native4)
+        eng.batch, eng.b_loc = self.batch // self.b_loc, 1
+        eng.slots = [Slot(id=i) for i in range(eng.batch)]
+        eng.cache = KVCache(k=torch.zeros_like(c.k[:, :1]), v=torch.zeros_like(c.v[:, :1]),
+                            scale=c.scale)
+        eng._graphs, eng._static = {}, None
+        return eng
 
     def benchmark_prefill_device(self, n_prompt: int = 128, iters: int = 8,
                                  reps: int = 3) -> float:
@@ -446,7 +511,7 @@ class InferenceEngine:
         toks[0, :n_prompt] = torch.arange(n_prompt) % 997 + 1
         toks = [toks.to(self.device), (toks + 1).to(self.device)]
         scratch = self._scratch()
-        if self.device.type == "cuda":
+        if self._graph:
             stream, pool = torch.cuda.Stream(device=self.device), torch.cuda.graph_pool_handle()
             graphs = [capture(lambda t=t: scratch._prefill_local(t, 0), "prefill_graph",
                               stream=stream, pool=pool) for t in toks]
@@ -471,10 +536,10 @@ class InferenceEngine:
         base = max(iters // 16, 2)
         bound = _round256(pos0 + base + iters + 1, self.cfg.max_seq_len)
         eng = self._scratch() if self.batch == 1 else self
-        chunk = eng._graph_chunk if self.device.type == "cuda" else eng._eager_chunk
-        tok = torch.ones((self.batch,), dtype=torch.long, device=self.device)
-        pos = torch.full((self.batch,), pos0, dtype=torch.int32, device=self.device)
-        temp = torch.ones((self.batch,), dtype=torch.float32, device=self.device)
+        chunk = eng._graph_chunk if self._graph else eng._eager_chunk
+        tok = torch.ones((eng.b_loc,), dtype=torch.long, device=self.device)
+        pos = torch.full((eng.b_loc,), pos0, dtype=torch.int32, device=self.device)
+        temp = torch.ones((eng.b_loc,), dtype=torch.float32, device=self.device)
         dt = long_minus_short(              # seconds a step
             lambda n: chunk(tok, pos, temp, n, bound, True, 0, 0, 1.0),
             base, iters, reps, device=self.device)
@@ -482,7 +547,7 @@ class InferenceEngine:
 
 
 def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
-                            cfg: LlamaConfig, kv_bound: Optional[int] = None):
+                            cfg: LlamaConfig, kv_bound: Optional[int] = None, tp_group=None):
     """Decode with per-row positions: like llama_forward at s = 1 but pos is
     a vector [B].  RoPE, the KV store and the attention mask use each row's
     own position.  Unlike model.py's bf16 internal linears, the linears here
@@ -492,7 +557,11 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     environment the blocked bhsd flash_attention (causal, q_offset = pos,
     kv_len = pos + 1), the JAX engine's alternative decode kernel.  The JAX
     engine reads the variable when it traces; this function reads it on
-    every call, once for all layers."""
+    every call, once for all layers.
+
+    tp_group: cfg is the rank's local config; the f32 outputs of wo and w2
+    are summed over the group and the vocab shards of the logits gathered,
+    as the JAX engine's psums and all_gather."""
     b, s = tokens.shape
     if s != 1:
         raise ValueError(f"decode takes one token per lane, got {s}")
@@ -541,13 +610,14 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
             attn = decode_attention(q_t, k_t, v_t, q_offset=pos_vec, kv_len=kv_len,
                                     kv_scale=cache.scale)  # [b, hq, 1, dh]
         attn = attn.permute(0, 2, 1, 3).reshape(b, 1, D).to(torch.bfloat16)
-        x = x + linear(attn, lp["wo"]).to(x.dtype)
+        x = x + all_reduce(linear(attn, lp["wo"]), tp_group, "wo").to(x.dtype)
 
         h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(torch.bfloat16)
-        x = x + linear(_swiglu_hidden(h, lp), lp["w2"]).to(x.dtype)
+        x = x + all_reduce(linear(_swiglu_hidden(h, lp), lp["w2"]), tp_group,
+                           "w2").to(x.dtype)
 
     x = rms_norm(x, params["norm"], cfg.norm_eps).to(torch.bfloat16)
-    return linear(x, params["output"]), cache
+    return all_gather(linear(x, params["output"]), tp_group, -1, "logits"), cache
 
 
 def _swiglu_hidden(h, lp):

@@ -12,6 +12,15 @@ the multi-gigabyte buffer is never copied.
 Quantized linears go through kernels.qmatmul.quant_matmul and attention
 through kernels.flash_attention: CUDA tensors launch the hand-written
 kernels, CPU tensors take their plain PyTorch versions.
+
+Tensor / expert parallelism (parallel/tp.py, parallel/ep.py): the forward
+functions take tp_group and ep_group, the torch counterparts of the JAX
+functions' tp_axis and ep_axis.  Under tp_group `cfg` is the rank's local
+config (heads and ffn divided by tp) and the params the rank's shards; the
+block outputs are summed over the group with one all_reduce after wo and
+one after w2 (bf16, as the JAX psum sums them), and llama_forward gathers
+the vocab shards of the logits.  Under ep_group each rank holds E/ep
+experts; moe_ffn_block sums them over the group (f32).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from csinn2_tpu_torch.core.quant import BLOCK_SIZE
@@ -30,6 +40,7 @@ from csinn2_tpu_torch.kernels.flash_attention import (flash_attention,
 from csinn2_tpu_torch.kernels.qmatmul import (pack_int4, quant_matmul,
                                               swiglu_pairs)
 from csinn2_tpu_torch.llm.config import LlamaConfig
+from csinn2_tpu_torch.parallel.mesh import all_gather, all_reduce
 from csinn2_tpu_torch.utils.device import resolve_device
 
 # quant modes for weights (the names of the JAX package)
@@ -177,16 +188,27 @@ def native4_params(params):
 def qweight_concat(qws: List[QWeight], tp: int = 1) -> QWeight:
     """Concatenate QWeights along the output (N) axis (wq|wk|wv, w1|w3): one
     GEMM launch instead of several, one longer weight stream.  Packed values
-    concatenate as they are (packing runs along K)."""
-    if tp != 1:
-        raise NotImplementedError("tensor-parallel interleave is not ported "
-                                  "yet (ROADMAP queue A)")
+    concatenate as they are (packing runs along K).
+
+    tp > 1: the fused N axis is laid out [q0|k0|v0 | q1|k1|v1 | ...] per tp
+    shard, so plain column sharding hands each rank its own slices of every
+    part (a plain [q|k|v] would give rank 0 only q columns)."""
     m0 = qws[0]
     if any(q.mode != m0.mode or q.packed != m0.packed for q in qws):
         raise ValueError("qweight_concat: mixed modes")
-    return QWeight(values=torch.cat([q.values for q in qws], dim=-1),
-                   scales=None if m0.scales is None
-                   else torch.cat([q.scales for q in qws], dim=-1),
+
+    def cat(parts):
+        if tp == 1:
+            return torch.cat(parts, dim=-1)
+        if any(p.shape[-1] % tp for p in parts):
+            raise ValueError(f"qweight_concat: N {[p.shape[-1] for p in parts]} "
+                             f"not divisible by tp={tp}")
+        chunked = [p.reshape(*p.shape[:-1], tp, p.shape[-1] // tp) for p in parts]
+        out = torch.cat(chunked, dim=-1)                  # [..., tp, sum(N)/tp]
+        return out.reshape(*out.shape[:-2], -1)
+
+    return QWeight(values=cat([q.values for q in qws]),
+                   scales=None if m0.scales is None else cat([q.scales for q in qws]),
                    mode=m0.mode, packed=m0.packed)
 
 
@@ -239,7 +261,8 @@ def qweight_concat_swiglu(w1: QWeight, w3: QWeight, pad_to: int = 512) -> QWeigh
 
 def fuse_layer_weights(lp: Dict, tp: int = 1) -> Dict:
     """wqkv = [wq|wk|wv] and w13 = [w1|w3] (dense FFN), as in the JAX
-    package.  With CSINN2_SWIGLU_FUSE=1 (opt-in there too), tp == 1 and
+    package; tp > 1 interleaves the fused axis per shard (qweight_concat).
+    With CSINN2_SWIGLU_FUSE=1 (opt-in there too), tp == 1 and
     F % 128 == 0, w13 takes the swiglu128 pair layout and w2 is K-padded to
     the padded F."""
     out = dict(lp)
@@ -479,8 +502,10 @@ class KVCache:
 # ---------------------------------------------------------------------------
 
 def attention_block(x, layer_params, cache: KVCache, layer_idx: int, pos: int,
-                    cfg: LlamaConfig, kv_bound: Optional[int] = None):
-    """One attention sublayer including the KV-cache update (in place)."""
+                    cfg: LlamaConfig, kv_bound: Optional[int] = None, tp_group=None):
+    """One attention sublayer including the KV-cache update (in place).
+    tp_group: the rank's heads (cfg local), wo's row shard, the partial
+    outputs summed over the group."""
     b, s, _ = x.shape
     hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lp = layer_params
@@ -505,7 +530,7 @@ def attention_block(x, layer_params, cache: KVCache, layer_idx: int, pos: int,
     out = attn(q.to(torch.bfloat16), k_t, v_t, causal=True, q_offset=pos,
                kv_len=pos + s, kv_scale=cache.scale)   # [b, s, hq, dh]
     out = linear(out.reshape(b, s, hq * dh), lp["wo"], out_dtype=torch.bfloat16)
-    return out, cache
+    return all_reduce(out, tp_group, "wo"), cache
 
 
 def _project_qkv(x, lp, hq: int, hk: int, dh: int):
@@ -526,13 +551,20 @@ def _flash_bshd(q, k, v, **kw):
     return flash_attention(q, k, v, qo_layout="bshd", **kw)
 
 
-def ffn_block(x, layer_params):
-    """SwiGLU FFN: w2(silu(w1 x) * w3 x)."""
+def ffn_block(x, layer_params, tp_group=None):
+    """SwiGLU FFN: w2(silu(w1 x) * w3 x).  tp_group: w1/w3 column and w2
+    row shards, the partial outputs summed over the group."""
     lp = layer_params
     if "w13" in lp and lp["w13"].layout == "swiglu128":
         # silu(h1)·h3 in the GEMM's epilogue: h13 is never written out
         h = linear(x, lp["w13"], out_dtype=torch.bfloat16, swiglu=True)
-        return linear(h, lp["w2"], out_dtype=torch.bfloat16)
+    else:
+        h = _swiglu_h(x, lp)
+    return all_reduce(linear(h, lp["w2"], out_dtype=torch.bfloat16), tp_group, "w2")
+
+
+def _swiglu_h(x, lp):
+    """silu(w1 x)·(w3 x) from bf16 linears (fused w13 or w1 and w3), bf16."""
     if "w13" in lp:
         h13 = linear(x, lp["w13"], out_dtype=torch.bfloat16)
         F_ = h13.shape[-1] // 2
@@ -540,8 +572,7 @@ def ffn_block(x, layer_params):
     else:
         h1 = linear(x, lp["w1"], out_dtype=torch.bfloat16)
         h3 = linear(x, lp["w3"], out_dtype=torch.bfloat16)
-    h = (F.silu(h1.float()) * h3.float()).to(torch.bfloat16)
-    return linear(h, lp["w2"], out_dtype=torch.bfloat16)
+    return (F.silu(h1.float()) * h3.float()).to(torch.bfloat16)
 
 
 def _expert_slice(qw: QWeight, e: int) -> QWeight:
@@ -572,21 +603,27 @@ def _expert_ffn(x: torch.Tensor, lp, e: int) -> torch.Tensor:
     return linear(h, _expert_slice(lp["w2"], e))
 
 
-def moe_ffn_block(x, layer_params, cfg: LlamaConfig):
+def moe_ffn_block(x, layer_params, cfg: LlamaConfig, ep_group=None, tp_group=None):
     """Top-k mixture-of-experts SwiGLU FFN, dense no-drop formulation: every
     expert computes on all tokens and its router weight (0 where the token
-    did not pick it) scales its output.  x [b, s, D] → f32 [b, s, D].  (The
-    JAX function's EP/TP axes wait for the port's mesh.)"""
+    did not pick it) scales its output.  x [b, s, D] → f32 [b, s, D].
+
+    ep_group: the rank holds experts ep_rank·n_local .. + n_local - 1 of the
+    stacked weights and takes their window of the router weights; tp_group:
+    each expert's w1/w3 column and w2 row shards.  The f32 sum is reduced
+    over tp, then over ep: one all_reduce a group, as the JAX psums."""
     lp = layer_params
     E, k = cfg.n_experts, cfg.moe_top_k
     topi, topw = _gate_top_k(x, lp["gate"], k)
     # the k picks are distinct experts: a scatter is the one-hot sum exactly
     wts = torch.zeros(*topi.shape[:-1], E, dtype=torch.float32,
                       device=x.device).scatter_(-1, topi, topw)
+    n_local = lp["w1"].values.shape[0]
+    base = dist.get_rank(ep_group) * n_local if ep_group is not None else 0
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e in range(lp["w1"].values.shape[0]):
-        out = out + wts[..., e:e + 1] * _expert_ffn(x, lp, e)
-    return out
+    for e in range(n_local):
+        out = out + wts[..., base + e:base + e + 1] * _expert_ffn(x, lp, e)
+    return all_reduce(all_reduce(out, tp_group, "moe_tp"), ep_group, "moe_ep")
 
 
 def moe_capacity(T: int, cfg: LlamaConfig, capacity_factor: float) -> int:
@@ -647,32 +684,35 @@ def moe_routed(cfg: LlamaConfig, T: int) -> bool:
 
 
 def llama_forward(params, tokens, cache: KVCache, pos: int, cfg: LlamaConfig,
-                  kv_bound: Optional[int] = None):
+                  kv_bound: Optional[int] = None, tp_group=None, ep_group=None):
     """tokens [b, s] → (logits [b, s, V] f32, cache).  One function for
     prefill (s = prompt) and decode (s = 1); the cache is updated in place.
-    A layer with a "gate" runs the MoE FFN, routed or dense by moe_routed."""
+    A layer with a "gate" runs the MoE FFN, routed or dense by moe_routed;
+    under a group it runs dense (the routed dispatch is one rank's)."""
     emb = params["tok_embedding"]
     tokens = torch.as_tensor(tokens, device=emb.device).long()
     x = emb[tokens]                                       # [b, s, D] bf16
     # RoPE trig is position-only: once per forward, shared by all layers
     tabs = rope_tables(pos + torch.arange(tokens.shape[1], device=emb.device),
                        cfg.head_dim, cfg.rope_base)
-    routed = moe_routed(cfg, tokens.shape[0] * tokens.shape[1])
+    routed = (moe_routed(cfg, tokens.shape[0] * tokens.shape[1])
+              and tp_group is None and ep_group is None)
     for i, lp in enumerate(params["layers"]):
         lp = {**lp, "_rope_tables": tabs}
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         attn_out, cache = attention_block(h.to(torch.bfloat16), lp, cache, i,
-                                          pos, cfg, kv_bound=kv_bound)
+                                          pos, cfg, kv_bound=kv_bound, tp_group=tp_group)
         x = x + attn_out.to(x.dtype)
         h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(torch.bfloat16)
         if "gate" not in lp:
-            ffn_out = ffn_block(h, lp)
+            ffn_out = ffn_block(h, lp, tp_group)
         elif routed:
             ffn_out = moe_ffn_block_routed(h, lp, cfg,
                                            capacity_factor=cfg.moe_capacity_factor)
         else:
-            ffn_out = moe_ffn_block(h, lp, cfg)
+            ffn_out = moe_ffn_block(h, lp, cfg, ep_group, tp_group)
         x = x + ffn_out.to(x.dtype)
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     logits = linear(x.to(torch.bfloat16), params["output"])
-    return logits, cache
+    # a vocab-sharded lm_head: the logit shards gathered along the vocab
+    return all_gather(logits, tp_group, -1, "logits"), cache

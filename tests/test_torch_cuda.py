@@ -18,7 +18,10 @@ and routed, dropping tokens too) over stacked expert weights; the engine's captu
 decode-step graph against its eager loop (tiny() with and without flash
 decode, a 2-layer 7B-width Q4_0 model: greedy, seeded and top-k / top-p
 chunks, an admission between chunks, a kv_bound change, launch counts,
-captures, strip counters) and its benchmark methods;
+captures, strip counters) and its benchmark methods; the kernels at a rank's
+shapes under tensor parallelism (the tp = 2 GEMMs of Llama-2-7B and of a
+Mixtral expert, 16 attention heads) and the engine at tp = 2 over gloo on one
+card and over NCCL where there are two (it skips below two cards);
 the op API's CUDA tier in a GRAPH session; the eleven Q4_0 dequant-probe
 kernels (kernels/int4_probe.py, every one on the decode GEMM's ring) at M 1,
 5, 8 and 16, N not a multiple of the strip, K a multiple of 32 but not of
@@ -1594,3 +1597,90 @@ def test_engine_benchmarks_on_the_card(dev):
     assert [s.pos for s in eng.slots] == [29, 0]
     tps = eng.benchmark_decode(iters=3, warmup=1)
     assert np.isfinite(tps) and tps > 0
+
+
+# -- tensor parallelism: the kernels at a rank's shapes, the engine over ranks ----------
+
+# a rank's GEMMs under tp = 2 at Llama-2-7B width (wqkv, wo, w13, w2 with K
+# 5504 = 172 blocks, lm_head) and a Mixtral-8x7B expert's under tp = 2 x ep = 2
+TP_SHARDS = [(4096, 6144), (2048, 4096), (4096, 11008), (5504, 4096), (4096, 16000),
+             (4096, 7168), (7168, 4096)]
+
+
+@pytest.mark.parametrize("mode", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("K,N", TP_SHARDS)
+@pytest.mark.parametrize("M", [1, 3, 16, 17, 100])
+def test_quant_matmul_tp_shard_shapes(gen, dev, mode, K, N, M):
+    x, w, s, kw = _mode_case(gen, dev, mode, M, K, N)
+    y = quant_matmul(x, w, s, out_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert y.shape == (M, N)
+    _agree(y, quant_matmul_ref(x, w, s, out_dtype=torch.bfloat16, **kw))
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "prefill_attention", "flash_attention"])
+@pytest.mark.parametrize("int8", [True, False])
+def test_attention_tp_shard_heads(gen, dev, name, int8):
+    """16 query and KV heads at head dim 128 (a rank's of Llama-2-7B at tp =
+    2), ragged KV lengths."""
+    b, hq, d, S = (3, 16, 128, 1000) if name == "decode_attention" else (1, 16, 128, 700)
+    k, v = _kv(gen, dev, b, hq, S, d, int8)
+    scale = 0.05 if int8 else None
+    if name == "decode_attention":
+        q = torch.randn((b, hq, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+        kv_len = torch.tensor([S, 0, 333], dtype=torch.int32, device=dev)
+        out = fa.decode_attention(q, k, v, q_offset=kv_len - 1, kv_len=kv_len, kv_scale=scale)
+        ref = fa._attention_ref(q, k, v, causal=False, q_offset=kv_len - 1, kv_len=kv_len,
+                                scale=1 / d ** 0.5, kv_scale=scale)
+    else:
+        sq = 301
+        q = torch.randn((1, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        fn = getattr(fa, name)
+        extra = {} if name == "prefill_attention" else dict(qo_layout="bshd")
+        out = fn(q, k, v, causal=True, q_offset=0, kv_len=sq, kv_scale=scale, **extra)
+        ref = fa._attention_ref(q.permute(0, 2, 1, 3), k, v, causal=True, q_offset=0,
+                                kv_len=sq, scale=1 / d ** 0.5,
+                                kv_scale=scale).permute(0, 2, 1, 3)
+    torch.cuda.synchronize()
+    _close(out, ref)
+
+
+def _mesh_engine_rank(backend_note: str):
+    """One rank of the tp = 2 engine at LlamaConfig.tiny() Q8_0: run_queue's
+    greedy tokens, the step-graph choice and the graphs captured."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
+    from csinn2_tpu_torch.llm.model import init_params
+    from csinn2_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(tp=2, device="cuda")
+    cfg = LlamaConfig.tiny()
+    eng = InferenceEngine(cfg, init_params(cfg, "q8_0", seed=5, device=mesh.device), batch=2,
+                          quantized_kv=True, mesh=mesh)
+    reqs = eng.run_queue([Request(prompt=p, max_new_tokens=6) for p in ([3, 7, 11], [5, 2])],
+                         chunk=3)
+    return dict(outs=[r.out for r in reqs], graph=eng._graph, graphs=len(eng._graphs),
+                note=backend_note)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_engine_tp2_on_the_card(dev, backend):
+    """tp = 2 over gloo (two ranks sharing card 0, the eager loop) and over
+    NCCL (one card a rank, collectives captured in the step graph): every
+    rank's greedy tokens equal to the one-device engine's on the card."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
+    from csinn2_tpu_torch.llm.model import init_params
+    from csinn2_tpu_torch.parallel.launch import spawn
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip(f"NCCL needs a card a rank: {torch.cuda.device_count()} card here")
+    cfg = LlamaConfig.tiny()
+    one = InferenceEngine(cfg, init_params(cfg, "q8_0", seed=5, device=dev), batch=2,
+                          quantized_kv=True, device=dev)
+    want = [r.out for r in one.run_queue(
+        [Request(prompt=p, max_new_tokens=6) for p in ([3, 7, 11], [5, 2])], chunk=3)]
+    ranks = spawn(_mesh_engine_rank, 2, backend=backend, device="cuda", timeout_s=300,
+                  args=(backend,))
+    for r in ranks:
+        assert r["outs"] == want
+        assert r["graph"] == (backend == "nccl")
+        assert (r["graphs"] > 0) == (backend == "nccl")

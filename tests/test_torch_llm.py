@@ -356,9 +356,11 @@ def test_engine_needs_cuda_unless_cpu_asked(weights, monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing the port and running its CPU forward, engine, an MoE
-    forward (dense and routed), a GGUF convert / CTBM load round trip, a
-    small fused MobileNetV1 INT8 session and the Q4_0 dequant probe loads
-    neither jax nor any module of the JAX package."""
+    forward (dense and routed), the parallel package on a one-process mesh
+    (tp_llama_forward, ep_llama_forward; spawn and the multihost example
+    imported), a GGUF convert / CTBM load round trip, a small fused
+    MobileNetV1 INT8 session and the Q4_0 dequant probe loads neither jax
+    nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -382,6 +384,21 @@ def test_port_imports_no_jax():
         "                          torch.arange(8)[None], KVCache.create(mcfg, 1, device='cpu'),\n"
         "                          0, mcfg)\n"
         "    assert lg.shape == (1, 8, mcfg.vocab_size) and bool(torch.isfinite(lg).all())\n"
+        "import csinn2_tpu_torch.parallel.launch, csinn2_tpu_torch.examples.multihost_dryrun\n"
+        "from csinn2_tpu_torch.parallel.mesh import make_mesh\n"
+        "from csinn2_tpu_torch.parallel.tp import shard_llama_params, tp_llama_forward\n"
+        "from csinn2_tpu_torch.parallel.ep import ep_llama_forward, shard_moe_params\n"
+        "mesh = make_mesh(device='cpu')\n"
+        "lg, _ = tp_llama_forward(mesh, cfg)(\n"
+        "    shard_llama_params(init_params(cfg, 'q4_0', device='cpu'), mesh),\n"
+        "    torch.arange(4)[None], KVCache.create(cfg, 1, device='cpu'), 0)\n"
+        "assert lg.shape == (1, 4, cfg.vocab_size)\n"
+        "mcfg = LlamaConfig.tiny_moe(4)\n"
+        "ep1 = type(mesh)({'ep': 1}, device='cpu')\n"
+        "lg, _ = ep_llama_forward(ep1, mcfg)(\n"
+        "    shard_moe_params(init_params(mcfg, 'q8_0', device='cpu'), ep1),\n"
+        "    torch.arange(4)[None], KVCache.create(mcfg, 1, device='cpu'), 0)\n"
+        "assert bool(torch.isfinite(lg).all())\n"
         "import csinn2_tpu_torch.__main__, csinn2_tpu_torch.examples.moe_dispatch_probe\n"
         "from csinn2_tpu_torch.llm.gguf_io import write_gguf\n"
         "from csinn2_tpu_torch.llm.convert import convert_gguf\n"
