@@ -157,6 +157,27 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      (b) again over NCCL, one card a rank, through the step graph, tokens
      equal to (b)'s — with one card it logs "NCCL path: not run" and the
      kernels line's "mesh" record says so.
+ 15. context and pipeline parallelism (parallel/cp.py, parallel/pp.py),
+     ranks sharing the card over gloo, whose point-to-point sends are copied
+     through host buffers: (a) ring attention at Llama-2-7B's attention
+     width (b 1, 32 heads, d 128) on four ranks (cp = 2 as two rings, cp =
+     4 as one): S = 4096 in f32 and bf16, causal and not, and S = 16384 at
+     cp = 4, bf16, causal, each gathered output against
+     ring_attention_reference in this process (rtol = atol = 2e-5 in f32,
+     0.05 in bf16), the host time a call, 2 (cp - 1) K/V shifts a rank a
+     call, one hop of a [1, 32, 2048, 128] bf16 block timed alone; (b) pp =
+     2 at Llama-2-7B Q8_0, all 32 layers, int8 KV, batch 4 of 128-token
+     prompts then 8 greedy decode steps fed the one-process run's tokens:
+     PipelinedLlama with both stages on cuda:0 and SPMDPipelinedLlama on two
+     ranks, at 1 and 2 microbatches, logits and every layer's K/V rows bit
+     for bit against llama_forward (the batch whole at 1 microbatch; at 2,
+     microbatch by microbatch, the SPMD head over the whole batch), each
+     rank's p2p.pp sends, ticks, launches and an eager step's host time;
+     (c) pp = 2 x tp = 2 on four ranks, 7B width, 4 layers, Q4_0, 2
+     microbatches: logits and each rank's K/V block against one process
+     (cosine >= 0.999); (d) pp x MoE: PipelinedLlama, 2 stages at
+     Mixtral-8x7B width (2 layers, Q4_0), a 128-token prompt, against
+     llama_forward (cosine >= 0.999).
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -169,7 +190,9 @@ Each path's run zeroes the launch counts just before it and reads them just
 after.  No phase uses torch.profiler: once it has traced,
 host-side launches stay slower for the rest of the process, which would skew
 the serving phases.  The last two lines are the kernels' JSON record and the
-run's JSON result; the kernels line also carries phase 14's summary under "mesh".
+run's JSON result; the kernels line also carries phase 14's summary under "mesh",
+phase 15's under "pipeline", and phase 15's launches of quant_matmul,
+quant_matmul_q4_0 and the attention entries under "launches_pp".
 """
 
 from __future__ import annotations
@@ -2684,6 +2707,489 @@ def mesh_path(here: Path, records, gpu_line: str, q8_0_ref):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 15: context and pipeline parallelism over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (a): (S, cp, dtype, causal) at Llama-2-7B's attention width (b 1, 32 heads,
+# d 128); S = 4096 is Llama-2's published context
+RING_CASES = tuple((4096, cp, dt, causal) for cp in (2, 4) for dt in ("f32", "bf16")
+                   for causal in (True, False)) + ((16384, 4, "bf16", True),)
+RING_TOL = {"f32": 2e-5, "bf16": 0.05}        # tests/test_ring_attention.py
+RING_HEADS, RING_D = 32, 128
+PP_PROMPT, PP_BATCH, PP_STEPS = 128, 4, 8
+
+
+def _ring_qkv(S: int, dtype: str, device):
+    """(a)'s q, k, v [1, 32, S, 128] from a seed on the card (the same
+    tensors in every process)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(15 + S)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    return [torch.randn((1, RING_HEADS, S, RING_D), generator=g, device=device).to(dt)
+            for _ in range(3)]
+
+
+def ring_job():
+    """One of (a)'s four ranks: every RING_CASES case on its cp mesh (cp = 2
+    as two rings of the mesh {"r": 2, "cp": 2}, cp = 4 as one): a warm call,
+    then two calls timed by the host clock around synchronize, the shifts a
+    call counted; the output shard of ring 0; then one shift of a [1, 32,
+    2048, 128] bf16 block along the cp = 4 ring, timed alone (gloo's host
+    staging of a hop at S/n = 2048)."""
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.parallel.cp import ring_attention, shard_sequence
+    from csinn2_tpu_torch.parallel.mesh import Mesh, shift
+    meshes = {2: Mesh({"r": 2, "cp": 2}, device="cuda"), 4: Mesh({"cp": 4}, device="cuda")}
+    out = {"cases": []}
+    for S, cp, dtype, causal in RING_CASES:
+        mesh = meshes[cp]
+        q, k, v = (shard_sequence(t, mesh) for t in _ring_qkv(S, dtype, mesh.device))
+        ring_attention(q, k, v, mesh, causal=causal)
+        times = []
+        for _ in range(2):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = ring_attention(q, k, v, mesh, causal=causal)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        shifts = launch_counts["p2p.cp"]
+        if shifts != 2 * (cp - 1):
+            raise AssertionError(f"(a) S={S} cp={cp}: {shifts} shifts a call, want {2 * (cp - 1)}")
+        rec = dict(S=S, cp=cp, dtype=dtype, causal=causal, ms=min(times), shifts=shifts)
+        if mesh.index("r") == 0:
+            rec["out"] = (o.view(torch.int16) if dtype == "bf16" else o).cpu().numpy()
+        out["cases"].append(rec)
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    blk = torch.ones((1, RING_HEADS, 2048, RING_D), dtype=torch.bfloat16, device=meshes[4].device)
+    hops = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shift(blk, meshes[4], "cp", 1, "timing")
+        torch.cuda.synchronize()
+        if i >= 2:
+            hops.append((time.perf_counter() - t0) * 1e3)
+    out["hop_ms"] = statistics.median(hops)
+    out["coords"] = meshes[2].coords
+    return out
+
+
+def ring_path(gpu_line):
+    """Phase 15 (a): the ranks' outputs put together against
+    ring_attention_reference in this process on the card."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.parallel.cp import ring_attention_reference
+    from csinn2_tpu_torch.parallel.launch import spawn
+    ranks = spawn(ring_job, 4, backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
+    summary = []
+    for i, (S, cp, dtype, causal) in enumerate(RING_CASES):
+        q, k, v = _ring_qkv(S, dtype, "cuda")
+        want = ring_attention_reference(q, k, v, causal=causal,
+                                        q_block=1024 if S > 4096 else None).float()
+        del q, k, v
+        parts = [r["cases"][i]["out"] for r in ranks[:cp]]
+        got = np.concatenate([p.view(np.int16) if dtype == "bf16" else p for p in parts], axis=2)
+        got = torch.from_numpy(got).to("cuda")
+        got = got.view(torch.bfloat16).float() if dtype == "bf16" else got
+        tol = RING_TOL[dtype]
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+        ms = [r["cases"][i]["ms"] for r in ranks]
+        log(f"  (a) ring_attention S={S:5d} cp={cp} {dtype:4s} causal={int(causal)}: max_abs_err "
+            f"{err:.3e} vs ring_attention_reference (rtol = atol = {tol}); host ms a call, rank 0 "
+            f"{ms[0]:.2f} (ranks {min(ms):.2f}-{max(ms):.2f}), p2p.cp {ranks[0]['cases'][i]['shifts']} "
+            f"a rank a call [{gpu_line}]")
+        if not ok:
+            raise AssertionError(f"(a) ring S={S} cp={cp} {dtype} causal={causal}: max err {err}")
+        summary.append(dict(S=S, cp=cp, dtype=dtype, causal=causal, max_abs_err=err,
+                            host_ms=ms[0], shifts=ranks[0]["cases"][i]["shifts"]))
+        del got, want
+        torch.cuda.empty_cache()
+    hop = ranks[0]["hop_ms"]
+    log(f"  (a) one hop of a [1, 32, 2048, 128] bf16 K block (16 MiB) along the cp = 4 ring, "
+        f"host clock around synchronize: {hop:.3f} ms (gloo's staging through the host, not a "
+        f"link speed); each call shifts K and V 2 (cp - 1) times a rank, the JAX loop's last, "
+        f"dead hop left out [{gpu_line}]")
+    return dict(cases=summary, hop_ms_2048=hop)
+
+
+def _pp_tokens(cfg):
+    """(b)'s prompts: PP_BATCH seeded rows of PP_PROMPT tokens."""
+    import torch
+    g = torch.Generator().manual_seed(15)
+    return torch.randint(1, cfg.vocab_size, (PP_BATCH, PP_PROMPT), generator=g)
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _cache_digests(cache, lo, hi, rows):
+    """sha256 of layers lo..hi-1, rows 0..rows-1 of a cache's K and V."""
+    return (_digest(cache.k[lo:hi, :, :rows]), _digest(cache.v[lo:hi, :, :rows]))
+
+
+def _pp_run(fwd, tokens, feed):
+    """Prefill `tokens` and PP_STEPS decode steps fed `feed` [B, PP_STEPS]
+    through fwd(tokens, pos) → logits; the launches of the run (counts
+    zeroed just before) and the decode steps' host times."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = fwd(tokens, 0)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    steps, step_ms = [], []
+    for i in range(feed.shape[1]):
+        t0 = time.perf_counter()
+        steps.append(fwd(feed[:, i:i + 1], tokens.shape[1] + i)[:, -1])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(logits=logits.float().cpu().numpy(),
+                steps=torch.stack(steps).float().cpu().numpy(), counts=dict(launch_counts),
+                prefill_ms=prefill_ms, step_ms=float(np.median(step_ms)))
+
+
+def pp_spmd_job(mode: str, n_layers: int, axes: dict, Ms, tokens, feed, cache_arrays: bool):
+    """One rank of (b) or (c): Llama-2-7B geometry at n_layers, `mode`
+    weights made whole on the card from phase 4's seed, an int8 KV cache;
+    for each M in Ms an SPMDPipelinedLlama(microbatches=M) on the mesh
+    `axes` keeps its stage's layers (its tp shard of them), then _pp_run;
+    its cache's written rows as sha256 digests, or as arrays."""
+    import dataclasses
+    import torch
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.model import init_params_device
+    from csinn2_tpu_torch.parallel.mesh import Mesh
+    from csinn2_tpu_torch.parallel.pp import SPMDPipelinedLlama
+    mesh = Mesh(axes, device="cuda")
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=n_layers)
+    full = init_params_device(cfg, mode, seed=0, device=mesh.device)
+    out = dict(coords=mesh.coords, backend=mesh.backend(), runs={})
+    rows = tokens.shape[1] + feed.shape[1]
+    for M in Ms:
+        t0 = time.perf_counter()
+        pipe = SPMDPipelinedLlama(full, cfg, mesh=mesh, microbatches=M)
+        cache = pipe.init_cache(tokens.shape[0], quantized=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+
+        def fwd(t, pos):
+            return pipe(t, cache, pos)[0]
+        run = _pp_run(fwd, tokens, feed)
+        run.update(build_s=build_s, stage=pipe.stage, Lp=pipe.Lp,
+                   mem_gib=torch.cuda.memory_allocated(mesh.device) / 2**30,
+                   digests=_cache_digests(cache, 0, pipe.Lp, rows))
+        if cache_arrays:
+            run["cache"] = (cache.k[:, :, :rows].cpu().numpy(), cache.v[:, :, :rows].cpu().numpy())
+        if mesh.rank != 0:
+            run["logits_digest"] = (_digest(torch.from_numpy(run.pop("logits"))),
+                                    _digest(torch.from_numpy(run.pop("steps"))))
+        out["runs"][M] = run
+        del pipe, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def _reference_runs(params, cfg, tokens, Ms):
+    """The one-process forward over (b)'s inputs: the batch whole through
+    llama_forward, whose greedy tokens every other run is fed; and for each
+    M > 1 in Ms llama_forward's pieces microbatch by microbatch (the layers
+    of each microbatch into its cache rows, then the head over each
+    microbatch, which is llama_forward run microbatch by microbatch, and
+    the head over the whole batch, the SPMD pipeline's function).  Per M:
+    the logits, the decode steps' logits and the cache (int8 KV)."""
+    import torch
+    from csinn2_tpu_torch.llm.model import (KVCache, embed_tokens, llama_forward, llama_head,
+                                            llama_layers)
+    B = tokens.shape[0]
+    cache = KVCache.create(cfg, B, quantized=True, device="cuda")
+    logits, cache = llama_forward(params, tokens, cache, 0, cfg)
+    nxt, cols, steps = logits[:, -1].argmax(-1), [], []
+    for i in range(PP_STEPS):
+        cols.append(nxt)
+        lg = llama_forward(params, nxt[:, None].cpu(), cache, tokens.shape[1] + i, cfg)[0][:, -1]
+        steps.append(lg)
+        nxt = lg.argmax(-1)
+    feed = torch.stack(cols, dim=1).cpu()
+    out = {1: dict(logits=logits.float().cpu().numpy(),
+                   steps=torch.stack(steps).float().cpu().numpy(), cache=cache)}
+    for M in (m for m in Ms if m != 1):
+        cache = KVCache.create(cfg, B, quantized=True, device="cuda")
+        mb = B // M
+        runs = {"per_mb": ([], []), "whole_head": ([], [])}
+        for i in range(PP_STEPS + 1):
+            t, pos = (tokens, 0) if i == 0 else (feed[:, i - 1:i], tokens.shape[1] + i - 1)
+            x = embed_tokens(params, t)
+            h = torch.cat([llama_layers(params["layers"], x[m * mb:(m + 1) * mb],
+                                        KVCache(k=cache.k[:, m * mb:(m + 1) * mb],
+                                                v=cache.v[:, m * mb:(m + 1) * mb],
+                                                scale=cache.scale), pos, cfg)
+                           for m in range(M)])
+            for key, lg in (("per_mb", torch.cat([llama_head(params, h[m * mb:(m + 1) * mb], cfg)
+                                                  for m in range(M)])),
+                            ("whole_head", llama_head(params, h, cfg))):
+                runs[key][0 if i == 0 else 1].append(lg if i == 0 else lg[:, -1])
+        out[M] = {key: dict(logits=lgs[0].float().cpu().numpy(),
+                            steps=torch.stack(st).float().cpu().numpy())
+                  for key, (lgs, st) in runs.items()}
+        out[M]["cache"] = cache
+    return out, feed
+
+
+def _require_launches(counts, names, label):
+    """Fails where a kernel of the run's path launched no time in it."""
+    missing = [n for n in names if launches(counts, n) == 0]
+    if missing:
+        raise AssertionError(f"{label}: never launched {missing}: {counts}")
+
+
+def _exact(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(a, b))
+
+
+def pp_path(gpu_line):
+    """Phase 15 (b): pp = 2 at Llama-2-7B Q8_0, 32 layers, int8 KV."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.model import init_params_device
+    from csinn2_tpu_torch.parallel.launch import spawn
+    from csinn2_tpu_torch.parallel.pp import PipelinedLlama
+    cfg = LlamaConfig.llama2_7b()
+    tokens = _pp_tokens(cfg)
+    params = init_params_device(cfg, "q8_0", seed=0, device="cuda")
+    ref, feed = _reference_runs(params, cfg, tokens, (2,))
+    rows = PP_PROMPT + PP_STEPS
+    half = cfg.n_layers // 2
+    ref_dig = {M: [_cache_digests(ref[M]["cache"], s * half, (s + 1) * half, rows)
+                   for s in range(2)] for M in ref}
+    for M in ref:
+        del ref[M]["cache"]
+    torch.cuda.empty_cache()
+    out = {"pipelined": {}, "spmd": {}}
+
+    # PipelinedLlama, both stages on cuda:0 (the stage params are the same
+    # tensors: no copy)
+    pipe = PipelinedLlama(params, cfg, ["cuda:0", "cuda:0"])
+    for M in (1, 2):
+        caches = pipe.init_caches(PP_BATCH, quantized=True)
+
+        def fwd(t, pos):
+            return pipe(t, caches, pos, microbatches=M)[0]
+        run = _pp_run(fwd, tokens, feed)
+        dig = [_cache_digests(c, 0, half, rows) for c in caches]
+        want = ref[1] if M == 1 else ref[M]["per_mb"]
+        exact = dict(logits=_exact(run["logits"], want["logits"]),
+                     steps=_exact(run["steps"], want["steps"]), cache=dig == ref_dig[M])
+        log(f"  (b) PipelinedLlama, 2 stages on cuda:0, microbatches {M}: logits of the prefill "
+            f"and of {PP_STEPS} decode steps, and every layer's K/V rows, bit for bit against "
+            f"llama_forward {'(the batch whole)' if M == 1 else 'microbatch by microbatch'}: "
+            f"{exact}; prefill {run['prefill_ms']:.2f} ms, a decode step {run['step_ms']:.2f} ms "
+            f"(host clock) [{gpu_line}]")
+        if not all(exact.values()):
+            raise AssertionError(f"(b) PipelinedLlama M={M}: {exact}")
+        _require_launches(run["counts"], ("quant_matmul", "flash_attention"),
+                          f"(b) PipelinedLlama M={M}")
+        out["pipelined"][M] = dict(exact=exact, counts=run["counts"],
+                                   prefill_ms=run["prefill_ms"], step_ms=run["step_ms"])
+        del caches
+    del pipe, params
+    torch.cuda.empty_cache()
+
+    ranks = spawn(pp_spmd_job, 2, backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S,
+                  args=("q8_0", cfg.n_layers, {"pp": 2}, (1, 2), tokens, feed, False))
+    for M in (1, 2):
+        runs = [r["runs"][M] for r in ranks]
+        r0 = runs[0]
+        same = all(r["logits_digest"] == (_digest(torch.from_numpy(r0["logits"])),
+                                          _digest(torch.from_numpy(r0["steps"])))
+                   for r in runs[1:])
+        cache_ok = [r["digests"] == ref_dig[M][r["stage"]] for r in runs]
+        # one microbatch: llama_forward on the whole batch; two: its pieces
+        # microbatch by microbatch with the head over the whole batch
+        want = ref[1] if M == 1 else ref[M]["whole_head"]
+        cos = min(_cos(r0["logits"], ref[1]["logits"]), _cos(r0["steps"], ref[1]["steps"]))
+        exact = dict(logits=_exact(r0["logits"], want["logits"]),
+                     steps=_exact(r0["steps"], want["steps"]))
+        for i, r in enumerate(runs):
+            log(f"  (b) SPMD pp = 2 M={M} rank {i} stage {r['stage']}: p2p.pp "
+                f"{r['counts'].get('p2p.pp', 0)} sends, {r['counts'].get('p2p.pp.recv', 0)} "
+                f"receives, {r['counts'].get('pipeline.tick', 0)} ticks, "
+                f"{r['counts'].get('pipeline.stage', 0)} stage computes; quant_matmul "
+                f"{launches(r['counts'], 'quant_matmul')}, attention "
+                f"{ {a: launches(r['counts'], a) for a in ATTENTION} }; prefill "
+                f"{r['prefill_ms']:.2f} ms, an eager decode step {r['step_ms']:.2f} ms (host "
+                f"clock; two ranks share the card, so not a PP speed); stage built in "
+                f"{r['build_s']:.2f} s, {r['mem_gib']:.2f} GiB allocated after [{gpu_line}]")
+        log(f"  (b) SPMD pp = 2 M={M}: logits equal on both ranks {same}; every layer's K/V "
+            f"rows bit for bit against llama_forward "
+            f"{'(the batch whole)' if M == 1 else 'microbatch by microbatch'}: {cache_ok}; "
+            f"logits bit for bit against "
+            f"{'it' if M == 1 else 'its pieces microbatch by microbatch, the head over the whole batch'}"
+            f": {exact}; cosine against the whole batch {cos:.8f}"
+            + ("" if M == 1 else f" (llama_forward microbatch by microbatch against the whole "
+               f"batch: {_cos(ref[M]['per_mb']['logits'], ref[1]['logits']):.8f} / "
+               f"{_cos(ref[M]['per_mb']['steps'], ref[1]['steps']):.8f}, prefill / steps: every "
+               "GEMM and attention call sees half the rows, and 32 layers amplify the rounding)"))
+        for i, r in enumerate(runs):
+            _require_launches(r["counts"], ("quant_matmul", "flash_attention"),
+                              f"(b) SPMD M={M} rank {i}")
+        if not (same and all(cache_ok) and all(exact.values())):
+            raise AssertionError(f"(b) SPMD M={M}: same {same} cache {cache_ok} exact {exact} "
+                                 f"cos {cos}")
+        out["spmd"][M] = dict(exact=exact, cache_exact=cache_ok, cos=cos,
+                              counts=[r["counts"] for r in runs],
+                              step_ms=r0["step_ms"], prefill_ms=r0["prefill_ms"])
+        if M > 1:
+            out["spmd"][M]["cos_llama_forward_per_mb"] = _cos(ref[M]["per_mb"]["logits"],
+                                                              ref[1]["logits"])
+    return out
+
+
+def pp_tp_path(gpu_line):
+    """Phase 15 (c): pp = 2 x tp = 2 on four ranks, Llama-2-7B width, 4
+    layers, Q4_0, int8 KV, microbatches 2, against one process."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.model import init_params_device
+    from csinn2_tpu_torch.parallel.launch import spawn
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=4)
+    tokens = _pp_tokens(cfg)
+    params = init_params_device(cfg, "q4_0", seed=0, device="cuda")
+    ref, feed = _reference_runs(params, cfg, tokens, (1,))
+    ref = ref[1]
+    rows = PP_PROMPT + PP_STEPS
+    ck = (ref["cache"].k[:, :, :rows].float() * ref["cache"].scale).cpu().numpy()
+    cv = (ref["cache"].v[:, :, :rows].float() * ref["cache"].scale).cpu().numpy()
+    scale = ref["cache"].scale
+    del params, ref["cache"]
+    torch.cuda.empty_cache()
+    ranks = spawn(pp_spmd_job, 4, backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S,
+                  args=("q4_0", 4, {"pp": 2, "tp": 2}, (2,), tokens, feed, True))
+    runs = [r["runs"][2] for r in ranks]
+    r0 = runs[0]
+    cos = (_cos(r0["logits"], ref["logits"]), _cos(r0["steps"], ref["steps"]))
+    hk = cfg.n_kv_heads // 2
+    cache_cos = []
+    for r, run in zip(ranks, runs):
+        lo, t = run["stage"] * run["Lp"], r["coords"]["tp"]
+        k, v = (a.astype(np.float32) * scale for a in run["cache"])
+        cache_cos.append(min(_cos(k, ck[lo:lo + run["Lp"], ..., t * hk:(t + 1) * hk, :]),
+                             _cos(v, cv[lo:lo + run["Lp"], ..., t * hk:(t + 1) * hk, :])))
+    log(f"  (c) pp = 2 x tp = 2, Q4_0, 4 layers, M = 2: logits cosine against one process "
+        f"prefill {cos[0]:.6f}, {PP_STEPS} decode steps {cos[1]:.6f} (gate 0.999); each rank's "
+        f"K/V block (its 2 layers, its 16 heads) against the one process's: "
+        f"{[round(c, 6) for c in cache_cos]} (gate 0.999) [{gpu_line}]")
+    for i, (r, run) in enumerate(zip(ranks, runs)):
+        c = run["counts"]
+        log(f"  (c) rank {i} {r['coords']}: p2p.pp {c.get('p2p.pp', 0)} / recv "
+            f"{c.get('p2p.pp.recv', 0)}, all_reduce {c.get('all_reduce.wo', 0)} wo + "
+            f"{c.get('all_reduce.w2', 0)} w2, quant_matmul_q4_0 "
+            f"{launches(c, 'quant_matmul_q4_0')}, attention "
+            f"{ {a: launches(c, a) for a in ATTENTION} }; an eager decode step "
+            f"{run['step_ms']:.2f} ms (host clock, four ranks on one card)")
+    for i, run in enumerate(runs):
+        _require_launches(run["counts"], ("quant_matmul_q4_0", "prefill_attention",
+                                          "flash_attention"), f"(c) rank {i}")
+    if min(cos) < 0.999 or min(cache_cos) < 0.999:
+        raise AssertionError(f"(c) pp x tp: logits cosine {cos}, caches {cache_cos}")
+    return dict(cos_prefill=cos[0], cos_steps=cos[1], cache_cos=cache_cos,
+                counts=[run["counts"] for run in runs], step_ms=r0["step_ms"])
+
+
+def pp_moe_path(gpu_line):
+    """Phase 15 (d): PipelinedLlama, 2 stages on cuda:0, at Mixtral-8x7B
+    width (2 layers, Q4_0), a 128-token prompt, against llama_forward."""
+    import torch
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.llm.model import KVCache, init_params_device, llama_forward
+    from csinn2_tpu_torch.parallel.pp import PipelinedLlama
+    cfg = mixtral_cfg(2)
+    params = init_params_device(cfg, "q4_0", seed=14, device="cuda")
+    toks = _moe_tokens(cfg)
+    want, _ = llama_forward(params, toks, KVCache.create(cfg, 1, quantized=True, device="cuda"),
+                            0, cfg)
+    pipe = PipelinedLlama(params, cfg, ["cuda:0", "cuda:0"])
+    reset_launch_counts()
+    got, _ = pipe(toks, pipe.init_caches(1, quantized=True), 0)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    cos = _cos(got.float().cpu().numpy(), want.float().cpu().numpy())
+    exact = bool(torch.equal(got, want))
+    log(f"  (d) pp x MoE: PipelinedLlama 2 stages x 1 layer at Mixtral-8x7B width (E = 8, "
+        f"top-2, dense), Q4_0, 128-token prompt: logits cosine against llama_forward "
+        f"{cos:.8f} (gate 0.999), bit for bit {exact}; quant_matmul_q4_0 launches "
+        f"{launches(counts, 'quant_matmul_q4_0')} (2 x (4 + 3E) + 1 = {2 * (4 + 3 * E_MOE) + 1}) "
+        f"[{gpu_line}]")
+    if cos < 0.999:
+        raise AssertionError(f"(d) pp x MoE: cosine {cos}")
+    _require_launches(counts, ("quant_matmul_q4_0", "prefill_attention"), "(d) pp x MoE")
+    del params, pipe
+    torch.cuda.empty_cache()
+    return dict(cos=cos, exact=exact, counts=counts)
+
+
+def _pp_launches(pipeline, name: str) -> dict:
+    """Phase 15's launches of kernel `name`: each run whose weights it
+    serves (Q8_0: (b); Q4_0: (c), (d); attention: all), a list per rank for
+    the SPMD runs."""
+    b, runs = pipeline["pp2_q8_0"], {}
+    if name != "quant_matmul_q4_0":
+        for M in (1, 2):
+            runs[f"pipelined_m{M}"] = launches(b["pipelined"][M]["counts"], name)
+            runs[f"spmd_m{M}"] = [launches(c, name) for c in b["spmd"][M]["counts"]]
+    if name != "quant_matmul":
+        runs["pp2xtp2_m2"] = [launches(c, name) for c in pipeline["pp2tp2_q4_0"]["counts"]]
+        runs["pp_moe"] = launches(pipeline["pp_moe_q4_0"]["counts"], name)
+    return runs
+
+
+def _without_counts(tree):
+    if isinstance(tree, dict):
+        return {k: _without_counts(v) for k, v in tree.items() if k != "counts"}
+    if isinstance(tree, list):
+        return [_without_counts(v) for v in tree]
+    return tree
+
+
+def pipeline_path(gpu_line):
+    """Phase 15.  Returns the kernels line's "pipeline" summary (with each
+    run's counts and each part's seconds)."""
+    t_phase = time.perf_counter()
+    parts = (
+        ("ring", ring_path, "(a) ring attention at Llama-2-7B attention width (b 1, 32 heads, "
+         "d 128), four ranks on the card over gloo: S = 4096 at cp = 2 and 4, f32 and bf16, "
+         "causal and not; S = 16384 at cp = 4, bf16, causal"),
+        ("pp2_q8_0", pp_path, f"(b) pp = 2, Llama-2-7B Q8_0, 32 layers, int8 KV: batch "
+         f"{PP_BATCH} of {PP_PROMPT}-token prompts, then {PP_STEPS} greedy decode steps fed the "
+         "one-process run's tokens"),
+        ("pp2tp2_q4_0", pp_tp_path, "(c) pp = 2 x tp = 2 on four ranks over gloo, Llama-2-7B "
+         "width, 4 layers, Q4_0, int8 KV, microbatches 2"),
+        ("pp_moe_q4_0", pp_moe_path, "(d) pp x MoE at Mixtral-8x7B width"))
+    out, seconds = {}, {}
+    for key, run, text in parts:
+        log(f"  {text}")
+        t0 = time.perf_counter()
+        out[key] = run(gpu_line)
+        seconds[key] = time.perf_counter() - t0
+        log(f"  {text[:3]} {seconds[key]:.1f} s")
+    out["seconds"] = dict(seconds, phase=time.perf_counter() - t_phase)
+    log(f"  phase 15: {out['seconds']['phase']:.1f} s")
+    return out
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "csinn2_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -2780,6 +3286,10 @@ def main() -> int:
         "kernels at tp-shard shapes, tp = 2 Llama-2-7B Q8_0, tp = 2 x dp = 2, EP at "
         "Mixtral-8x7B width, the multihost dryrun")
     mesh = mesh_path(here, records, gpu_line, q8_0)
+    log("phase 15: context and pipeline parallelism, ranks sharing the card over gloo: ring "
+        "attention at Llama-2-7B attention width, pp = 2 Llama-2-7B Q8_0 (PipelinedLlama and "
+        "SPMDPipelinedLlama), pp = 2 x tp = 2, pp x MoE at Mixtral-8x7B width")
+    pipeline = pipeline_path(gpu_line)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -2817,6 +3327,8 @@ def main() -> int:
             mode = "q8_0" if name == "quant_matmul" else "q4_0"
             entry["launches_ep"] = {k: launches(mesh[f"{k}_{mode}"]["counts"], name)
                                     for k in ("ep2", "ep2xtp2")}
+        if name in ("quant_matmul", "quant_matmul_q4_0") + ATTENTION:
+            entry["launches_pp"] = _pp_launches(pipeline, name)
         if name in ATTENTION + ("flash_attention_bhsd",):
             # the split-KV merges of the same source, within `launches`
             entry["launches_combine"] = int(counts.get(f"{name}.combine", 0))
@@ -2824,7 +3336,7 @@ def main() -> int:
     print(gpu_line)
     print(json.dumps({"kernels": kernels, "mesh": {
         k: ({kk: vv for kk, vv in v.items() if kk != "counts"} if isinstance(v, dict) else v)
-        for k, v in mesh.items()}}))
+        for k, v in mesh.items()}, "pipeline": _without_counts(pipeline)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

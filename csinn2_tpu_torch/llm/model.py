@@ -683,21 +683,23 @@ def moe_routed(cfg: LlamaConfig, T: int) -> bool:
     return cfg.moe_dispatch == "routed" or (cfg.moe_dispatch == "auto" and T >= 256)
 
 
-def llama_forward(params, tokens, cache: KVCache, pos: int, cfg: LlamaConfig,
-                  kv_bound: Optional[int] = None, tp_group=None, ep_group=None):
-    """tokens [b, s] → (logits [b, s, V] f32, cache).  One function for
-    prefill (s = prompt) and decode (s = 1); the cache is updated in place.
-    A layer with a "gate" runs the MoE FFN, routed or dense by moe_routed;
-    under a group it runs dense (the routed dispatch is one rank's)."""
+def embed_tokens(params, tokens) -> torch.Tensor:
+    """tokens [b, s] → the embedding rows [b, s, D] (bf16) on the table's
+    device."""
     emb = params["tok_embedding"]
-    tokens = torch.as_tensor(tokens, device=emb.device).long()
-    x = emb[tokens]                                       # [b, s, D] bf16
-    # RoPE trig is position-only: once per forward, shared by all layers
-    tabs = rope_tables(pos + torch.arange(tokens.shape[1], device=emb.device),
+    return emb[torch.as_tensor(tokens, device=emb.device).long()]
+
+
+def llama_layers(layers, x, cache: KVCache, pos: int, cfg: LlamaConfig,
+                 kv_bound: Optional[int] = None, tp_group=None, ep_group=None,
+                 routed: bool = False) -> torch.Tensor:
+    """The decoder layers `layers` over the residual stream x [b, s, D]; layer
+    i writes layer i of `cache` (in place).  A layer with a "gate" runs the
+    MoE FFN, capacity-routed when `routed`, else dense."""
+    # RoPE trig is position-only: once per call, shared by all layers
+    tabs = rope_tables(pos + torch.arange(x.shape[1], device=x.device),
                        cfg.head_dim, cfg.rope_base)
-    routed = (moe_routed(cfg, tokens.shape[0] * tokens.shape[1])
-              and tp_group is None and ep_group is None)
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(layers):
         lp = {**lp, "_rope_tables": tabs}
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         attn_out, cache = attention_block(h.to(torch.bfloat16), lp, cache, i,
@@ -712,7 +714,25 @@ def llama_forward(params, tokens, cache: KVCache, pos: int, cfg: LlamaConfig,
         else:
             ffn_out = moe_ffn_block(h, lp, cfg, ep_group, tp_group)
         x = x + ffn_out.to(x.dtype)
+    return x
+
+
+def llama_head(params, x, cfg: LlamaConfig, tp_group=None) -> torch.Tensor:
+    """Final norm and lm_head: x [b, s, D] → logits [b, s, V] f32; a
+    vocab-sharded lm_head's logit shards gathered along the vocab."""
     x = rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = linear(x.to(torch.bfloat16), params["output"])
-    # a vocab-sharded lm_head: the logit shards gathered along the vocab
-    return all_gather(logits, tp_group, -1, "logits"), cache
+    return all_gather(linear(x.to(torch.bfloat16), params["output"]), tp_group, -1, "logits")
+
+
+def llama_forward(params, tokens, cache: KVCache, pos: int, cfg: LlamaConfig,
+                  kv_bound: Optional[int] = None, tp_group=None, ep_group=None):
+    """tokens [b, s] → (logits [b, s, V] f32, cache).  One function for
+    prefill (s = prompt) and decode (s = 1); the cache is updated in place.
+    A layer with a "gate" runs the MoE FFN, routed or dense by moe_routed;
+    under a group it runs dense (the routed dispatch is one rank's)."""
+    x = embed_tokens(params, tokens)
+    routed = (moe_routed(cfg, x.shape[0] * x.shape[1])
+              and tp_group is None and ep_group is None)
+    x = llama_layers(params["layers"], x, cache, pos, cfg, kv_bound=kv_bound,
+                     tp_group=tp_group, ep_group=ep_group, routed=routed)
+    return llama_head(params, x, cfg, tp_group), cache

@@ -13,11 +13,20 @@ A Mesh names its axes outer to inner (dp, tp: rank = dp_idx·tp + tp_idx, the
 JAX mesh's reshape(dp, tp), so tp stays on neighbouring ranks), holds this
 rank's coordinates, one process group per axis (the ranks that differ only
 along it) and this rank's device.
+
+Where the JAX code has lax.ppermute (ring attention's K/V rotation, the SPMD
+pipeline's stage-to-stage hop) the port sends point to point: `shift` is one
+hop of a ring along an axis, `send` / `recv_into` one link of a chain.
+Gloo's send and recv take CPU tensors only, so under gloo these helpers copy
+a CUDA tensor into a host buffer, send it, and copy what they receive back to
+the card: that copy is the transport of ranks that share a card (and says
+so on stderr once a process).  Under NCCL they send the device tensor.
 """
 
 from __future__ import annotations
 
 import datetime
+import functools
 import math
 import os
 import sys
@@ -54,7 +63,8 @@ def init_distributed(init_method: Optional[str] = None, world_size: Optional[int
         torch.cuda.set_device(_local_device(rank))
         if backend == "gloo":
             print(f"init_distributed: rank {rank} of {world_size} on gloo with CUDA tensors: "
-                  "collectives are staged through the host", file=sys.stderr, flush=True)
+                  "collectives and point-to-point sends are staged through the host",
+                  file=sys.stderr, flush=True)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -207,3 +217,78 @@ def all_gather(x: torch.Tensor, group, dim: int, tag: str) -> torch.Tensor:
     dist.all_gather(parts, x, group=group)
     launch_counts[f"all_gather.{tag}"] += 1
     return torch.cat(parts, dim=dim)
+
+
+def broadcast(x: torch.Tensor, group, src: int, tag: str) -> torch.Tensor:
+    """x of global rank `src` on every rank of `group` (in place); counts
+    launch_counts["broadcast.<tag>"].  No group: x as it is."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.broadcast(x, src=src, group=group)
+    launch_counts[f"broadcast.{tag}"] += 1
+    return x
+
+
+def neighbour(mesh: Mesh, axis: str, step: int) -> int:
+    """The global rank `step` hops from this one along `axis` (a ring: the
+    index wraps), every other coordinate the same."""
+    coords = dict(mesh.coords)
+    coords[axis] = (coords[axis] + step) % mesh.shape[axis]
+    rank = 0
+    for name, size in mesh.shape.items():
+        rank = rank * size + coords[name]
+    return rank
+
+
+def _staged(x: torch.Tensor) -> bool:
+    """Gloo and a CUDA tensor: the send goes through a host buffer."""
+    if x.device.type != "cuda" or dist.get_backend() != "gloo":
+        return False
+    _say_staged()
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def _say_staged() -> None:
+    print(f"mesh: rank {dist.get_rank()}: gloo sends CPU tensors only: point-to-point sends "
+          "of CUDA tensors are copied through host buffers", file=sys.stderr, flush=True)
+
+
+def shift(x: torch.Tensor, mesh: Mesh, axis: str, step: int, tag: str) -> torch.Tensor:
+    """One hop of a ring along `axis` (lax.ppermute with j → j + step): x
+    goes to the rank `step` ahead, and the x of the rank `step` behind comes
+    back as a new tensor.  The receive is posted before the send and both
+    are waited on, so every rank of the ring can call it at once.  Counts
+    launch_counts["p2p.<tag>"].  An axis of size 1: x as it is."""
+    if mesh.size(axis) == 1:
+        return x
+    staged = _staged(x)
+    out = x.contiguous()
+    out = out.cpu() if staged else out
+    buf = torch.empty_like(out)
+    recv = dist.irecv(buf, src=neighbour(mesh, axis, -step))
+    sent = dist.isend(out, dst=neighbour(mesh, axis, step))
+    recv.wait()
+    sent.wait()
+    launch_counts[f"p2p.{tag}"] += 1
+    return buf.to(x.device) if staged else buf
+
+
+def send(x: torch.Tensor, dst: int, tag: str) -> None:
+    """x to global rank `dst` (blocking); counts launch_counts["p2p.<tag>"]."""
+    out = x.contiguous()
+    dist.send(out.cpu() if _staged(out) else out, dst=dst)
+    launch_counts[f"p2p.{tag}"] += 1
+
+
+def recv_into(buf: torch.Tensor, src: int, tag: str) -> torch.Tensor:
+    """What global rank `src` sends, written into buf (contiguous; its shape
+    and dtype; blocking); counts launch_counts["p2p.<tag>.recv"].  Returns
+    buf."""
+    tmp = torch.empty(buf.shape, dtype=buf.dtype) if _staged(buf) else buf
+    dist.recv(tmp, src=src)
+    if tmp is not buf:
+        buf.copy_(tmp)
+    launch_counts[f"p2p.{tag}.recv"] += 1
+    return buf

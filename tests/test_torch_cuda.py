@@ -21,7 +21,9 @@ chunks, an admission between chunks, a kv_bound change, launch counts,
 captures, strip counters) and its benchmark methods; the kernels at a rank's
 shapes under tensor parallelism (the tp = 2 GEMMs of Llama-2-7B and of a
 Mixtral expert, 16 attention heads) and the engine at tp = 2 over gloo on one
-card and over NCCL where there are two (it skips below two cards);
+card and over NCCL where there are two (it skips below two cards); ring
+attention at cp = 2 over gloo and PipelinedLlama with both stages on the card
+(bit for bit against llama_forward microbatch by microbatch);
 the op API's CUDA tier in a GRAPH session; the eleven Q4_0 dequant-probe
 kernels (kernels/int4_probe.py, every one on the decode GEMM's ring) at M 1,
 5, 8 and 16, N not a multiple of the strip, K a multiple of 32 but not of
@@ -1684,3 +1686,60 @@ def test_engine_tp2_on_the_card(dev, backend):
         assert r["outs"] == want
         assert r["graph"] == (backend == "nccl")
         assert (r["graphs"] > 0) == (backend == "nccl")
+
+
+def _ring_rank(S: int):
+    """One rank of the cp = 2 ring on the card: the gathered output."""
+    from csinn2_tpu_torch.parallel.cp import gather_sequence, ring_attention, shard_sequence
+    from csinn2_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh({"cp": 2}, device="cuda")
+    qkv = _ring_qkv(mesh.device, S)
+    out = ring_attention(*(shard_sequence(t, mesh) for t in qkv), mesh, causal=True)
+    return gather_sequence(out, mesh).cpu().numpy()
+
+
+def _ring_qkv(device, S):
+    g = torch.Generator(device=device)
+    g.manual_seed(16)
+    return [torch.randn((1, 4, S, 64), generator=g, device=device) for _ in range(3)]
+
+
+def test_ring_attention_cp2_on_the_card(dev):
+    """Ring attention over two ranks sharing the card on gloo (K/V hops
+    staged through the host) against the one-process reference, f32 at the
+    JAX test's 2e-5."""
+    from csinn2_tpu_torch.parallel.cp import ring_attention_reference
+    from csinn2_tpu_torch.parallel.launch import spawn
+    ranks = spawn(_ring_rank, 2, backend="gloo", device="cuda", timeout_s=300, args=(512,))
+    want = ring_attention_reference(*_ring_qkv(dev, 512), causal=True).cpu().numpy()
+    for got in ranks:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_pipelined_llama_on_the_card(dev, micro):
+    """PipelinedLlama with both stages on the card: the prefill's and a
+    decode step's logits and every cache row bit for bit against
+    llama_forward run microbatch by microbatch (Q8_0, int8 KV)."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.model import KVCache, init_params, llama_forward
+    from csinn2_tpu_torch.parallel.pp import PipelinedLlama
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, "q8_0", seed=5, device=dev)
+    toks = torch.tensor([[3, 7, 11, 19], [5, 2, 9, 4]])
+    ref = KVCache.create(cfg, 2, quantized=True, device=dev)
+    mb = 2 // micro
+
+    def per_mb(t, pos):
+        return torch.cat([llama_forward(params, t[m * mb:(m + 1) * mb],
+                                        KVCache(k=ref.k[:, m * mb:(m + 1) * mb],
+                                                v=ref.v[:, m * mb:(m + 1) * mb],
+                                                scale=ref.scale), pos, cfg)[0]
+                          for m in range(micro)])
+    pipe = PipelinedLlama(params, cfg, [dev, dev])
+    caches = pipe.init_caches(2, quantized=True)
+    for t, pos in ((toks, 0), (toks[:, :1], 4)):
+        got, caches = pipe(t, caches, pos, microbatches=micro)
+        assert torch.equal(got, per_mb(t, pos))
+        assert torch.equal(torch.cat([c.k for c in caches]), ref.k)
+        assert torch.equal(torch.cat([c.v for c in caches]), ref.v)

@@ -358,7 +358,8 @@ def test_port_imports_no_jax():
     """Importing the port and running its CPU forward, engine, an MoE
     forward (dense and routed), the parallel package on a one-process mesh
     (tp_llama_forward, ep_llama_forward; spawn and the multihost example
-    imported), a GGUF convert / CTBM load round trip, a small fused
+    imported; ring attention and the pipelines imported, a two-stage
+    PipelinedLlama forward on the CPU), a GGUF convert / CTBM load round trip, a small fused
     MobileNetV1 INT8 session and the Q4_0 dequant probe loads neither jax
     nor any module of the JAX package."""
     code = (
@@ -399,6 +400,11 @@ def test_port_imports_no_jax():
         "    shard_moe_params(init_params(mcfg, 'q8_0', device='cpu'), ep1),\n"
         "    torch.arange(4)[None], KVCache.create(mcfg, 1, device='cpu'), 0)\n"
         "assert bool(torch.isfinite(lg).all())\n"
+        "from csinn2_tpu_torch.parallel.cp import ring_attention, ring_attention_reference\n"
+        "from csinn2_tpu_torch.parallel.pp import PipelinedLlama, SPMDPipelinedLlama\n"
+        "pipe = PipelinedLlama(init_params(cfg, 'q8_0', device='cpu'), cfg, ['cpu', 'cpu'])\n"
+        "lg, _ = pipe(torch.arange(8).reshape(2, 4), pipe.init_caches(2, True), 0, 2)\n"
+        "assert lg.shape == (2, 4, cfg.vocab_size) and bool(torch.isfinite(lg).all())\n"
         "import csinn2_tpu_torch.__main__, csinn2_tpu_torch.examples.moe_dispatch_probe\n"
         "from csinn2_tpu_torch.llm.gguf_io import write_gguf\n"
         "from csinn2_tpu_torch.llm.convert import convert_gguf\n"
