@@ -178,6 +178,24 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      (cosine >= 0.999); (d) pp x MoE: PipelinedLlama, 2 stages at
      Mixtral-8x7B width (2 layers, Q4_0), a 128-token prompt, against
      llama_forward (cosine >= 0.999).
+ 16. the rest of the CNN zoo through the graph session at bench.py's sizes
+     (224, 1000 classes), each model seeded 0 and calibrated on the card on
+     one rng.random image (bench.py:168-176): (a) MobileNetV2 UINT8_ASYM,
+     MobileNetV3 INT8_SYM and ResNet-50 INT8_SYM sessions at batch 128 and
+     1: the dequantized batch-1 logits (the session's own output qinfo)
+     against forward_f32, cosine >= 0.99 (bench.py:151-165); batch 1 on the
+     card against the port's CPU plain path with the same recorder, within
+     the fc's 1 LSB; img/s at batch 128 and batch-1 latency
+     (run_benchmark_device); (b) ResNet-50 NCHW against NHWC at batch 1,
+     seed 5: forward_f32 within verify(tol=1e-3) (tests/test_models.py:79-88)
+     and the INT8_SYM logits on one recorder bit for bit; (c) MobileNetV2
+     and MobileNetV3 INT8_SYM with CSINN2_FUSE_DS=1: 7 and 1 ds_block nodes
+     (the residual and hardswish pairs stay unfused), the fused forward at
+     batch 128 (its launches counted: 7 and 1 fused_dsconv) and at batch 1
+     equal to the unfused one bit for bit, and each block's fused_dsconv
+     against fused_dsconv_ref and the unfused pair, bit for bit, timed
+     beside its bound.  The kernels line carries (a)-(b) under "cnn_zoo"
+     and (c)'s blocks under fused_dsconv's "zoo".
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -1558,14 +1576,17 @@ def _block_calls(sess, xin):
             for n in sess.graph.nodes if n.op == "ds_block"]
 
 
-def check_dsconv_blocks(records, sess, xin, fwd_ms, gpu_line):
-    """Each of the 13 blocks at batch 128: the kernel against its plain
-    version and the unfused pair (bit for bit), timed beside its bound."""
+def check_dsconv_blocks(sess, xin, fwd_ms, gpu_line, label):
+    """Each ds_block of `sess`: the kernel against its plain version and the
+    unfused pair (bit for bit), timed beside its bound.  Returns (the
+    slowest block's record, the blocks' summed time and bound, each block's
+    record)."""
     import torch
     from csinn2_tpu_torch.kernels import dsblock as ds
     from csinn2_tpu_torch.utils.timing import gpu_ms
-    worst, total, total_bound = None, 0.0, 0.0
-    for i, (node, arrays, graph_out) in enumerate(_block_calls(sess, xin)):
+    worst, total, total_bound, blocks = None, 0.0, 0.0, []
+    calls = _block_calls(sess, xin)
+    for i, (node, arrays, graph_out) in enumerate(calls):
         metas = [t.meta for t in node.inputs]
         args, kw = ds.fused_args(arrays, metas, node.params, node.out_qinfo, **node.extra)
         run = lambda: ds.fused_dsconv(*args, **kw)
@@ -1578,7 +1599,7 @@ def check_dsconv_blocks(records, sess, xin, fwd_ms, gpu_line):
                             ("unfused pair", pair_fn())):
             if not torch.equal(y, other):
                 n_bad = int((y.int() - other.int()).ne(0).sum())
-                raise AssertionError(f"fused_dsconv block {i}: {n_bad} of {y.numel()} "
+                raise AssertionError(f"{label} fused_dsconv block {i}: {n_bad} of {y.numel()} "
                                      f"outputs differ from the {name}")
         ms = gpu_ms(run)
         plain = gpu_ms(plain_fn, reps=3)
@@ -1589,21 +1610,23 @@ def check_dsconv_blocks(records, sess, xin, fwd_ms, gpu_line):
         k = kw["k"]
         nbytes = x.numel() + dw_w.numel() + pw_w.numel() + 4 * (2 * C + 2 * O) + y.numel()
         b_ms, b_by = bound(nbytes, N * Ho * Wo * (k * k * C + 2 * C * O), INT8_OPS)
-        shape = (f"block {i} N={N} H={H} W={W} C={C} O={O} k={k} s={kw['stride']} "
-                 f"pads={kw['pads']} int8 out")
+        shape = (f"{label} block {i} ({node.name}) N={N} H={H} W={W} C={C} O={O} k={k} "
+                 f"s={kw['stride']} pads={kw['pads']} int8 out")
         log(f"  fused_dsconv {shape}: ms={ms:.4f} plain_ms={plain:.4f} "
             f"unfused_pair_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) roofline={b_ms / ms:.3f}")
         total += ms
         total_bound += b_ms
+        rec = dict(ms=ms, plain_ms=plain, library_ms=None, unfused_pair_ms=lib,
+                   bound_ms=b_ms, bound_by=b_by, shape=shape, max_abs_err=0.0)
+        blocks.append(rec)
         if worst is None or ms > worst["ms"]:
             # no single PyTorch call computes the block: library_ms is null,
             # and the unfused pair stands beside it
-            worst = dict(ms=ms, plain_ms=plain, library_ms=None, unfused_pair_ms=lib,
-                         bound_ms=b_ms, bound_by=b_by, shape=shape, max_abs_err=0.0)
-    records["fused_dsconv"] = dict(worst, blocks_ms=total, blocks_bound_ms=total_bound)
-    log(f"  13 fused_dsconv launches: {total:.4f} ms against a summed bound of "
-        f"{total_bound:.4f} ms ({total_bound / total:.3f}), of the {fwd_ms:.4f} ms fused "
-        f"forward at batch {CNN_BATCH} ({100 * total / fwd_ms:.1f} %) [{gpu_line}]")
+            worst = rec
+    log(f"  {len(calls)} fused_dsconv launches ({label}): {total:.4f} ms against a summed "
+        f"bound of {total_bound:.4f} ms ({total_bound / total:.3f}), of the {fwd_ms:.4f} ms "
+        f"fused forward ({100 * total / fwd_ms:.1f} %) [{gpu_line}]")
+    return worst, total, total_bound, blocks
 
 
 def cnn_path(records, gpu_line: str):
@@ -1690,12 +1713,203 @@ def cnn_path(records, gpu_line: str):
     phase = launch_counts["fused_dsconv"]
     log(f"  fused_dsconv launches over the phase's sessions and timings: {phase} "
         f"({phase // 13} fused forwards of 13)")
-    check_dsconv_blocks(records, sess[True, CNN_BATCH], xin[CNN_BATCH],
-                        statistics.median(times[True, CNN_BATCH]) * 1e3, gpu_line)
-    records["fused_dsconv"]["launches_phase"] = phase
+    worst, total, total_bound, _ = check_dsconv_blocks(
+        sess[True, CNN_BATCH], xin[CNN_BATCH], statistics.median(times[True, CNN_BATCH]) * 1e3,
+        gpu_line, f"MobileNetV1 batch {CNN_BATCH}")
+    records["fused_dsconv"] = dict(worst, blocks_ms=total, blocks_bound_ms=total_bound,
+                                   launches_phase=phase)
     del sess, out
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the CNN zoo, MobileNetV2-u8, MobileNetV3, ResNet-50
+# ---------------------------------------------------------------------------
+
+# (model class, scheme, ds_block pairs fused at INT8_SYM under CSINN2_FUSE_DS=1)
+ZOO = (("MobileNetV2", "UINT8_ASYM", 7), ("MobileNetV3", "INT8_SYM", 1),
+       ("ResNet50", "INT8_SYM", None))
+
+
+def _zoo_model(name: str, **kw):
+    from csinn2_tpu_torch.models.mobilenet import MobileNetV2, MobileNetV3
+    from csinn2_tpu_torch.models.resnet import ResNet50
+    return {"MobileNetV2": MobileNetV2, "MobileNetV3": MobileNetV3,
+            "ResNet50": ResNet50}[name](input_size=224, **kw)
+
+
+def _device_times(sess, x, budget_s: float = 1.5):
+    """run_benchmark_device with enough runs for about budget_s a rep
+    (seconds a forward, median of 3 reps)."""
+    import torch
+    from csinn2_tpu_torch.utils.timing import event_ms
+    sess.run(x)
+    torch.cuda.synchronize()
+    one = event_ms(lambda: sess.run(x)) / 1e3
+    iters = max(2, min(50, int(budget_s / max(one, 1e-4))))
+    return sess.run_benchmark_device(x, iters=iters, reps=3), iters
+
+
+def zoo_model_path(name: str, scheme_name: str, gpu_line: str):
+    """Phase 16 (a) for one model; returns (the model, its record)."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.core.quant import dequantize
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    t0 = time.perf_counter()
+    scheme = QuantScheme[scheme_name]
+    model = _zoo_model(name, seed=0)
+    rng = np.random.default_rng(0)                       # as bench.py:174-176
+    x1 = rng.random(model.input_shape(1)).astype(np.float32)
+    xb = rng.random(model.input_shape(CNN_BATCH)).astype(np.float32)
+    model.calibrate(x1, device="cuda")
+    with env_flag("CSINN2_FUSE_DS", False):
+        sess = {b: model.build_session(scheme, batch=b, device="cuda") for b in (CNN_BATCH, 1)}
+    xin = {CNN_BATCH: model.prepare_input(xb, sess[CNN_BATCH]),
+           1: model.prepare_input(x1, sess[1])}
+    out1 = sess[1].run(xin[1])
+    outb = sess[CNN_BATCH].run(xin[CNN_BATCH])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if out1.dtype != torch.int8 or tuple(out1.shape) != (1, 1000) \
+            or tuple(outb.shape) != (CNN_BATCH, 1000):
+        raise AssertionError(f"{name}: outputs {out1.dtype} {tuple(out1.shape)} "
+                             f"{tuple(outb.shape)}")
+    # the accuracy gate of bench.py:151-165, on the session's own output qinfo
+    golden = model.forward_f32(x1, device="cuda").cpu().numpy()
+    qi = sess[1].graph.outputs[0].meta.qinfo
+    cos = cosine_similarity(dequantize(out1.cpu(), qi).numpy(), golden)
+    log(f"  {name} {scheme_name} 224: cosine(batch-1 logits dequantized, forward_f32) = "
+        f"{cos:.6f} (gate 0.99); in qinfo {sess[1].input_qinfo.dtype.value} "
+        f"zp {sess[1].input_qinfo.zero_point}, out qinfo zp {qi.zero_point}")
+    if not (np.isfinite(golden).all() and cos >= 0.99):
+        raise AssertionError(f"{name}: accuracy gate: cosine {cos}")
+    # the card against the port's CPU plain path, one recorder
+    s_cpu = model.build_session(scheme, batch=1, device="cpu")
+    cpu = s_cpu.run(model.prepare_input(x1, s_cpu)).numpy().astype(int)
+    d = np.abs(cpu - out1.cpu().numpy().astype(int))
+    log(f"  {name}: batch 1, card vs the port's CPU plain path (same recorder): "
+        f"max|d|={d.max()} LSB, {int((d > 0).sum())} of {d.size} logits differ")
+    if d.max() > 1:
+        raise AssertionError(f"{name}: card vs CPU plain path: {d.max()} LSB")
+    del s_cpu
+    tb, itb = _device_times(sess[CNN_BATCH], xin[CNN_BATCH])
+    t1, it1 = _device_times(sess[1], xin[1])
+    log(f"  {name} {scheme_name}: batch {CNN_BATCH} {CNN_BATCH / tb:.1f} img/s "
+        f"({tb * 1e3:.3f} ms/forward, {itb} runs a rep), batch 1 latency {t1 * 1e3:.3f} ms "
+        f"({it1} runs a rep) (run_benchmark_device: CUDA events, median of 3 reps, host gaps "
+        f"included), {len(sess[1].graph.nodes)} nodes; setup {setup_s:.1f} s [{gpu_line}]")
+    rec = dict(scheme=scheme_name, cosine=cos, card_vs_cpu_max_lsb=int(d.max()),
+               card_vs_cpu_n_diff=int((d > 0).sum()), imgs_per_s=CNN_BATCH / tb,
+               ms_batch128=tb * 1e3, latency_ms_batch1=t1 * 1e3, nodes=len(sess[1].graph.nodes),
+               gpu=gpu_line)
+    del sess, xin, outb
+    torch.cuda.empty_cache()
+    return model, rec
+
+
+def resnet_layout_parity(gpu_line: str):
+    """Phase 16 (b): ResNet-50 NCHW against NHWC at batch 1, seed 5."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.core.dtypes import Layout, QuantScheme
+    from csinn2_tpu_torch.utils.verify import verify
+    m1 = _zoo_model("ResNet50", layout=Layout.NHWC, seed=5)
+    m2 = _zoo_model("ResNet50", layout=Layout.NCHW, seed=5)
+    x = np.random.default_rng(11).random((1, 224, 224, 3)).astype(np.float32)
+    xc = np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2)))
+    o1 = m1.forward_f32(x, device="cuda").cpu().numpy()
+    o2 = m2.forward_f32(xc, device="cuda").cpu().numpy()
+    r = verify(o2, o1, tol=1e-3)
+    m1.calibrate(x, device="cuda")
+    m2.recorder.ranges = dict(m1.recorder.ranges)
+    q = []
+    for m, xi in ((m1, x), (m2, xc)):
+        s = m.build_session(QuantScheme.INT8_SYM, batch=1, device="cuda")
+        q.append(s.run(m.prepare_input(xi, s)).cpu())
+    same = torch.equal(q[0], q[1])
+    log(f"  ResNet-50 224 seed 5, NCHW vs NHWC: forward_f32 {r} ; INT8_SYM logits on one "
+        f"recorder {'equal bit for bit' if same else 'DIFFER'}")
+    if not (r.passed and same):
+        raise AssertionError(f"ResNet-50 layout parity: {r}, int8 equal {same}")
+    torch.cuda.empty_cache()
+    return dict(f32_max_abs=float(r.max_abs_err), f32_cosine=float(r.cosine_sim), int8_equal=same)
+
+
+def zoo_fused_path(model, name: str, pairs: int, gpu_line: str):
+    """Phase 16 (c) for one calibrated model: INT8_SYM fused and unfused.
+    Returns (the fused batch-128 forward's launch counts, its record)."""
+    import torch
+    import numpy as np
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(0)
+    rng.random(model.input_shape(1))
+    xb = rng.random(model.input_shape(CNN_BATCH)).astype(np.float32)
+    x1 = np.random.default_rng(0).random(model.input_shape(1)).astype(np.float32)
+    sess = {}
+    for fused in (True, False):
+        with env_flag("CSINN2_FUSE_DS", fused), env_flag("CSINN2_NO_FUSE_DS", False):
+            for b in (CNN_BATCH, 1):
+                s = model.build_session(QuantScheme.INT8_SYM, batch=b, device="cuda")
+                n_ds = sum(n.op == "ds_block" for n in s.graph.nodes)
+                if n_ds != (pairs if fused else 0):
+                    raise AssertionError(f"{name} fused={fused} batch {b}: {n_ds} ds_block "
+                                         f"nodes, want {pairs if fused else 0}")
+                sess[fused, b] = s
+    xin = {CNN_BATCH: model.prepare_input(xb, sess[True, CNN_BATCH]),
+           1: model.prepare_input(x1, sess[True, 1])}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    out = {(True, CNN_BATCH): sess[True, CNN_BATCH].run(xin[CNN_BATCH])}
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    log(f"  {name} INT8_SYM fused forward, batch {CNN_BATCH}: launches {counts}")
+    if counts.get("fused_dsconv", 0) != pairs:
+        raise AssertionError(f"{name}: the fused forward launched fused_dsconv "
+                             f"{counts.get('fused_dsconv', 0)} times, want {pairs}")
+    for key in ((False, CNN_BATCH), (True, 1), (False, 1)):
+        out[key] = sess[key].run(xin[key[1]])
+    torch.cuda.synchronize()
+    for b in (CNN_BATCH, 1):
+        f, u = out[True, b], out[False, b]
+        if f.dtype != torch.int8 or tuple(f.shape) != (b, 1000) or not torch.equal(f, u):
+            raise AssertionError(f"{name} batch {b}: fused logits differ from unfused in "
+                                 f"{int(f.int().ne(u.int()).sum())} of {u.numel()}")
+    log(f"  {name}: {pairs} ds_block nodes; fused int8 logits == unfused, bit for bit, at "
+        f"batch {CNN_BATCH} and 1")
+    t_f, _ = _device_times(sess[True, CNN_BATCH], xin[CNN_BATCH], budget_s=0.5)
+    t_u, _ = _device_times(sess[False, CNN_BATCH], xin[CNN_BATCH], budget_s=0.5)
+    log(f"  {name} INT8_SYM batch {CNN_BATCH}: fused {t_f * 1e3:.3f} ms/forward, unfused "
+        f"{t_u * 1e3:.3f} [{gpu_line}]")
+    worst, total, total_bound, blocks = check_dsconv_blocks(
+        sess[True, CNN_BATCH], xin[CNN_BATCH], t_f * 1e3, gpu_line, f"{name} batch {CNN_BATCH}")
+    rec = dict(pairs=pairs, launches=int(counts.get("fused_dsconv", 0)),
+               fused_ms=t_f * 1e3, unfused_ms=t_u * 1e3, blocks_ms=total,
+               blocks_bound_ms=total_bound, blocks=blocks)
+    del sess, out, xin
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def cnn_zoo_path(records, gpu_line: str):
+    """Phase 16.  Returns ({model: the fused forward's launch counts}, the
+    phase's summary)."""
+    t0 = time.perf_counter()
+    summary, zoo_counts, zoo_blocks = {}, {}, {}
+    for name, scheme, pairs in ZOO:
+        model, summary[name] = zoo_model_path(name, scheme, gpu_line)
+        if pairs is not None:
+            zoo_counts[name], zoo_blocks[name] = zoo_fused_path(model, name, pairs, gpu_line)
+        del model
+    summary["resnet50_layout_parity"] = resnet_layout_parity(gpu_line)
+    records["fused_dsconv"]["zoo"] = zoo_blocks
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16: {summary['seconds']:.1f} s")
+    return zoo_counts, summary
 
 
 # ---------------------------------------------------------------------------
@@ -3290,6 +3504,10 @@ def main() -> int:
         "attention at Llama-2-7B attention width, pp = 2 Llama-2-7B Q8_0 (PipelinedLlama and "
         "SPMDPipelinedLlama), pp = 2 x tp = 2, pp x MoE at Mixtral-8x7B width")
     pipeline = pipeline_path(gpu_line)
+    log("phase 16: the rest of the CNN zoo at 224 through the graph session: MobileNetV2 "
+        "UINT8_ASYM, MobileNetV3 INT8_SYM, ResNet-50 INT8_SYM (both layouts), the fused "
+        "MobileNetV2/V3 INT8_SYM blocks")
+    zoo_counts, cnn_zoo = cnn_zoo_path(records, gpu_line)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3304,7 +3522,7 @@ def main() -> int:
         for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
                       "decode_cold", "cur_ms", "library_layout", "blocks_ms",
                       "blocks_bound_ms", "launches_phase", "decode", "flash_d576",
-                      "decode_d576", "launches_combine", "tp_shards"):
+                      "decode_d576", "launches_combine", "tp_shards", "zoo"):
             if extra in r:
                 entry[extra] = r[extra]
         if name in reduce_per_step:
@@ -3329,6 +3547,8 @@ def main() -> int:
                                     for k in ("ep2", "ep2xtp2")}
         if name in ("quant_matmul", "quant_matmul_q4_0") + ATTENTION:
             entry["launches_pp"] = _pp_launches(pipeline, name)
+        if name == "fused_dsconv":       # phase 16's fused forwards (zeroed before each)
+            entry["launches_zoo"] = {k: launches(c, name) for k, c in zoo_counts.items()}
         if name in ATTENTION + ("flash_attention_bhsd",):
             # the split-KV merges of the same source, within `launches`
             entry["launches_combine"] = int(counts.get(f"{name}.combine", 0))
@@ -3336,7 +3556,7 @@ def main() -> int:
     print(gpu_line)
     print(json.dumps({"kernels": kernels, "mesh": {
         k: ({kk: vv for kk, vv in v.items() if kk != "counts"} if isinstance(v, dict) else v)
-        for k, v in mesh.items()}, "pipeline": _without_counts(pipeline)}))
+        for k, v in mesh.items()}, "pipeline": _without_counts(pipeline), "cnn_zoo": cnn_zoo}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

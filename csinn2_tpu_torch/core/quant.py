@@ -55,6 +55,12 @@ class QuantInfo:
     def per_channel(self) -> bool:
         return self.axis is not None and np.ndim(self.scale) > 0
 
+    def multiplier_shift(self, out_scale: ArrayLike, w_scale: ArrayLike = 1.0):
+        """Fold (in_scale * w_scale / out_scale) into int multiplier+shift arrays."""
+        eff = np.asarray(self.scale, np.float64) * np.asarray(w_scale, np.float64)
+        eff = eff / np.asarray(out_scale, np.float64)
+        return quantize_multiplier(eff)
+
     def broadcast_shape(self, rank: int) -> Tuple[int, ...]:
         """Shape to reshape scale/zp to for broadcasting against a rank-`rank` array."""
         if not self.per_channel:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from csinn2_tpu_torch.core.dtypes import Dtype, Layout, MemType, QuantScheme, dtype_of
-from csinn2_tpu_torch.core.quant import BLOCK_SIZE, BlockQuant, QuantInfo, quantize
+from csinn2_tpu_torch.core.quant import BLOCK_SIZE, BlockQuant, QuantInfo, dequantize, quantize
 
 BLOCK_MEM_TYPES = (MemType.BLOCK_Q4_0, MemType.BLOCK_Q8_0)
 
@@ -121,6 +121,13 @@ class Tensor:
         if device not in self._placed:
             self._placed[device] = place_block(self.data, device)
         return self._placed[device]
+
+    def astype_f32(self) -> torch.Tensor:
+        """Dequantized f32 view (ref: shl_ref_tensor_transform_f32,
+        source/reference/utils.c:579)."""
+        if self.qinfo is not None and not self.qinfo.dtype.is_float:
+            return dequantize(self.data, self.qinfo)
+        return self.data.float()
 
     def numpy(self):
         return self.data.detach().cpu().numpy()

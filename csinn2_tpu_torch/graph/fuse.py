@@ -9,6 +9,17 @@ separable block, a depthwise conv feeding a pointwise conv, into one
 `ds_block` node backed by the CUDA kernel in kernels/dsblock.py (int8 in →
 int8 out; the depthwise intermediate never reaches device memory).
 
+Only the pairs the kernel computes are fused: a depthwise conv with a
+fused hardswish, and a pointwise conv with a fused residual (fuse_add) or
+hardswish, stay unfused, since `ds_block` carries neither the residual
+input nor a hardswish epilogue.  The JAX package's pass lacks these two
+refusals and rewrites MobileNetV2's residual project convs and
+MobileNetV3's hardswish depthwise convs into blocks whose output differs
+from the unfused graph's (ROADMAP queue C: a fault of the reference).  So
+under INT8_SYM the port fuses MobileNetV2's 7 residual-free pairs (of its
+17) and MobileNetV3's one (b1, of the JAX pass's 7); MobileNetV1 keeps its
+13.
+
 The pass is off by default, as in the JAX package, and opt-in with
 CSINN2_FUSE_DS=1; CSINN2_NO_FUSE_DS=1 or config.disable("ds_block") turns
 it back off.  (The JAX package keeps it off for a TPU measurement; nothing
@@ -70,7 +81,7 @@ def _dw_eligible(node: Node) -> bool:
         return False
     if any(pv < 0 or pv > k // 2 for pv in p.pad):
         return False
-    if len(node.outputs) != 1:
+    if len(node.outputs) != 1 or p.fuse_hswish:
         return False
     oq = node.out_qinfo
     if oq is None or oq.dtype != Dtype.INT8 or not _static_zero(oq.zero_point):
@@ -90,7 +101,7 @@ def _pw_eligible(node: Node) -> bool:
     w = node.inputs[1]
     if len(w.meta.shape) != 4 or w.meta.shape[2:] != (1, 1):
         return False
-    if len(node.outputs) != 1:
+    if len(node.outputs) != 1 or p.fuse_add or p.fuse_hswish:
         return False
     return _int8_sym_carrier(w.meta)
 

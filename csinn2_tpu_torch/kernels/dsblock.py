@@ -36,7 +36,7 @@ from csinn2_tpu_torch.core.quant import QuantInfo
 from csinn2_tpu_torch.core.tensor import TensorMeta
 from csinn2_tpu_torch.kernels import _build
 from csinn2_tpu_torch.kernels.qconv import (_conv2d_quant, _depthwise_quant, check_exact,
-                                            mul_add)
+                                            mul_add, static_scalar)
 from csinn2_tpu_torch.ops.params import Conv2dParams
 from csinn2_tpu_torch.ops.registry import registry
 
@@ -242,13 +242,6 @@ def fused_dsconv(x, dw_w, effd, bd, pw_w, effp, bp, *, k: int, stride: int,
 
 # --- op callback + registration ---------------------------------------------
 
-def _static_scalar(v):
-    try:
-        return float(np.asarray(v).reshape(()))
-    except Exception:
-        return None
-
-
 @functools.lru_cache(maxsize=256)
 def _mid_qinfo(mid_scale: float, scheme) -> QuantInfo:
     """One QuantInfo per mid scale, so its device tensors are made once."""
@@ -280,14 +273,14 @@ def fused_args(arrays, metas, params, out_qinfo, *, k, mid_scale, mid_relu,
     composition (a non-static input or output scale)."""
     x, w1, b1, w2, b2 = arrays
     xm, w1m, w2m = metas[0], metas[1], metas[3]
-    if _static_scalar(xm.qinfo.scale) is None:
+    if static_scalar(xm.qinfo.scale) is None:
         return None
     if out_qinfo is None or out_qinfo.dtype.is_float:
         out_scale, out_zp = None, 0.0
         out_dtype = torch.float32 if out_qinfo is None else out_qinfo.dtype.torch
     else:
-        out_scale = _static_scalar(out_qinfo.scale)
-        out_zp = _static_scalar(out_qinfo.zero_point)
+        out_scale = static_scalar(out_qinfo.scale)
+        out_zp = static_scalar(out_qinfo.zero_point)
         if out_scale is None or out_zp is None:
             return None
         out_dtype = out_qinfo.dtype.torch

@@ -1,17 +1,20 @@
 """CNN model-building infrastructure: one model definition drives float
 inference, PTQ calibration and quantized graph construction (counterpart of
-csinn2_tpu/models/common.py; NetBuilder's "float" and "graph" modes, the
-FLOAT32 and INT8_SYM schemes and the layers MobileNetV1 uses.  "observe"
-mode, the other schemes and the MobileNetV2/V3 layers are ROADMAP queue A
-item 11).
+csinn2_tpu/models/common.py: NetBuilder's three modes, every QuantScheme the
+JAX builder takes, and the layers of MobileNetV1/V2/V3 and ResNet-50).
 
 (ref: example/c906_mobilenetv1_f16.c:21-1958 — a csinn_ call per layer with
 explicit qinfo.)  Model code calls builder.conv/fc/... once, and the
 builder either
-  * executes eagerly in f32 (mode="float"), or
-  * records a graph into a Session (mode="graph"): float for FLOAT32, and
-    for INT8_SYM per-channel symmetric int8 weights plus per-layer
-    activation qinfo from the calibrated ranges.
+  * executes eagerly in f32 (mode="float") — the golden path,
+  * executes f32 while recording per-layer output ranges (mode="observe") —
+    post-training calibration, or
+  * records a graph into a Session (mode="graph"): float for FLOAT32, a
+    cast for FLOAT16/BFLOAT16, and for the integer schemes per-channel
+    symmetric weights plus per-layer activation qinfo from the calibrated
+    ranges.  The u8 schemes quantize weights and interior activations to
+    s8 (the same values about a zero-point shifted by 128): u8 stays the
+    graph-edge representation, and the first conv shifts its input once.
 """
 
 from __future__ import annotations
@@ -28,13 +31,9 @@ from csinn2_tpu_torch.core.layout import channel_axis
 from csinn2_tpu_torch.core.quant import QuantInfo, from_minmax, observe as observe_qi
 from csinn2_tpu_torch.core.tensor import Tensor, from_float
 
-PORTED_SCHEMES = (QuantScheme.FLOAT32, QuantScheme.INT8_SYM)
 
-
-def check_scheme(scheme: QuantScheme):
-    if scheme not in PORTED_SCHEMES:
-        raise NotImplementedError(f"scheme {scheme.value} is not ported yet (ROADMAP queue A "
-                                  "item 11); this package builds FLOAT32 and INT8_SYM")
+# the float schemes: a cast to this dtype, no ranges
+FLOAT_SCHEMES = {QuantScheme.FLOAT16: Dtype.FLOAT16, QuantScheme.BFLOAT16: Dtype.BFLOAT16}
 
 
 @dataclasses.dataclass
@@ -54,9 +53,10 @@ class QuantRecorder:
         self.ranges[name] = (lo, hi)
 
     def qinfo(self, name: str, scheme: QuantScheme) -> Optional[QuantInfo]:
-        check_scheme(scheme)
         if scheme == QuantScheme.FLOAT32:
             return None
+        if scheme in FLOAT_SCHEMES:
+            return QuantInfo(dtype=FLOAT_SCHEMES[scheme], scheme=scheme)
         lo, hi = self.ranges[name]
         qi = from_minmax(lo, hi, scheme.act_dtype, symmetric=not scheme.asym_act)
         qi.scheme = scheme
@@ -64,15 +64,13 @@ class QuantRecorder:
 
 
 class NetBuilder:
-    """Dual-mode model builder; see module docstring."""
+    """Three-mode model builder; see module docstring."""
 
     def __init__(self, weights: Dict[str, np.ndarray], scheme: QuantScheme,
                  layout: Layout = Layout.NHWC, mode: str = "float",
                  recorder: Optional[QuantRecorder] = None):
-        if mode not in ("float", "graph"):
-            raise NotImplementedError(f"NetBuilder mode {mode!r} is not ported yet "
-                                      "(ROADMAP queue A item 11)")
-        check_scheme(scheme)
+        if mode not in ("float", "observe", "graph"):
+            raise ValueError(f"NetBuilder mode {mode!r} (want float, observe or graph)")
         self.w = weights
         self.scheme = scheme
         self.layout = layout
@@ -86,16 +84,22 @@ class NetBuilder:
     # -- weight handling -----------------------------------------------------
 
     def weight(self, name: str, per_channel_axis: Optional[int] = 0) -> Tensor:
-        """Constant weight tensor, quantized per-channel symmetric int8 in
-        graph mode under INT8_SYM."""
+        """Constant weight tensor, quantized per the scheme in graph mode
+        (per-channel symmetric for the integer schemes, s8 for the u8 ones:
+        no asymmetric-weight window sums, no in-graph carrier shift)."""
         if name in self._wcache:
             return self._wcache[name]
         arr = np.asarray(self.w[name], np.float32)
         if self.mode != "graph" or self.scheme == QuantScheme.FLOAT32:
             t = Tensor(arr)
+        elif self.scheme in FLOAT_SCHEMES:
+            qi = QuantInfo(dtype=FLOAT_SCHEMES[self.scheme], scheme=self.scheme)
+            t = Tensor(arr.astype(np.float16) if qi.dtype == Dtype.FLOAT16 else arr, qinfo=qi)
         else:
-            qi = observe_qi(arr, self.scheme.weight_dtype, symmetric=True,
-                            axis=per_channel_axis)
+            wdt = self.scheme.weight_dtype
+            if wdt.qmin == 0:
+                wdt = Dtype.INT8
+            qi = observe_qi(arr, wdt, symmetric=True, axis=per_channel_axis)
             qi.scheme = self.scheme
             t = from_float(arr, qi)
         self._wcache[name] = t
@@ -109,16 +113,29 @@ class NetBuilder:
     def _out_qinfo(self, name: str):
         if self.mode != "graph":
             return None
-        return self.rec.qinfo(name, self.scheme)
+        qi = self.rec.qinfo(name, self.scheme)
+        if qi is not None and qi.dtype == Dtype.UINT8:
+            # interior activations of the u8 schemes ride s8 carriers, the
+            # zero-point shifted by -128 (same scale, identical values)
+            lo, hi = self.rec.ranges[name]
+            qi = from_minmax(lo, hi, Dtype.INT8, symmetric=not self.scheme.asym_act)
+            qi.scheme = self.scheme
+        return qi
 
     def _post(self, t: Tensor, name: str) -> Tensor:
+        if self.mode == "observe":
+            self.rec.update(name, t.data)
         self.observed.append((name, t))
         return t
 
     # -- layers --------------------------------------------------------------
 
     def conv(self, x, name: str, stride=1, pad="same", k=None, group: int = 1,
-             relu6: bool = False, relu: bool = False, quant: bool = True) -> Tensor:
+             relu6: bool = False, relu: bool = False, add=None,
+             hswish: bool = False, quant: bool = True) -> Tensor:
+        """add: optional residual fused into the conv epilogue (conv + bias +
+        residual → activation → one requantize); the range recorded under
+        `name` is then the post-join activation."""
         wgt = self.weight(name + ".w")
         k = k or self.w[name + ".w"].shape[2]
         if pad == "same":
@@ -134,16 +151,17 @@ class NetBuilder:
             padding = pad if len(pad) == 4 else (pad[0], pad[0], pad[1], pad[1])
         params = ops.Conv2dParams(stride=(stride, stride), pad=padding, group=group,
                                   layout=self.layout, name=name,
-                                  fuse_relu=relu, fuse_relu6=relu6)
+                                  fuse_relu=relu, fuse_relu6=relu6, fuse_hswish=hswish)
         out = ops.conv2d(x, wgt, self.bias(name + ".b"), params,
-                         out_qinfo=self._out_qinfo(name) if quant else None)
+                         out_qinfo=self._out_qinfo(name) if quant else None,
+                         residual=add)
         return self._post(out, name)
 
     def dwconv(self, x, name: str, stride=1, pad="same", relu6=False,
-               relu=False) -> Tensor:
+               relu=False, hswish=False) -> Tensor:
         cin = x.shape[channel_axis(self.layout)]
         return self.conv(x, name, stride=stride, pad=pad, group=cin,
-                         relu6=relu6, relu=relu)
+                         relu6=relu6, relu=relu, hswish=hswish)
 
     def fc(self, x, name: str) -> Tensor:
         wgt = self.weight(name + ".w")
@@ -158,10 +176,32 @@ class NetBuilder:
     def relu6(self, x, name: str) -> Tensor:
         return self._post(ops.relu6(x, out_qinfo=self._out_qinfo(name)), name)
 
+    def hardswish(self, x, name: str) -> Tensor:
+        """x * relu6(x+3)/6 (MobileNetV3)."""
+        h = ops.relu6(ops.add(x, Tensor(np.float32(3.0))))
+        y = ops.mul(x, ops.mul(h, Tensor(np.float32(1.0 / 6.0))),
+                    out_qinfo=self._out_qinfo(name))
+        return self._post(y, name)
+
+    def hardsigmoid(self, x, name: str, quant: bool = True) -> Tensor:
+        qi = self._out_qinfo(name) if quant else None
+        return self._post(ops.hard_sigmoid(x, out_qinfo=qi), name)
+
+    def add(self, a, b, name: str) -> Tensor:
+        return self._post(ops.add(a, b, out_qinfo=self._out_qinfo(name)), name)
+
+    def mul(self, a, b, name: str) -> Tensor:
+        return self._post(ops.mul(a, b, out_qinfo=self._out_qinfo(name)), name)
+
     def global_pool(self, x, name: str, quant: bool = True) -> Tensor:
         p = ops.PoolParams(layout=self.layout, name=name)
         qi = self._out_qinfo(name) if quant else None
         return self._post(ops.global_avgpool2d(x, p, out_qinfo=qi), name)
+
+    def maxpool(self, x, name: str, k=3, stride=2, pad=(1, 1, 1, 1)) -> Tensor:
+        p = ops.PoolParams(kernel=(k, k), stride=(stride, stride), pad=pad,
+                           layout=self.layout, name=name)
+        return self._post(ops.maxpool2d(x, p, out_qinfo=self._out_qinfo(name)), name)
 
     def flatten(self, x) -> Tensor:
         return ops.flatten(x)

@@ -1,10 +1,12 @@
 """Public op API over Tensor handles (counterpart of csinn2_tpu/ops/api.py;
-the ops MobileNetV1's NetBuilder calls: conv2d, depthwise_conv2d,
-fullyconnected, global_avgpool2d, flatten, relu, relu6, softmax; and matmul
+the ops the CNN models' NetBuilder calls — conv2d with the fused residual,
+depthwise_conv2d, group_conv2d, fullyconnected, the pools, flatten,
+softmax — the generated unary and binary families over what ops/ref
+registers (elementwise math, comparison, logic, activations), and matmul
 and scaled_dot_product_attention, which with block-quantized (Q8_0 / Q4_0)
 weights and long or cached attention reach the CUDA tier of
 kernels/autodispatch.py.  The rest of the 346-function csinn_* surface is
-ROADMAP queue A item 10).
+ROADMAP queue A item 10.4).
 
 (ref: include/csinn/csi_nn.h; impl pattern source/nn2/convolution.c:26-85.)
 In GRAPH mode the calls record nodes into the active Session; otherwise
@@ -25,12 +27,13 @@ GRAPH mode, the first input's in layer mode.  A block-quantized weight is a
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from csinn2_tpu_torch.core.dtypes import Api, DebugLevel, Layout, QuantScheme, dtype_of
+from csinn2_tpu_torch.core.dtypes import Api, DebugLevel, Dtype, Layout, QuantScheme, dtype_of
 from csinn2_tpu_torch.core.quant import QuantInfo, dequantize, dequantize_blocks, quantize
 from csinn2_tpu_torch.core.tensor import Tensor, TensorMeta
 from csinn2_tpu_torch.graph.ir import Node
@@ -124,6 +127,10 @@ def call_op(op: str, tensors: Sequence[Any], params=None,
     device = _run_device(sess, flat)
     cb = registry.lookup(op, scheme=scheme, api=api_pref, metas=metas, params=params,
                          device=device)
+    # the zp weight-sum vector is an operand of the integer conv path only:
+    # a generic (dequant→f32) callback does not know it (always last)
+    if not cb.quant_direct and flat and flat[-1].meta.name == "__zp_wsum__":
+        flat, structure, metas = flat[:-1], structure[:-1], metas[:-1]
 
     # per-op-signature debug printer (ref: SHL_DEBUG_CALL, include/shl_debug.h:32-40)
     if _log.get_level() <= DebugLevel.DEBUG:
@@ -187,7 +194,7 @@ def call_op(op: str, tensors: Sequence[Any], params=None,
     return Tensor(data=result, qinfo=out_qinfo, layout=layout)
 
 
-# --- unary wrappers -----------------------------------------------------------
+# --- generated unary / binary wrappers ------------------------------------------
 
 def _unary(op):
     def fn(x, params=None, out_qinfo=None):
@@ -196,9 +203,34 @@ def _unary(op):
     return fn
 
 
-relu = _unary("relu")
-relu6 = _unary("relu6")
-flatten = _unary("flatten")
+def _binary(op):
+    def fn(a, b, params=None, out_qinfo=None):
+        return call_op(op, [a, b], params, out_qinfo)
+    fn.__name__ = op
+    return fn
+
+
+# the JAX package's lists, less the shape-family ops not ported yet
+# (shape, ndarray_size, yuv_rgb_scale)
+_UNARY_OPS = [
+    "abs", "acos", "acosh", "asin", "asinh", "atan", "atanh", "ceil", "cos",
+    "cosh", "exp", "expm1", "floor", "log", "log1p", "negative", "round",
+    "rsqrt", "sign", "sin", "sinh", "sqrt", "square", "tan", "trunc", "isnan",
+    "relu", "relu1", "relu6", "sigmoid", "hard_sigmoid", "silu", "erf", "tanh",
+    "softplus", "softrelu", "softsign", "gelu", "elu", "logical_not", "not",
+    "flatten",
+]
+_BINARY_OPS = [
+    "add", "sub", "mul", "div", "power", "maximum", "minimum", "mod",
+    "floor_mod", "floor_divide", "equal", "not_equal", "greater",
+    "greater_equal", "less", "less_equal", "logical_and", "logical_or",
+    "logical_xor", "and", "or", "xor",
+]
+
+for _op in _UNARY_OPS:
+    globals()[_op if _op not in ("and", "or", "not") else _op + "_"] = _unary(_op)
+for _op in _BINARY_OPS:
+    globals()[_op if _op not in ("and", "or") else _op + "_"] = _binary(_op)
 
 
 # --- structured ops ---------------------------------------------------------
@@ -210,32 +242,67 @@ def _w_layout(weight):
     return Layout.OIHW
 
 
-def _conv_inputs(x, weight, bias):
-    """[x, weight, bias].  The JAX package appends an AOT zp-weight-sum
-    vector when x has a static nonzero zero-point (the asymmetric schemes);
-    that fold is not ported yet."""
-    if isinstance(x, Tensor) and x.qinfo is not None and not x.qinfo.dtype.is_float \
-            and np.any(np.asarray(x.qinfo.zero_point) != 0):
-        raise NotImplementedError("conv2d on an activation with a nonzero zero-point "
-                                  "(the zp-weight-sum fold, MobileNetV2-u8) is not "
-                                  "ported yet (ROADMAP queue A item 10)")
-    return [x, weight, bias]
+def _zp_sumw_tensor(x, weight) -> Optional[Tensor]:
+    """The AOT activation-zp correction vector of the integer conv path
+    (kernels/qconv.precompute_zp_wsum): made at graph build when the weight
+    is a const 8-bit carrier and x has a static nonzero effective
+    zero-point (u8 x counts as its s8 carrier, zp − 128).  A const Tensor
+    named "__zp_wsum__", or None."""
+    from csinn2_tpu_torch.kernels.qconv import precompute_zp_wsum, static_scalar
+    if not isinstance(x, Tensor) or not isinstance(weight, Tensor):
+        return None
+    if weight.data is None or x.qinfo is None or x.qinfo.dtype.is_float:
+        return None
+    if x.dtype not in (Dtype.INT8, Dtype.UINT8) or weight.dtype not in (Dtype.INT8, Dtype.UINT8):
+        return None
+    zp = static_scalar(x.qinfo.zero_point)
+    if zp is None:
+        return None
+    if x.dtype == Dtype.UINT8:
+        zp -= 128.0
+    if int(np.round(zp)) == 0:
+        return None
+    t = Tensor(precompute_zp_wsum(weight.numpy(), w_layout=_w_layout(weight)))
+    t.meta.name = "__zp_wsum__"
+    return t
+
+
+def _conv_inputs(x, weight, bias, residual=None):
+    """[x, weight, bias(, residual)(, zp weight-sum)]: the residual rides
+    after the bias, where the quant callback finds it, and the zp vector
+    last, where call_op strips it for a generic callback."""
+    ins = [x, weight, bias]
+    if residual is not None:
+        ins.append(residual)
+    m = _zp_sumw_tensor(x, weight)
+    if m is not None:
+        ins.append(m)
+    return ins
 
 
 def conv2d(x, weight, bias=None, params: P.Conv2dParams = None, out_qinfo=None,
            residual=None):
-    """residual (the fused ResNet join) is not ported yet."""
-    if residual is not None:
-        raise NotImplementedError("conv2d(residual=...) is not ported yet "
-                                  "(ROADMAP queue A items 10-11: ResNet-50 fuse_add)")
+    """residual: optional same-shape tensor added to the conv output before
+    the fused activation and requantize — the ResNet join in one epilogue
+    (the graph optimisation the reference's HHB performs on conv→add)."""
     params = params or P.Conv2dParams()
-    return call_op("conv2d", _conv_inputs(x, weight, bias), params, out_qinfo,
+    if residual is not None:
+        params = dataclasses.replace(params, fuse_add=True)
+        if bias is None:
+            bias = Tensor(np.zeros((weight.shape[0],), np.float32))
+    return call_op("conv2d", _conv_inputs(x, weight, bias, residual), params, out_qinfo,
                    w_layout=_w_layout(weight))
 
 
 def depthwise_conv2d(x, weight, bias=None, params: P.Conv2dParams = None, out_qinfo=None):
     params = params or P.Conv2dParams()
     return call_op("depthwise_conv2d", _conv_inputs(x, weight, bias), params, out_qinfo,
+                   w_layout=_w_layout(weight))
+
+
+def group_conv2d(x, weight, bias=None, params: P.Conv2dParams = None, out_qinfo=None):
+    params = params or P.Conv2dParams()
+    return call_op("group_conv2d", _conv_inputs(x, weight, bias), params, out_qinfo,
                    w_layout=_w_layout(weight))
 
 
@@ -256,14 +323,84 @@ def scaled_dot_product_attention(q, k, v, params: P.SDPAParams = None, out_qinfo
                    params or P.SDPAParams(), out_qinfo)
 
 
+def maxpool2d(x, params: P.PoolParams, out_qinfo=None):
+    return call_op("maxpool2d", [x], params, out_qinfo)
+
+
+def avgpool2d(x, params: P.PoolParams, out_qinfo=None):
+    return call_op("avgpool2d", [x], params, out_qinfo)
+
+
+def global_maxpool2d(x, params: P.PoolParams = None, out_qinfo=None):
+    return call_op("global_maxpool2d", [x], params or P.PoolParams(), out_qinfo)
+
+
 def global_avgpool2d(x, params: P.PoolParams = None, out_qinfo=None):
     return call_op("global_avgpool2d", [x], params or P.PoolParams(), out_qinfo)
+
+
+def maxpool3d(x, params: P.PoolParams, out_qinfo=None):
+    return call_op("maxpool3d", [x], params, out_qinfo)
+
+
+def avgpool3d(x, params: P.PoolParams, out_qinfo=None):
+    return call_op("avgpool3d", [x], params, out_qinfo)
+
+
+def l2pool2d(x, params: P.PoolParams, out_qinfo=None):
+    return call_op("l2pool2d", [x], params, out_qinfo)
 
 
 def softmax(x, params: P.SoftmaxParams = None, out_qinfo=None):
     return call_op("softmax", [x], params or P.SoftmaxParams(), out_qinfo)
 
 
-__all__ = ["call_op", "conv2d", "depthwise_conv2d", "fullyconnected", "matmul",
-           "scaled_dot_product_attention", "global_avgpool2d", "flatten", "relu", "relu6",
-           "softmax"]
+def log_softmax(x, params: P.SoftmaxParams = None, out_qinfo=None):
+    return call_op("log_softmax", [x], params or P.SoftmaxParams(), out_qinfo)
+
+
+def leaky_relu(x, params: P.ReluParams, out_qinfo=None):
+    return call_op("leaky_relu", [x], params, out_qinfo)
+
+
+def relun(x, params: P.ReluParams, out_qinfo=None):
+    return call_op("relun", [x], params, out_qinfo)
+
+
+def threshold_relu(x, params: P.ReluParams, out_qinfo=None):
+    return call_op("threshold_relu", [x], params, out_qinfo)
+
+
+def prelu(x, alpha, params: P.PReluParams = None, out_qinfo=None):
+    return call_op("prelu", [x, alpha], params or P.PReluParams(), out_qinfo)
+
+
+def clip(x, params: P.ClipParams, out_qinfo=None):
+    return call_op("clip", [x], params, out_qinfo)
+
+
+def where(cond, a, b, params=None, out_qinfo=None):
+    return call_op("where", [cond, a, b], params, out_qinfo)
+
+
+def select(cond, a, b, params=None, out_qinfo=None):
+    return call_op("select", [cond, a, b], params, out_qinfo)
+
+
+def where_softmax(cond, x, params=None, axis=-1, out_qinfo=None):
+    return call_op("where_softmax", [cond, x], params, out_qinfo, axis=axis)
+
+
+def data_convert(x, params=None, out_qinfo=None):
+    """Dtype/quant-scheme conversion as a graph op (ref: CSINN_OP_DATA_CONVERT):
+    dequant→requant into out_qinfo."""
+    return call_op("data_convert", [x], params, out_qinfo)
+
+
+__all__ = (["call_op", "conv2d", "depthwise_conv2d", "group_conv2d", "fullyconnected",
+            "matmul", "scaled_dot_product_attention", "maxpool2d", "avgpool2d",
+            "global_maxpool2d", "global_avgpool2d", "maxpool3d", "avgpool3d", "l2pool2d",
+            "softmax", "log_softmax", "leaky_relu", "relun", "threshold_relu", "prelu",
+            "clip", "where", "select", "where_softmax", "data_convert"]
+           + [o if o not in ("and", "or", "not") else o + "_"
+              for o in _UNARY_OPS + _BINARY_OPS])

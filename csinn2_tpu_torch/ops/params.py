@@ -1,6 +1,6 @@
 """Operator parameter structs (counterpart of csinn2_tpu/ops/params.py; the
 structs of the ops this package runs so far: conv, fc, matmul, pool,
-softmax, relu, scaled-dot-product attention).
+softmax, relu, clip, prelu, sigmoid, scaled-dot-product attention).
 
 Re-expression of the reference's csinn_*_params structs (ref:
 include/csinn/csinn_data_structure.h:566-1270); every struct embeds the
@@ -34,8 +34,10 @@ class Conv2dParams(ParamsBase):
     dilation: Tuple[int, int] = (1, 1)
     fuse_relu: bool = False     # CONV2D_RELU fused variant
     fuse_relu6: bool = False
-    fuse_add: bool = False      # residual join in the epilogue (not ported yet)
-    fuse_hswish: bool = False   # x·relu6(x+3)/6 epilogue (not ported yet)
+    # residual input fused into the conv epilogue (conv + bias + residual →
+    # activation → one requantize: the ResNet / MobileNetV2 join)
+    fuse_add: bool = False
+    fuse_hswish: bool = False   # x·relu6(x+3)/6 in the epilogue (MobileNetV3)
 
 
 @dataclasses.dataclass
@@ -74,6 +76,22 @@ class ReluParams(ParamsBase):
     """n used by leaky_relu slope / relun bound (ref: csinn_relu_params)."""
 
     n: float = 0.0
+
+
+@dataclasses.dataclass
+class ClipParams(ParamsBase):
+    min_value: float = 0.0
+    max_value: float = 6.0
+
+
+@dataclasses.dataclass
+class PReluParams(ParamsBase):
+    axis: int = 1
+
+
+@dataclasses.dataclass
+class SigmoidParams(ParamsBase):
+    pass
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
-"""Float convolution (counterpart of csinn2_tpu/ops/ref/conv.py; conv2d and
-depthwise_conv2d, the ops MobileNetV1 records; conv1d/3d, deconv and the
-fused residual/hardswish epilogues are not ported yet).
+"""Float convolution (counterpart of csinn2_tpu/ops/ref/conv.py; conv2d,
+depthwise_conv2d and group_conv2d with the fused residual and hardswish
+epilogues, the ops the CNN models record; conv1d/3d and deconv are not
+ported yet).
 
 (ref: source/reference/convolution.c.)  NHWC activations stay NHWC: the
 convolution sees them as a channels_last view (`x.permute(0, 3, 1, 2)`, no
@@ -62,19 +63,23 @@ def conv_nchw(x: torch.Tensor, w: torch.Tensor, params: Conv2dParams) -> torch.T
                     tuple(params.dilation), params.group)
 
 
-def unported_epilogue(params: Conv2dParams):
-    if params.fuse_add or params.fuse_hswish:
-        raise NotImplementedError(
-            "conv2d with a fused residual or hardswish epilogue is not ported yet "
-            "(ROADMAP queue A items 10-11: MobileNetV3, ResNet-50)")
+_INV6 = 1.0 / 6.0
+
+
+def hswish(y: torch.Tensor) -> torch.Tensor:
+    """x·relu6(x + 3)·(1/6), in the order the JAX package writes it."""
+    return y * torch.clamp(y + 3.0, 0.0, 6.0) * _INV6
 
 
 @registry.register("conv2d", api=Api.TORCH)
 def conv2d(x, weight, bias, *rest, w_layout: Layout = Layout.OIHW):
     """Grouped/depthwise 2-D convolution, f32.  x in params.layout; weight
-    [O, I/g, kh, kw] (OIHW view); pad = (top, down, left, right)."""
+    [O, I/g, kh, kw] (OIHW view); pad = (top, down, left, right).
+    rest: (params,) or (residual, params) — a fused residual (params.fuse_add,
+    already dequantized by the generic dispatch) adds into the output before
+    the fused activation."""
     params: Conv2dParams = rest[-1]
-    unported_epilogue(params)
+    residual = rest[0] if len(rest) > 1 else None
     w = weight_oihw(weight.float(), w_layout)
     with full_f32():
         out = from_nchw(conv_nchw(to_nchw(x.float(), params.layout), w, params),
@@ -82,10 +87,14 @@ def conv2d(x, weight, bias, *rest, w_layout: Layout = Layout.OIHW):
     if bias is not None and bias.numel() > 0:
         caxis = 1 if params.layout == Layout.NCHW else 3
         out = out + bias.float().reshape([-1 if i == caxis else 1 for i in range(4)])
+    if residual is not None:
+        out = out + residual.float()
     if params.fuse_relu:
         out = torch.clamp_min(out, 0.0)
     if params.fuse_relu6:
         out = torch.clamp(out, 0.0, 6.0)
+    if params.fuse_hswish:
+        out = hswish(out)
     return out.contiguous()
 
 
@@ -94,3 +103,8 @@ def depthwise_conv2d(x, weight, bias, params: Conv2dParams, w_layout: Layout = L
     """Depthwise = grouped conv with group == C_in; weight [C,1,kh,kw]."""
     cin = x.shape[1] if params.layout == Layout.NCHW else x.shape[3]
     return conv2d(x, weight, bias, dataclasses.replace(params, group=cin), w_layout=w_layout)
+
+
+@registry.register("group_conv2d", api=Api.TORCH)
+def group_conv2d(x, weight, bias, params: Conv2dParams, w_layout: Layout = Layout.OIHW):
+    return conv2d(x, weight, bias, params, w_layout=w_layout)

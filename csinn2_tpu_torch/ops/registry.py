@@ -67,7 +67,7 @@ class OpRegistry:
             cands.setdefault(k, v)
         if not cands:
             raise NotImplementedError(f"op '{op}' has no registered implementation "
-                                      "in the port (ROADMAP queue A item 10)")
+                                      "in the port (ROADMAP queue A item 10.4)")
         if api in (Api.CUDA, Api.TORCH, Api.REF):
             if api in cands:
                 return cands[api]

@@ -15,7 +15,10 @@ Re-expression of the csinn session API (ref: include/csinn/csinn_runtime.h:
     out = sess.run(x_data)                  # ≈ csinn_update_input + session_run
 
 `setup()` fuses (graph/fuse.py), checks the order, and moves every constant
-to the session's device once.  The JAX package then compiles the node list
+to the session's device once.  Inputs keep their carriers (a u8 scheme's
+uint8 input goes in as uint8); `compute_dtype` is the float type of the
+generic dequant→op→requant path (bf16 for the FLOAT16/BFLOAT16 schemes'
+model sessions, as in the JAX package).  The JAX package then compiles the node list
 with jax.jit; here `run()` replays it eagerly, each node launching its
 PyTorch ops or CUDA kernel on the device.
 """

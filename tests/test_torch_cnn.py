@@ -5,8 +5,9 @@ A small MobileNetV1 (alpha 0.25, 32×32, batch 2) is calibrated in JAX and
 carried across with `model_from_numpy` (same weights, same ranges), then run
 as an INT8_SYM session in both packages, fused (CSINN2_FUSE_DS=1, 13
 ds_block nodes) and unfused.  Gates: the port's int8 logits equal the JAX
-session's, except at most 1 LSB where the fc's float-carrier sums (f32, in
-another order than XLA's) round the other way — the one stated tolerance;
+session's, except at most 1 LSB where the fc's float-carrier sum (f64
+rounded once in the port, f32 in XLA's order) rounds the other way — the
+one stated tolerance;
 the port's fused and unfused sessions are equal with no tolerance;
 forward_f32 and calibrate agree with JAX's to rtol 1e-5 (with an absolute
 floor of 1e-5·max|y| for values that cancel to near zero).
@@ -189,6 +190,9 @@ def test_session_records_shapes_and_checks_order():
 
 
 def test_layer_mode_and_unported_branches_raise():
+    """Layer mode runs the builder eagerly; HYBRID sessions and profiler
+    levels still raise (ROADMAP queue A item 12); the u8 schemes, "observe"
+    mode and conv2d(residual=) are ported and run."""
     rng = np.random.default_rng(0)
     b = NetBuilder({"c.w": rng.standard_normal((4, 3, 3, 3)).astype(np.float32)},
                    QuantScheme.FLOAT32, Layout.NHWC, mode="float")
@@ -200,9 +204,11 @@ def test_layer_mode_and_unported_branches_raise():
         Session(run_mode=RunMode.HYBRID, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Session(profiler_level=ProfilerLevel.TRACE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NetBuilder({}, QuantScheme.UINT8_ASYM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NetBuilder({}, QuantScheme.FLOAT32, mode="observe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.conv2d(x, y, residual=x)
+    assert NetBuilder({}, QuantScheme.UINT8_ASYM).scheme == QuantScheme.UINT8_ASYM
+    ob = NetBuilder(b.w, QuantScheme.FLOAT32, Layout.NHWC, mode="observe")
+    yo = ob.conv(x, "c", stride=1, relu6=True)
+    assert ob.rec.ranges["c"] == (float(yo.data.min()), float(yo.data.max()))
+    w = Tensor(torch.from_numpy(rng.standard_normal((4, 4, 1, 1)).astype(np.float32)))
+    r = ops.conv2d(y, w, None, ops.Conv2dParams(layout=Layout.NHWC), residual=y)
+    plain = ops.conv2d(y, w, None, ops.Conv2dParams(layout=Layout.NHWC))
+    torch.testing.assert_close(r.data, plain.data + y.data, rtol=1e-6, atol=1e-6)

@@ -10,8 +10,9 @@ Gates (assert_array_equal unless stated):
     none, per-tensor dw scale, f32 output);
   * `_conv2d_quant`, `_depthwise_quant` and `_fc_quant`'s integer branch
     equal the JAX functions; `_fc_quant`'s float-carrier branch (x rounded
-    to bf16, f32 sums) is within 1 LSB of the int8 output: its sum order
-    differs from XLA's, the one stated tolerance of the slice;
+    to bf16, the sum in f64 rounded once) is within 1 LSB of the int8
+    output: XLA sums in f32 in its own order, the one stated tolerance of
+    the slice;
   * `fuse_ds_blocks` fuses the 13 pairs of MobileNetV1 and skips float
     graphs, multi-use depthwise outputs and its off switches;
   * the CUDA kernel's launch plan (`ds_plan`: pixel tile, halo rows, channel
@@ -400,7 +401,7 @@ def test_fc_quant_matches_jax():
                             tq).numpy()
         np.testing.assert_array_equal(got, want)
     # float-carrier branch (MobileNetV1's fc: a float x from flatten): within
-    # 1 LSB of the int8 output — the f32 sums run in another order than XLA's
+    # 1 LSB of the int8 output — the port sums in f64, XLA in f32 in its order
     xf = (rng.random((4, K)) * 3).astype(np.float32)
     want = np.asarray(jax.jit(lambda *a: jqc._fc_quant(list(a), [JMeta(xf.shape), jw,
                                                                  JMeta((U,))],
@@ -412,21 +413,36 @@ def test_fc_quant_matches_jax():
 
 
 def test_unported_qconv_branches_raise():
-    x = torch.zeros((1, 4, 4, 8), dtype=torch.uint8)
-    w = torch.zeros((8, 8, 1, 1), dtype=torch.int8)
-    qi = QuantInfo(scale=0.1, zero_point=128, dtype=Dtype.UINT8, scheme=QuantScheme.UINT8_ASYM)
-    wq = QuantInfo(scale=np.ones(8, np.float32), dtype=Dtype.INT8, axis=0,
-                   scheme=QuantScheme.UINT8_ASYM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqc._conv2d_quant([x, w], [TensorMeta(x.shape, Dtype.UINT8, qinfo=qi),
-                                   TensorMeta(w.shape, Dtype.INT8, qinfo=wq)],
-                          Conv2dParams(layout=Layout.NHWC), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqc._conv2d_quant([x.to(torch.int8), w],
-                          [TensorMeta(x.shape, Dtype.INT8, qinfo=dataclasses.replace(
-                              qi, dtype=Dtype.INT8, zero_point=0)),
-                           TensorMeta(w.shape, Dtype.INT8, qinfo=wq)],
-                          Conv2dParams(layout=Layout.NHWC, fuse_hswish=True), None)
+    """The branches that raised before they were ported (a u8 input into s8
+    weights, a fused hardswish) now run, equal to the JAX kernel bit for
+    bit; no qconv branch raises NotImplementedError any more."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 256, (1, 4, 4, 8)).astype(np.uint8)
+    w = rng.integers(-128, 128, (8, 8, 1, 1)).astype(np.int8)
+    sw = np.full(8, 0.01, np.float32)
+    cases = [
+        (x, JQI(scale=0.1, zero_point=128, dtype=JDtype.UINT8, scheme=JQS.UINT8_ASYM),
+         QuantInfo(scale=0.1, zero_point=128, dtype=Dtype.UINT8, scheme=QuantScheme.UINT8_ASYM),
+         dict()),
+        (x.view(np.int8), JQI(scale=0.1, dtype=JDtype.INT8, scheme=JQS.INT8_SYM),
+         QuantInfo(scale=0.1, dtype=Dtype.INT8, scheme=QuantScheme.INT8_SYM),
+         dict(fuse_hswish=True)),
+    ]
+    for xa, jq, tq, flags in cases:
+        jw = JMeta(w.shape, JDtype.INT8, qinfo=JQI(scale=sw, dtype=JDtype.INT8, axis=0,
+                                                   scheme=jq.scheme))
+        tw = TensorMeta(w.shape, Dtype.INT8, qinfo=QuantInfo(scale=sw, dtype=Dtype.INT8, axis=0,
+                                                             scheme=tq.scheme))
+        jo = JQI(scale=0.05, dtype=JDtype.INT8, scheme=jq.scheme)
+        to = QuantInfo(scale=0.05, dtype=Dtype.INT8, scheme=tq.scheme)
+        jdt = JDtype(str(xa.dtype))
+        want = np.asarray(jax.jit(lambda a: jqc._conv2d_quant(
+            [a, jnp.asarray(w)], [JMeta(xa.shape, jdt, qinfo=jq), jw],
+            JConv(layout=JLayout.NHWC, **flags), jo))(xa))
+        got = tqc._conv2d_quant([torch.from_numpy(xa), torch.from_numpy(w)],
+                                [TensorMeta(xa.shape, Dtype(str(xa.dtype)), qinfo=tq), tw],
+                                Conv2dParams(layout=Layout.NHWC, **flags), to).numpy()
+        np.testing.assert_array_equal(got, want)
 
 
 # -- the fusion pass -------------------------------------------------------------

@@ -360,8 +360,9 @@ def test_port_imports_no_jax():
     (tp_llama_forward, ep_llama_forward; spawn and the multihost example
     imported; ring attention and the pipelines imported, a two-stage
     PipelinedLlama forward on the CPU), a GGUF convert / CTBM load round trip, a small fused
-    MobileNetV1 INT8 session and the Q4_0 dequant probe loads neither jax
-    nor any module of the JAX package."""
+    MobileNetV1 INT8 session, small MobileNetV2-u8, MobileNetV3 and ResNet-50
+    sessions and the Q4_0 dequant probe loads neither jax nor any module of
+    the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -448,6 +449,14 @@ def test_port_imports_no_jax():
         "s = m.build_session(QuantScheme.INT8_SYM, batch=1, device='cpu')\n"
         "assert sum(n.op == 'ds_block' for n in s.graph.nodes) == 13\n"
         "assert tuple(s.run(m.prepare_input(x, s)).shape) == (1, 1000)\n"
+        "from csinn2_tpu_torch.models.mobilenet import MobileNetV2, MobileNetV3\n"
+        "from csinn2_tpu_torch.models.resnet import ResNet50\n"
+        "for cls, sch in ((MobileNetV2, 'UINT8_ASYM'), (MobileNetV3, 'INT8_SYM'),\n"
+        "                 (ResNet50, 'INT8_SYM')):\n"
+        "    m = cls(input_size=32)\n"
+        "    m.calibrate(x, device='cpu')\n"
+        "    s = m.build_session(QuantScheme[sch], batch=1, device='cpu')\n"
+        "    assert tuple(s.run(m.prepare_input(x, s)).shape) == (1, 1000)\n"
         "from csinn2_tpu_torch.examples import int4_dequant_probe, int4_tile_tune\n"
         "import csinn2_tpu_torch.kernels.int4_probe, csinn2_tpu_torch.utils.timing\n"
         "recs = int4_dequant_probe.probe(device='cpu', shapes=[(512, 256, 4096, 128)],\n"
