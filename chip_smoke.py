@@ -196,6 +196,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      against fused_dsconv_ref and the unfused pair, bit for bit, timed
      beside its bound.  The kernels line carries (a)-(b) under "cnn_zoo"
      and (c)'s blocks under fused_dsconv's "zoo".
+ 17. the streaming-ASR path and the op zoo: (a) DFSMN at the width of
+     examples/dfsmn_stream.py (feat 80, hidden 512, proj 256, 6 blocks,
+     l_order 10, r_order 2, 218 classes, seed 0) through GRAPH sessions on
+     the card: offline over [1, 256, 80] and streamed in chunks of 8, the
+     streamed logits against the offline ones on the interior frames
+     (cosine > 0.9999, max |d| < 1e-3), both against the port's CPU plain
+     path (rtol = atol = 2e-4); the steady-state chunk latency and frames/s
+     by run_benchmark_device at batch 1 and at 64 concurrent streams, the
+     peak device memory (utils/memstats.device_memory_stats), then
+     `python3 -m csinn2_tpu_torch.examples.dfsmn_stream` in a process of its
+     own, which must print PASS; (b) every case of
+     csinn2_tpu_torch/examples/op_zoo.py recorded into a GRAPH session on the
+     card and held against the same call on the CPU plain path (integer,
+     boolean and tolerance-0 outputs bit for bit).  No CUDA kernel of the
+     port lies on this path (plain PyTorch ops, as the JAX package's XLA
+     ops); the kernels line carries the phase under "dfsmn" and "op_zoo".
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -1913,6 +1929,102 @@ def cnn_zoo_path(records, gpu_line: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the streaming-ASR path (DFSMN) and the op zoo
+# ---------------------------------------------------------------------------
+
+# examples/dfsmn_stream.py:29-41: the model, utterance and chunk
+DFSMN_CFG = dict(feat_dim=80, hidden=512, proj=256, blocks=6, l_order=10, r_order=2,
+                 classes=218)
+DFSMN_FRAMES, DFSMN_CHUNK, DFSMN_STREAMS = 256, 8, 64
+
+
+def _streamed(model, x, chunk):
+    """Logits of x [b, T, feat] streamed chunk by chunk, the flush included."""
+    import torch
+    st = model.stream(batch=x.shape[0], chunk=chunk)
+    outs = [st.step(x[:, i:i + chunk]) for i in range(0, x.shape[1], chunk)]
+    return torch.cat(outs + [st.flush()], dim=1).cpu().numpy(), st.delay
+
+
+def dfsmn_path(here: Path, gpu_line: str):
+    """Phase 17 (a).  Returns its record for the kernels line."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.models.dfsmn_asr import DFSMNASR, DFSMNConfig
+    from csinn2_tpu_torch.utils.memstats import device_memory_stats
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = device_memory_stats()["bytes_in_use"]
+    cfg = DFSMNConfig(**DFSMN_CFG)
+    T, C = DFSMN_FRAMES, DFSMN_CHUNK
+    x = np.random.default_rng(0).standard_normal((1, T, cfg.feat_dim)).astype(np.float32)
+    card = DFSMNASR(cfg, seed=0, device="cuda")
+    offline = card.offline_session(1, T).run(x).cpu().numpy()
+    streamed, delay = _streamed(card, x, C)
+    lo, hi = cfg.blocks * cfg.l_span, T - cfg.blocks * cfg.r_span
+    got, want = streamed[:, delay + lo:delay + hi], offline[:, lo:hi]
+    cos, err = cosine_similarity(got, want), float(np.max(np.abs(got - want)))
+    log(f"  DFSMN {DFSMN_CFG}, seed 0, on the card: offline [1, {T}, 80] and streamed in "
+        f"chunks of {C} (delay {delay} frames): interior frames {lo}..{hi}: cosine {cos:.7f}, "
+        f"max|d| {err:.3e} (gates > 0.9999, < 1e-3)")
+    if not (np.isfinite(offline).all() and cos > 0.9999 and err < 1e-3):
+        raise AssertionError(f"DFSMN streamed vs offline: cosine {cos}, max|d| {err}")
+    cpu = DFSMNASR(cfg, seed=0, device="cpu")
+    cpu_logits = {"offline": cpu.offline_session(1, T).run(x).numpy(),
+                  "streamed": _streamed(cpu, x, C)[0]}
+    d_off, d_str = (float(np.max(np.abs(a - cpu_logits[k])))
+                    for k, a in (("offline", offline), ("streamed", streamed)))
+    log(f"  card vs the port's CPU plain path: offline max|d| {d_off:.3e}, streamed max|d| "
+        f"{d_str:.3e} (rtol = atol = 2e-4)")
+    for name, a in (("offline", offline), ("streamed", streamed)):
+        if not np.allclose(a, cpu_logits[name], rtol=2e-4, atol=2e-4):
+            raise AssertionError(f"DFSMN {name}: card vs the CPU plain path max|d| "
+                                 f"{np.max(np.abs(a - cpu_logits[name]))}")
+    rec = dict(config=DFSMN_CFG, frames=T, chunk=C, delay_frames=delay,
+               stream_vs_offline_cosine=cos, stream_vs_offline_max_abs=err,
+               card_vs_cpu_offline_max_abs=d_off, card_vs_cpu_streamed_max_abs=d_str,
+               gpu=gpu_line)
+    for b in (1, DFSMN_STREAMS):
+        st = card.stream(batch=b, chunk=C)
+        xb = np.random.default_rng(1).standard_normal((b, C, cfg.feat_dim)).astype(np.float32)
+        dt = st.sess.run_benchmark_device(xb, *st.state, iters=50, reps=3)
+        rec[f"batch{b}"] = dict(chunk_ms=dt * 1e3, frames_per_s=b * C / dt,
+                                nodes=len(st.sess.graph.nodes))
+        log(f"  DFSMN streaming step, batch {b}: {dt * 1e3:.3f} ms a chunk of {C} frames, "
+            f"{b * C / dt:,.0f} frames/s (run_benchmark_device: CUDA events around 50 "
+            f"back-to-back steps, median of 3 reps, host gaps included), "
+            f"{len(st.sess.graph.nodes)} graph nodes [{gpu_line}]")
+    stats = device_memory_stats()
+    rec.update(peak_bytes=stats["peak_bytes_in_use"], bytes_before=base)
+    log(f"  peak device memory over the phase: {stats['peak_bytes_in_use'] / 2**20:.1f} MiB "
+        f"(memstats.device_memory_stats, {base / 2**20:.1f} MiB in use before it)")
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "csinn2_tpu_torch.examples.dfsmn_stream"],
+                       cwd=here, capture_output=True, text=True, timeout=300)
+    lines = [line.strip() for line in r.stdout.splitlines()]
+    for line in lines:
+        log(f"  | {line}")
+    log(f"  dfsmn_stream: exit {r.returncode}, {time.perf_counter() - t1:.1f} s")
+    if r.returncode != 0 or "PASS" not in lines:
+        raise AssertionError(f"phase 17 dfsmn_stream: exit {r.returncode}\n{r.stderr[-4000:]}")
+    rec["seconds"] = time.perf_counter() - t0
+    del card, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def op_zoo_path():
+    """Phase 17 (b).  Returns its record for the kernels line."""
+    from csinn2_tpu_torch.examples import op_zoo
+    t0 = time.perf_counter()
+    op_zoo.run("cuda", log=lambda line: log(f"  {line}"))
+    return dict(cases=len(op_zoo.CASES), ops=len({op_zoo.case_op(n) for n in op_zoo.CASES}),
+                seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the probe path, the Q4_0 dequant-strategy probes
 # ---------------------------------------------------------------------------
 
@@ -3508,6 +3620,13 @@ def main() -> int:
         "UINT8_ASYM, MobileNetV3 INT8_SYM, ResNet-50 INT8_SYM (both layouts), the fused "
         "MobileNetV2/V3 INT8_SYM blocks")
     zoo_counts, cnn_zoo = cnn_zoo_path(records, gpu_line)
+    log("phase 17: the streaming-ASR path (DFSMN at examples/dfsmn_stream.py's width, "
+        "offline, streamed, batch 1 and 64) and every op-zoo case in a GRAPH session on the "
+        "card against the CPU plain path")
+    t17 = time.perf_counter()
+    dfsmn = dfsmn_path(here, gpu_line)
+    op_zoo = op_zoo_path()
+    log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3556,7 +3675,8 @@ def main() -> int:
     print(gpu_line)
     print(json.dumps({"kernels": kernels, "mesh": {
         k: ({kk: vv for kk, vv in v.items() if kk != "counts"} if isinstance(v, dict) else v)
-        for k, v in mesh.items()}, "pipeline": _without_counts(pipeline), "cnn_zoo": cnn_zoo}))
+        for k, v in mesh.items()}, "pipeline": _without_counts(pipeline), "cnn_zoo": cnn_zoo,
+        "dfsmn": dfsmn, "op_zoo": op_zoo}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,6 @@
 """Op-level API: one function per operator, mirroring the reference's
-csinn_<op>() surface (counterpart of csinn2_tpu/ops/; the ops the CNN
-models record, the elementwise, activation and pool families, matmul and
-attention).
+csinn_<op>() surface (counterpart of csinn2_tpu/ops/, every op it
+registers).
 
 In LAYER run-mode each call executes eagerly (quantized semantics =
 dequant→f32→requant through the registered implementation); in GRAPH mode

@@ -1,12 +1,11 @@
-"""Public op API over Tensor handles (counterpart of csinn2_tpu/ops/api.py;
-the ops the CNN models' NetBuilder calls — conv2d with the fused residual,
-depthwise_conv2d, group_conv2d, fullyconnected, the pools, flatten,
-softmax — the generated unary and binary families over what ops/ref
-registers (elementwise math, comparison, logic, activations), and matmul
-and scaled_dot_product_attention, which with block-quantized (Q8_0 / Q4_0)
-weights and long or cached attention reach the CUDA tier of
-kernels/autodispatch.py.  The rest of the 346-function csinn_* surface is
-ROADMAP queue A item 10.4).
+"""Public op API over Tensor handles (counterpart of csinn2_tpu/ops/api.py,
+every public function of it): the csinn_* surface of the reference — the
+convolution family, fullyconnected, matmul and embedding, the pools,
+norms, reductions, shape and index ops, the detection ops, the LLM and
+streaming-ASR sequence ops, and the generated unary, binary and reduce
+families over what ops/ref registers.  matmul and
+scaled_dot_product_attention, with block-quantized (Q8_0 / Q4_0) weights
+and long or cached attention, reach the CUDA tier of kernels/autodispatch.py.
 
 (ref: include/csinn/csi_nn.h; impl pattern source/nn2/convolution.c:26-85.)
 In GRAPH mode the calls record nodes into the active Session; otherwise
@@ -33,7 +32,8 @@ from typing import Any, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from csinn2_tpu_torch.core.dtypes import Api, DebugLevel, Dtype, Layout, QuantScheme, dtype_of
+from csinn2_tpu_torch.core.dtypes import (Api, DebugLevel, Dtype, Layout, MemType,  # noqa: F401
+                                          QuantScheme, dtype_of)
 from csinn2_tpu_torch.core.quant import QuantInfo, dequantize, dequantize_blocks, quantize
 from csinn2_tpu_torch.core.tensor import Tensor, TensorMeta
 from csinn2_tpu_torch.graph.ir import Node
@@ -210,15 +210,13 @@ def _binary(op):
     return fn
 
 
-# the JAX package's lists, less the shape-family ops not ported yet
-# (shape, ndarray_size, yuv_rgb_scale)
 _UNARY_OPS = [
     "abs", "acos", "acosh", "asin", "asinh", "atan", "atanh", "ceil", "cos",
     "cosh", "exp", "expm1", "floor", "log", "log1p", "negative", "round",
     "rsqrt", "sign", "sin", "sinh", "sqrt", "square", "tan", "trunc", "isnan",
     "relu", "relu1", "relu6", "sigmoid", "hard_sigmoid", "silu", "erf", "tanh",
     "softplus", "softrelu", "softsign", "gelu", "elu", "logical_not", "not",
-    "flatten",
+    "flatten", "shape", "ndarray_size", "yuv_rgb_scale",
 ]
 _BINARY_OPS = [
     "add", "sub", "mul", "div", "power", "maximum", "minimum", "mod",
@@ -397,10 +395,368 @@ def data_convert(x, params=None, out_qinfo=None):
     return call_op("data_convert", [x], params, out_qinfo)
 
 
-__all__ = (["call_op", "conv2d", "depthwise_conv2d", "group_conv2d", "fullyconnected",
-            "matmul", "scaled_dot_product_attention", "maxpool2d", "avgpool2d",
-            "global_maxpool2d", "global_avgpool2d", "maxpool3d", "avgpool3d", "l2pool2d",
-            "softmax", "log_softmax", "leaky_relu", "relun", "threshold_relu", "prelu",
-            "clip", "where", "select", "where_softmax", "data_convert"]
+def conv1d(x, weight, bias=None, params: P.Conv1dParams = None, out_qinfo=None):
+    return call_op("conv1d", [x, weight, bias], params or P.Conv1dParams(), out_qinfo)
+
+
+def conv3d(x, weight, bias=None, params: P.Conv3dParams = None, out_qinfo=None):
+    return call_op("conv3d", [x, weight, bias], params or P.Conv3dParams(), out_qinfo)
+
+
+def deconv2d(x, weight, bias=None, params: P.Deconv2dParams = None, out_qinfo=None):
+    return call_op("deconv2d", [x, weight, bias], params or P.Deconv2dParams(), out_qinfo)
+
+
+def deconv3d(x, weight, bias=None, params: P.Conv3dParams = None, out_qinfo=None):
+    return call_op("deconv3d", [x, weight, bias], params or P.Conv3dParams(), out_qinfo)
+
+
+def depthwise_conv1d(x, weight, bias=None, params: P.Conv1dParams = None, out_qinfo=None):
+    return call_op("depthwise_conv1d", [x, weight, bias], params or P.Conv1dParams(), out_qinfo)
+
+
+def group_conv1d(x, weight, bias=None, params: P.Conv1dParams = None, out_qinfo=None):
+    return call_op("group_conv1d", [x, weight, bias], params or P.Conv1dParams(), out_qinfo)
+
+
+def depthwise_deconv2d(x, weight, bias=None, params: P.Deconv2dParams = None, out_qinfo=None):
+    return call_op("depthwise_deconv2d", [x, weight, bias],
+                   params or P.Deconv2dParams(), out_qinfo)
+
+
+def group_deconv2d(x, weight, bias=None, params: P.Deconv2dParams = None, out_qinfo=None):
+    return call_op("group_deconv2d", [x, weight, bias], params or P.Deconv2dParams(), out_qinfo)
+
+
+def embedding(ids, table, params=None, out_qinfo=None):
+    return call_op("embedding", [ids, table], params, out_qinfo)
+
+
+def maxpool2d_locat(x, params: P.PoolParams, out_qinfo=None):
+    return call_op("maxpool2d_locat", [x], params, out_qinfo, n_outputs=2)
+
+
+def unpooling(x, mask, params=None, out_hw=None, out_qinfo=None):
+    return call_op("unpooling", [x, mask], params, out_qinfo, out_hw=out_hw)
+
+
+def batch_norm(x, mean, variance, gamma=None, beta=None,
+               params: P.BatchNormParams = None, out_qinfo=None):
+    return call_op("batch_norm", [x, mean, variance, gamma, beta],
+                   params or P.BatchNormParams(), out_qinfo)
+
+
+def layer_norm(x, gamma=None, beta=None, params: P.NormParams = None, out_qinfo=None):
+    return call_op("layer_norm", [x, gamma, beta], params or P.NormParams(), out_qinfo)
+
+
+def rms_norm(x, gamma=None, params: P.NormParams = None, out_qinfo=None):
+    return call_op("rms_norm", [x, gamma], params or P.NormParams(), out_qinfo)
+
+
+def instance_norm(x, gamma=None, beta=None, params: P.NormParams = None, out_qinfo=None):
+    return call_op("instance_norm", [x, gamma, beta], params or P.NormParams(), out_qinfo)
+
+
+def l2_normalization(x, params: P.NormParams = None, out_qinfo=None):
+    return call_op("l2_normalization", [x], params or P.NormParams(), out_qinfo)
+
+
+def lrn(x, params: P.LRNParams, out_qinfo=None):
+    return call_op("lrn", [x], params, out_qinfo)
+
+
+# --- reductions ---------------------------------------------------------------
+
+def _reduce(op):
+    def fn(x, params: P.ReduceParams, out_qinfo=None):
+        return call_op(op, [x], params, out_qinfo)
+    fn.__name__ = op
+    return fn
+
+
+_REDUCE_OPS = ["reduce_sum", "sum", "reduce_mean", "mean", "reduce_max", "max",
+               "reduce_min", "min", "reduce_prod", "prod", "reduce_logsumexp", "all", "any"]
+for _op in _REDUCE_OPS:
+    globals()[_op if _op not in ("sum", "max", "min", "all", "any") else _op + "_"] = \
+        _reduce(_op)
+
+
+def argmax(x, params: P.ArgParams, out_qinfo=None):
+    return call_op("argmax", [x], params, out_qinfo)
+
+
+def argmin(x, params: P.ArgParams, out_qinfo=None):
+    return call_op("argmin", [x], params, out_qinfo)
+
+
+def cumsum(x, params: P.CumsumParams, out_qinfo=None):
+    return call_op("cumsum", [x], params, out_qinfo)
+
+
+def cumprod(x, params: P.CumsumParams, out_qinfo=None):
+    return call_op("cumprod", [x], params, out_qinfo)
+
+
+def topk(x, params: P.TopKParams, out_qinfo=None):
+    return call_op("topk", [x], params, out_qinfo, n_outputs=2)
+
+
+def segment_sum(x, ids, params: P.SegmentParams, out_qinfo=None):
+    return call_op("segment_sum", [x, ids], params, out_qinfo)
+
+
+def segment_mean(x, ids, params: P.SegmentParams, out_qinfo=None):
+    return call_op("segment_mean", [x, ids], params, out_qinfo)
+
+
+def segment_max(x, ids, params: P.SegmentParams, out_qinfo=None):
+    return call_op("segment_max", [x, ids], params, out_qinfo)
+
+
+def segment_min(x, ids, params: P.SegmentParams, out_qinfo=None):
+    return call_op("segment_min", [x, ids], params, out_qinfo)
+
+
+def segment_prod(x, ids, params: P.SegmentParams, out_qinfo=None):
+    return call_op("segment_prod", [x, ids], params, out_qinfo)
+
+
+def _unsorted_segment(op):
+    def fn(x, segment_ids, params: P.SegmentParams, out_qinfo=None):
+        return call_op(op, [x, segment_ids], params, out_qinfo)
+    fn.__name__ = op
+    return fn
+
+
+_UNSORTED_SEGMENT_OPS = ["unsorted_segment_sum", "unsorted_segment_max",
+                         "unsorted_segment_min", "unsorted_segment_prod",
+                         "unsorted_segment_mean"]
+for _op in _UNSORTED_SEGMENT_OPS:
+    globals()[_op] = _unsorted_segment(_op)
+
+
+def mean_stride(x, params: P.StridedReduceParams, out_qinfo=None):
+    return call_op("mean_stride", [x], params, out_qinfo)
+
+
+def min_stride(x, params: P.StridedReduceParams, out_qinfo=None):
+    return call_op("min_stride", [x], params, out_qinfo)
+
+
+# --- shape ops ------------------------------------------------------------------
+
+def reshape(x, params: P.ReshapeParams, out_qinfo=None):
+    return call_op("reshape", [x], params, out_qinfo)
+
+
+def transpose(x, params: P.TransposeParams, out_qinfo=None):
+    return call_op("transpose", [x], params, out_qinfo)
+
+
+def concat(inputs, params: P.ConcatParams, out_qinfo=None):
+    return call_op("concat", [list(inputs)], params, out_qinfo)
+
+
+def split(x, params: P.SplitParams, out_qinfo=None):
+    return call_op("split", [x], params, out_qinfo)
+
+
+def slice(x, params: P.SliceParams, out_qinfo=None):  # noqa: A001
+    return call_op("slice", [x], params, out_qinfo)
+
+
+def strided_slice(x, params: P.StridedSliceParams, out_qinfo=None):
+    return call_op("strided_slice", [x], params, out_qinfo)
+
+
+def pad(x, params: P.PadParams, out_qinfo=None):
+    return call_op("pad", [x], params, out_qinfo)
+
+
+def gather(x, indices, params: P.GatherParams, out_qinfo=None):
+    return call_op("gather", [x, indices], params, out_qinfo)
+
+
+def gather_nd(x, indices, params=None, out_qinfo=None):
+    return call_op("gather_nd", [x, indices], params, out_qinfo)
+
+
+def scatter_nd(indices, updates, shape, params=None, out_qinfo=None):
+    return call_op("scatter_nd", [indices, updates], params, out_qinfo, shape=shape)
+
+
+def tile(x, params: P.TileParams, out_qinfo=None):
+    return call_op("tile", [x], params, out_qinfo)
+
+
+def squeeze(x, params: P.SqueezeParams, out_qinfo=None):
+    return call_op("squeeze", [x], params, out_qinfo)
+
+
+def expand_dims(x, params: P.ExpandDimsParams, out_qinfo=None):
+    return call_op("expand_dims", [x], params, out_qinfo)
+
+
+def reverse(x, params: P.FlipParams, out_qinfo=None):
+    return call_op("reverse", [x], params, out_qinfo)
+
+
+def flip(x, params: P.FlipParams, out_qinfo=None):
+    return call_op("flip", [x], params, out_qinfo)
+
+
+def stack(inputs, params: P.StackParams, out_qinfo=None):
+    return call_op("stack", [list(inputs)], params, out_qinfo)
+
+
+def unstack(x, params: P.StackParams, out_qinfo=None):
+    return call_op("unstack", [x], params, out_qinfo)
+
+
+def broadcast_to(x, params: P.BroadcastToParams, out_qinfo=None):
+    return call_op("broadcast_to", [x], params, out_qinfo)
+
+
+def crop(x, ref_shape, params: P.CropParams, out_qinfo=None):
+    return call_op("crop", [x], params, out_qinfo, ref_shape=ref_shape)
+
+
+def depth_to_space(x, params: P.DepthToSpaceParams, out_qinfo=None):
+    return call_op("depth_to_space", [x], params, out_qinfo)
+
+
+def space_to_depth(x, params: P.Space2DepthParams, out_qinfo=None):
+    return call_op("space_to_depth", [x], params, out_qinfo)
+
+
+def reorg(x, params: P.Space2DepthParams, out_qinfo=None):
+    return call_op("reorg", [x], params, out_qinfo)
+
+
+def space_to_batch(x, params: P.SpaceToBatchParams, out_qinfo=None):
+    return call_op("space_to_batch", [x], params, out_qinfo)
+
+
+def batch_to_space(x, params: P.BatchToSpaceParams, out_qinfo=None):
+    return call_op("batch_to_space", [x], params, out_qinfo)
+
+
+def space_to_batch_nd(x, params: P.SpaceToBatchNdParams, out_qinfo=None):
+    return call_op("space_to_batch_nd", [x], params, out_qinfo)
+
+
+def batch_to_space_nd(x, params: P.SpaceToBatchNdParams, out_qinfo=None):
+    return call_op("batch_to_space_nd", [x], params, out_qinfo)
+
+
+def shuffle_channel(x, params: P.ShuffleChannelParams, out_qinfo=None):
+    return call_op("shuffle_channel", [x], params, out_qinfo)
+
+
+def one_hot(x, params: P.OneHotParams, out_qinfo=None):
+    return call_op("one_hot", [x], params, out_qinfo)
+
+
+def sequence_mask(lengths, maxlen, params=None, out_qinfo=None):
+    return call_op("sequence_mask", [lengths], params, out_qinfo, maxlen=maxlen)
+
+
+def cast(x, dtype, params=None, out_qinfo=None):
+    return call_op("cast", [x], params, out_qinfo, dtype=dtype)
+
+
+def arange(params: P.ArangeParams, out_qinfo=None):
+    """No input carries a device: the values are made on the current
+    session's device (the CPU outside a session)."""
+    sess = current_session()
+    return call_op("arange", [], params, out_qinfo,
+                   device=sess.device if sess is not None else torch.device("cpu"))
+
+
+def im2col(x, kernel, stride, pad_, params=None, out_qinfo=None):
+    return call_op("im2col", [x], params, out_qinfo, kernel=kernel, stride=stride, pad=pad_)
+
+
+def col2im(x, out_shape, kernel, stride, pad_, params=None, out_qinfo=None):
+    return call_op("col2im", [x], params, out_qinfo, out_shape=out_shape,
+                   kernel=kernel, stride=stride, pad=pad_)
+
+
+def resize(x, params: P.ResizeParams, out_qinfo=None):
+    return call_op("resize", [x], params, out_qinfo)
+
+
+# --- detection ------------------------------------------------------------------
+
+def roipool(x, rois, pooled_size, spatial_scale, params=None, out_qinfo=None):
+    return call_op("roipool", [x, rois], params, out_qinfo,
+                   pooled_size=pooled_size, spatial_scale=spatial_scale)
+
+
+def non_max_suppression(boxes, scores, iou_threshold=0.5, max_out=100,
+                        params=None, out_qinfo=None):
+    return call_op("non_max_suppression", [boxes, scores], params, out_qinfo,
+                   iou_threshold=iou_threshold, max_out=max_out)
+
+
+def roialign(x, rois, params: P.RoiAlignParams = None, out_qinfo=None):
+    return call_op("roialign", [x, rois], params or P.RoiAlignParams(), out_qinfo)
+
+
+def psroipooling(x, rois, params: P.PSROIPoolingParams = None, out_qinfo=None):
+    return call_op("psroipooling", [x, rois], params or P.PSROIPoolingParams(), out_qinfo)
+
+
+def proposal(cls_prob, bbox_pred, im_info, params: P.ProposalParams = None, out_qinfo=None):
+    return call_op("proposal", [cls_prob, bbox_pred, im_info],
+                   params or P.ProposalParams(), out_qinfo)
+
+
+# --- LLM / streaming-ASR sequence ops ---------------------------------------------
+
+def rope(x, params: P.RopeParams, positions=None, out_qinfo=None):
+    return call_op("rope", [x], params, out_qinfo, positions=positions)
+
+
+def llm_pos(x, cache, params: P.LlmPosParams, out_qinfo=None):
+    return call_op("llm_pos", [x, cache], params, out_qinfo)
+
+
+def cache_matmul(x, weight, bias, cache, params: P.CacheMatmulParams, out_qinfo=None):
+    return call_op("cache_matmul", [x, weight, bias, cache], params, out_qinfo)
+
+
+def cache_conv1d(x, weight, bias, cache, params: P.CacheConv1dParams, out_qinfo=None):
+    return call_op("cache_conv1d", [x, weight, bias, cache], params, out_qinfo)
+
+
+def fsmn(frame, l_filter, r_filter, frame_sequence, frame_counter,
+         params: P.FSMNParams, out_qinfo=None):
+    return call_op("fsmn", [frame, l_filter, r_filter, frame_sequence, frame_counter],
+                   params, out_qinfo)
+
+
+__all__ = (["call_op", "MemType", "conv2d", "depthwise_conv2d", "group_conv2d", "conv1d",
+            "conv3d", "deconv2d", "deconv3d", "depthwise_conv1d", "group_conv1d",
+            "depthwise_deconv2d", "group_deconv2d", "fullyconnected", "matmul", "embedding",
+            "scaled_dot_product_attention", "maxpool2d", "avgpool2d", "global_maxpool2d",
+            "global_avgpool2d", "maxpool3d", "avgpool3d", "l2pool2d", "maxpool2d_locat",
+            "unpooling", "softmax", "log_softmax", "leaky_relu", "relun", "threshold_relu",
+            "prelu", "clip", "batch_norm", "layer_norm", "rms_norm", "instance_norm",
+            "l2_normalization", "lrn", "argmax", "argmin", "cumsum", "cumprod", "topk",
+            "segment_sum", "segment_mean", "segment_max", "segment_min", "segment_prod",
+            "mean_stride", "min_stride", "reshape", "transpose", "concat", "split", "slice",
+            "strided_slice", "pad", "gather", "gather_nd", "scatter_nd", "tile", "squeeze",
+            "expand_dims", "reverse", "flip", "stack", "unstack", "broadcast_to", "crop",
+            "depth_to_space", "space_to_depth", "reorg", "space_to_batch", "batch_to_space",
+            "space_to_batch_nd", "batch_to_space_nd", "shuffle_channel", "one_hot",
+            "sequence_mask", "cast", "arange", "im2col", "col2im", "resize", "roipool",
+            "non_max_suppression", "roialign", "psroipooling", "proposal", "rope", "llm_pos",
+            "cache_matmul", "cache_conv1d", "fsmn", "where", "select", "where_softmax",
+            "data_convert"]
            + [o if o not in ("and", "or", "not") else o + "_"
-              for o in _UNARY_OPS + _BINARY_OPS])
+              for o in _UNARY_OPS + _BINARY_OPS]
+           + [o if o not in ("sum", "max", "min", "all", "any") else o + "_"
+              for o in _REDUCE_OPS]
+           + _UNSORTED_SEGMENT_OPS)

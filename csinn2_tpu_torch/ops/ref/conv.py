@@ -1,7 +1,7 @@
-"""Float convolution (counterpart of csinn2_tpu/ops/ref/conv.py; conv2d,
+"""Float convolution (counterpart of csinn2_tpu/ops/ref/conv.py: conv2d,
 depthwise_conv2d and group_conv2d with the fused residual and hardswish
-epilogues, the ops the CNN models record; conv1d/3d and deconv are not
-ported yet).
+epilogues, conv1d (NCW / NWC, grouped and depthwise), conv3d, and the
+transposed deconv2d / deconv3d with their grouped and depthwise names).
 
 (ref: source/reference/convolution.c.)  NHWC activations stay NHWC: the
 convolution sees them as a channels_last view (`x.permute(0, 3, 1, 2)`, no
@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from csinn2_tpu_torch.core.dtypes import Api, Layout
-from csinn2_tpu_torch.ops.params import Conv2dParams
+from csinn2_tpu_torch.ops.params import Conv1dParams, Conv2dParams, Conv3dParams, Deconv2dParams
 from csinn2_tpu_torch.ops.registry import registry
 
 
@@ -108,3 +108,83 @@ def depthwise_conv2d(x, weight, bias, params: Conv2dParams, w_layout: Layout = L
 @registry.register("group_conv2d", api=Api.TORCH)
 def group_conv2d(x, weight, bias, params: Conv2dParams, w_layout: Layout = Layout.OIHW):
     return conv2d(x, weight, bias, params, w_layout=w_layout)
+
+
+def _bias(out, bias, caxis: int = 1):
+    if bias is None or bias.numel() == 0:
+        return out
+    return out + bias.float().reshape([-1 if i == caxis else 1 for i in range(out.dim())])
+
+
+@registry.register("conv1d", api=Api.TORCH)
+def conv1d(x, weight, bias, params: Conv1dParams):
+    """x [N, C, W] (NCW) with weight [O, I/g, kw], or x [N, W, C] (NWC)
+    with weight [O, kw, I/g]; pad = (left, right)."""
+    nwc = params.layout not in (Layout.NCW, Layout.NCHW)
+    x, w = x.float(), weight.float()
+    if nwc:
+        x, w = x.permute(0, 2, 1), w.permute(0, 2, 1)
+    pl, pr = params.pad
+    with full_f32():
+        if pl == pr:
+            out = F.conv1d(x, w, None, params.stride, pl, params.dilation, params.group)
+        else:
+            out = F.conv1d(F.pad(x, (pl, pr)), w, None, params.stride, 0, params.dilation,
+                           params.group)
+    out = _bias(out, bias)
+    return out.permute(0, 2, 1).contiguous() if nwc else out
+
+
+@registry.register("conv3d", api=Api.TORCH)
+def conv3d(x, weight, bias, params: Conv3dParams):
+    """x [N, C, D, H, W]; weight [O, I/g, kd, kh, kw]; pad = (d0, d1, h0, h1,
+    w0, w1) (ref: shl_ref_conv3d_f32)."""
+    p = params.pad
+    with full_f32():
+        out = F.conv3d(F.pad(x.float(), (p[4], p[5], p[2], p[3], p[0], p[1])),
+                       weight.float(), None, tuple(params.stride), 0,
+                       tuple(params.dilation), params.group)
+    return _bias(out, bias)
+
+
+def _crop_full(out, pads, out_pad):
+    """The full transposed convolution (padding 0) cut to the JAX lowering's
+    output: `pads` (before, after) come off each spatial axis and out_pad
+    zeros go on after (F.pad with negative widths crops)."""
+    flat = []
+    for (b, a), op in reversed(list(zip(pads, out_pad))):
+        flat += [-b, op - a]
+    return F.pad(out, flat)
+
+
+@registry.register("deconv2d", api=Api.TORCH)
+def deconv2d(x, weight, bias, params: Deconv2dParams):
+    """Transposed conv (ref: shl_ref_deconv2d_f32); weight [I, O/g, kh, kw],
+    NCHW.  The JAX function convolves the stride-dilated input with the
+    flipped kernel at pads (d·(k−1) − p0, d·(k−1) − p1 + out_pad): the same
+    as the full F.conv_transpose2d with p0 taken off the front and
+    p1 − out_pad off the back, which also covers p0 != p1."""
+    pt, pd, pl, pr = params.pad
+    with full_f32():
+        out = F.conv_transpose2d(x.float(), weight.float(), None, tuple(params.stride), 0, 0,
+                                 params.group, tuple(params.dilation))
+    return _bias(_crop_full(out, ((pt, pd), (pl, pr)), params.out_pad), bias)
+
+
+@registry.register("deconv3d", api=Api.TORCH)
+def deconv3d(x, weight, bias, params: Conv3dParams):
+    """Transposed 3-D conv (ref: shl_ref_deconv3d_f32); x [N, C, D, H, W],
+    weight [I, O/g, kd, kh, kw], as deconv2d."""
+    p = params.pad
+    with full_f32():
+        out = F.conv_transpose3d(x.float(), weight.float(), None, tuple(params.stride), 0, 0,
+                                 params.group, tuple(params.dilation))
+    return _bias(_crop_full(out, ((p[0], p[1]), (p[2], p[3]), (p[4], p[5])), (0, 0, 0)), bias)
+
+
+# grouped / depthwise names: the reference registers them as distinct
+# CSINN_OP_* entries; the group count in params carries the semantics
+registry.register("depthwise_conv1d", conv1d, api=Api.TORCH)
+registry.register("group_conv1d", conv1d, api=Api.TORCH)
+registry.register("depthwise_deconv2d", deconv2d, api=Api.TORCH)
+registry.register("group_deconv2d", deconv2d, api=Api.TORCH)

@@ -1,5 +1,5 @@
 """Dense layers (counterpart of csinn2_tpu/ops/ref/linear.py:
-fullyconnected and matmul; embedding is not ported yet).
+fullyconnected, matmul and embedding).
 
 (ref: source/reference/fullyconnected.c, matmul.c.)
 """
@@ -9,8 +9,9 @@ from __future__ import annotations
 import torch
 
 from csinn2_tpu_torch.core.dtypes import Api
-from csinn2_tpu_torch.ops.params import FCParams, MatmulParams
+from csinn2_tpu_torch.ops.params import FCParams, GatherParams, MatmulParams
 from csinn2_tpu_torch.ops.ref.conv import full_f32
+from csinn2_tpu_torch.ops.ref.shape import gather
 from csinn2_tpu_torch.ops.registry import registry
 
 
@@ -34,3 +35,9 @@ def matmul(a, b, params: MatmulParams):
         b = b.transpose(-1, -2)
     with full_f32():
         return torch.matmul(a, b)
+
+
+@registry.register("embedding", api=Api.TORCH)
+def embedding(ids, table, params=None):
+    """Token-id lookup (ref: shl_rvv_embedding): jnp.take's rules, as gather."""
+    return gather(table, ids, GatherParams(axis=0))

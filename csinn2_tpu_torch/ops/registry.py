@@ -66,8 +66,7 @@ class OpRegistry:
         for k, v in base.items():
             cands.setdefault(k, v)
         if not cands:
-            raise NotImplementedError(f"op '{op}' has no registered implementation "
-                                      "in the port (ROADMAP queue A item 10.4)")
+            raise NotImplementedError(f"op '{op}' has no registered implementation")
         if api in (Api.CUDA, Api.TORCH, Api.REF):
             if api in cands:
                 return cands[api]

@@ -361,8 +361,9 @@ def test_port_imports_no_jax():
     imported; ring attention and the pipelines imported, a two-stage
     PipelinedLlama forward on the CPU), a GGUF convert / CTBM load round trip, a small fused
     MobileNetV1 INT8 session, small MobileNetV2-u8, MobileNetV3 and ResNet-50
-    sessions and the Q4_0 dequant probe loads neither jax nor any module of
-    the JAX package."""
+    sessions, the Q4_0 dequant probe, the op zoo's modules (a proposal
+    recorded into a GRAPH session) and two streamed chunks of a tiny DFSMN
+    loads neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -463,6 +464,18 @@ def test_port_imports_no_jax():
         "                                log=lambda line: None)\n"
         "assert len(recs) == 18 and all(r['cos'] > 0.99 for r in recs if r['kind'] in\n"
         "                                 ('cur', 'andmask', 'w4a8', 'i4native'))\n"
+        "import csinn2_tpu_torch.ops.ref.shape, csinn2_tpu_torch.ops.ref.reduce\n"
+        "import csinn2_tpu_torch.ops.ref.norm, csinn2_tpu_torch.ops.ref.misc\n"
+        "import csinn2_tpu_torch.ops.ref.detection, csinn2_tpu_torch.core.layout\n"
+        "import csinn2_tpu_torch.utils.memstats, csinn2_tpu_torch.examples.dfsmn_stream\n"
+        "from csinn2_tpu_torch.examples import op_zoo\n"
+        "assert op_zoo.run_graph('proposal', 'cpu')[0].shape == (50, 5)\n"
+        "from csinn2_tpu_torch.models.dfsmn_asr import DFSMNASR, DFSMNConfig\n"
+        "asr = DFSMNASR(DFSMNConfig(feat_dim=8, hidden=16, proj=12, blocks=2, l_order=3,\n"
+        "                           r_order=1, classes=5), seed=0, device='cpu')\n"
+        "st = asr.stream(batch=1, chunk=4)\n"
+        "ys = [st.step(np.zeros((1, 4, 8), np.float32)) for _ in range(2)]\n"
+        "assert all(tuple(y.shape) == (1, 4, 5) for y in ys)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'csinn2_tpu' or m.startswith('csinn2_tpu.')]\n"
         "print('LOADED', bad)\n"
