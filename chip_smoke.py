@@ -212,6 +212,35 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      boolean and tolerance-0 outputs bit for bit).  No CUDA kernel of the
      port lies on this path (plain PyTorch ops, as the JAX package's XLA
      ops); the kernels line carries the phase under "dfsmn" and "op_zoo".
+ 18. the rest of the runtime: (a) phase 8's op-API graph at Llama-2-7B
+     width (Q8_0 block weights made on the card, M = 128) with wo under
+     device_scope("host") and w13 fed by its output, as a RunMode.HYBRID
+     session: three subgraphs (accel, host, accel) logged with their nodes
+     and the bytes moved across, quant_matmul_t launched by the accel
+     subgraphs only (each subgraph run alone with the counts zeroed), the
+     outputs against the same graph in a GRAPH session on the card (cosine
+     >= 0.9999, phase 8's gate), one run's time beside the GRAPH session's;
+     (b) MobileNetV1 INT8_SYM at 224, batch 128, CSINN2_FUSE_DS=1 (13
+     ds_block nodes): save_model with and without the placed constants,
+     each directory load_model()ed in a fresh process, which must give the
+     logits bit for bit with 13 fused_dsconv launches; export_json parsed;
+     run_layer_benchmark's ten slowest nodes, their sum against the whole
+     forward (run_benchmark_device) and the 13 blocks' share;
+     roofline.analyze's fused and unfused bounds beside the forward; every
+     node's output dumped, the last file equal to the output; (c) in a
+     process of its own (torch.profiler's after-effect on launches stays
+     there): device_trace around one fused forward of the saved model, its
+     top five kernels by device time, dsconv_kernel among them, then
+     `python3 -m csinn2_tpu_torch.examples.mobilenet_int8 --size 224` and
+     `deploy_save_load --size 224 --aot` (CSINN2_FUSE_DS=1), each must
+     print PASS; (d) runtime/dataloader.py's DataLoader over an archive of
+     256 seeded 224x224x3 f32 samples (154 MB, in a temporary directory)
+     feeding (b)'s session: img/s beside the resident input's, the first
+     batch's logits equal to (b)'s; (e) `python3 -m csinn2_tpu_torch
+     --backend` must print the card.  The kernels line carries the phase
+     under "runtime", quant_matmul_t's HYBRID launches as
+     "launches_hybrid" and fused_dsconv's (b) launches as
+     "launches_runtime".
 Phase 2 also holds the fourth slice's kernel modes (int8 x with float and
 integer epilogues, the fixed-point requantize bit for bit, scale_mode
 "none", the transposed weights, bhsd flash_attention) against their plain
@@ -2025,6 +2054,320 @@ def op_zoo_path():
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the rest of the runtime — HYBRID partitioning, save / load, the
+# profiler levels, the roofline, the data loader, the CLI
+# ---------------------------------------------------------------------------
+
+RUNTIME_SAMPLES = 256          # (d): 256 seeded 224x224x3 f32 samples, 154 MB
+
+# (b) and (c), in a process of its own: load each saved directory (twice, the
+# second round timed), run it once on the saved input and count its
+# fused_dsconv launches; then torch.profiler around one fused forward, then
+# the two CNN examples.  Apart from the parent, since host launches stay
+# slower in a process that torch.profiler has traced.
+RUNTIME_CHILD = r"""
+import json, subprocess, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+from csinn2_tpu_torch.runtime.export import load_model
+from csinn2_tpu_torch.runtime.profiler import device_trace, kernel_times
+d = sys.argv[2]
+x = torch.from_numpy(np.load(d + "/input.npy")).cuda()
+want = torch.from_numpy(np.load(d + "/expected.npy"))
+loads = {}
+for name in ("model", "model_aot") * 2:
+    t0 = time.perf_counter()
+    sess = load_model(d + "/" + name, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    reset_launch_counts()
+    got = sess.run(x)
+    torch.cuda.synchronize()
+    loads[name] = dict(load_s=t_load, fused_dsconv=int(launch_counts["fused_dsconv"]),
+                       bit_for_bit=bool(torch.equal(got.cpu(), want)),
+                       nodes=len(sess.graph.nodes))
+print(json.dumps({"loads": loads}), flush=True)
+with device_trace(d + "/trace") as path:
+    sess.run(x)
+kt = kernel_times(path)
+print(json.dumps({"kernels": list(kt.items())[:5], "n_names": len(kt),
+                  "kernel_ms": sum(kt.values()),
+                  "dsconv": [k for k in kt if "dsconv_kernel" in k]}), flush=True)
+for args in (("mobilenet_int8", "--size", "224"), ("deploy_save_load", "--size", "224", "--aot")):
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "csinn2_tpu_torch.examples." + args[0], *args[1:]],
+                       cwd=sys.argv[1], capture_output=True, text=True, timeout=600)
+    print(json.dumps({"example": " ".join(args), "rc": r.returncode, "stdout": r.stdout,
+                      "stderr": r.stderr[-3000:], "seconds": time.perf_counter() - t0}),
+          flush=True)
+"""
+
+
+def hybrid_path(gpu_line):
+    """Phase 18 (a): phase 8's op-API graph (Q8_0 block weights of one
+    Llama-2-7B layer made on the card, M = 128) with wo under
+    device_scope("host") and w13 fed by its output, as a HYBRID session
+    against the same graph in a GRAPH session on the card.  Returns (the
+    launch counts of one HYBRID run, its record)."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch import ops
+    from csinn2_tpu_torch.core.dtypes import Dtype, RunMode
+    from csinn2_tpu_torch.core.tensor import TensorMeta
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.runtime.session import Session
+    from csinn2_tpu_torch.utils.verify import cosine_similarity
+    g = torch.Generator(device="cuda")
+    g.manual_seed(18)
+    weights = {name: _block_tensor(g, "q8_0", N, K) for name, N, K in LAYER_FCS}
+    M = 128
+    xs = [torch.randn((M, K), generator=g, device="cuda") for K in (4096, 11008)]
+
+    def build(mode):
+        sess = Session(run_mode=mode, device="cuda")
+        with sess.build():
+            x4096, x11008 = (sess.input(TensorMeta(shape=tuple(x.shape), dtype=Dtype.FLOAT32))
+                             for x in xs)
+            q = ops.fullyconnected(x4096, weights["wqkv"])
+            with sess.device_scope("host"):          # a tag only, in GRAPH mode
+                o = ops.fullyconnected(x4096, weights["wo"])
+            u = ops.fullyconnected(o, weights["w13"])
+            d = ops.fullyconnected(x11008, weights["w2"])
+            sess.set_output(q, o, u, d)
+        return sess.setup()
+
+    hyb, ref = build(RunMode.HYBRID), build(RunMode.GRAPH)
+    subs = hyb._hybrid.subgraphs
+    if [s.device for s in subs] != ["accel", "host", "accel"]:
+        raise AssertionError(f"phase 18 (a) partition: {subs}")
+    home = {id(t): "accel" for t in hyb.graph.inputs}
+    for s in subs:
+        for n in s.nodes:
+            for t in n.outputs:
+                home[id(t)] = s.device
+    cut = []
+    for i, s in enumerate(subs):
+        moved = sum(t.meta.byte_size for t in s.ext_inputs if home[id(t)] != s.device)
+        cut.append(moved)
+        log(f"  subgraph {i} on {s.device} ({'cpu' if s.device == 'host' else 'cuda'}): "
+            f"{[f'{n.name}:{n.cb_name}' for n in s.nodes]}, {len(s.ext_inputs)} inputs "
+            f"({moved / 2**20:.2f} MiB moved in across devices), {len(s.outputs)} outputs, "
+            f"{len(s.const_keys)} constants placed there")
+    env = {id(t): x for t, x in zip(hyb.graph.inputs, xs)}
+    per_sub = []
+    for s in subs:
+        reset_launch_counts()
+        hyb._hybrid.run_subgraph(s, env)
+        torch.cuda.synchronize()
+        n = launches(launch_counts, "quant_matmul_t")
+        per_sub.append(n)
+        if n != (0 if s.device == "host" else len(s.nodes)):
+            raise AssertionError(f"phase 18 (a) {s}: quant_matmul_t launched {n} times: "
+                                 f"{dict(launch_counts)}")
+    log(f"  quant_matmul_t launches by subgraph: {per_sub} (the host's on the CPU tier)")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    outs = hyb.run(*xs, unwrap=False)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    want = ref.run(*xs, unwrap=False)
+    cos = []
+    for (name, _, _), o, w in zip(LAYER_FCS, outs, want):
+        c = cosine_similarity(o.float().cpu().numpy(), w.float().cpu().numpy())
+        cos.append(c)
+        if not (np.isfinite(c) and c >= 0.9999):
+            raise AssertionError(f"phase 18 (a) {name}: HYBRID vs GRAPH cosine {c}")
+    log(f"  HYBRID vs GRAPH on the card, outputs wqkv, wo (host), w13 (fed by the host), w2: "
+        f"cosine {[f'{c:.6f}' for c in cos]} (phase 8's gate 0.9999); launches {counts}")
+    t_h = hyb.run_benchmark_device(*xs, iters=5, reps=3)
+    t_g = ref.run_benchmark_device(*xs, iters=10, reps=3)
+    log(f"  one run: HYBRID {t_h * 1e3:.3f} ms vs GRAPH {t_g * 1e3:.3f} ms (CUDA events "
+        f"around whole runs, the host subgraph's copies and CPU work inside) [{gpu_line}]")
+    rec = dict(subgraphs=[s.device for s in subs], cut_bytes=cut,
+               quant_matmul_t_by_subgraph=per_sub, cosine=cos, hybrid_ms=t_h * 1e3,
+               graph_ms=t_g * 1e3, gpu=gpu_line)
+    del hyb, ref, weights, outs, want
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def mobilenet_runtime_path(tmp: Path, gpu_line: str):
+    """Phase 18 (b) and (d): MobileNetV1 INT8_SYM at 224, batch 128, fused
+    (13 ds_block nodes).  Returns (the launch counts of its forward, its
+    record)."""
+    import numpy as np
+    import torch
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from csinn2_tpu_torch.models.mobilenet import MobileNetV1
+    from csinn2_tpu_torch.runtime.dataloader import DataLoader, write_archive
+    from csinn2_tpu_torch.runtime.export import save_model
+    from csinn2_tpu_torch.runtime.roofline import analyze
+    model = MobileNetV1(alpha=1.0, input_size=224, seed=0)
+    rng = np.random.default_rng(0)
+    x1 = rng.random(model.input_shape(1)).astype(np.float32)
+    data = rng.random((RUNTIME_SAMPLES, 224, 224, 3), dtype=np.float32)
+    model.calibrate(x1, device="cuda")
+    with env_flag("CSINN2_FUSE_DS", True), env_flag("CSINN2_NO_FUSE_DS", False):
+        sess = model.build_session(QuantScheme.INT8_SYM, batch=CNN_BATCH, device="cuda")
+    if sum(n.op == "ds_block" for n in sess.graph.nodes) != 13:
+        raise AssertionError("phase 18 (b): not 13 ds_block nodes")
+    xin = model.prepare_input(data[:CNN_BATCH], sess)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    out = sess.run(xin)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    if counts.get("fused_dsconv", 0) != 13:
+        raise AssertionError(f"phase 18 (b) forward launches {counts}")
+    rec = {"gpu": gpu_line}
+
+    # save (weights.npz, and the placed constants) for the child to reload
+    t0 = time.perf_counter()
+    save_model(sess, str(tmp / "model"))
+    save_model(sess, str(tmp / "model_aot"), aot=True)
+    t_save = time.perf_counter() - t0
+    np.save(tmp / "input.npy", xin.cpu().numpy())
+    np.save(tmp / "expected.npy", out.cpu().numpy())
+    log(f"  save_model, without and with the placed constants: {t_save:.2f} s (host clock)")
+    doc = json.loads(sess.export_json())
+    if len(doc["nodes"]) != len(sess.graph.nodes) or doc["format"] != "csinn2_tpu-graph-v1":
+        raise AssertionError("phase 18 (b) export_json")
+    log(f"  export_json: {len(doc['nodes'])} nodes, {len(doc['tensors'])} tensors")
+
+    # the whole forward, the per-layer split, the roofline
+    t_fwd = sess.run_benchmark_device(xin, iters=20, reps=3)
+    layers = sess.run_layer_benchmark(xin, iters=20)
+    total = sum(layers.values())
+    blocks = sum(ms for k, ms in layers.items() if "+" in k)
+    log(f"  forward {t_fwd * 1e3:.3f} ms at batch {CNN_BATCH} ({CNN_BATCH / t_fwd:.1f} img/s; "
+        f"run_benchmark_device) [{gpu_line}]")
+    log(f"  run_layer_benchmark (each node alone, CUDA events, long minus short over 20 "
+        f"calls): sum {total:.4f} ms = {100 * total / (t_fwd * 1e3):.1f} % of the forward; the "
+        f"13 fused blocks {blocks:.4f} ms ({100 * blocks / total:.1f} % of the sum); slowest ten:")
+    for k, ms in sorted(layers.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {k:<24} {ms:.4f} ms")
+    rf = analyze(sess)
+    log(f"  roofline.analyze (H100 SXM: 3.35 TB/s, {rf.peak_tops:.0f} TOP/s int8): fused "
+        f"{rf.fused_sol_s * 1e3:.4f} ms, unfused {rf.unfused_sol_s * 1e3:.4f} ms (the eager "
+        f"replay's floor) against the measured {t_fwd * 1e3:.3f} ms "
+        f"({100 * rf.unfused_sol_s / t_fwd:.1f} % of the unfused bound); "
+        f"{rf.total_flops / 1e9:.2f} GOP a forward")
+    rec.update(forward_ms=t_fwd * 1e3, layers_ms=layers, layers_sum_ms=total,
+               blocks_ms=blocks, roofline_fused_ms=rf.fused_sol_s * 1e3,
+               roofline_unfused_ms=rf.unfused_sol_s * 1e3, gop=rf.total_flops / 1e9)
+
+    # DUMP: every node's output; the last file is the output
+    written = sess.dump_outputs(xin, out_dir=str(tmp / "dump"))
+    last = np.load(tmp / "dump" / sorted(written)[-1])
+    if not np.array_equal(last, out.cpu().numpy()):
+        raise AssertionError("phase 18 (b): the last dump differs from the output")
+    log(f"  dump_outputs: {len(written)} files, the last equal to the output")
+    rec["dump_files"] = len(written)
+
+    # (d) the data loader feeding the batch-128 session
+    arch = tmp / "samples.f32"
+    write_archive(str(arch), data)
+    n_img = 0
+    with DataLoader(str(arch), (224, 224, 3), batch=CNN_BATCH, loop=True,
+                    prefetch_depth=2) as dl:
+        first = dl.next()
+        if not np.array_equal(first, data[:CNN_BATCH]):
+            raise AssertionError("phase 18 (d): the loader's first batch")
+        if not torch.equal(sess.run(model.prepare_input(first, sess)), out):
+            raise AssertionError("phase 18 (d): the loader-fed forward differs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            b = dl.next()
+            sess.run(model.prepare_input(b, sess))
+            n_img += b.shape[0]
+        torch.cuda.synchronize()
+        t_fed = time.perf_counter() - t0
+    log(f"  DataLoader ({RUNTIME_SAMPLES} samples, {arch.stat().st_size / 1e6:.0f} MB, loop, "
+        f"prefetch 2) feeding the session: {n_img / t_fed:.1f} img/s over {n_img} images "
+        f"(host clock, the host-to-device copy and quantize included) vs "
+        f"{CNN_BATCH / t_fwd:.1f} img/s on the resident input [{gpu_line}]")
+    rec.update(loader_img_s=n_img / t_fed, resident_img_s=CNN_BATCH / t_fwd)
+    del sess, out, xin, data
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def runtime_path(here: Path, gpu_line: str):
+    """Phase 18.  Returns (the HYBRID run's launch counts, the fused
+    forward's, the phase's record)."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    rec, parts = {}, {}
+    log("  (a) HYBRID at Llama-2-7B width (Q8_0, M = 128), wo on the host")
+    hyb_counts, rec["hybrid"] = hybrid_path(gpu_line)
+    parts["a"] = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(prefix="csinn2_phase18_"))
+    try:
+        log(f"  (b) MobileNetV1 INT8_SYM 224, batch {CNN_BATCH}, CSINN2_FUSE_DS=1: save, "
+            "export_json, the layer benchmark, the roofline, DUMP; (d) the data loader")
+        t1 = time.perf_counter()
+        cnn_counts, rec["mobilenet"] = mobilenet_runtime_path(tmp, gpu_line)
+        parts["b_d"] = time.perf_counter() - t1
+        log("  (b) and (c) in a process of its own: load_model of both directories, then "
+            "device_trace around one fused forward, then mobilenet_int8 --size 224 and "
+            "deploy_save_load --size 224 --aot")
+        t1 = time.perf_counter()
+        with env_flag("CSINN2_FUSE_DS", True):
+            r = subprocess.run([sys.executable, "-c", RUNTIME_CHILD, str(here), str(tmp)],
+                               cwd=here, capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise AssertionError(f"phase 18 child: exit {r.returncode}\n{r.stdout[-2000:]}\n"
+                                 f"{r.stderr[-4000:]}")
+        lines = [json.loads(line) for line in r.stdout.strip().splitlines()]
+        loads, trace = lines[0]["loads"], lines[1]
+        log(f"  load_model in a fresh process (the second of two rounds timed, host clock): "
+            f"{loads}")
+        for name, v in loads.items():
+            if not (v["bit_for_bit"] and v["fused_dsconv"] == 13):
+                raise AssertionError(f"phase 18 (b) reload {name}: {v}")
+        rec["load"] = loads
+        log(f"  trace: {trace['n_names']} kernel names, {trace['kernel_ms']:.3f} ms of kernels "
+            f"in one forward; top five by device time:")
+        for name, ms in trace["kernels"]:
+            log(f"    {ms:.4f} ms  {name[:110]}")
+        if not trace["dsconv"]:
+            raise AssertionError("phase 18 (c): no dsconv_kernel in the trace")
+        rec["trace"] = dict(top5=trace["kernels"], kernel_ms=trace["kernel_ms"],
+                            n_names=trace["n_names"], dsconv_names=trace["dsconv"])
+        for ex in lines[2:]:
+            for line in ex["stdout"].splitlines():
+                log(f"  | {line}")
+            out_lines = [s.strip() for s in ex["stdout"].splitlines()]
+            log(f"  {ex['example']}: exit {ex['rc']}, {ex['seconds']:.1f} s")
+            parts[ex["example"].split()[0]] = ex["seconds"]
+            if ex["rc"] != 0 or "PASS" not in out_lines:
+                raise AssertionError(f"phase 18 (c) {ex['example']}: exit {ex['rc']}\n"
+                                     f"{ex['stderr']}")
+        parts["child"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  (e) python3 -m csinn2_tpu_torch --backend")
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "csinn2_tpu_torch", "--backend"], cwd=here,
+                       capture_output=True, text=True, timeout=120)
+    name = torch.cuda.get_device_name(0)
+    log(f"  | {r.stdout.strip()}")
+    if r.returncode != 0 or name not in r.stdout:
+        raise AssertionError(f"phase 18 (e): exit {r.returncode}, {r.stdout!r}\n{r.stderr}")
+    rec["backend"] = r.stdout.strip()
+    parts["e"] = time.perf_counter() - t1
+    rec["seconds"] = time.perf_counter() - t0
+    rec["seconds_parts"] = parts
+    log(f"  phase 18: {rec['seconds']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in parts.items())})")
+    return hyb_counts, cnn_counts, rec
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the probe path, the Q4_0 dequant-strategy probes
 # ---------------------------------------------------------------------------
 
@@ -3627,6 +3970,10 @@ def main() -> int:
     dfsmn = dfsmn_path(here, gpu_line)
     op_zoo = op_zoo_path()
     log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
+    log("phase 18: the rest of the runtime: HYBRID at Llama-2-7B width, MobileNetV1 INT8_SYM "
+        "224 saved / reloaded / layer-benchmarked / traced, the roofline, DUMP, the data loader, "
+        "the two CNN examples, --backend")
+    hyb_counts, cnn18_counts, runtime = runtime_path(here, gpu_line)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3668,6 +4015,9 @@ def main() -> int:
             entry["launches_pp"] = _pp_launches(pipeline, name)
         if name == "fused_dsconv":       # phase 16's fused forwards (zeroed before each)
             entry["launches_zoo"] = {k: launches(c, name) for k, c in zoo_counts.items()}
+            entry["launches_runtime"] = launches(cnn18_counts, name)    # phase 18 (b)
+        if name == "quant_matmul_t":     # phase 18 (a): one HYBRID run
+            entry["launches_hybrid"] = launches(hyb_counts, name)
         if name in ATTENTION + ("flash_attention_bhsd",):
             # the split-KV merges of the same source, within `launches`
             entry["launches_combine"] = int(counts.get(f"{name}.combine", 0))
@@ -3676,7 +4026,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "mesh": {
         k: ({kk: vv for kk, vv in v.items() if kk != "counts"} if isinstance(v, dict) else v)
         for k, v in mesh.items()}, "pipeline": _without_counts(pipeline), "cnn_zoo": cnn_zoo,
-        "dfsmn": dfsmn, "op_zoo": op_zoo}))
+        "dfsmn": dfsmn, "op_zoo": op_zoo, "runtime": runtime}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -212,6 +212,14 @@ class RunMode(enum.Enum):
     HYBRID = "hybrid"        # host/device partitioned graph (= CPU_BASE_HYBRID)
 
 
+class SaveMode(enum.Enum):
+    """Model save modes (ref: csinn_mode_save_enum, csinn_data_structure.h:127-131)."""
+
+    SAVE_AND_RUN = "save_and_run"
+    SAVE_ONLY = "save_only"
+    RUN_ONLY = "run_only"
+
+
 class Api(enum.Enum):
     """Backend routing (ref: csinn_api_enum, csinn_data_structure.h:94-115).
 

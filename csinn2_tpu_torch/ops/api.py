@@ -84,10 +84,11 @@ def _on_meta(t: Tensor):
 
 
 def _run_device(sess, flat: Sequence[Tensor]) -> torch.device:
-    """The device the op runs on: the recording session's, else the first
-    input's (constants follow it)."""
+    """The device the op runs on: the recording session's (the CPU for a
+    node a HYBRID session places on the host), else the first input's
+    (constants follow it)."""
     if sess is not None and sess.recording:
-        return sess.device
+        return sess.record_device
     if not flat:
         return torch.device("cpu")
     return flat[0].data[0].device if flat[0].is_block else flat[0].data.device
@@ -671,7 +672,7 @@ def arange(params: P.ArangeParams, out_qinfo=None):
     session's device (the CPU outside a session)."""
     sess = current_session()
     return call_op("arange", [], params, out_qinfo,
-                   device=sess.device if sess is not None else torch.device("cpu"))
+                   device=sess.record_device if sess is not None else torch.device("cpu"))
 
 
 def im2col(x, kernel, stride, pad_, params=None, out_qinfo=None):

@@ -53,23 +53,32 @@ _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def _build() -> Path:
-    """The library for this source and these flags, built if missing."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes())
-    so = BUILD_DIR / f"libbmfmt-{h.hexdigest()[:16]}.so"
+def build_native(source: Path, build_dir: Path, flags) -> Path:
+    """The shared library `lib<stem>-<hash>.so` of a C++ source in
+    build_dir, built with g++ (or $CXX) if missing; the hash covers the
+    source and the flags.  The library is written to a temporary name and
+    renamed, so concurrent first uses each find a whole library; a failed
+    build raises with the compiler's output."""
+    h = hashlib.sha256(" ".join(flags).encode() + source.read_bytes())
+    so = build_dir / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libbmfmt.{os.getpid()}.{threading.get_ident()}.so"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = build_dir / f".lib{source.stem}.{os.getpid()}.{threading.get_ident()}.so"
     cxx = os.environ.get("CXX", "g++")
-    r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    r = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
                        capture_output=True, text=True)
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.name} failed ({cxx} exit {r.returncode}):\n"
+        raise RuntimeError(f"building {source.name} failed ({cxx} exit {r.returncode}):\n"
                            f"{r.stdout}{r.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def _build() -> Path:
+    """The library for this source and these flags, built if missing."""
+    return build_native(SOURCE, BUILD_DIR, CXX_FLAGS)
 
 
 def _load_lib() -> ctypes.CDLL:

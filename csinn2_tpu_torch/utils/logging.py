@@ -1,7 +1,7 @@
-"""Leveled debug logging (counterpart of csinn2_tpu/utils/logging.py; the
-levels and printers that `call_op` and `Session.setup` use).
+"""Leveled debug logging (a copy of csinn2_tpu/utils/logging.py).
 
-(ref: include/shl_debug.h + source/utils/debug.c — levels DEBUG..FATAL.)
+(ref: include/shl_debug.h + source/utils/debug.c — levels DEBUG..FATAL from
+csinn_data_structure.h:478-484, printers shl_debug_info/warning/error.)
 """
 
 from __future__ import annotations
@@ -36,3 +36,11 @@ def debug(msg, *args):
 
 def info(msg, *args):
     _log(DebugLevel.INFO, "INFO", msg, *args)
+
+
+def warning(msg, *args):
+    _log(DebugLevel.WARNING, "WARN", msg, *args)
+
+
+def error(msg, *args):
+    _log(DebugLevel.ERROR, "ERROR", msg, *args)

@@ -190,9 +190,9 @@ def test_session_records_shapes_and_checks_order():
 
 
 def test_layer_mode_and_unported_branches_raise():
-    """Layer mode runs the builder eagerly; HYBRID sessions and profiler
-    levels still raise (ROADMAP queue A item 12); the u8 schemes, "observe"
-    mode and conv2d(residual=) are ported and run."""
+    """Layer mode runs the builder eagerly; no branch is left unported:
+    HYBRID sessions and the profiler levels construct (TRACE with its
+    Tracer), and the u8 schemes, "observe" mode and conv2d(residual=) run."""
     rng = np.random.default_rng(0)
     b = NetBuilder({"c.w": rng.standard_normal((4, 3, 3, 3)).astype(np.float32)},
                    QuantScheme.FLOAT32, Layout.NHWC, mode="float")
@@ -200,10 +200,8 @@ def test_layer_mode_and_unported_branches_raise():
                layout=Layout.NHWC)
     y = b.conv(x, "c", stride=1, relu6=True)
     assert y.data.shape == (1, 6, 6, 4) and float(y.data.max()) <= 6.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(run_mode=RunMode.HYBRID, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(profiler_level=ProfilerLevel.TRACE, device="cpu")
+    assert Session(run_mode=RunMode.HYBRID, device="cpu").recording
+    assert Session(profiler_level=ProfilerLevel.TRACE, device="cpu").trace is not None
     assert NetBuilder({}, QuantScheme.UINT8_ASYM).scheme == QuantScheme.UINT8_ASYM
     ob = NetBuilder(b.w, QuantScheme.FLOAT32, Layout.NHWC, mode="observe")
     yo = ob.conv(x, "c", stride=1, relu6=True)

@@ -1743,3 +1743,102 @@ def test_pipelined_llama_on_the_card(dev, micro):
         assert torch.equal(got, per_mb(t, pos))
         assert torch.equal(torch.cat([c.k for c in caches]), ref.k)
         assert torch.equal(torch.cat([c.v for c in caches]), ref.v)
+
+
+def _fc_chain(mode, dev, ws, host_middle):
+    """x → fc(w0) → [host if host_middle] fc(w1) → fc(w2), the block weights
+    on the op API (quant_matmul_t on the card's tier)."""
+    from csinn2_tpu_torch import ops
+    from csinn2_tpu_torch.core.dtypes import Dtype, RunMode
+    from csinn2_tpu_torch.core.tensor import TensorMeta
+    from csinn2_tpu_torch.runtime.session import Session
+    sess = Session(run_mode=getattr(RunMode, mode), device=dev)
+    with sess.build():
+        x = sess.input(TensorMeta(shape=(24, 256), dtype=Dtype.FLOAT32))
+        h = ops.fullyconnected(x, ws[0])
+        if host_middle:
+            with sess.device_scope("host"):
+                h = ops.fullyconnected(h, ws[1])
+        else:
+            h = ops.fullyconnected(h, ws[1])
+        sess.set_output(ops.fullyconnected(h, ws[2]))
+    return sess.setup()
+
+
+def test_hybrid_session_on_the_card(dev):
+    """A HYBRID session on the card with its middle node on the host: three
+    subgraphs (accel → host → accel), quant_matmul_t launched by the accel
+    subgraphs only, each block weight placed once a subgraph, the output
+    against the GRAPH session on the card (cosine >= 0.9999) and timed by
+    run_benchmark_device."""
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.core.quant import block_quantize
+    from csinn2_tpu_torch.core.tensor import Tensor
+    from csinn2_tpu_torch.kernels import reset_launch_counts
+    rng = np.random.default_rng(3)
+    ws = [Tensor(block=block_quantize((rng.standard_normal((256, 256)) * 0.1)
+                                      .astype(np.float32), QuantScheme.BLOCK_Q8_0))
+          for _ in range(3)]
+    x = rng.standard_normal((24, 256)).astype(np.float32)
+    hyb = _fc_chain("HYBRID", dev, ws, True)
+    ref = _fc_chain("GRAPH", dev, ws, False)
+    subs = hyb._hybrid.subgraphs
+    assert [s.device for s in subs] == ["accel", "host", "accel"]
+    assert not hyb.graph.nodes[1].cb_name.endswith(":cuda")
+    assert all(n.cb_name.endswith(":cuda") for i, n in enumerate(hyb.graph.nodes) if i != 1)
+    assert all(v.device.type == "cpu" for pair in subs[1].consts.values() for v in pair)
+    env = {id(hyb.graph.inputs[0]): torch.from_numpy(x).to(dev)}
+    for sg in subs:
+        reset_launch_counts()
+        hyb._hybrid.run_subgraph(sg, env)
+        torch.cuda.synchronize()
+        n = sum(v for k, v in launch_counts.items() if k.startswith("quant_matmul_t"))
+        assert n == (0 if sg.device == "host" else len(sg.nodes)), (sg, dict(launch_counts))
+    got = hyb.run(x)
+    assert got.device.type == "cuda"
+    assert cosine_similarity(got.cpu().numpy(), ref.run(x).cpu().numpy()) >= 0.9999
+    assert 0 < hyb.run_benchmark_device(x, iters=4, reps=2) < 1.0
+
+
+def test_load_model_of_a_fused_mobilenet_on_the_card(dev, tmp_path, monkeypatch):
+    """A fused MobileNetV1-32 saved on the card and load_model()ed there
+    (from weights.npz and from placed_consts.pt): the logits bit for bit,
+    13 fused_dsconv launches a forward."""
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.models.mobilenet import MobileNetV1
+    from csinn2_tpu_torch.runtime.export import load_model, save_model
+    monkeypatch.delenv("CSINN2_NO_FUSE_DS", raising=False)
+    monkeypatch.setenv("CSINN2_FUSE_DS", "1")
+    m = MobileNetV1(input_size=32)
+    x = np.random.default_rng(0).random(m.input_shape(2)).astype(np.float32)
+    m.calibrate(x[:1], device=dev)
+    s = m.build_session(QuantScheme.INT8_SYM, batch=2, device=dev)
+    xin = m.prepare_input(x, s)
+    want = s.run(xin)
+    for aot in (False, True):
+        path = save_model(s, str(tmp_path / f"m{aot}"), aot=aot)
+        monkeypatch.delenv("CSINN2_FUSE_DS")
+        s2 = load_model(path, device=dev)
+        monkeypatch.setenv("CSINN2_FUSE_DS", "1")
+        before = launch_counts["fused_dsconv"]
+        got = s2.run(xin)
+        torch.cuda.synchronize()
+        assert launch_counts["fused_dsconv"] - before == 13
+        assert torch.equal(got, want)
+
+
+def test_layer_benchmark_on_the_card(dev, monkeypatch):
+    """run_layer_benchmark on a fused MobileNetV1-32 session on the card:
+    one positive time a node (CUDA events, long minus short)."""
+    from csinn2_tpu_torch.core.dtypes import QuantScheme
+    from csinn2_tpu_torch.models.mobilenet import MobileNetV1
+    monkeypatch.delenv("CSINN2_NO_FUSE_DS", raising=False)
+    monkeypatch.setenv("CSINN2_FUSE_DS", "1")
+    m = MobileNetV1(alpha=0.25, input_size=32)
+    x = np.random.default_rng(1).random(m.input_shape(4)).astype(np.float32)
+    m.calibrate(x[:1], device=dev)
+    s = m.build_session(QuantScheme.INT8_SYM, batch=4, device=dev)
+    res = s.run_layer_benchmark(m.prepare_input(x, s), iters=8)
+    assert len(res) == len(s.graph.nodes) == 17
+    assert all(ms > 0 for ms in res.values())
+    assert sum("+" in k for k in res) == 13   # the fused blocks, "dw<i>+pw<i>"

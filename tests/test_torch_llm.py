@@ -362,8 +362,11 @@ def test_port_imports_no_jax():
     PipelinedLlama forward on the CPU), a GGUF convert / CTBM load round trip, a small fused
     MobileNetV1 INT8 session, small MobileNetV2-u8, MobileNetV3 and ResNet-50
     sessions, the Q4_0 dequant probe, the op zoo's modules (a proposal
-    recorded into a GRAPH session) and two streamed chunks of a tiny DFSMN
-    loads neither jax nor any module of the JAX package."""
+    recorded into a GRAPH session), two streamed chunks of a tiny DFSMN,
+    and the rest of the runtime (a HYBRID session with a host node, the
+    profiler's layer benchmark and trace, save_model / load_model, the
+    roofline, the data loader, utils.platform and the two CNN examples'
+    modules) loads neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -476,6 +479,40 @@ def test_port_imports_no_jax():
         "st = asr.stream(batch=1, chunk=4)\n"
         "ys = [st.step(np.zeros((1, 4, 8), np.float32)) for _ in range(2)]\n"
         "assert all(tuple(y.shape) == (1, 4, 5) for y in ys)\n"
+        "import tempfile as _tf\n"
+        "from csinn2_tpu_torch.core.dtypes import Dtype, ProfilerLevel, RunMode\n"
+        "from csinn2_tpu_torch.core.tensor import TensorMeta\n"
+        "from csinn2_tpu_torch import ops\n"
+        "from csinn2_tpu_torch.runtime.session import Session\n"
+        "hs = Session(run_mode=RunMode.HYBRID, profiler_level=ProfilerLevel.TRACE, device='cpu')\n"
+        "with hs.build():\n"
+        "    hx = hs.input(TensorMeta(shape=(2, 3), dtype=Dtype.FLOAT32))\n"
+        "    with hs.device_scope('host'):\n"
+        "        hy = ops.sigmoid(hx)\n"
+        "    hs.set_output(ops.relu(hy))\n"
+        "hs.setup()\n"
+        "assert len(hs._hybrid.subgraphs) == 2\n"
+        "assert tuple(hs.run(np.ones((2, 3), np.float32)).shape) == (2, 3)\n"
+        "assert len(hs.run_layer_benchmark(np.ones((2, 3), np.float32), iters=1)) == 2\n"
+        "from csinn2_tpu_torch.runtime.export import load_model, save_model\n"
+        "from csinn2_tpu_torch.runtime.roofline import analyze\n"
+        "from csinn2_tpu_torch.runtime.dataloader import DataLoader, write_archive\n"
+        "from csinn2_tpu_torch.runtime.profiler import device_trace\n"
+        "from csinn2_tpu_torch.utils.platform import backend_summary\n"
+        "import csinn2_tpu_torch.examples.mobilenet_int8, csinn2_tpu_torch.examples.deploy_save_load\n"
+        "m = MobileNetV1(alpha=0.25, input_size=32)\n"
+        "m.calibrate(x, device='cpu')\n"
+        "s = m.build_session(QuantScheme.INT8_SYM, batch=1, device='cpu')\n"
+        "assert analyze(s).fused_sol_s > 0\n"
+        "with _tf.TemporaryDirectory() as d:\n"
+        "    with device_trace(d, device='cpu'):\n"
+        "        want = s.run(m.prepare_input(x, s))\n"
+        "    save_model(s, d + '/m', aot=True)\n"
+        "    assert torch.equal(load_model(d + '/m', device='cpu').run(m.prepare_input(x, s)),\n"
+        "                       want)\n"
+        "    write_archive(d + '/a.f32', np.zeros((3, 4), np.float32))\n"
+        "    assert [b.shape[0] for b in DataLoader(d + '/a.f32', (4,), 2)] == [2, 1]\n"
+        "assert backend_summary('cpu').startswith('cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'csinn2_tpu' or m.startswith('csinn2_tpu.')]\n"
         "print('LOADED', bad)\n"
