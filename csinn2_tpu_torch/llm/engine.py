@@ -78,6 +78,18 @@ def _round256(n: int, cap: int) -> int:
     return min(-(-n // 256) * 256, cap)
 
 
+def _takes(req: "Request", seq: List[int]) -> int:
+    """How many of a decode chunk's tokens `seq` a request keeps: up to its
+    max_new_tokens, and none after its eos_id."""
+    k, last = 0, req.out[-1] if req.out else None
+    for t in seq:
+        if len(req.out) + k >= req.max_new_tokens or \
+                (req.eos_id is not None and last == req.eos_id):
+            break
+        k, last = k + 1, t
+    return k
+
+
 @dataclasses.dataclass
 class Slot:
     """One continuous-batching lane."""
@@ -121,13 +133,28 @@ class InferenceEngine:
     mesh: a parallel.mesh.Mesh with dp and tp axes; every rank passes the
     FULL params, and the engine runs on mesh.device (`device` is not used).
     batch % dp == 0; lanes dp_idx·batch/dp .. belong to dp group dp_idx.
+
+    tracer: a runtime/profiler.Tracer, or None (no span, no counter, no
+    clock read); an attribute that may be set and cleared between calls.
+    Spans, per call and per chunk: "sched.admit" (an admission wave of
+    run_queue), "prefill" (prefill_sample; children "prefill.stage",
+    ".forward", ".sample", ".fetch") and "decode.chunk" (decode_steps;
+    children "decode.stage", ".capture", ".launch", ".fetch", ".commit").
+    Counters: prefill.tokens, prefill.pad_tokens (bucket − prompt),
+    decode.captures, decode.replays, decode.lane_steps (batch × steps) and
+    of them decode.lane_steps_idle (a lane with no request) and
+    decode.lane_steps_past_end (a lane run past its request's last token:
+    run_queue's chunks only); sched.lane_wait_ns over sched.lane_waits
+    admissions of run_queue (from the chunk that freed the lane, or the
+    call's start, to the admission's prefill).
     """
 
     def __init__(self, cfg: LlamaConfig, params, batch: int = 1,
                  quantized_kv: bool = False, kv_scale: float = 0.05,
                  fuse_weights: bool = True, device="cuda",
-                 native_int4: Optional[bool] = None, mesh=None):
+                 native_int4: Optional[bool] = None, mesh=None, tracer=None):
         self.mesh = mesh
+        self.tracer = tracer
         self.cfg = cfg
         tp, dp = (mesh.size("tp"), mesh.size("dp")) if mesh is not None else (1, 1)
         if batch % dp:
@@ -209,16 +236,26 @@ class InferenceEngine:
         the last prompt position (host f32)."""
         return self._prefill_device(slot_id, prompt).float().cpu().numpy()
 
-    def _prefill_device(self, slot_id: int, prompt: List[int]) -> torch.Tensor:
+    def _prefill_device(self, slot_id: int, prompt: List[int], tr=None) -> torch.Tensor:
+        """tr: the Tracer of prefill_sample's "prefill" span, or None."""
         slot = self.slots[slot_id]
         n = len(prompt)
         s = _bucket(n)
         if n == 0 or n > s or s > self.cfg.max_seq_len:
             raise ValueError(f"prompt of {n} tokens does not fit a bucket "
                              f"<= max_seq_len {self.cfg.max_seq_len}")
+        if tr is not None:
+            tr.begin("prefill.stage")
+            tr.add("prefill.tokens", n)
+            tr.add("prefill.pad_tokens", s - n)
         toks = torch.zeros((1, s), dtype=torch.long)
         toks[0, :n] = torch.as_tensor(prompt, dtype=torch.long)
-        logits = self._prefill_local(toks.to(self.device), slot_id)
+        toks = toks.to(self.device)
+        if tr is not None:
+            tr.phase("prefill.forward")
+        logits = self._prefill_local(toks, slot_id)
+        if tr is not None:
+            tr.end()
         slot.pos = n
         slot.active = True
         slot.tokens = list(prompt)
@@ -226,17 +263,31 @@ class InferenceEngine:
 
     def prefill_sample(self, slot_id: int, prompt: List[int],
                        temperature: float = 0.0, seed: int = 0,
-                       top_k: int = 0, top_p: float = 1.0) -> int:
+                       top_k: int = 0, top_p: float = 1.0,
+                       req: Optional[int] = None) -> int:
         """Admit a prompt AND sample its first token on the device, from a
         generator seeded by (seed, len(prompt)) — the same schedule in
-        generate_fused and run_queue, so a sampled request reproduces."""
-        logits = self._prefill_device(slot_id, prompt)
+        generate_fused and run_queue, so a sampled request reproduces.
+        req: the request's index in run_queue's list, for the tracer."""
+        tr = self.tracer
+        if tr is not None:
+            tr.begin("prefill", args={"req": req, "slot": slot_id, "n_prompt": len(prompt),
+                                      "bucket": _bucket(len(prompt))})
+        logits = self._prefill_device(slot_id, prompt, tr)
+        if tr is not None:
+            tr.begin("prefill.sample")
         greedy = temperature <= 0
         gen = None if greedy else self._generator(seed, len(prompt))
         tok = sample_logits(logits.float(), gen,
                             temperature=max(temperature, 1e-6),
                             top_k=top_k, top_p=top_p, greedy=greedy)
-        return int(tok)
+        if tr is not None:
+            tr.phase("prefill.fetch")
+        tok = int(tok)
+        if tr is not None:
+            tr.end()
+            tr.end()
+        return tok
 
     def _kv_bound(self, extra: int = 1) -> int:
         mx = max((s.pos for s in self.slots if s.active), default=16)
@@ -269,14 +320,17 @@ class InferenceEngine:
 
     def decode_steps(self, next_tokens: Dict[int, int], n_steps: int,
                      temperature=0.0, seed: int = 0, top_k: int = 0,
-                     top_p: float = 1.0) -> Dict[int, List[int]]:
+                     top_p: float = 1.0,
+                     reqs: Optional[Dict[int, tuple]] = None) -> Dict[int, List[int]]:
         """n_steps decode steps for all given slots with on-device sampling;
         the tokens reach the host once, after the last step.  Returns
         {slot_id: [n_steps sampled tokens]}.  On the card each step replays
         the captured step graph of this chunk's key; on the CPU it is the
-        eager loop."""
+        eager loop.  reqs: {slot_id: (index in run_queue's list, Request)},
+        for the tracer: the chunk's span names each lane's request, and the
+        lane-steps past a request's end are counted."""
         chunk = self._graph_chunk if self._graph else self._eager_chunk
-        return self._steps(chunk, next_tokens, n_steps, temperature, seed, top_k, top_p)
+        return self._steps(chunk, next_tokens, n_steps, temperature, seed, top_k, top_p, reqs)
 
     def _decode_steps_eager(self, next_tokens: Dict[int, int], n_steps: int,
                             temperature=0.0, seed: int = 0, top_k: int = 0,
@@ -286,7 +340,15 @@ class InferenceEngine:
         return self._steps(self._eager_chunk, next_tokens, n_steps, temperature, seed,
                            top_k, top_p)
 
-    def _steps(self, chunk, next_tokens, n_steps, temperature, seed, top_k, top_p):
+    def _steps(self, chunk, next_tokens, n_steps, temperature, seed, top_k, top_p,
+               reqs=None):
+        tr = self.tracer
+        bound = self._kv_bound(extra=n_steps + 1)
+        if tr is not None:
+            tr.begin("decode.chunk", args={
+                "n_steps": n_steps, "kv_bound": bound,
+                "lanes": {sid: reqs[sid][0] if reqs else None for sid in next_tokens}})
+            tr.begin("decode.stage")
         tok, pos = self._lanes(next_tokens)
         temp = np.asarray(temperature, np.float32)        # scalar or [B]
         greedy = bool(np.all(temp <= 0))
@@ -294,24 +356,38 @@ class InferenceEngine:
         temp_b = np.maximum(temp, 1e-6) * np.ones(self.batch, np.float32)      # [B]
         temp_t = torch.from_numpy(temp_b[lo:lo + self.b_loc]).to(self.device)  # this rank's
         if n_steps > 0:
-            sampled = chunk(tok, pos, temp_t, n_steps,
-                            self._kv_bound(extra=n_steps + 1), greedy, seed, top_k, top_p)
+            sampled = chunk(tok, pos, temp_t, n_steps, bound, greedy, seed, top_k, top_p, tr)
+            if tr is not None:
+                tr.phase("decode.fetch")
             sampled = all_gather(sampled, self._dp_group, 1, "dp").cpu().numpy()  # [n, B]
         else:
             sampled = np.zeros((0, self.batch), np.int64)
+        if tr is not None:
+            tr.phase("decode.commit")
         out = {}
         for sid, t0 in next_tokens.items():
             seq = [int(t) for t in sampled[:, sid]]
             self.slots[sid].pos += n_steps
             self.slots[sid].tokens.extend([t0] + seq[:-1])
             out[sid] = seq
+        if tr is not None:
+            tr.add("decode.lane_steps", self.batch * n_steps)
+            tr.add("decode.lane_steps_idle", (self.batch - len(next_tokens)) * n_steps)
+            if reqs:
+                tr.add("decode.lane_steps_past_end",
+                       sum(n_steps - _takes(reqs[sid][1], seq) for sid, seq in out.items()))
+            tr.end()
+            tr.end()
         return out
 
     def _eager_chunk(self, tok, pos, temp, n_steps, bound, greedy, seed,
-                     top_k, top_p) -> torch.Tensor:
+                     top_k, top_p, tr=None) -> torch.Tensor:
         """n_steps >= 1 steps of every lane, one chain of launches a step,
-        from lanes tok / pos [B] → the sampled tokens [n, B]."""
+        from lanes tok / pos [B] → the sampled tokens [n, B].  tr: the
+        Tracer whose "decode.stage" span is open, or None."""
         gen = None if greedy else self._generator(seed, 0)
+        if tr is not None:
+            tr.phase("decode.launch")
         steps = []
         for _ in range(n_steps):
             logits, _ = _batched_decode_forward(self.params, tok[:, None], self.cache, pos,
@@ -324,7 +400,7 @@ class InferenceEngine:
         return torch.stack(steps)
 
     def _graph_chunk(self, tok, pos, temp, n_steps, bound, greedy, seed,
-                     top_k, top_p) -> torch.Tensor:
+                     top_k, top_p, tr=None) -> torch.Tensor:
         """_eager_chunk on the card: the key's step graph (captured at its
         first chunk) replayed n_steps times; each replay's token is copied
         out of the static lane buffer."""
@@ -351,6 +427,9 @@ class InferenceEngine:
         load_lanes()
         graph = self._graphs.get(key)
         if graph is None:
+            if tr is not None:
+                tr.phase("decode.capture")
+                tr.add("decode.captures")
             gen = None if greedy else st["gen"]
 
             def step():
@@ -366,6 +445,9 @@ class InferenceEngine:
                 step, "decode_graph", stream=st["stream"], pool=st["pool"],
                 generators=() if greedy else (st["gen"],))
             load_lanes()              # the warm-up step advanced the lanes
+        if tr is not None:
+            tr.phase("decode.launch")
+            tr.add("decode.replays", n_steps)
         if not greedy:
             st["gen"].manual_seed(self._seed_value(seed, 0))
         out = torch.empty((n_steps, self.b_loc), dtype=torch.long, device=self.device)
@@ -382,47 +464,62 @@ class InferenceEngine:
         decode all active lanes together in chunks between admissions.  Each
         request collects its completion in `req.out`; returns the same list,
         all done."""
-        queue = list(requests)
-        pending: Dict[int, Request] = {}     # slot -> in-flight request
+        queue = list(enumerate(requests))    # (index, request), in admission order
+        pending: Dict[int, tuple] = {}       # slot -> (index, in-flight request)
         next_tok: Dict[int, int] = {}        # slot -> next token to feed
         step_seed = seed
+        # tracer only: slot -> perf_counter_ns when its lane was freed
+        freed: Dict[int, int] = {}
+        if self.tracer is not None:
+            t_call = time.perf_counter_ns()
+            freed = {slot.id: t_call for slot in self.slots if not slot.active}
 
         def admit():
+            tr = self.tracer
+            admitted = 0
             for slot in self.slots:
                 if slot.active or not queue:
                     continue
-                req = queue.pop(0)
+                k, req = queue.pop(0)
+                if tr is not None:
+                    if not admitted:
+                        tr.begin("sched.admit")
+                    t_free = freed.pop(slot.id, None)
+                    if t_free is not None:
+                        tr.add("sched.lane_wait_ns", time.perf_counter_ns() - t_free)
+                        tr.add("sched.lane_waits")
+                admitted += 1
                 tok = self.prefill_sample(slot.id, req.prompt,
                                           temperature=req.temperature,
-                                          seed=seed)
+                                          seed=seed, req=k)
                 req.slot = slot.id
                 req.out = [tok]
-                pending[slot.id] = req
+                pending[slot.id] = (k, req)
                 next_tok[slot.id] = tok
+            if tr is not None and admitted:
+                tr.end(args={"admitted": admitted, "queue_left": len(queue)})
 
         admit()
         while pending:
             n = min(chunk, max(req.max_new_tokens - len(req.out)
-                               for req in pending.values()))
+                               for _, req in pending.values()))
             n = max(n, 1)
             # per-row temperature: greedy requests ride along at temp≈0
             temp = np.full((self.batch,), 1e-6, np.float32)
             any_sampled = False
-            for sid, req in pending.items():
+            for sid, (_, req) in pending.items():
                 temp[sid] = max(req.temperature, 1e-6)
                 any_sampled |= req.temperature > 0
             step_seed += 1
             outs = self.decode_steps(dict(next_tok), n,
                                      temperature=temp if any_sampled else 0.0,
-                                     seed=step_seed)
+                                     seed=step_seed, reqs=pending)
+            tr = self.tracer
+            if tr is not None:
+                t_end = time.perf_counter_ns()
             for sid, seq in outs.items():
-                req = pending[sid]
-                for t in seq:
-                    if len(req.out) >= req.max_new_tokens or \
-                            (req.eos_id is not None and req.out and
-                             req.out[-1] == req.eos_id):
-                        break
-                    req.out.append(t)
+                req = pending[sid][1]
+                req.out.extend(seq[:_takes(req, seq)])
                 finished = (len(req.out) >= req.max_new_tokens or
                             (req.eos_id is not None and req.eos_id in req.out))
                 if finished:
@@ -433,6 +530,8 @@ class InferenceEngine:
                     self.slots[sid].pos = 0
                     del pending[sid]
                     del next_tok[sid]
+                    if tr is not None:
+                        freed[sid] = t_end
                 else:
                     next_tok[sid] = req.out[-1]
             admit()                           # refill freed lanes

@@ -18,7 +18,8 @@ and routed, dropping tokens too) over stacked expert weights; the engine's captu
 decode-step graph against its eager loop (tiny() with and without flash
 decode, a 2-layer 7B-width Q4_0 model: greedy, seeded and top-k / top-p
 chunks, an admission between chunks, a kv_bound change, launch counts,
-captures, strip counters) and its benchmark methods; the kernels at a rank's
+captures, strip counters), its spans and counters under a Tracer, and its
+benchmark methods; the kernels at a rank's
 shapes under tensor parallelism (the tp = 2 GEMMs of Llama-2-7B and of a
 Mixtral expert, 16 attention heads) and the engine at tp = 2 over gloo on one
 card and over NCCL where there are two (it skips below two cards); ring
@@ -1568,6 +1569,43 @@ def test_decode_graph_matches_the_eager_loop(dev, monkeypatch, model, flash):
         nxt = {sid: seq[-1] for sid, seq in got.items()}
     assert len(graph._graphs) == 4 and eager._graphs == {}
     assert sorted({k[0] for k in graph._graphs}) == [256, 512]
+
+
+def test_engine_tracer_on_the_card(dev):
+    """run_queue at LlamaConfig.tiny() through the step graph with the
+    engine's Tracer off and on: the same tokens; with it on, a
+    decode.capture span and a decode.captures count for each graph
+    captured, decode.replays equal to the replays launched, and every child
+    span inside its parent."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
+    from csinn2_tpu_torch.llm.model import init_params
+    from csinn2_tpu_torch.runtime.profiler import Tracer
+    cfg = LlamaConfig.tiny(max_seq=640)
+    params = init_params(cfg, "q8_0", seed=5, device=dev)
+    specs = [(240, 12, 0.0), (5, 20, 0.7), (37, 9, 0.0), (300, 6, 0.9)]
+    outs = []
+    for tr in (None, Tracer("serve")):
+        eng = InferenceEngine(cfg, params, batch=2, quantized_kv=True, device=dev, tracer=tr)
+        reqs = [Request(prompt=[(5 * i + n) % 250 + 1 for i in range(n)], max_new_tokens=m,
+                        temperature=t) for n, m, t in specs]
+        g0 = dict(launch_counts)
+        eng.run_queue(reqs, chunk=4, seed=9)
+        outs.append([r.out for r in reqs])
+    captures = launch_counts["decode_graph.capture"] - g0.get("decode_graph.capture", 0)
+    replays = launch_counts["decode_graph.replay"] - g0.get("decode_graph.replay", 0)
+    assert outs[0] == outs[1]
+    assert captures == len(eng._graphs) == tr.totals["decode.captures"] >= 2
+    assert len(tr.spans("decode.capture")) == captures
+    assert tr.totals["decode.replays"] == replays == sum(
+        c.args["n_steps"] for c in tr.spans("decode.chunk"))
+    by_id = {e.id: e for e in tr.spans()}
+    for e in tr.spans():
+        if e.parent is not None:
+            p = by_id[e.parent]
+            assert p.ts <= e.ts and e.ts + e.dur <= p.ts + p.dur
+    assert {e.name for e in tr.spans()} >= {"decode.stage", "decode.launch", "decode.fetch",
+                                             "prefill.forward", "prefill.fetch", "sched.admit"}
 
 
 def test_engine_benchmarks_on_the_card(dev):
