@@ -36,13 +36,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   4. the first slice's main path: Llama-2-7B geometry (32 layers), Q8_0
      weights made on the card from a seed, int8 KV,
      InferenceEngine(batch=4).run_queue over six greedy requests (prompts
-     5..1100 tokens, 16 new tokens each), its decode chunks through the
+     5..1100 tokens, 16 new tokens each), its prefills through the prompt
+     buckets' captured prefill graphs (a replay a request, a capture a
+     bucket) and its decode chunks through the
      engine's captured decode-step graph, with the kernel launch counts of
      that run (the graphs' tallies, one replay a step: each kernel's
      launches a step those of the eager step, one capture a key) and its
-     tokens equal to a rerun of the same requests through the eager loop
-     (_decode_steps_eager); then TTFT at prompts 128 and 1100 (CUDA events
-     around prefill_sample, and the device's prefill alone by
+     tokens equal to a rerun of the same requests through the eager prefill
+     and the eager loop (_prefill_eager, _decode_steps_eager); then TTFT at
+     prompts 128 and 1100 (CUDA events around prefill_sample, beside the
+     eager prefill, and the device's prefill alone by
      benchmark_prefill_device), one seeded sampled chunk (per-row
      temperatures, top-k, top-p) through the graph equal to the eager
      loop's, decode tokens/s at batch 4 through the graph beside the eager
@@ -1380,7 +1383,7 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
     from csinn2_tpu_torch.kernels.qmatmul import launch_key, reduce_launches
     from csinn2_tpu_torch.llm.config import LlamaConfig
-    from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
+    from csinn2_tpu_torch.llm.engine import InferenceEngine, Request, _bucket
     from csinn2_tpu_torch.llm.model import init_params_device
     from csinn2_tpu_torch.utils.timing import event_ms
     cfg = LlamaConfig.llama2_7b()
@@ -1450,15 +1453,26 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
             any(counts.get(k, 0) != n * steps[0] for k, n in per_step.items()) or \
             (flash_decode and counts.get("decode_attention", 0) != 0):
         raise AssertionError(f"{name}: decode graph counts {counts}")
+    # the prefill graphs: a replay a request, a capture a prompt bucket
+    buckets = sorted(eng._prefill_graphs)
+    log(f"  prefills through the prefill graphs: replays "
+        f"{counts.get('prefill_graph.replay', 0)} for {len(prompts)} requests, captures "
+        f"{counts.get('prefill_graph.capture', 0)} for buckets {buckets}")
+    if counts.get("prefill_graph.replay", 0) != len(prompts) or \
+            counts.get("prefill_graph.capture", 0) != len(buckets) or \
+            buckets != sorted({_bucket(n) for n in PROMPTS}):
+        raise AssertionError(f"{name}: prefill graph counts {counts}")
     outs = [list(r.out) for r in done]
-    # the same requests through the eager loop: the same greedy tokens
+    # the same requests through the eager prefill and the eager loop: the
+    # same greedy tokens
     eng.decode_steps = eng._decode_steps_eager
+    eng.prefill_sample = eng._prefill_eager
     eager = eng.run_queue([Request(prompt=p, max_new_tokens=16) for p in prompts], chunk=16)
-    del eng.decode_steps
+    del eng.decode_steps, eng.prefill_sample
     eager_outs = [list(r.out) for r in eager]
     same = sum(a == b for ra, rb in zip(outs, eager_outs) for a, b in zip(ra, rb))
-    log(f"  run_queue tokens through the step graph equal to the eager loop's: {same} of "
-        f"{sum(len(r) for r in outs)} (greedy)")
+    log(f"  run_queue tokens through the prefill and step graphs equal to the eager "
+        f"prefill's and loop's: {same} of {sum(len(r) for r in outs)} (greedy)")
     if outs != eager_outs:
         raise AssertionError(f"{name}: graph tokens {outs} != eager tokens {eager_outs}")
     if flash_decode:
@@ -1470,12 +1484,14 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     # launch gaps included), and the prefill on the device alone
     prompt = prompts[2]
     ttfts = [event_ms(lambda: eng.prefill_sample(0, prompt)) for _ in range(5)]
+    ttfts_eager = [event_ms(lambda: eng._prefill_eager(0, prompt)) for _ in range(5)]
     tok = eng.prefill_sample(0, prompt)
     logits = eng.prefill(0, prompt)
     if not (np.isfinite(logits).all() and 0 <= tok < cfg.vocab_size):
         raise AssertionError("prefill logits not finite")
     # TTFT at prompt 1100 (bucket 2048: every projection at M = 2048)
     ttfts_long = [event_ms(lambda: eng.prefill_sample(0, prompts[5])) for _ in range(3)]
+    ttfts_long_eager = [event_ms(lambda: eng._prefill_eager(0, prompts[5])) for _ in range(3)]
     dev_ttft = eng.benchmark_prefill_device(n_prompt=PROMPTS[2], iters=8, reps=3) * 1e3
     dev_ttft_long = eng.benchmark_prefill_device(n_prompt=PROMPTS[5], iters=4, reps=3) * 1e3
     # decode tokens/s at batch 4: all lanes active at position ~128
@@ -1533,11 +1549,14 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     ttft = statistics.median(ttfts)
     what = f"{name}{' flash decode' if flash_decode else ''}"
     log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events "
-        f"around prefill_sample, host launch gaps included); on the device "
+        f"around prefill_sample through the bucket's prefill graph, host gaps included; "
+        f"eager prefill {statistics.median(ttfts_eager):.3f} ms); on the device "
         f"(benchmark_prefill_device, prefill graph, long-minus-short) {dev_ttft:.3f} ms "
         f"[{gpu_line}]")
     log(f"  {name} TTFT prompt {PROMPTS[5]} (bucket 2048): {statistics.median(ttfts_long):.3f} "
-        f"ms (median of 3, CUDA events); on the device {dev_ttft_long:.3f} ms [{gpu_line}]")
+        f"ms (median of 3, CUDA events; eager prefill "
+        f"{statistics.median(ttfts_long_eager):.3f} ms); on the device {dev_ttft_long:.3f} ms "
+        f"[{gpu_line}]")
     log(f"  {what} decode batch 4 at pos ~130: step graph {tps:.2f} tok/s, {4e3 / tps:.3f} "
         f"ms/step; eager loop {tps_eager:.2f} tok/s, {4e3 / tps_eager:.3f} ms/step (median of "
         f"3 x {n_steps} steps each, in turns, CUDA events around decode_steps) [{gpu_line}]"

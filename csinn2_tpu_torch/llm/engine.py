@@ -9,7 +9,17 @@ Design, as in the JAX engine:
   * prefill admits a prompt padded to a bucket length into ONE slot: the
     forward runs on the [L, 1, bound, Hk, Dh] view of that slot's rows
     (bound = the bucket rounded up to 256), so only that slot's rows move —
-    here in place, where the JAX engine donates and scatters back.
+    here in place, where the JAX engine donates and scatters back.  On one
+    card the forward is a captured CUDA graph, one a bucket (the JAX
+    engine's jit per bucket), captured at the bucket's first prefill: it
+    runs on a static [1, 2048] token buffer and a one-lane staging cache
+    [L, 1, bound_max, Hk, Dh], whose rows [0, bucket) are copied into the
+    slot's after the replay — the bytes the eager forward leaves there.  The
+    first token is sampled outside the graph, from the graph's static
+    logits, so the key is the bucket alone.  On the CPU, over a mesh and for
+    MoE layers (whose routed/dense dispatch is not capturable) the forward
+    is the eager one (_prefill_eager), which the card's tests hold the graph
+    to.
   * decode runs ALL lanes in one step with per-row positions: each lane's
     new K/V row lands at its own position (lanes at pos >= S write nothing)
     and the decode attention kernel masks each row at its own kv_len.  A
@@ -37,7 +47,8 @@ loop sees the same tokens.  Collectives: one all_reduce over tp after wo
 and after w2 a layer, the vocab all_gather, the dp all_gather.  The decode
 chunk is the step graph where the backend can capture its collectives
 (NCCL) and the eager loop under gloo, whose collectives are staged through
-the host: chosen once, at construction, from the backend.
+the host: chosen once, at construction, from the backend.  Prefill over a
+mesh is eager under every backend.
 """
 
 from __future__ import annotations
@@ -67,7 +78,10 @@ from csinn2_tpu_torch.utils.device import resolve_device
 from csinn2_tpu_torch.utils.timing import long_minus_short
 
 
-def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
+BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)    # prompt lengths a prefill pads to
+
+
+def _bucket(n: int, buckets=BUCKETS) -> int:
     for b in buckets:
         if n <= b:
             return b
@@ -76,6 +90,14 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
 
 def _round256(n: int, cap: int) -> int:
     return min(-(-n // 256) * 256, cap)
+
+
+def _prefill_graphable(device: torch.device, mesh, layers) -> bool:
+    """Whether prefill runs through the per-bucket graphs: on a card, with
+    no mesh (a captured NCCL prefill has no card to check it on, gloo's
+    collectives cannot be captured) and no MoE layer (llama_forward's
+    routed/dense choice and its dispatch are not capturable as written)."""
+    return device.type == "cuda" and mesh is None and not any("gate" in lp for lp in layers)
 
 
 def _takes(req: "Request", seq: List[int]) -> int:
@@ -117,7 +139,9 @@ class Request:
 class InferenceEngine:
     """Batch decode engine over a static KV cache on one device.
 
-    prefill(): admits a prompt into one slot's cache rows.
+    prefill(): admits a prompt into one slot's cache rows (on one card
+    through the prompt bucket's captured prefill graph; prefill_sample,
+    generate and generate_fused take the same path).
     decode_step(): one token for every given slot (host-stepped).
     decode_steps(): a chunk of tokens for every given slot, sampled on the
     device (on the card through the captured step graph).  run_queue(): the
@@ -141,6 +165,8 @@ class InferenceEngine:
     ".forward", ".sample", ".fetch") and "decode.chunk" (decode_steps;
     children "decode.stage", ".capture", ".launch", ".fetch", ".commit").
     Counters: prefill.tokens, prefill.pad_tokens (bucket − prompt),
+    prefill.graph_replays (prefills served by a bucket graph's replay) and
+    prefill.graph_captures (its captures, inside ".forward"),
     decode.captures, decode.replays, decode.lane_steps (batch × steps) and
     of them decode.lane_steps_idle (a lane with no request) and
     decode.lane_steps_past_end (a lane run past its request's last token:
@@ -199,6 +225,13 @@ class InferenceEngine:
         # pool and capture stream, all made at the first capture
         self._graphs: Dict[tuple, CountedGraph] = {}
         self._static = None
+        # the prefill graphs (on one card, see _prefill_graphable): bucket →
+        # CountedGraph (its `out`: the static logits), and their static
+        # tokens, staging cache, memory pool and capture stream, made at the
+        # first prefill
+        self._graph_prefill = _prefill_graphable(self.device, mesh, self.params["layers"])
+        self._prefill_graphs: Dict[int, CountedGraph] = {}
+        self._prefill_static = None
 
     @staticmethod
     def _seed_value(seed: int, salt: int) -> int:
@@ -231,13 +264,59 @@ class InferenceEngine:
                                   kv_bound=bound, tp_group=self._tp_group)
         return logits
 
+    def _prefill_graph(self, toks: torch.Tensor, slot: int, tr=None) -> torch.Tensor:
+        """_prefill_local on one card, from the host's [1, bucket] tokens:
+        the bucket's graph (captured at its first prefill) replayed on the
+        static tokens and the one-lane staging cache, whose rows [0, bucket)
+        are then copied into `slot`'s; → the graph's static logits [1,
+        bucket, V], which the next replay overwrites.  tr: the Tracer whose
+        "prefill.stage" span is open, or None."""
+        s = toks.shape[1]
+        bound = _round256(s, self.cfg.max_seq_len)
+        st = self._prefill_static
+        if st is None:
+            c = self.cache
+            shape = (c.k.shape[0], 1, _round256(BUCKETS[-1], self.cfg.max_seq_len),
+                     *c.k.shape[3:])
+            st = self._prefill_static = dict(
+                tok=torch.zeros((1, BUCKETS[-1]), dtype=torch.long, device=self.device),
+                k=torch.zeros(shape, dtype=c.k.dtype, device=self.device),
+                v=torch.zeros(shape, dtype=c.v.dtype, device=self.device),
+                pool=torch.cuda.graph_pool_handle(),
+                stream=torch.cuda.Stream(device=self.device))
+        st["tok"][:, :s].copy_(toks)
+        if tr is not None:
+            tr.phase("prefill.forward")
+        graph = self._prefill_graphs.get(s)
+        if graph is None:
+            if tr is not None:
+                tr.add("prefill.graph_captures")
+
+            def forward():
+                sub = KVCache(k=st["k"][:, :, :bound], v=st["v"][:, :, :bound],
+                              scale=self.cache.scale)
+                return llama_forward(self.params, st["tok"][:, :s], sub, 0, self.lcfg,
+                                     kv_bound=bound)[0]
+
+            graph = self._prefill_graphs[s] = capture(
+                forward, "prefill_graph", stream=st["stream"], pool=st["pool"])
+        if tr is not None:
+            tr.add("prefill.graph_replays")
+        graph.replay()
+        self.cache.k[:, slot:slot + 1, :s].copy_(st["k"][:, :, :s])
+        self.cache.v[:, slot:slot + 1, :s].copy_(st["v"][:, :, :s])
+        return graph.out
+
     def prefill(self, slot_id: int, prompt: List[int]) -> np.ndarray:
         """Fill `slot_id`'s cache rows with the prompt; returns the logits of
         the last prompt position (host f32)."""
-        return self._prefill_device(slot_id, prompt).float().cpu().numpy()
+        return self._prefill_device(slot_id, prompt, self._graph_prefill).float().cpu().numpy()
 
-    def _prefill_device(self, slot_id: int, prompt: List[int], tr=None) -> torch.Tensor:
-        """tr: the Tracer of prefill_sample's "prefill" span, or None."""
+    def _prefill_device(self, slot_id: int, prompt: List[int], graph: bool,
+                        tr=None) -> torch.Tensor:
+        """The last prompt position's logits, on the device.  graph: through
+        the bucket's prefill graph, else the eager forward.  tr: the Tracer
+        of prefill_sample's "prefill" span, or None."""
         slot = self.slots[slot_id]
         n = len(prompt)
         s = _bucket(n)
@@ -250,10 +329,13 @@ class InferenceEngine:
             tr.add("prefill.pad_tokens", s - n)
         toks = torch.zeros((1, s), dtype=torch.long)
         toks[0, :n] = torch.as_tensor(prompt, dtype=torch.long)
-        toks = toks.to(self.device)
-        if tr is not None:
-            tr.phase("prefill.forward")
-        logits = self._prefill_local(toks, slot_id)
+        if graph:
+            logits = self._prefill_graph(toks, slot_id, tr)
+        else:
+            toks = toks.to(self.device)
+            if tr is not None:
+                tr.phase("prefill.forward")
+            logits = self._prefill_local(toks, slot_id)
         if tr is not None:
             tr.end()
         slot.pos = n
@@ -267,13 +349,27 @@ class InferenceEngine:
                        req: Optional[int] = None) -> int:
         """Admit a prompt AND sample its first token on the device, from a
         generator seeded by (seed, len(prompt)) — the same schedule in
-        generate_fused and run_queue, so a sampled request reproduces.
+        generate_fused and run_queue, so a sampled request reproduces.  On
+        one card the forward is the bucket's prefill graph.
         req: the request's index in run_queue's list, for the tracer."""
+        return self._first_token(self._graph_prefill, slot_id, prompt, temperature, seed,
+                                 top_k, top_p, req)
+
+    def _prefill_eager(self, slot_id: int, prompt: List[int], temperature: float = 0.0,
+                       seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+                       req: Optional[int] = None) -> int:
+        """prefill_sample through the eager forward on any device: the plain
+        version the card's tests and chip_smoke.py hold the prefill graph to
+        (it takes prefill_sample's place in run_queue)."""
+        return self._first_token(False, slot_id, prompt, temperature, seed, top_k, top_p, req)
+
+    def _first_token(self, graph, slot_id, prompt, temperature, seed, top_k, top_p,
+                     req=None) -> int:
         tr = self.tracer
         if tr is not None:
             tr.begin("prefill", args={"req": req, "slot": slot_id, "n_prompt": len(prompt),
                                       "bucket": _bucket(len(prompt))})
-        logits = self._prefill_device(slot_id, prompt, tr)
+        logits = self._prefill_device(slot_id, prompt, graph, tr)
         if tr is not None:
             tr.begin("prefill.sample")
         greedy = temperature <= 0
@@ -334,11 +430,13 @@ class InferenceEngine:
 
     def _decode_steps_eager(self, next_tokens: Dict[int, int], n_steps: int,
                             temperature=0.0, seed: int = 0, top_k: int = 0,
-                            top_p: float = 1.0) -> Dict[int, List[int]]:
+                            top_p: float = 1.0,
+                            reqs: Optional[Dict[int, tuple]] = None) -> Dict[int, List[int]]:
         """decode_steps through the eager loop on any device: the plain
-        version the card's tests and chip_smoke.py hold the graph to."""
+        version the card's tests and chip_smoke.py hold the graph to (it
+        takes decode_steps' place in run_queue)."""
         return self._steps(self._eager_chunk, next_tokens, n_steps, temperature, seed,
-                           top_k, top_p)
+                           top_k, top_p, reqs)
 
     def _steps(self, chunk, next_tokens, n_steps, temperature, seed, top_k, top_p,
                reqs=None):
@@ -594,6 +692,7 @@ class InferenceEngine:
         eng.cache = KVCache(k=torch.zeros_like(c.k[:, :1]), v=torch.zeros_like(c.v[:, :1]),
                             scale=c.scale)
         eng._graphs, eng._static = {}, None
+        eng._prefill_graphs, eng._prefill_static = {}, None
         return eng
 
     def benchmark_prefill_device(self, n_prompt: int = 128, iters: int = 8,

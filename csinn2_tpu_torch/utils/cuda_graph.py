@@ -15,12 +15,15 @@ same steps run eagerly.
 Random draws: each generator in `generators` is registered with the graph
 (its state restored after the warm-up), so every replay draws the numbers
 the eager step would draw next from it.
+
+What the step returns at the capture is the graph's static output
+(`CountedGraph.out`): every replay rewrites it in place.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -28,12 +31,15 @@ from csinn2_tpu_torch.kernels._build import launch_counts
 
 
 class CountedGraph:
-    """A captured graph and the kernel launches one replay makes."""
+    """A captured graph, the kernel launches one replay makes and its static
+    output."""
 
-    def __init__(self, graph: "torch.cuda.CUDAGraph", tally: collections.Counter, name: str):
+    def __init__(self, graph: "torch.cuda.CUDAGraph", tally: collections.Counter, name: str,
+                 out=None):
         self.graph = graph
         self.tally = tally
         self.name = name
+        self.out = out
 
     def replay(self) -> None:
         self.graph.replay()
@@ -41,11 +47,12 @@ class CountedGraph:
         launch_counts[f"{self.name}.replay"] += 1
 
 
-def capture(fn: Callable[[], None], name: str, *, stream: "torch.cuda.Stream", pool=None,
+def capture(fn: Callable[[], Any], name: str, *, stream: "torch.cuda.Stream", pool=None,
             generators: Sequence[torch.Generator] = ()) -> CountedGraph:
     """Warm up, then capture fn() on `stream` into a graph that allocates
     from `pool` (graphs that replay one after another may share one).  fn
-    works on static tensors only: what it returns is dropped."""
+    works on static tensors only; what the captured call returns is the
+    graph's `out`."""
     before = collections.Counter(launch_counts)
     states = [g.get_state() for g in generators]
     stream.wait_stream(torch.cuda.current_stream())
@@ -58,11 +65,11 @@ def capture(fn: Callable[[], None], name: str, *, stream: "torch.cuda.Stream", p
     for g in generators:
         graph.register_generator_state(g)
     with torch.cuda.graph(graph, pool=pool, stream=stream):
-        fn()
+        out = fn()
     torch.cuda.current_stream().wait_stream(stream)
     tally = collections.Counter(launch_counts) - warm
     launch_counts.clear()
     launch_counts.update(before)
     launch_counts[f"{name}.warmup"] += sum((warm - before).values())
     launch_counts[f"{name}.capture"] += 1
-    return CountedGraph(graph, tally, name)
+    return CountedGraph(graph, tally, name, out)

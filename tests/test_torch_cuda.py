@@ -18,8 +18,10 @@ and routed, dropping tokens too) over stacked expert weights; the engine's captu
 decode-step graph against its eager loop (tiny() with and without flash
 decode, a 2-layer 7B-width Q4_0 model: greedy, seeded and top-k / top-p
 chunks, an admission between chunks, a kv_bound change, launch counts,
-captures, strip counters), its spans and counters under a Tracer, and its
-benchmark methods; the kernels at a rank's
+captures, strip counters), its per-bucket prefill graph against the eager
+prefill (every bucket, several slots, greedy and seeded, the caches byte for
+byte, launch counts, captures, a scratch engine), its spans and counters
+under a Tracer, and its benchmark methods; the kernels at a rank's
 shapes under tensor parallelism (the tp = 2 GEMMs of Llama-2-7B and of a
 Mixtral expert, 16 attention heads) and the engine at tp = 2 over gloo on one
 card and over NCCL where there are two (it skips below two cards); ring
@@ -1503,7 +1505,8 @@ def test_decode_attention_every_chunk_edge(gen, dev, kv_len):
 
 def _kernel_counts():
     """The kernels' launch counts (the graphs' own counts left out)."""
-    return {k: n for k, n in launch_counts.items() if not k.startswith("decode_graph.")}
+    return {k: n for k, n in launch_counts.items()
+            if not k.startswith(("decode_graph.", "prefill_graph."))}
 
 
 def _count_diff(before, after):
@@ -1569,6 +1572,97 @@ def test_decode_graph_matches_the_eager_loop(dev, monkeypatch, model, flash):
         nxt = {sid: seq[-1] for sid, seq in got.items()}
     assert len(graph._graphs) == 4 and eager._graphs == {}
     assert sorted({k[0] for k in graph._graphs}) == [256, 512]
+
+
+@pytest.mark.parametrize("model", ["tiny", "7b_2layer"])
+def test_prefill_graph_matches_the_eager_prefill(dev, monkeypatch, model):
+    """prefill_sample on the card (the bucket's captured prefill graph)
+    against _prefill_eager on a second engine over the same weights: a
+    prompt in every bucket 32 … 2048, into slots 0, 1 and 2 in turn, greedy
+    and seeded, a decode chunk after each, then repeats of two buckets.
+    First tokens and the whole caches equal byte for byte after each prefill
+    and chunk; the kernels' launch counts of a graph prefill equal to the
+    eager prefill's (one replay a prefill), one capture a bucket and none on
+    a repeat, the tracer's prefill.graph_replays / .graph_captures equal to
+    them; a _scratch() engine captures its own graphs, reads no clock with
+    no tracer, and leaves the parent's cache and graphs untouched."""
+    import dataclasses
+    import time
+    import types
+    from csinn2_tpu_torch.llm import engine as engine_mod
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.engine import BUCKETS, InferenceEngine
+    from csinn2_tpu_torch.llm.model import init_params, init_params_device
+    from csinn2_tpu_torch.runtime.profiler import Tracer
+    monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
+    if model == "tiny":
+        cfg = LlamaConfig.tiny(max_seq=2304)
+        params = init_params(cfg, "q8_0", seed=5, device=dev)
+    else:
+        cfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=2, n_kv_heads=8,
+                                  max_seq_len=2304)
+        params = init_params_device(cfg, "q4_0", seed=3, device=dev)
+    tr = Tracer()
+    graph = InferenceEngine(cfg, params, batch=3, quantized_kv=True, device=dev, tracer=tr)
+    eager = InferenceEngine(cfg, graph.params, batch=3, quantized_kv=True, device=dev)
+    assert graph._graph_prefill and eager._graph_prefill
+    rng = np.random.default_rng(1)
+    plan = [(b, i % 3, 0.0 if i % 2 else 0.8) for i, b in enumerate(BUCKETS)]
+    plan += [(64, 2, 0.0), (2048, 1, 1.1)]                # repeats: replayed, not captured
+    seen, nxt = set(), {}
+
+    def same_caches():
+        torch.cuda.synchronize()
+        return (torch.equal(graph.cache.k, eager.cache.k) and
+                torch.equal(graph.cache.v, eager.cache.v))
+
+    for i, (b, sid, temp) in enumerate(plan):
+        n = b - 3 if b > 32 else 29
+        prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+        kw = dict(temperature=temp, seed=100 + i, top_k=20 if temp else 0)
+        c0, g0 = _kernel_counts(), dict(launch_counts)
+        got = graph.prefill_sample(sid, prompt, **kw)
+        c1, g1 = _kernel_counts(), dict(launch_counts)
+        want = eager._prefill_eager(sid, prompt, **kw)
+        assert got == want, (b, sid, temp, got, want)
+        assert same_caches(), (b, sid)
+        assert _count_diff(c0, c1) == _count_diff(c1, _kernel_counts())
+        assert g1.get("prefill_graph.replay", 0) - g0.get("prefill_graph.replay", 0) == 1
+        assert g1.get("prefill_graph.capture", 0) - g0.get("prefill_graph.capture", 0) == \
+            (b not in seen)
+        seen.add(b)
+        assert graph.slots[sid].pos == eager.slots[sid].pos == n
+        nxt[sid] = got
+        steps = graph.decode_steps(dict(nxt), 2)
+        assert steps == eager._decode_steps_eager(dict(nxt), 2)
+        assert same_caches()
+        nxt = {s: seq[-1] for s, seq in steps.items()}
+    assert sorted(graph._prefill_graphs) == list(BUCKETS) and eager._prefill_graphs == {}
+    assert tr.totals["prefill.graph_replays"] == len(plan)
+    assert tr.totals["prefill.graph_captures"] == len(BUCKETS)
+
+    k0, v0 = graph.cache.k.clone(), graph.cache.v.clone()
+    graphs0 = dict(graph._prefill_graphs)
+    sc = graph._scratch()
+    sc.tracer = None
+
+    def no_clock():
+        raise AssertionError("the engine read the clock with no tracer")
+
+    monkeypatch.setattr(engine_mod, "time",
+                        types.SimpleNamespace(perf_counter_ns=no_clock,
+                                              perf_counter=time.perf_counter))
+    prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, 200)]
+    tok = sc.prefill_sample(0, prompt, temperature=0.0)
+    monkeypatch.undo()
+    one = InferenceEngine(cfg, graph.params, batch=1, quantized_kv=True, device=dev)
+    assert tok == one._prefill_eager(0, prompt)
+    torch.cuda.synchronize()
+    assert torch.equal(sc.cache.k, one.cache.k) and torch.equal(sc.cache.v, one.cache.v)
+    assert list(sc._prefill_graphs) == [256]
+    assert sc._prefill_static is not graph._prefill_static
+    assert graph._prefill_graphs == graphs0
+    assert torch.equal(graph.cache.k, k0) and torch.equal(graph.cache.v, v0)
 
 
 def test_engine_tracer_on_the_card(dev):

@@ -43,6 +43,7 @@ from csinn2_tpu_torch.parallel.launch import spawn
 from csinn2_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from csinn2_tpu_torch.parallel.tp import (local_config, shard_llama_params,
                                           tp_llama_forward)
+from csinn2_tpu_torch.runtime.profiler import Tracer
 from csinn2_tpu_torch.utils.verify import verify
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,10 +152,15 @@ def _four_rank_job():
     got += eng.decode_steps({3: got[-1]}, n_steps=2)[3]
     out["lane3"] = got
     out["lane3_cache"] = tuple(eng.cache.k.shape)
-    eng = InferenceEngine(CFG, params, batch=4, mesh=mesh)
+    tr = Tracer()
+    eng = InferenceEngine(CFG, params, batch=4, mesh=mesh, tracer=tr)
     reqs = eng.run_queue([Request(prompt=p, max_new_tokens=4) for p in PROMPTS], chunk=2)
     out["queue"] = [r.out for r in reqs]
     out["queue_slots"] = [r.slot for r in reqs]
+    out["prefill_graph"] = dict(
+        graphed=eng._graph_prefill, graphs=len(eng._prefill_graphs),
+        prefills=len(tr.spans("prefill")),
+        counters=sorted(k for k in tr.totals if k.startswith("prefill.graph_")))
     out["bench"] = (eng.benchmark_decode_device(iters=2, reps=1),
                     eng.benchmark_prefill_device(n_prompt=8, iters=1, reps=1),
                     eng.benchmark_decode(iters=1, warmup=1))
@@ -381,6 +387,14 @@ def test_engine_mesh_run_queue(four_ranks):
             p, max_new_tokens=4)
         assert all(o == want for o in outs), (p, outs, want)
     assert four_ranks[0]["queue_slots"] == [0, 1, 2]
+
+
+def test_engine_mesh_prefill_is_eager(four_ranks):
+    """Over a mesh the prefill is the eager forward: no prefill graph, and
+    the tracer counts no prefill.graph_* on any rank."""
+    for r in four_ranks:
+        assert r["prefill_graph"] == dict(graphed=False, graphs=0, prefills=len(PROMPTS),
+                                          counters=[])
 
 
 def test_engine_mesh_benchmarks(four_ranks):

@@ -2,7 +2,7 @@
 runtime/profiler.Tracer) on a tiny engine running run_queue on the CPU.
 
 Gates: the same tokens with the tracer on and off, and no clock read
-with it off; every child span inside its parent and every prefill inside
+with it off (run_queue and every prefill entry point); every child span inside its parent and every prefill inside
 an admission wave; one prefill a request with its index, prompt length and
 bucket; the padding, lane-step and lane-wait counters against sums by
 hand and against the benchmark's Recorder on the same run; no step graph
@@ -86,6 +86,26 @@ def test_off_path_reads_no_clock_and_records_nothing(params, monkeypatch):
                                               perf_counter=time.perf_counter))
     eng, reqs = _serve(params, None)
     assert all(r.done for r in reqs) and eng.tracer is None
+
+
+@pytest.mark.parametrize("entry", ["prefill", "prefill_sample", "_prefill_eager",
+                                   "generate", "generate_fused"])
+def test_prefill_reads_no_clock_with_the_tracer_off(params, monkeypatch, entry):
+    """tracer=None: no prefill entry point reads perf_counter_ns, and the
+    engine counts nothing."""
+    def no_clock():
+        raise AssertionError("the engine read the clock with no tracer")
+    monkeypatch.setattr(engine_mod, "time",
+                        types.SimpleNamespace(perf_counter_ns=no_clock,
+                                              perf_counter=time.perf_counter))
+    eng = InferenceEngine(LlamaConfig.tiny(), params, batch=BATCH, quantized_kv=True,
+                          device="cpu")
+    prompt = _prompt(35, 3)
+    if entry.startswith("generate"):
+        getattr(eng, entry)(prompt, max_new_tokens=3, temperature=0.7, seed=2)
+    else:
+        getattr(eng, entry)(1, prompt)
+    assert eng.slots[0 if entry.startswith("generate") else 1].active and eng.tracer is None
 
 
 def test_children_lie_inside_their_parents(traced):
