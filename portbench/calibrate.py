@@ -7,8 +7,8 @@ reference at fp8 activations put in the program's place), read at the
 same prompts and tokens.  Each row also carries the verdict of
 check.judge against the cell's limits file: `correct` for the program,
 `<control>_correct` for each control.  --fault plants one of faults.FAULTS
-under the timed path for every seed.  The benchmark's own runs never run
-a control or a fault.
+under the timed path (the decode step that the driver names) for every
+seed.  The benchmark's own runs never run a control or a fault.
 
     python3 portbench/calibrate.py --workload <cell> --seeds 11,12,... \
         --control 11,12,13 --seconds 30 [--fault half_batch] [--out FILE.jsonl]
@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib
 import json
 import os
 import sys
@@ -63,7 +62,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from portbench import check
-    from portbench.run import CACHE_ENV, HERE
+    from portbench.run import CACHE_ENV, HERE, Unresolved, resolve
     limits = check.load_limits(args.workload, root=HERE)
     if args.rejudge:
         with open(args.rejudge) as f:
@@ -72,25 +71,28 @@ def main(argv=None) -> int:
                 print(json.dumps({**row, **verdicts(row, limits)}))
         return 0
     import torch
-    from portbench import faults, traffic, weights
+    from portbench import faults, traffic
     for var, sub in CACHE_ENV.items():
         os.environ[var] = str(ROOT / ".portbench_cache" / sub)
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 2
     with open(ROOT / "BENCHMARK.json") as f:
         bench = json.load(f)
     cell = next(w for w in bench["workloads"] if w["name"] == args.workload)
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     with open(ROOT / conf["file"]) as f:
         cfg = json.load(f)
+    try:
+        driver, d, ref = resolve(cfg)
+    except Unresolved as e:
+        print(f"{conf['name']}: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
     mix = traffic.load_mix(cell["traffic"], root=HERE)
-    d = weights.dims(cfg)
-    driver = importlib.import_module(f"portbench.drivers.{cfg['driver']}")
     control = {int(s) for s in args.control.split(",") if s}
     out = open(args.out, "a") if args.out else None
     dev = torch.device("cuda")
-    undo = faults.plant(args.fault) if args.fault else None
+    undo = faults.plant(args.fault, driver) if args.fault else None
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         served = driver.serve(d, mix, seed, args.seconds, dev)
@@ -101,7 +103,7 @@ def main(argv=None) -> int:
                "checked_tokens": 0}
         if pick:
             row.update(check.reference_values(
-                d, seed, [served.prompts[k] for k in pick], [served.outs[k] for k in pick],
+                ref, d, seed, [served.prompts[k] for k in pick], [served.outs[k] for k in pick],
                 dev, controls=args.readings.split(",") if seed in control else ()))
         row.update(verdicts(row, limits))
         row["seconds"] = time.perf_counter() - t0

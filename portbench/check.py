@@ -14,6 +14,27 @@ at least one of them), and
   checked_tokens    served tokens compared: at least 1.
 The control (the reference at fp8 activations put in the program's place)
 reads, at each position, the gap of the token IT puts first.
+
+The reference is the module reference/<name>.py that the configuration
+file's "reference" key names ("llama" where it names none; run.resolve
+finds it before a run makes a weight).  It is plain PyTorch, imports
+nothing of the program, and makes the model's inputs again from the seed.
+Its one entry point:
+
+  logits_at(d, seed, seqs, rows, device, act="f32", kv_bits=8)
+    d        the driver's dims(cfg): the sizes the driver served;
+    seed     the run's --seed, from which the weights are made again;
+    seqs     token sequences (prompt + served tokens but the last);
+    rows     for each sequence, the positions whose next token is judged;
+    device   where to compute (the card after the window, or the CPU);
+  → one float32 tensor [len(rows[j]), V] of logits for each sequence j.
+
+With the defaults it computes in float32 (TF32 off).  The control keywords
+in CONTROLS are read by calibrate.py only, never by a benchmark run, and a
+reference has to accept them: act="fp8" (every matmul's activation input
+rounded to e4m3, one scale a row: the control), act="bf16" (what the
+configuration holds in bf16 rounded so), kv_bits=4 (the cache held in int4
+over the int8 cache's range).
 """
 
 from __future__ import annotations
@@ -94,19 +115,18 @@ def judge(values: dict, limits: dict) -> tuple:
 CONTROLS = {"control": {"act": "fp8"}, "kv4": {"kv_bits": 4}, "bf16": {"act": "bf16"}}
 
 
-def reference_values(d: dict, seed: int, prompts, outs, device,
+def reference_values(reference, d: dict, seed: int, prompts, outs, device,
                      controls=()) -> dict:
-    """The program's gaps over the served tokens; for each named control
-    (CONTROLS) also the gaps of the tokens the control puts first, at the
-    same rows: <name>_max_gap, <name>_mean_gap."""
-    from portbench.reference import llama
+    """The program's gaps over the served tokens, by the reference module's
+    logits_at; for each named control (CONTROLS) also the gaps of the tokens
+    the control puts first, at the same rows: <name>_max_gap, <name>_mean_gap."""
     seqs, rows = teacher_forced(prompts, outs)
-    ref = llama.logits_at(d, seed, seqs, rows, device)
+    ref = reference.logits_at(d, seed, seqs, rows, device)
     mx, mean = gaps(ref, outs)
     out = {"max_logit_gap": mx, "mean_logit_gap": mean,
            "checked_tokens": int(sum(len(o) for o in outs))}
     for name in controls:
-        ctl = llama.logits_at(d, seed, seqs, rows, device, **CONTROLS[name])
+        ctl = reference.logits_at(d, seed, seqs, rows, device, **CONTROLS[name])
         mx, mean = gaps(ref, [c.argmax(dim=-1).tolist() for c in ctl])
         out.update({f"{name}_max_gap": mx, f"{name}_mean_gap": mean})
         del ctl

@@ -23,6 +23,9 @@ from portbench.record import Recorder, WindowClosed
 
 BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)   # the engine's prompt buckets
 
+dims = weights.dims       # the sizes this driver serves, from the configuration file
+DECODE_STEP = ("csinn2_tpu_torch.llm.engine", "_batched_decode_forward")   # faults.plant's
+
 
 def _round256(n: int, cap: int) -> int:
     return min(-(-n // 256) * 256, cap)

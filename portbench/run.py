@@ -13,8 +13,10 @@ float32 reference (check.py) and `correct` says whether they pass.
 
 Everything that belongs to one configuration, traffic mix or metric is a
 file found by its name in BENCHMARK.json: configs/<config>.json (its
-"driver" names drivers/<driver>.py), traffic/<traffic>.json,
-e2e/<metric>.py, metrics/<metric>.py, limits/<cell>.json.
+"driver" names drivers/<driver>.py, its optional "reference" names
+reference/<reference>.py, "llama" where it names none), traffic/<traffic>.json,
+e2e/<metric>.py, metrics/<metric>.py, limits/<cell>.json.  A configuration
+whose driver or reference is missing exits with code 2 before set-up.
 """
 
 from __future__ import annotations
@@ -61,6 +63,37 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> list:
             if cell in m.get("workloads", [cell] if m["moves"] in moved else [])]
 
 
+class Unresolved(Exception):
+    """A configuration names a driver or a reference that is not there."""
+
+
+def _module(package: str, name, *needs: str):
+    """portbench.<package>.<name>, which has to define each function in `needs`."""
+    if not isinstance(name, str) or not name.isidentifier():
+        raise Unresolved(f"{name!r} is not a module name under portbench/{package}/")
+    full = f"portbench.{package}.{name}"
+    try:
+        mod = importlib.import_module(full)
+    except ModuleNotFoundError as e:
+        if e.name != full:
+            raise
+        raise Unresolved(f"no module portbench/{package}/{name}.py") from None
+    for fn in needs:
+        if not callable(getattr(mod, fn, None)):
+            raise Unresolved(f"portbench/{package}/{name}.py defines no {fn}()")
+    return mod
+
+
+def resolve(cfg: dict):
+    """A configuration file's (driver module, the driver's dims(cfg), the
+    reference module), before a run makes a weight: the driver is
+    drivers/<cfg["driver"]>.py with dims() and serve(), the reference
+    reference/<cfg.get("reference", "llama")>.py with logits_at()."""
+    driver = _module("drivers", cfg.get("driver"), "dims", "serve")
+    ref = _module("reference", cfg.get("reference", "llama"), "logits_at")
+    return driver, driver.dims(cfg), ref
+
+
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
@@ -100,7 +133,7 @@ def main(argv=None, *, root: Path = ROOT, data: Path = HERE, device: str = "cuda
         cfg = json.load(f)
 
     import torch
-    from portbench import check, devtrace, traffic, weights
+    from portbench import check, devtrace, traffic
     if device == "cuda":
         if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
             n = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -108,9 +141,12 @@ def main(argv=None, *, root: Path = ROOT, data: Path = HERE, device: str = "cuda
             return 2
     torch.set_num_threads(2)
     dev = torch.device(device)
+    try:
+        driver, d, ref = resolve(cfg)
+    except Unresolved as e:
+        print(f"{conf['name']}: {e}", file=sys.stderr)
+        return 2
     mix = traffic.load_mix(cell["traffic"], root=data)
-    d = weights.dims(cfg)
-    driver = importlib.import_module(f"portbench.drivers.{cfg['driver']}")
     wanted = cell_metrics(bench, args.workload, bool(args.trace))
     readers = [(m, load_reader("metrics" if args.trace else "e2e", m["name"])) for m in wanted]
     for m, mod in readers:
@@ -123,10 +159,6 @@ def main(argv=None, *, root: Path = ROOT, data: Path = HERE, device: str = "cuda
     served = driver.serve(d, mix, args.seed, args.seconds, dev, tracer=tracer,
                           trace_seconds=TRACE_SECONDS,
                           on_setup_done=lambda: setup.update(s=time.perf_counter() - T_START))
-    found = forbidden_modules()
-    if found:
-        print(f"modules of {found} are loaded in the benchmark's process", file=sys.stderr)
-        return 3
     summary = None
     if tracer is not None:
         summary = devtrace.summarize(tracer.events, tracer.marks, served.rec.trace_spans())
@@ -147,7 +179,7 @@ def main(argv=None, *, root: Path = ROOT, data: Path = HERE, device: str = "cuda
     values = {"length_mismatches": check.length_mismatches(rec, served.outs),
               "checked_tokens": 0, "max_logit_gap": None}
     if pick:
-        values.update(check.reference_values(d, args.seed, [served.prompts[k] for k in pick],
+        values.update(check.reference_values(ref, d, args.seed, [served.prompts[k] for k in pick],
                                              [served.outs[k] for k in pick], dev))
     correct, checks = check.judge(values, check.load_limits(args.workload, root=data))
 
@@ -166,6 +198,10 @@ def main(argv=None, *, root: Path = ROOT, data: Path = HERE, device: str = "cuda
           f"step graphs captured inside the window {served.captures_in_window}", file=sys.stderr)
     for line in check.lines(checks):
         print(line, file=sys.stderr)
+    found = forbidden_modules()       # after the readers and the reference have run too
+    if found:
+        print(f"modules of {found} are loaded in the benchmark's process", file=sys.stderr)
+        return 3
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
     return 0

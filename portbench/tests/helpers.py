@@ -29,10 +29,11 @@ BENCH = {
 }
 
 
-def run_cpu(tmp_path, seed=7, seconds=1.0, trace=0):
-    """run.main on the CPU for the tiny cell → (exit code, result dict or None)."""
+def run_cpu(tmp_path, seed=7, seconds=1.0, trace=0, bench=BENCH):
+    """run.main on the CPU for the tiny cell → (exit code, result dict or None).
+    `bench` may name another configuration file for the cell."""
     from portbench import run
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(BENCH))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = run.main(["--workload", CELL, "--seed", str(seed), "--seconds", str(seconds),

@@ -1,35 +1,53 @@
 """BENCHMARK.json against the files it names: each cell finds its
-configuration, traffic mix and output limits; each metric's `workloads`
-names only cells that exist and has a reader; each limits file's readings
-lie on the right side of its limits."""
+configuration, its driver's sizes, its reference, traffic mix and output
+limits; each metric's `workloads` names only cells that exist and has a
+reader; each limits file's readings lie on the right side of its limits."""
 
 import json
 
 import pytest
 
 from portbench import check, traffic, weights
-from portbench.run import HERE, ROOT, cell_metrics, load_reader
+from portbench.reference import llama
+from portbench.run import HERE, ROOT, cell_metrics, load_reader, resolve
 
 with open(ROOT / "BENCHMARK.json") as f:
     BENCH = json.load(f)
 CELLS = {w["name"]: w for w in BENCH["workloads"]}
 CONFIGS = {c["name"]: c for c in BENCH["configs"]}
+LLAMA_CELLS = ["mistral7b-q4_0.gen", "mistral7b-q4_0.rag", "deepseek7b-q8_0.chat"]
 METRICS = [("e2e", m) for m in BENCH["end_to_end"]] + [("metrics", m) for m in BENCH["per_layer"]]
+
+
+def _config(cell: str) -> dict:
+    with open(ROOT / CONFIGS[CELLS[cell]["config"]]["file"]) as f:
+        return json.load(f)
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_cell_resolves_its_files(cell):
     w = CELLS[cell]
     conf = CONFIGS[w["config"]]
-    with open(ROOT / conf["file"]) as f:
-        cfg = json.load(f)
+    cfg = _config(cell)
     assert cfg["name"] == conf["name"]
     assert set(conf["reduced"]) == set(cfg["reduced"])
-    assert weights.dims(cfg)["batch"] >= 1
+    driver, d, ref = resolve(cfg)
+    assert d["batch"] >= 1
+    assert callable(driver.serve) and callable(ref.logits_at)
     mix = traffic.load_mix(w["traffic"], root=HERE)
     assert mix["check"]["served_tokens"] >= 1
     limits = check.load_limits(cell, root=HERE)
     assert set(limits) & set(check.GAPS), f"limits/{cell}.json limits no gap"
+
+
+@pytest.mark.parametrize("cell", LLAMA_CELLS)
+def test_llama_cells_keep_their_sizes_and_reference(cell):
+    """The driver's dims are weights.dims key for key, and the reference
+    is reference/llama.py, as before configurations could name others."""
+    cfg = _config(cell)
+    _, d, ref = resolve(cfg)
+    assert d == weights.dims(cfg)
+    assert ref is llama and "reference" not in cfg
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))

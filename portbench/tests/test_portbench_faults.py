@@ -4,9 +4,14 @@ path broken underneath: `correct` has to come out false for each fault a
 served cell can have.  (The exchange between chips is no fault of these
 one-chip cells.)"""
 
+import sys
+import types
+
 import pytest
+import torch
 
 from portbench import faults
+from portbench.drivers import llm_serve
 from portbench.tests.helpers import run_cpu
 
 
@@ -29,7 +34,7 @@ def test_a_traced_run_reports_the_per_layer_metrics(tmp_path):
 def test_a_broken_decode_step_is_caught(tmp_path, fault):
     from csinn2_tpu_torch.llm import engine
     orig = engine._batched_decode_forward
-    undo = faults.plant(fault)
+    undo = faults.plant(fault, llm_serve)
     try:
         rc, res = run_cpu(tmp_path, seed=7)
     finally:
@@ -38,6 +43,70 @@ def test_a_broken_decode_step_is_caught(tmp_path, fault):
     assert rc == 0 and res["correct"] is False
     chk = res["checks"]["max_logit_gap"]
     assert chk["value"] > chk["limit"]
+
+
+class _LatentCache:
+    """A cache whose state is not named k and v: one latent row a token a
+    layer and a rotary part, beside a plain number."""
+
+    def __init__(self):
+        self.latent = torch.arange(12.0).view(2, 6)
+        self.rope_part = torch.ones(2, 2, dtype=torch.int8)
+        self.scale = 0.05
+
+
+def _latent_step(params, tokens, cache, pos_vec, cfg, **kw):
+    cache.latent.add_(1.0)
+    cache.rope_part.fill_(3)
+    return torch.zeros(4, 1, 8), cache
+
+
+@pytest.mark.parametrize("by_keyword", [False, True], ids=["positional", "cache_keyword"])
+def test_state_unchanged_restores_a_cache_whose_tensors_have_other_names(by_keyword):
+    cache = _LatentCache()
+    before = (cache.latent.clone(), cache.rope_part.clone())
+    step = faults.state_unchanged(_latent_step)
+    if by_keyword:
+        logits, c = step(None, None, cache=cache, pos_vec=None, cfg=None)
+    else:
+        logits, c = step(None, None, cache, None, None, kv_bound=4)
+    assert c is cache and logits.shape == (4, 1, 8)
+    assert torch.equal(cache.latent, before[0]) and torch.equal(cache.rope_part, before[1])
+    _latent_step(None, None, cache, None, None)              # unwrapped, the step moves it
+    assert not torch.equal(cache.latent, before[0])
+
+
+def test_state_unchanged_holds_the_llama_caches_k_and_v_alone():
+    """The Llama cells' fault: the same two tensors as before any cache
+    could be given, and a cache with no tensor is refused, not passed."""
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.llm.model import KVCache
+    cache = KVCache.create(LlamaConfig.tiny(), 2, quantized=True, device="cpu")
+    assert list(faults._tensors(cache)) == ["k", "v"]
+    with pytest.raises(TypeError):
+        faults.state_unchanged(_latent_step)(None, None, types.SimpleNamespace(scale=1.0), None, None)
+
+
+def test_plant_wraps_the_step_that_the_driver_names(monkeypatch):
+    from csinn2_tpu_torch.llm import engine
+    mod = types.ModuleType("portbench_test_step")
+    mod.decode = lambda *a, **kw: (torch.arange(4.0)[:, None], None)
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    orig, engine_step = mod.decode, engine._batched_decode_forward
+    undo = faults.plant("half_batch", types.SimpleNamespace(DECODE_STEP=(mod.__name__, "decode")))
+    try:
+        assert mod.decode is not orig and engine._batched_decode_forward is engine_step
+        assert mod.decode()[0][:, 0].tolist() == [0.0, 1.0, 0.0, 1.0]
+    finally:
+        undo()
+    assert mod.decode is orig
+    undo = faults.plant("half_batch", llm_serve)                    # the Llama cells' step
+    assert engine._batched_decode_forward is not engine_step
+    undo()
+    assert engine._batched_decode_forward is engine_step
+    with pytest.raises(ValueError, match="names no DECODE_STEP"):   # names none: no fallback
+        faults.plant("half_batch", types.SimpleNamespace(__name__="portbench.drivers.other"))
+    assert engine._batched_decode_forward is engine_step
 
 
 def test_an_altered_token_is_caught(tmp_path, monkeypatch):

@@ -7,6 +7,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 from portbench import run
 from portbench.tests.helpers import BENCH, CELL, DATA
 
@@ -36,14 +38,24 @@ def test_a_whole_run_loads_no_jax(tmp_path):
     assert not tops & FORBIDDEN
 
 
-def test_the_reference_imports_nothing_of_the_program():
+REFERENCES = sorted(p.stem for p in (run.HERE / "reference").glob("*.py") if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("name", REFERENCES)
+def test_the_reference_imports_nothing_of_the_program(name):
+    """Every module under reference/, each in a fresh process: a reference
+    that a later configuration adds is covered by the file that adds it."""
     tops = _modules_after(f"""
         import json, sys
         sys.path.insert(0, {str(run.ROOT)!r})
-        import portbench.reference.llama, portbench.check, portbench.counts
+        import portbench.reference.{name}, portbench.check, portbench.counts
         print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
     """)
     assert not tops & (FORBIDDEN | {"csinn2_tpu_torch"})
+
+
+def test_every_reference_is_checked():
+    assert "llama" in REFERENCES
 
 
 def test_the_check_compares_whole_top_level_names(monkeypatch):
@@ -55,7 +67,6 @@ def test_the_check_compares_whole_top_level_names(monkeypatch):
 
 def test_a_run_without_a_card_prints_no_result(tmp_path, capsys):
     """device "cuda" on a host without one: a non-zero exit, no result line."""
-    import pytest
     import torch
     if torch.cuda.is_available():
         pytest.skip("this host has a card")

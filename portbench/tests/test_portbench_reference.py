@@ -73,8 +73,8 @@ def test_control_reads_above_the_limits_where_the_program_reads_below(seed):
             for s in traffic.make_requests(mix, d["V"], seed)[:16]]
     eng.run_queue(reqs, chunk=mix["chunk"], seed=seed)
     greedy = [r for r in reqs if r.temperature == 0]
-    v = check.reference_values(d, seed, [r.prompt for r in greedy], [r.out for r in greedy],
-                               CPU, controls=("control",))
+    v = check.reference_values(llama, d, seed, [r.prompt for r in greedy],
+                               [r.out for r in greedy], CPU, controls=("control",))
     limits = check.load_limits("tiny.gen", root=DATA)
     for name, ctl in (("max_logit_gap", "control_max_gap"), ("mean_logit_gap", "control_mean_gap")):
         assert v[name] <= limits[name]["limit"] < v[ctl]
