@@ -21,7 +21,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      kernels (the split-KV decode_attention, also timed cold over KV copies
      beyond twice the L2 beside SDPA cold; the tensor-core attn_fwd_kernel
      at prefill and, split over the KV window, at flash decode, its decode
-     also cold), then every attention entry point at head
+     also cold), the batched decode's attention prologue (decode_prologue:
+     RoPE, K/V quantisation, the row store) at 16 lanes, GQA 32/8 and MHA
+     32/32, bit for bit against its plain version and timed beside it,
+     then every attention entry point at head
      dims 16, 32, 80, 96 and 256 with an f32 and a bf16 q, int8 and bf16 KV;
      then the head dims above 256 (attn_wide_mma_kernel, on wgmma): the
      four entry points at d = 320 and 576, int8 and bf16 KV, driven once
@@ -303,6 +306,9 @@ KERNELS = {
     # attn_wide_mma_kernel: d > 256 in all three functions (also :142
     # decode_attention, :248 prefill_attention)
     "attention_wide": (ATTN_SOURCE, "csinn2_tpu/kernels/flash_attention.py:312"),
+    # the batched decode's RoPE, K/V quantisation and row store, which the
+    # JAX engine leaves to XLA (csinn2_tpu/llm/engine.py, no Pallas kernel)
+    "decode_prologue": ("csinn2_tpu_torch/kernels/csrc/decode_prologue.cu", "none"),
 }
 # the probe kernels: kind → (line of the JAX body or pallas_call function in
 # examples/int4_dequant_probe.py, the probe's variant name)
@@ -628,6 +634,59 @@ def check_attention(records, heads: int = 32, tag: str = None):
                                                 f"hq=hk={hq} d=128"))
         records.setdefault(name, {})["max_abs_err"] = worst
         del k, v
+
+
+def check_decode_prologue(records):
+    """The batched decode step's attention prologue (llm/model.py
+    decode_prologue: RoPE on the q|k heads, the int8 K/V quantisation and
+    the row store, one launch of csrc/decode_prologue.cu) against its plain
+    version decode_prologue_ref on the card, at the served cells' shapes: 16
+    lanes over a 4096-row int8 cache layer, head dim 128, GQA 32/8
+    (Mistral-7B, gen) and MHA 32/32 (DeepSeek-LLM-7B, chat), one lane past
+    the cache.  Identical q bits and caches; times behind a sleep kernel
+    beside the bytes bound and the plain version's (its ~25 PyTorch
+    kernels, back to back)."""
+    import torch
+    from csinn2_tpu_torch.llm import model as tm
+    from csinn2_tpu_torch.utils.timing import gpu_ms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    b, d, S = 16, 128, 4096
+    for label, hq, hk in (("gqa", 32, 8), ("mha", 32, 32)):
+        qkv = (torch.randn((b, 1, (hq + 2 * hk) * d), generator=g, device="cuda") * 4) \
+            .to(torch.bfloat16)
+        qk = qkv[..., :(hq + hk) * d].reshape(b, 1, hq + hk, d)
+        v = qkv[..., (hq + hk) * d:].reshape(b, 1, hk, d)
+        pos = torch.randint(0, S, (b,), generator=g, device="cuda", dtype=torch.int32)
+        pos[0] = S
+        tables = tm.rope_tables(pos[:, None], d, 10000.0)
+        cache = tm.KVCache(*(torch.randint(-127, 128, (1, b, S, hk, d), generator=g,
+                                           device="cuda", dtype=torch.int8) for _ in range(2)),
+                           scale=0.05)
+        plain = tm.KVCache(k=cache.k.clone(), v=cache.v.clone(), scale=cache.scale)
+        q = tm.decode_prologue(qk, v, tables, pos, cache, 0)
+        want = tm.decode_prologue_ref(qk, v, tables, pos, plain, 0)
+        torch.cuda.synchronize()
+        if not (torch.equal(q.view(torch.int16), want.contiguous().view(torch.int16)) and
+                torch.equal(cache.k, plain.k) and torch.equal(cache.v, plain.v)):
+            raise AssertionError(f"decode_prologue {label}: not bit for bit the plain version")
+        ms = gpu_ms(lambda: tm.decode_prologue(qk, v, tables, pos, cache, 0))
+        plain_ms = gpu_ms(lambda: tm.decode_prologue_ref(qk, v, tables, pos, plain, 0))
+        # read: the q|k|v heads, the tables, pos; written: q, a K and a V row
+        # a lane that writes (lane 0 is past the cache)
+        nbytes = b * (hq + 2 * hk) * d * 2 + b * d * 4 + b * 4 + b * hq * d * 2 \
+            + 2 * (b - 1) * hk * d
+        b_ms, b_by = bound(nbytes, 0.0)
+        shape = f"b={b} hq={hq} hk={hk} d={d} S={S} int8"
+        log(f"  decode_prologue {shape} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) roofline={b_ms / ms:.3f}: q and cache bit for bit")
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   shape=shape, max_abs_err=0.0)
+        if label == "gqa":
+            records["decode_prologue"] = rec
+        else:
+            records["decode_prologue"]["mha"] = rec
+        del cache, plain
 
 
 # ---------------------------------------------------------------------------
@@ -3910,6 +3969,7 @@ def main() -> int:
     check_gemm_plan()
     check_quant_matmul(records)
     check_attention(records)
+    check_decode_prologue(records)
     check_new_quant_matmul(records)
     check_int8dot_cold(records)
     check_flash_bhsd(records)
@@ -3931,7 +3991,7 @@ def main() -> int:
     reduce_per_step = {}
     log("phase 4: the first slice's main path, Llama-2-7B Q8_0 int8 KV, run_queue batch 4")
     q8_0 = serve(gpu_line, "q8_0")
-    for k in ("quant_matmul",) + ATTENTION:
+    for k in ("quant_matmul", "decode_prologue") + ATTENTION:
         path_counts[k] = (q8_0["counts"], "phase 4 (Q8_0)")
     reduce_per_step["quant_matmul"] = q8_0["reduce_per_step"]
     serve_tiny()
@@ -4007,7 +4067,7 @@ def main() -> int:
         for extra in ("unfused_pair_ms", "ms_cold", "library_ms_cold", "prefill",
                       "decode_cold", "cur_ms", "library_layout", "blocks_ms",
                       "blocks_bound_ms", "launches_phase", "decode", "flash_d576",
-                      "decode_d576", "launches_combine", "tp_shards", "zoo"):
+                      "decode_d576", "launches_combine", "tp_shards", "zoo", "mha"):
             if extra in r:
                 entry[extra] = r[extra]
         if name in reduce_per_step:

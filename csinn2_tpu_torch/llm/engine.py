@@ -66,10 +66,9 @@ import torch.nn.functional as F
 
 from csinn2_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
 from csinn2_tpu_torch.llm.config import LlamaConfig
-from csinn2_tpu_torch.llm.model import (KVCache, _project_qkv, fuse_params,
-                                        has_int4, linear, llama_forward,
-                                        native4_params, quantize_kv, rms_norm,
-                                        rope_rotate, rope_tables)
+from csinn2_tpu_torch.llm.model import (KVCache, _project_qkv, decode_prologue,
+                                        fuse_params, has_int4, linear, llama_forward,
+                                        native4_params, rms_norm, rope_tables)
 from csinn2_tpu_torch.llm.sampling import sample_host, sample_logits
 from csinn2_tpu_torch.parallel.mesh import all_gather, all_reduce
 from csinn2_tpu_torch.parallel.tp import local_config, shard_llama_params
@@ -167,7 +166,9 @@ class InferenceEngine:
     Counters: prefill.tokens, prefill.pad_tokens (bucket − prompt),
     prefill.graph_replays (prefills served by a bucket graph's replay) and
     prefill.graph_captures (its captures, inside ".forward"),
-    decode.captures, decode.replays, decode.lane_steps (batch × steps) and
+    decode.captures, decode.prologue_fused (the layers of each captured
+    step whose attention prologue is the decode_prologue kernel: all of
+    them), decode.replays, decode.lane_steps (batch × steps) and
     of them decode.lane_steps_idle (a lane with no request) and
     decode.lane_steps_past_end (a lane run past its request's last token:
     run_queue's chunks only); sched.lane_wait_ns over sched.lane_waits
@@ -542,6 +543,8 @@ class InferenceEngine:
             graph = self._graphs[key] = capture(
                 step, "decode_graph", stream=st["stream"], pool=st["pool"],
                 generators=() if greedy else (st["gen"],))
+            if tr is not None:
+                tr.add("decode.prologue_fused", graph.tally["decode_prologue"])
             load_lanes()              # the warm-up step advanced the lanes
         if tr is not None:
             tr.phase("decode.launch")
@@ -773,18 +776,6 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     hq, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     D = hq * dh
     S = cache.k.shape[2]
-    bidx = torch.arange(b, device=x.device)
-    # lanes at pos >= S write nothing (JAX scatter mode="drop"): such a lane
-    # rewrites row S-1 with its current contents
-    keep = (pos_vec < S)[:, None, None]
-    rows = pos_vec.clamp(max=S - 1).long()
-
-    def store_rows(layer, k_new, v_new):
-        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
-            new = quantize_kv(new[:, 0], cache.scale) if cache.scale is not None \
-                else new[:, 0].to(buf.dtype)
-            buf[layer, bidx, rows] = torch.where(keep, new, buf[layer, bidx, rows])
-
     # per-row RoPE trig depends only on pos_vec — one evaluation, all layers
     rtabs = rope_tables(pos_vec[:, None], dh, cfg.rope_base)
     kv_len = pos_vec + 1
@@ -792,14 +783,14 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(torch.bfloat16)
         qk, v = _project_qkv(h, lp, hq, hk, dh)
-        qk = rope_rotate(qk, None, cfg.rope_base, tables=rtabs)   # q|k heads at once
-        q, k = qk[:, :, :hq], qk[:, :, hq:]
-        store_rows(i, k, v)
+        # RoPE on the q|k heads, the K/V rows stored at each lane's position
+        # (lanes at pos >= S write nothing): one kernel on the card
+        q = decode_prologue(qk, v, rtabs, pos_vec, cache, i)
 
         k_all, v_all = cache.k[i], cache.v[i]             # [b, S, hk, dh]
         if kv_bound is not None and kv_bound < S:
             k_all, v_all = k_all[:, :kv_bound], v_all[:, :kv_bound]
-        q_t = q.to(torch.bfloat16).permute(0, 2, 1, 3)     # [b, hq, 1, dh]
+        q_t = q.permute(0, 2, 1, 3)                        # [b, hq, 1, dh] bf16
         k_t, v_t = k_all.permute(0, 2, 1, 3), v_all.permute(0, 2, 1, 3)
         if flash:
             attn = flash_attention(q_t, k_t, v_t, causal=True, q_offset=pos_vec,

@@ -25,6 +25,7 @@ experts; moe_ffn_block sums them over the group (f32).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 from typing import Dict, List, Optional
@@ -35,6 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from csinn2_tpu_torch.core.quant import BLOCK_SIZE
+from csinn2_tpu_torch.kernels import _build
 from csinn2_tpu_torch.kernels.flash_attention import (flash_attention,
                                                       prefill_attention)
 from csinn2_tpu_torch.kernels.qmatmul import (pack_int4, quant_matmul,
@@ -495,6 +497,75 @@ class KVCache:
     def read(self, layer: int):
         """→ (k, v) [b, S_max, hk, dh]: int8 carriers in int8 mode."""
         return self.k[layer], self.v[layer]
+
+
+def decode_prologue_ref(qk, v, tables, pos_vec, cache: KVCache, layer: int) -> torch.Tensor:
+    """The batched decode step's attention prologue, plainly: interleaved-
+    pair RoPE on the q|k heads qk [b, 1, hq + hk, dh] from the step's
+    rope_tables (rope_rotate), then the rotated k and the unrotated v
+    [b, 1, hk, dh] as the cache's carriers (quantize_kv; a float cache takes
+    them in its dtype) stored at row pos_vec[i] of lane i of cache layer
+    `layer`, in place.  A lane at pos >= S writes nothing (the JAX scatter's
+    mode="drop"): its row S - 1 is rewritten with what it holds.  Returns
+    the rotated q [b, 1, hq, dh] in qk's dtype."""
+    b, hk = qk.shape[0], v.shape[2]
+    hq = qk.shape[2] - hk
+    qk = rope_rotate(qk, None, 0.0, tables=tables)
+    S = cache.k.shape[2]
+    bidx = torch.arange(b, device=qk.device)
+    keep = (pos_vec < S)[:, None, None]
+    rows = pos_vec.clamp(max=S - 1).long()
+    for buf, new in ((cache.k, qk[:, 0, hq:]), (cache.v, v[:, 0])):
+        new = cache._carrier(new)
+        buf[layer, bidx, rows] = torch.where(keep, new, buf[layer, bidx, rows])
+    return qk[:, :, :hq]
+
+
+def decode_prologue(qk, v, tables, pos_vec, cache: KVCache, layer: int) -> torch.Tensor:
+    """decode_prologue_ref in one launch on the card (csrc/decode_prologue.cu,
+    launch count `decode_prologue`; q comes back contiguous), bit for bit;
+    the plain version for CPU tensors.  On the card qk and v are bf16 (any
+    strides with a contiguous head dim), the cache int8 or bf16 and dh
+    even; anything else raises."""
+    if qk.device.type == "cpu":
+        return decode_prologue_ref(qk, v, tables, pos_vec, cache, layer)
+    b, s, hqk, d = qk.shape
+    hk = v.shape[2]
+    hq = hqk - hk
+    kbuf, vbuf = cache.k[layer], cache.v[layer]
+    int8 = cache.scale is not None
+    if s != 1 or v.shape != (b, 1, hk, d) or hq < 1 or d % 2 or \
+            kbuf.shape[0] < b or kbuf.shape[2:] != (hk, d) or vbuf.shape != kbuf.shape:
+        raise ValueError(f"decode_prologue: qk {tuple(qk.shape)}, v {tuple(v.shape)}, "
+                         f"cache layer {tuple(kbuf.shape)}")
+    cos, sin = (t.reshape(b, d // 2) for t in tables)
+    if qk.dtype != torch.bfloat16 or v.dtype != torch.bfloat16 or \
+            kbuf.dtype != (torch.int8 if int8 else torch.bfloat16) or vbuf.dtype != kbuf.dtype \
+            or cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise TypeError(f"decode_prologue: qk / v {qk.dtype} / {v.dtype} (bf16), cache "
+                        f"{kbuf.dtype} with scale {cache.scale}, tables {cos.dtype}")
+    if any(t.stride(-1) != 1 for t in (qk, v, kbuf, vbuf)) or vbuf.stride() != kbuf.stride() \
+            or not (cos.is_contiguous() and sin.is_contiguous()) or \
+            any(t.device != qk.device for t in (v, kbuf, cos, sin, pos_vec)):
+        raise ValueError("decode_prologue: the head dims must be contiguous, the tables "
+                         "contiguous, the cache's K and V strided alike, all on one device")
+    pos = pos_vec.to(torch.int32).contiguous()
+    q = torch.empty((b, 1, hq, d), dtype=torch.bfloat16, device=qk.device)
+    # PyTorch divides a CUDA tensor by a Python float as a product with the
+    # scale's reciprocal, taken in double and rounded to f32
+    inv_scale = float(np.float32(1.0 / cache.scale)) if int8 else 1.0
+    ll, i32, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    fn = _build.c_function("decode_prologue", "decode_prologue_launch",
+                           (vp, ll, ll, vp, ll, ll) + (vp,) * 6 + (ll,) * 3 + (i32,) * 6
+                           + (ctypes.c_float, vp))
+    ks = kbuf.stride()
+    err = fn(qk.data_ptr(), qk.stride(0), qk.stride(2), v.data_ptr(), v.stride(0), v.stride(2),
+             cos.data_ptr(), sin.data_ptr(), pos.data_ptr(), q.data_ptr(), kbuf.data_ptr(),
+             vbuf.data_ptr(), ks[0], ks[1], ks[2], b, kbuf.shape[1], hq, hk, d, int(int8),
+             inv_scale, torch.cuda.current_stream(qk.device).cuda_stream)
+    _build.check("decode_prologue", err, "decode_prologue")
+    _build.launch_counts["decode_prologue"] += 1
+    return q
 
 
 # ---------------------------------------------------------------------------

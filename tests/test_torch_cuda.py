@@ -21,7 +21,11 @@ chunks, an admission between chunks, a kv_bound change, launch counts,
 captures, strip counters), its per-bucket prefill graph against the eager
 prefill (every bucket, several slots, greedy and seeded, the caches byte for
 byte, launch counts, captures, a scratch engine), its spans and counters
-under a Tracer, and its benchmark methods; the kernels at a rank's
+under a Tracer, and its benchmark methods; the decode step's attention
+prologue kernel (RoPE, K/V quantisation, the row store) bit for bit against
+its plain version (GQA 32/8 and 4/1, MHA 32/32, head dims 64-256, 1-16
+lanes, int8 and bf16 caches, a lane past the cache) and inside a captured
+step; the kernels at a rank's
 shapes under tensor parallelism (the tp = 2 GEMMs of Llama-2-7B and of a
 Mixtral expert, 16 attention heads) and the engine at tp = 2 over gloo on one
 card and over NCCL where there are two (it skips below two cards); ring
@@ -1669,8 +1673,8 @@ def test_engine_tracer_on_the_card(dev):
     """run_queue at LlamaConfig.tiny() through the step graph with the
     engine's Tracer off and on: the same tokens; with it on, a
     decode.capture span and a decode.captures count for each graph
-    captured, decode.replays equal to the replays launched, and every child
-    span inside its parent."""
+    captured, decode.prologue_fused n_layers for each, decode.replays equal
+    to the replays launched, and every child span inside its parent."""
     from csinn2_tpu_torch.llm.config import LlamaConfig
     from csinn2_tpu_torch.llm.engine import InferenceEngine, Request
     from csinn2_tpu_torch.llm.model import init_params
@@ -1690,6 +1694,7 @@ def test_engine_tracer_on_the_card(dev):
     replays = launch_counts["decode_graph.replay"] - g0.get("decode_graph.replay", 0)
     assert outs[0] == outs[1]
     assert captures == len(eng._graphs) == tr.totals["decode.captures"] >= 2
+    assert tr.totals["decode.prologue_fused"] == captures * cfg.n_layers
     assert len(tr.spans("decode.capture")) == captures
     assert tr.totals["decode.replays"] == replays == sum(
         c.args["n_steps"] for c in tr.spans("decode.chunk"))
@@ -1700,6 +1705,110 @@ def test_engine_tracer_on_the_card(dev):
             assert p.ts <= e.ts and e.ts + e.dur <= p.ts + p.dur
     assert {e.name for e in tr.spans()} >= {"decode.stage", "decode.launch", "decode.fetch",
                                              "prefill.forward", "prefill.fetch", "sched.admit"}
+
+
+def _prologue_case(gen, dev, b, hq, hk, d, S, scale):
+    """A wqkv output's q|k and v views, lanes at 0, S - 1, S and inside,
+    their rope tables, and a seeded 2-layer cache of b + 1 lanes: int8 at
+    `scale`, bf16 where it is None."""
+    from csinn2_tpu_torch.llm import model as tm
+    qkv = (torch.randn((b, 1, (hq + 2 * hk) * d), generator=gen, device=dev) * 4) \
+        .to(torch.bfloat16)
+    qk = qkv[..., :(hq + hk) * d].reshape(b, 1, hq + hk, d)
+    v = qkv[..., (hq + hk) * d:].reshape(b, 1, hk, d)
+    inside = torch.randint(1, S - 1, (b,), generator=gen, device=dev)
+    pos = torch.tensor([(0, S - 1, S)[i] if i < 3 else int(inside[i]) for i in range(b)],
+                       dtype=torch.int32, device=dev)
+    tables = tm.rope_tables(pos[:, None], d, 10000.0)
+    shape = (2, b + 1, S, hk, d)
+    if scale is not None:
+        k, vc = (torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2))
+    else:
+        k, vc = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+    return qk, v, tables, pos, tm.KVCache(k=k, v=vc, scale=scale)
+
+
+@pytest.mark.parametrize("hq,hk", [(32, 8), (32, 32), (4, 1)])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("b", [1, 5, 16])
+@pytest.mark.parametrize("scale", [0.05, 0.0317, None])
+def test_decode_prologue_kernel_matches_the_plain_version(gen, dev, hq, hk, d, b, scale):
+    """decode_prologue's kernel against decode_prologue_ref run on the card
+    (PyTorch's CUDA ops, the path it replaced): identical q bits, and both
+    caches identical byte for byte, the rows no lane writes and the lane at
+    pos = S (which writes nothing) included, for int8 caches at two scales
+    (0.0317: 1 / scale is not exact in f32) and a bf16 cache; one launch a
+    call."""
+    from csinn2_tpu_torch.llm import model as tm
+    qk, v, tables, pos, cache = _prologue_case(gen, dev, b, hq, hk, d, 97, scale)
+    plain = tm.KVCache(k=cache.k.clone(), v=cache.v.clone(), scale=cache.scale)
+    before = launch_counts["decode_prologue"]
+    q = tm.decode_prologue(qk, v, tables, pos, cache, 1)
+    want = tm.decode_prologue_ref(qk, v, tables, pos, plain, 1)
+    torch.cuda.synchronize()
+    assert launch_counts["decode_prologue"] == before + 1
+    assert q.shape == (b, 1, hq, d) and q.is_contiguous()
+    assert torch.equal(q.view(torch.int16), want.contiguous().view(torch.int16))
+    assert torch.equal(cache.k.view(torch.int8), plain.k.view(torch.int8))
+    assert torch.equal(cache.v.view(torch.int8), plain.v.view(torch.int8))
+
+
+def test_decode_prologue_rejects_bad_args(gen, dev):
+    from csinn2_tpu_torch.llm import model as tm
+    qk, v, tables, pos, cache = _prologue_case(gen, dev, 3, 4, 2, 64, 40, 0.05)
+    with pytest.raises(TypeError):
+        tm.decode_prologue(qk.float(), v, tables, pos, cache, 0)
+    with pytest.raises(TypeError):      # an int8 cache with no scale
+        tm.decode_prologue(qk, v, tables, pos, tm.KVCache(k=cache.k, v=cache.v), 0)
+    with pytest.raises(ValueError):
+        tm.decode_prologue(qk, v[:, :, :1], tables, pos, cache, 0)
+    with pytest.raises(ValueError):
+        tm.decode_prologue(qk, v, tables, pos, tm.KVCache(k=cache.k[:, :2], v=cache.v[:, :2],
+                                                         scale=0.05), 0)
+
+
+@pytest.mark.parametrize("quantized_kv", [True, False])
+def test_decode_graph_prologue_kernel_matches_the_plain_version(dev, monkeypatch, quantized_kv):
+    """One captured batched decode step at LlamaConfig.tiny() (GQA 4/2, head
+    dim 16) with the prologue kernel, against the same step captured with
+    decode_prologue_ref in its place: equal logits and caches, a lane past
+    the cache included; the kernel's graph launches it once a layer."""
+    from csinn2_tpu_torch.llm import engine as te
+    from csinn2_tpu_torch.llm import model as tm
+    from csinn2_tpu_torch.llm.config import LlamaConfig
+    from csinn2_tpu_torch.utils.cuda_graph import capture
+    monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
+    cfg = LlamaConfig.tiny(max_seq=640)
+    params = tm.fuse_params(tm.init_params(cfg, "q8_0", seed=5, device=dev))
+    cache0 = tm.KVCache.create(cfg, 3, quantized=quantized_kv, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for buf in (cache0.k, cache0.v):
+        buf.copy_(torch.randint(-100, 100, buf.shape, generator=g, device=dev) if quantized_kv
+                  else torch.randn(buf.shape, generator=g, device=dev) * 2)
+    tokens = torch.tensor([[3], [17], [250]], device=dev)
+    pos = torch.tensor([5, 300, cfg.max_seq_len], dtype=torch.int32, device=dev)
+    runs = []
+    for prologue in (tm.decode_prologue, tm.decode_prologue_ref):
+        monkeypatch.setattr(te, "decode_prologue", prologue)
+        cache = tm.KVCache(k=cache0.k.clone(), v=cache0.v.clone(), scale=cache0.scale)
+        k1, v1 = cache.k.clone(), cache.v.clone()
+
+        def step(cache=cache):
+            return te._batched_decode_forward(params, tokens, cache, pos, cfg, kv_bound=512)[0]
+
+        graph = capture(step, "decode_graph", stream=torch.cuda.Stream(device=dev))
+        cache.k.copy_(k1)                 # the capture's warm-up step wrote the rows
+        cache.v.copy_(v1)
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append((graph.out.clone(), cache, graph.tally["decode_prologue"]))
+    (logits, cache, n), (logits_p, cache_p, n_p) = runs
+    assert (n, n_p) == (cfg.n_layers, 0)
+    assert torch.equal(logits, logits_p)
+    assert torch.equal(cache.k, cache_p.k) and torch.equal(cache.v, cache_p.v)
+    assert not torch.equal(cache.k, cache0.k)
 
 
 def test_engine_benchmarks_on_the_card(dev):

@@ -174,6 +174,58 @@ def test_decode_kv_store_drops_lanes_past_the_cache(weights):
     assert bool((cache.k[:, 1, :3] == 7).all()) and bool((cache.k[:, 1, 4:] == 7).all())
 
 
+def _prologue_composition(qk, v, tables, pos_vec, cache, layer):
+    """The batched decode's attention prologue as the step wrote it before
+    model.decode_prologue: rope_rotate, quantize_kv, then the gather / where
+    / index_put row store."""
+    b, hk = qk.shape[0], v.shape[2]
+    hq = qk.shape[2] - hk
+    S = cache.k.shape[2]
+    bidx = torch.arange(b)
+    keep = (pos_vec < S)[:, None, None]
+    rows = pos_vec.clamp(max=S - 1).long()
+    qk = tm.rope_rotate(qk, None, 10000.0, tables=tables)
+    q, k = qk[:, :, :hq], qk[:, :, hq:]
+    for buf, new in ((cache.k, k), (cache.v, v)):
+        new = tm.quantize_kv(new[:, 0], cache.scale) if cache.scale is not None \
+            else new[:, 0].to(buf.dtype)
+        buf[layer, bidx, rows] = torch.where(keep, new, buf[layer, bidx, rows])
+    return q
+
+
+@pytest.mark.parametrize("cfg_name", ["gqa", "mha"])
+@pytest.mark.parametrize("quantized_kv", [True, False])
+def test_decode_prologue_matches_the_composition(cfg_name, quantized_kv):
+    """model.decode_prologue on the CPU (its plain version) against the
+    composition it replaced in _batched_decode_forward, bit for bit: the
+    rotated q, and every row of the cache (the q|k and v heads as views of
+    one fused wqkv output, values past the int8 clip; lanes at 0, S - 1 and
+    S, the last writing nothing, and a cache lane past the batch)."""
+    _, tcfg = _cfgs(cfg_name)
+    hq, hk, dh, S = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim, tcfg.max_seq_len
+    b = 4
+    g = torch.Generator().manual_seed(7)
+    qkv = (torch.randn((b, 1, (hq + 2 * hk) * dh), generator=g) * 4).to(torch.bfloat16)
+    qk = qkv[..., :(hq + hk) * dh].reshape(b, 1, hq + hk, dh)
+    v = qkv[..., (hq + hk) * dh:].reshape(b, 1, hk, dh)
+    pos = torch.tensor([0, 5, S - 1, S], dtype=torch.int32)
+    tables = tm.rope_tables(pos[:, None], dh, tcfg.rope_base)
+    cache = tm.KVCache.create(tcfg, b + 1, quantized=quantized_kv, device="cpu")
+    for buf in (cache.k, cache.v):
+        buf.copy_(torch.randint(-127, 128, buf.shape, generator=g) if quantized_kv
+                  else torch.randn(buf.shape, generator=g))
+    want = tm.KVCache(k=cache.k.clone(), v=cache.v.clone(), scale=cache.scale)
+    k0 = cache.k.clone()
+    q_want = _prologue_composition(qk, v, tables, pos, want, 1)
+    q = tm.decode_prologue(qk, v, tables, pos, cache, 1)
+    assert q.dtype == torch.bfloat16 and q.shape == (b, 1, hq, dh)
+    assert torch.equal(q.view(torch.int16), q_want.view(torch.int16))
+    assert torch.equal(cache.k.view(torch.int8), want.k.view(torch.int8))
+    assert torch.equal(cache.v.view(torch.int8), want.v.view(torch.int8))
+    assert torch.equal(cache.k[:, 3], k0[:, 3]) and torch.equal(cache.k[0], k0[0])
+    assert not torch.equal(cache.k[1, 0, 0], k0[1, 0, 0])
+
+
 @pytest.mark.parametrize("mode,quantized_kv", [(jm.FLOAT, False), (jm.Q8_0, True)])
 def test_flash_decode_greedy_matches_jax(weights, monkeypatch, mode, quantized_kv):
     """CSINN2_DECODE_ATTN=flash: the batched decode takes bhsd
