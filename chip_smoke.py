@@ -56,8 +56,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      and 1, with the qmm_reduce launches per eager decode step (the
      libraries' own count; the decode GEMM finishes its splits in one
      launch); then the engine at LlamaConfig.tiny() (head dim 16, GQA 4/2)
-     on the card, with and without CSINN2_DECODE_ATTN=flash, logits against
-     the same engine on the CPU (cosine >= 0.999);
+     on the card, logits against the same engine on the CPU (cosine
+     >= 0.999);
   5. this slice's main path: the same with Q4_0 weights;
   6. the paths of the other weight modes, each the same run at full width
      and depth: INT8_CHANNEL, INT4_CHANNEL, and Q4_0 with the swiglu128
@@ -84,12 +84,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      on the CUDA tier (quant_matmul_t, flash_attention_bhsd), outputs against
      an Api.TORCH session on the card (fc cosine >= 0.9999, SDPA
      verify(tol=2e-2, min_cosine=0.9999)), an int8 out_qinfo within 1 LSB;
-  9. phase 4's run under CSINN2_DECODE_ATTN=flash (read when a step graph
-     is captured): the batched decode takes
-     bhsd flash_attention (32 launches per decode step, decode_attention
-     none; the split-KV launches and their merges counted), tokens set
-     beside phase 4's, one step's logits against the
-     default decode's (cosine >= 0.999), decode tokens/s beside phase 4's;
+  9. (none: the number is left free so that phases 10-18 keep the
+     numbers the documents cite);
  10. the probe path: the port's Q4_0 dequant-strategy probe
      (csinn2_tpu_torch.examples.int4_dequant_probe, the eleven kernels of
      kernels/int4_probe.py beside cur(quant_matmul), every one on the decode
@@ -947,8 +943,8 @@ def check_new_quant_matmul(records):
 def check_flash_bhsd(records):
     """bhsd flash_attention at the decode shape of row 2 (b = 4, hq = hk = 32,
     d = 128, S = 2048, kv_len 2048/1027/1/17, causal, q_offset = kv_len - 1:
-    what the engine's CSINN2_DECODE_ATTN=flash decode calls) and at
-    sq = S = 2048 (the op API's prefill SDPA), against the plain version."""
+    the split-KV decode the op API's decode SDPA launches) and at sq = S =
+    2048 (the op API's prefill SDPA), against the plain version."""
     import torch
     import torch.nn.functional as F
     from csinn2_tpu_torch.kernels import flash_attention as fa
@@ -1369,11 +1365,11 @@ def _to(tree, device):
 
 
 @contextlib.contextmanager
-def env_flag(name: str, on: bool, value: str = "1"):
-    """Environment variable `name` set to `value` (or unset) inside the block."""
+def env_flag(name: str, on: bool):
+    """Environment variable `name` set to "1" (or unset) inside the block."""
     old = os.environ.pop(name, None)
     if on:
-        os.environ[name] = value
+        os.environ[name] = "1"
     try:
         yield
     finally:
@@ -1418,8 +1414,7 @@ def model_parity(mode: str, swiglu: bool):
 # phases 4-6: serving paths at full width
 # ---------------------------------------------------------------------------
 
-def serve(gpu_line: str, mode: str, swiglu: bool = False, flash_decode: bool = False,
-          base=None):
+def serve(gpu_line: str, mode: str, swiglu: bool = False):
     """Llama-2-7B (32 layers), `mode` weights made on the card, int8 KV:
     run_queue over the six prompts through the decode step graph, its
     launch counts per decode step, and its tokens against a rerun through
@@ -1427,16 +1422,10 @@ def serve(gpu_line: str, mode: str, swiglu: bool = False, flash_decode: bool = F
     (host-inclusive, and on the device by benchmark_prefill_device), a
     seeded sampled chunk through the graph against the eager loop, decode
     tokens/s at batch 4 through the graph beside the eager loop in turns,
-    and benchmark_decode_device at batch 4 and 1.  flash_decode: all of it
-    under CSINN2_DECODE_ATTN=flash, with the tokens and decode rate set
-    beside `base` (the default decode's serve result) and one decode step's
-    logits against the default decode's.  Returns dict(counts of the
-    run_queue, outs, tps, steps = decode steps of the run_queue)."""
-    with env_flag("CSINN2_DECODE_ATTN", flash_decode, "flash"):
-        return _serve(gpu_line, mode, swiglu, flash_decode, base)
-
-
-def _serve(gpu_line, mode, swiglu, flash_decode, base):
+    and benchmark_decode_device at batch 4 and 1.  Returns dict(counts of
+    the run_queue, its tokens (outs), the qmm_reduce launches per eager
+    decode step, and the prefill and decode logits and first tokens that
+    phase 14 holds the mesh to)."""
     import numpy as np
     import torch
     from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1483,10 +1472,8 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         if not r.done or len(r.out) != 16 or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"{name} request of prompt {n}: done={r.done} out={r.out}")
     qmm = launch_key(*QMM_MODES[mode], swiglu=False)
-    attn = ("prefill_attention", "flash_attention", "flash_attention_bhsd") if flash_decode \
-        else ATTENTION
     want = [f"{k}.{v}" for k in ((qmm, "quant_matmul_swiglu") if swiglu else (qmm,))
-            for v in ("decode", "prefill")] + list(attn)
+            for v in ("decode", "prefill")] + list(ATTENTION)
     missing = [k for k in want if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"{name} path never launched {missing}")
@@ -1494,8 +1481,7 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     # kernel's launches a step those of the eager step (the tallies)
     captures = counts.get("decode_graph.capture", 0)
     replays = counts.get("decode_graph.replay", 0)
-    per_step = {f"{qmm}.decode": (3 if swiglu else 4) * L + 1,
-                "flash_attention_bhsd" if flash_decode else "decode_attention": L}
+    per_step = {f"{qmm}.decode": (3 if swiglu else 4) * L + 1, "decode_attention": L}
     if swiglu:
         per_step["quant_matmul_swiglu.decode"] = L
     log(f"  decode steps {steps[0]} through the step graph: replays {replays}, captures "
@@ -1504,13 +1490,8 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         f"{counts.get('decode_graph.warmup', 0)}; launches a step "
         + ", ".join(f"{k} {counts.get(k, 0) / max(steps[0], 1):g} (want {n})"
                     for k, n in per_step.items()))
-    if flash_decode:
-        log(f"  flash decode: of the flash_attention_bhsd launches, split-KV with a merge "
-            f"(flash_attention_bhsd.combine) {counts.get('flash_attention_bhsd.combine', 0)}; "
-            f"decode_attention {counts.get('decode_attention', 0)} (want 0)")
     if replays != steps[0] or captures != len(eng._graphs) or captures == 0 or \
-            any(counts.get(k, 0) != n * steps[0] for k, n in per_step.items()) or \
-            (flash_decode and counts.get("decode_attention", 0) != 0):
+            any(counts.get(k, 0) != n * steps[0] for k, n in per_step.items()):
         raise AssertionError(f"{name}: decode graph counts {counts}")
     # the prefill graphs: a replay a request, a capture a prompt bucket
     buckets = sorted(eng._prefill_graphs)
@@ -1534,10 +1515,6 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         f"prefill's and loop's: {same} of {sum(len(r) for r in outs)} (greedy)")
     if outs != eager_outs:
         raise AssertionError(f"{name}: graph tokens {outs} != eager tokens {eager_outs}")
-    if flash_decode:
-        same = sum(a == b for ra, rb in zip(outs, base["outs"]) for a, b in zip(ra, rb))
-        log(f"  generated tokens equal to the default decode's: {same} of "
-            f"{sum(len(r) for r in outs)} (greedy; argmax ties of near-equal logits may split)")
 
     # TTFT at prompt 128: prefill + first-token sampling, CUDA events (host
     # launch gaps included), and the prefill on the device alone
@@ -1560,19 +1537,6 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     step_logits = eng.decode_step(first)
     if not all(np.isfinite(v).all() for v in step_logits.values()):
         raise AssertionError("decode logits not finite")
-    if flash_decode:
-        # the same step through the default decode_attention: the step's KV
-        # rows are rewritten with the same values
-        from csinn2_tpu_torch.utils.verify import cosine_similarity
-        for sid in range(4):
-            eng.slots[sid].pos -= 1
-        with env_flag("CSINN2_DECODE_ATTN", False):
-            default_logits = eng.decode_step(first)
-        cos = min(cosine_similarity(step_logits[sid], default_logits[sid]) for sid in range(4))
-        log(f"  one decode step at pos 128, batch 4: logits cosine (flash vs default decode) "
-            f"min over lanes {cos:.6f} (gate 0.999)")
-        if cos < 0.999:
-            raise AssertionError(f"flash decode logits cosine {cos}")
     nxt = {sid: int(np.argmax(v)) for sid, v in step_logits.items()}
 
     def chunk(fn, n, **kw):
@@ -1606,7 +1570,6 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
     tps_dev1 = one.benchmark_decode_device(iters=64, reps=3)
     del one
     ttft = statistics.median(ttfts)
-    what = f"{name}{' flash decode' if flash_decode else ''}"
     log(f"  {name} TTFT prompt 128 (bucket 128): {ttft:.3f} ms (median of 5, CUDA events "
         f"around prefill_sample through the bucket's prefill graph, host gaps included; "
         f"eager prefill {statistics.median(ttfts_eager):.3f} ms); on the device "
@@ -1616,11 +1579,10 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
         f"ms (median of 3, CUDA events; eager prefill "
         f"{statistics.median(ttfts_long_eager):.3f} ms); on the device {dev_ttft_long:.3f} ms "
         f"[{gpu_line}]")
-    log(f"  {what} decode batch 4 at pos ~130: step graph {tps:.2f} tok/s, {4e3 / tps:.3f} "
+    log(f"  {name} decode batch 4 at pos ~130: step graph {tps:.2f} tok/s, {4e3 / tps:.3f} "
         f"ms/step; eager loop {tps_eager:.2f} tok/s, {4e3 / tps_eager:.3f} ms/step (median of "
-        f"3 x {n_steps} steps each, in turns, CUDA events around decode_steps) [{gpu_line}]"
-        + (f"; default decode (phase 4) {base['tps']:.2f} tok/s" if flash_decode else ""))
-    log(f"  {what} benchmark_decode_device: batch 4 {tps_dev:.2f} tok/s, batch 1 "
+        f"3 x {n_steps} steps each, in turns, CUDA events around decode_steps) [{gpu_line}]")
+    log(f"  {name} benchmark_decode_device: batch 4 {tps_dev:.2f} tok/s, batch 1 "
         f"{tps_dev1:.2f} tok/s (64 steps from pos 16, long-minus-short, CUDA events) "
         f"[{gpu_line}]")
     log(f"  {name} qmm_reduce launches per eager decode step: {reduce_per_step:g} (the "
@@ -1630,17 +1592,15 @@ def _serve(gpu_line, mode, swiglu, flash_decode, base):
                              f"{tps_eager}")
     del eng, loops, decode_steps, counted
     torch.cuda.empty_cache()
-    return dict(counts=counts, outs=outs, tps=tps, steps=steps[0],
-                reduce_per_step=reduce_per_step, prefill_logits=logits,
+    return dict(counts=counts, outs=outs, reduce_per_step=reduce_per_step, prefill_logits=logits,
                 step_logits=np.stack([step_logits[sid] for sid in range(4)]), first=first)
 
 
 def serve_tiny():
     """LlamaConfig.tiny() (head dim 16, GQA 4/2; Q8_0, int8 KV) through the
-    engine on the card, with CSINN2_DECODE_ATTN unset and =flash: two
-    prompts prefilled and four greedy decode steps at batch 2, logits of
-    each against the same engine on the CPU (cosine >= 0.999; the card fed
-    the CPU's tokens).  Returns the launch counts of the card's runs."""
+    engine on the card: two prompts prefilled and four greedy decode steps
+    at batch 2, logits of each against the same engine on the CPU (cosine
+    >= 0.999; the card fed the CPU's tokens)."""
     import numpy as np
     import torch
     from csinn2_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1649,35 +1609,27 @@ def serve_tiny():
     from csinn2_tpu_torch.llm.model import init_params
     from csinn2_tpu_torch.utils.verify import cosine_similarity
     cfg = LlamaConfig.tiny()
-    counts = {}
-    for flash in (False, True):
-        with env_flag("CSINN2_DECODE_ATTN", flash, "flash"):
-            cpu, gpu = (InferenceEngine(cfg, init_params(cfg, "q8_0", seed=5, device=dv),
-                                        batch=2, quantized_kv=True, device=dv)
-                        for dv in ("cpu", "cuda"))
-            reset_launch_counts()
-            cos, nxt = [], {}
-            for sid, prompt in enumerate(([3, 7, 11, 19, 4], list(range(1, 40)))):
-                want, got = cpu.prefill(sid, prompt), gpu.prefill(sid, prompt)
-                cos.append(cosine_similarity(got, want) if np.isfinite(got).all() else 0.0)
-                nxt[sid] = int(np.argmax(want))
-            for _ in range(4):
-                want, got = cpu.decode_step(nxt), gpu.decode_step(nxt)
-                cos += [cosine_similarity(got[i], want[i]) if np.isfinite(got[i]).all()
-                        else 0.0 for i in nxt]
-                nxt = {i: int(np.argmax(want[i])) for i in nxt}
-            torch.cuda.synchronize()
-            run = dict(launch_counts)
-        attn = "flash_attention_bhsd" if flash else "decode_attention"
-        log(f"  LlamaConfig.tiny() (d=16, GQA 4/2) on the card{' flash decode' if flash else ''}: "
-            f"2 prefills + 4 decode steps, min logit cosine vs the CPU engine {min(cos):.6f} "
-            f"(gate 0.999); launches {run}")
-        if min(cos) < 0.999 or run.get("prefill_attention", 0) == 0 or run.get(attn, 0) == 0:
-            raise AssertionError(f"tiny engine on the card: cosine {min(cos)}, launches {run}")
-        for k, n in run.items():
-            counts[k] = counts.get(k, 0) + n
-        del cpu, gpu
-    return counts
+    cpu, gpu = (InferenceEngine(cfg, init_params(cfg, "q8_0", seed=5, device=dv),
+                                batch=2, quantized_kv=True, device=dv)
+                for dv in ("cpu", "cuda"))
+    reset_launch_counts()
+    cos, nxt = [], {}
+    for sid, prompt in enumerate(([3, 7, 11, 19, 4], list(range(1, 40)))):
+        want, got = cpu.prefill(sid, prompt), gpu.prefill(sid, prompt)
+        cos.append(cosine_similarity(got, want) if np.isfinite(got).all() else 0.0)
+        nxt[sid] = int(np.argmax(want))
+    for _ in range(4):
+        want, got = cpu.decode_step(nxt), gpu.decode_step(nxt)
+        cos += [cosine_similarity(got[i], want[i]) if np.isfinite(got[i]).all()
+                else 0.0 for i in nxt]
+        nxt = {i: int(np.argmax(want[i])) for i in nxt}
+    torch.cuda.synchronize()
+    run = dict(launch_counts)
+    log(f"  LlamaConfig.tiny() (d=16, GQA 4/2) on the card: 2 prefills + 4 decode steps, "
+        f"min logit cosine vs the CPU engine {min(cos):.6f} (gate 0.999); launches {run}")
+    if min(cos) < 0.999 or run.get("prefill_attention", 0) == 0 or \
+            run.get("decode_attention", 0) == 0:
+        raise AssertionError(f"tiny engine on the card: cosine {min(cos)}, launches {run}")
 
 
 # ---------------------------------------------------------------------------
@@ -3334,7 +3286,8 @@ def _noise_floor(cfg, mode, ref):
     g = torch.Generator(device="cuda").manual_seed(15)
     emb = params["tok_embedding"]
     sign = torch.randint(0, 2, emb.shape, generator=g, device="cuda", dtype=torch.int8) * 2 - 1
-    eng.params["tok_embedding"] = (emb.float() * (1 + sign * 2.0 ** -8)).to(torch.bfloat16)
+    # in place: the bucket's captured prefill graph reads this tensor's memory
+    emb.copy_((emb.float() * (1 + sign * 2.0 ** -8)).to(torch.bfloat16))
     noisy = _parity_probe(eng, cfg, ref["first"])
     out = dict(cos_prefill=_cos(noisy["logits"], ref["prefill_logits"]),
                cos_step=min(_cos(noisy["step"][i], ref["step_logits"][i]) for i in range(4)))
@@ -4011,13 +3964,11 @@ def main() -> int:
                                    f"phase 7 (MobileNetV1 INT8_SYM, fused, batch {CNN_BATCH})")
     log("phase 8: the op API's CUDA tier at Llama-2-7B width (block fc, SDPA), "
         "GRAPH session and layer mode")
-    path_counts["quant_matmul_t"] = (op_api_path(records, gpu_line),
+    op_counts = op_api_path(records, gpu_line)
+    path_counts["quant_matmul_t"] = (op_counts,
                                      "phase 8 (op API, Q8_0/Q4_0 block fullyconnected)")
-    log("phase 9: flash decode, Llama-2-7B Q8_0 int8 KV, run_queue batch 4, "
-        "CSINN2_DECODE_ATTN=flash")
-    flash = serve(gpu_line, "q8_0", flash_decode=True, base=q8_0)
-    path_counts["flash_attention_bhsd"] = (flash["counts"],
-                                           "phase 9 (Q8_0 run_queue, CSINN2_DECODE_ATTN=flash)")
+    path_counts["flash_attention_bhsd"] = (op_counts,
+                                           "phase 8 (op API, SDPA prefill and decode)")
     log("phase 10: the probe path, the Q4_0 dequant-strategy probes at the 7B decode shapes")
     probe_counts = probe_path(records, gpu_line)
     for kind in PROBE_KERNELS:

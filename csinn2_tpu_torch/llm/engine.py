@@ -30,10 +30,9 @@ Design, as in the JAX engine:
     a captured CUDA graph of one step (forward, sampling, pos + 1) — the
     counterpart of the JAX engine's lax.scan executable — once a step; one
     graph per key of what the JAX jit holds static (kv_bound, greedy,
-    top_k, top_p, CSINN2_DECODE_ATTN read at capture).  The
-    graphs work on static token / position / temperature buffers and the
-    engine's cache, which prefill writes in place, so an admission between
-    chunks is seen by the next replay.  On the CPU the chunk is the eager
+    top_k, top_p).  The graphs work on static token / position /
+    temperature buffers and the engine's cache, which prefill writes in
+    place, so an admission between chunks is seen by the next replay.  On the CPU the chunk is the eager
     loop (_decode_steps_eager), which the card's tests hold the graph to.
 
 Over a mesh (InferenceEngine(mesh=...)) every rank builds the engine on the
@@ -55,7 +54,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import os
 import sys
 import time
 from typing import Dict, List, Optional, Sequence
@@ -64,11 +62,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from csinn2_tpu_torch.kernels.flash_attention import decode_attention, flash_attention
+from csinn2_tpu_torch.kernels.flash_attention import decode_attention
 from csinn2_tpu_torch.llm.config import LlamaConfig
 from csinn2_tpu_torch.llm.model import (KVCache, _project_qkv, decode_prologue,
-                                        fuse_params, has_int4, linear, llama_forward,
-                                        native4_params, rms_norm, rope_tables)
+                                        fuse_params, linear, llama_forward, rms_norm,
+                                        rope_tables)
 from csinn2_tpu_torch.llm.sampling import sample_host, sample_logits
 from csinn2_tpu_torch.parallel.mesh import all_gather, all_reduce
 from csinn2_tpu_torch.parallel.tp import local_config, shard_llama_params
@@ -148,10 +146,9 @@ class InferenceEngine:
     benchmark_decode_device(), benchmark_prefill_device(): tokens/s and
     seconds a prefill, as the JAX engine's methods.
 
-    native_int4: as in the JAX engine, None picks the native int4 carrier
-    for int4 weights on the card and True/False force it; the port has one
-    int4 carrier (model.native4_params), so every value gives the same
-    weights and the same tokens.
+    The engine fuses the params it is given (model.fuse_params: one GEMM
+    for q|k|v and one for w1|w3) and keeps int4 weights in their one
+    carrier, the packed bytes.
 
     mesh: a parallel.mesh.Mesh with dp and tp axes; every rank passes the
     FULL params, and the engine runs on mesh.device (`device` is not used).
@@ -178,8 +175,7 @@ class InferenceEngine:
 
     def __init__(self, cfg: LlamaConfig, params, batch: int = 1,
                  quantized_kv: bool = False, kv_scale: float = 0.05,
-                 fuse_weights: bool = True, device="cuda",
-                 native_int4: Optional[bool] = None, mesh=None, tracer=None):
+                 device="cuda", mesh=None, tracer=None):
         self.mesh = mesh
         self.tracer = tracer
         self.cfg = cfg
@@ -193,16 +189,13 @@ class InferenceEngine:
                 raise ValueError(f"params live on {emb_dev}, engine on {self.device}")
         else:
             self.device = mesh.device
-        if fuse_weights:
-            # one GEMM for q|k|v and one for w1|w3: 7 → 4 launches per layer
-            params = fuse_params(params, tp=tp)
+        # one GEMM for q|k|v and one for w1|w3: 7 → 4 launches per layer
+        params = fuse_params(params, tp=tp)
         self.lcfg = cfg                    # the config the rank's forward runs
         if mesh is not None:
             self.lcfg = local_config(cfg, tp)
             params = shard_llama_params(params, mesh)
-        self._native4 = bool(has_int4(params) and self.device.type == "cuda"
-                             if native_int4 is None else native_int4)
-        self.params = native4_params(params) if self._native4 else params
+        self.params = params
         self.batch = batch
         self.b_loc = batch // dp           # this rank's lanes
         self._tp_group = mesh.tp_group if mesh is not None else None
@@ -505,8 +498,7 @@ class InferenceEngine:
         out of the static lane buffer."""
         if greedy:
             top_k, top_p = 0, 1.0
-        flash = os.environ.get("CSINN2_DECODE_ATTN") == "flash"
-        key = (bound, greedy, int(top_k), float(top_p), flash)
+        key = (bound, greedy, int(top_k), float(top_p))
         if self._static is None:
             b = self.b_loc
             self._static = dict(
@@ -754,11 +746,7 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     own position.  Unlike model.py's bf16 internal linears, the linears here
     return f32 and silu(h1)·h3 is taken in f32, as in the JAX engine.
 
-    Attention: decode_attention, or with CSINN2_DECODE_ATTN=flash in the
-    environment the blocked bhsd flash_attention (causal, q_offset = pos,
-    kv_len = pos + 1), the JAX engine's alternative decode kernel.  The JAX
-    engine reads the variable when it traces; this function reads it on
-    every call, once for all layers.
+    Attention: decode_attention, each row masked at kv_len = pos + 1.
 
     tp_group: cfg is the rank's local config; the f32 outputs of wo and w2
     are summed over the group and the vocab shards of the logits gathered,
@@ -779,7 +767,6 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
     # per-row RoPE trig depends only on pos_vec — one evaluation, all layers
     rtabs = rope_tables(pos_vec[:, None], dh, cfg.rope_base)
     kv_len = pos_vec + 1
-    flash = os.environ.get("CSINN2_DECODE_ATTN") == "flash"
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(torch.bfloat16)
         qk, v = _project_qkv(h, lp, hq, hk, dh)
@@ -792,12 +779,8 @@ def _batched_decode_forward(params, tokens, cache: KVCache, pos_vec,
             k_all, v_all = k_all[:, :kv_bound], v_all[:, :kv_bound]
         q_t = q.permute(0, 2, 1, 3)                        # [b, hq, 1, dh] bf16
         k_t, v_t = k_all.permute(0, 2, 1, 3), v_all.permute(0, 2, 1, 3)
-        if flash:
-            attn = flash_attention(q_t, k_t, v_t, causal=True, q_offset=pos_vec,
-                                   kv_len=kv_len, kv_scale=cache.scale)
-        else:
-            attn = decode_attention(q_t, k_t, v_t, q_offset=pos_vec, kv_len=kv_len,
-                                    kv_scale=cache.scale)  # [b, hq, 1, dh]
+        attn = decode_attention(q_t, k_t, v_t, q_offset=pos_vec, kv_len=kv_len,
+                                kv_scale=cache.scale)      # [b, hq, 1, dh]
         attn = attn.permute(0, 2, 1, 3).reshape(b, 1, D).to(torch.bfloat16)
         x = x + all_reduce(linear(attn, lp["wo"]), tp_group, "wo").to(x.dtype)
 

@@ -168,25 +168,6 @@ def _qweights(params):
             yield from _qweights(v)
 
 
-def has_int4(params) -> bool:
-    """True if any QWeight in the params uses an int4 mode."""
-    return any(q.mode in INT4_MODES for q in _qweights(params))
-
-
-def native4_params(params):
-    """The params unchanged: the port keeps ONE int4 carrier, the packed
-    [K/2, N] bytes (or, for INT4_CHANNEL with K % 32 != 0, the int8 carrier).
-
-    The JAX package converts int4 weights to a native jnp.int4 [K, N] array
-    for its decode executable because Mosaic's hardware sub-byte unpack of
-    that carrier is the fastest TPU load path.  On the H100 the CUDA kernel
-    reads the packed bytes — the fewest bytes a decode step can move — and
-    unpacks the nibbles in registers, so there is nothing to convert: both
-    values of InferenceEngine(native_int4=...) run the same weights and give
-    the same tokens, as the JAX package's two carriers do."""
-    return params
-
-
 def qweight_concat(qws: List[QWeight], tp: int = 1) -> QWeight:
     """Concatenate QWeights along the output (N) axis (wq|wk|wv, w1|w3): one
     GEMM launch instead of several, one longer weight stream.  Packed values

@@ -153,8 +153,7 @@ def test_flash_attention_bhsd_not_ported(rng):
 @pytest.mark.parametrize("int8", [True, False])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bhsd_matches_jax(rng, int8, causal):
-    """bhsd q/out [b, hq, sq, d], GQA, per-row q_offset / kv_len (a decode
-    row at sq = 1 among them is the engine's CSINN2_DECODE_ATTN=flash call)."""
+    """bhsd q/out [b, hq, sq, d], GQA, per-row q_offset / kv_len."""
     b, sq, hq, hk, d, S = 3, 20, 8, 2, 32, 128
     qj, qt = _q(rng, (b, hq, sq, d))
     (kj, vj), (kt, vt) = _kv(rng, b, hk, S, d, int8)

@@ -13,11 +13,10 @@ of 128 heads on one latent head, its shared-memory mirror) with an f32
 or bf16 q in all four entry points, odd KV lengths, GQA, bf16 KV, a fully masked lane, strided K/V views, bhsd flash_attention with a
 strided q, the split-KV flash decode at kv_len 0 to 2048 with sq 1 and 3,
 ragged query rows, and LlamaConfig.tiny() served on the card against the
-CPU path, with and without CSINN2_DECODE_ATTN=flash; the MoE blocks (dense
-and routed, dropping tokens too) over stacked expert weights; the engine's captured
-decode-step graph against its eager loop (tiny() with and without flash
-decode, a 2-layer 7B-width Q4_0 model: greedy, seeded and top-k / top-p
-chunks, an admission between chunks, a kv_bound change, launch counts,
+CPU path; the MoE blocks (dense and routed, dropping tokens too) over
+stacked expert weights; the engine's captured decode-step graph against its
+eager loop (tiny(), a 2-layer 7B-width Q4_0 model: greedy, seeded and top-k
+/ top-p chunks, an admission between chunks, a kv_bound change, launch counts,
 captures, strip counters), its per-bucket prefill graph against the eager
 prefill (every bucket, several slots, greedy and seeded, the caches byte for
 byte, launch counts, captures, a scratch engine), its spans and counters
@@ -825,20 +824,14 @@ def test_attention_long_prefill(gen, dev, d, int8, causal):
     _close(out, ref)
 
 
-@pytest.mark.parametrize("flash", [False, True])
 @pytest.mark.parametrize("mode,quantized_kv", [("q8_0", True), ("float", False)])
-def test_engine_tiny_attention_on_the_card(dev, monkeypatch, flash, mode, quantized_kv):
+def test_engine_tiny_attention_on_the_card(dev, mode, quantized_kv):
     """LlamaConfig.tiny() (head dim 16, GQA 4/2) on the card: prefill and
-    greedy decode steps with CSINN2_DECODE_ATTN unset and =flash, logits
-    against the same engine on the CPU (the plain path), the card fed the
-    CPU's tokens."""
+    greedy decode steps, logits against the same engine on the CPU (the
+    plain path), the card fed the CPU's tokens."""
     from csinn2_tpu_torch.llm.config import LlamaConfig
     from csinn2_tpu_torch.llm.engine import InferenceEngine
     from csinn2_tpu_torch.llm.model import init_params
-    if flash:
-        monkeypatch.setenv("CSINN2_DECODE_ATTN", "flash")
-    else:
-        monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
     cfg = LlamaConfig.tiny()
     engines = [InferenceEngine(cfg, init_params(cfg, mode, seed=5, device=dv), batch=2,
                                quantized_kv=quantized_kv, device=dv) for dv in ("cpu", "cuda")]
@@ -1517,8 +1510,8 @@ def _count_diff(before, after):
     return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
 
 
-@pytest.mark.parametrize("model,flash", [("tiny", False), ("tiny", True), ("7b_2layer", False)])
-def test_decode_graph_matches_the_eager_loop(dev, monkeypatch, model, flash):
+@pytest.mark.parametrize("model", ["tiny", "7b_2layer"])
+def test_decode_graph_matches_the_eager_loop(dev, model):
     """decode_steps on the card (the captured step graph) against
     _decode_steps_eager on a second engine over the same weights, chunk by
     chunk: greedy, seeded with a per-row temperature, with top-k / top-p, a
@@ -1532,10 +1525,6 @@ def test_decode_graph_matches_the_eager_loop(dev, monkeypatch, model, flash):
     from csinn2_tpu_torch.llm.config import LlamaConfig
     from csinn2_tpu_torch.llm.engine import InferenceEngine
     from csinn2_tpu_torch.llm.model import init_params, init_params_device
-    if flash:
-        monkeypatch.setenv("CSINN2_DECODE_ATTN", "flash")
-    else:
-        monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
     if model == "tiny":
         cfg = LlamaConfig.tiny(max_seq=640)
         params = init_params(cfg, "q8_0", seed=5, device=dev)
@@ -1598,7 +1587,6 @@ def test_prefill_graph_matches_the_eager_prefill(dev, monkeypatch, model):
     from csinn2_tpu_torch.llm.engine import BUCKETS, InferenceEngine
     from csinn2_tpu_torch.llm.model import init_params, init_params_device
     from csinn2_tpu_torch.runtime.profiler import Tracer
-    monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
     if model == "tiny":
         cfg = LlamaConfig.tiny(max_seq=2304)
         params = init_params(cfg, "q8_0", seed=5, device=dev)
@@ -1779,7 +1767,6 @@ def test_decode_graph_prologue_kernel_matches_the_plain_version(dev, monkeypatch
     from csinn2_tpu_torch.llm import model as tm
     from csinn2_tpu_torch.llm.config import LlamaConfig
     from csinn2_tpu_torch.utils.cuda_graph import capture
-    monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
     cfg = LlamaConfig.tiny(max_seq=640)
     params = tm.fuse_params(tm.init_params(cfg, "q8_0", seed=5, device=dev))
     cache0 = tm.KVCache.create(cfg, 3, quantized=quantized_kv, device=dev)

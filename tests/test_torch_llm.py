@@ -227,23 +227,33 @@ def test_decode_prologue_matches_the_composition(cfg_name, quantized_kv):
 
 
 @pytest.mark.parametrize("mode,quantized_kv", [(jm.FLOAT, False), (jm.Q8_0, True)])
-def test_flash_decode_greedy_matches_jax(weights, monkeypatch, mode, quantized_kv):
-    """CSINN2_DECODE_ATTN=flash: the batched decode takes bhsd
-    flash_attention (decode_attention is never called); run_queue's greedy
-    tokens equal the JAX engine's."""
+def test_decode_ignores_csinn2_decode_attn(weights, monkeypatch, mode, quantized_kv):
+    """The batched decode has one attention: with CSINN2_DECODE_ATTN=flash
+    set (the JAX engine's switch to its flash decode) every decode step
+    still calls decode_attention once a layer, and run_queue's greedy tokens
+    equal the JAX engine's default run."""
     import csinn2_tpu_torch.llm.engine as te
-
-    def no_decode_kernel(*a, **k):
-        raise AssertionError("decode_attention called under CSINN2_DECODE_ATTN=flash")
-
-    monkeypatch.setenv("CSINN2_DECODE_ATTN", "flash")
-    monkeypatch.setattr(te, "decode_attention", no_decode_kernel)
     jcfg, tcfg = _cfgs("gqa")
     jp, tp = weights["gqa", mode]
+    monkeypatch.delenv("CSINN2_DECODE_ATTN", raising=False)
     jdone = JEngine(jcfg, jp, batch=2, use_pallas=False, quantized_kv=quantized_kv) \
         .run_queue([JRequest(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    calls = {"steps": 0, "attention": 0}
+
+    def counted(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setenv("CSINN2_DECODE_ATTN", "flash")
+    monkeypatch.setattr(te, "_batched_decode_forward",
+                        counted("steps", te._batched_decode_forward))
+    monkeypatch.setattr(te, "decode_attention", counted("attention", te.decode_attention))
     tdone = InferenceEngine(tcfg, tp, batch=2, quantized_kv=quantized_kv, device="cpu") \
         .run_queue([Request(p, max_new_tokens=5) for p in PROMPTS], chunk=2)
+    assert calls["steps"] > 0
+    assert calls["attention"] == tcfg.n_layers * calls["steps"]
     assert [r.out for r in tdone] == [r.out for r in jdone]
 
 
@@ -312,18 +322,17 @@ def test_run_queue_q4_0_matches_jax(weights, quantized_kv):
     assert [r.out for r in tdone] == [r.out for r in jdone]
 
 
-def test_native_int4_gives_identical_tokens(weights):
-    """native_int4 True / False / None run the same packed weights: identical
-    tokens, and those of the JAX engine on its packed carrier."""
+def test_generate_fused_q4_0_matches_jax(weights):
+    """Q4_0 weights on their one carrier, the packed bytes: generate_fused's
+    greedy tokens equal the JAX engine's on its packed carrier."""
     jcfg, tcfg = _cfgs("gqa")
     jp, tp = weights["gqa", jm.Q4_0]
     prompt = [3, 1, 4, 1, 5]
-    outs = [InferenceEngine(tcfg, tp, batch=1, device="cpu", native_int4=n)
-            .generate_fused(prompt, max_new_tokens=12) for n in (True, False, None)]
-    assert outs[0] == outs[1] == outs[2]
+    got = InferenceEngine(tcfg, tp, batch=1, device="cpu") \
+        .generate_fused(prompt, max_new_tokens=12)
     want = JEngine(jcfg, jp, batch=1, use_pallas=False, native_int4=False) \
         .generate_fused(prompt, max_new_tokens=12)
-    assert outs[0] == list(want)
+    assert got == list(want)
 
 
 def test_engine_swiglu_fusion_decodes_the_pairs(weights, monkeypatch):

@@ -256,14 +256,6 @@ def test_qweight_concat_swiglu_and_pad_rows_bytes(rng, mode, F, pad_to):
     assert np.array_equal(_jbytes(j2.scales), _tbytes(t2.scales))
 
 
-def test_has_int4_and_native4_params():
-    _, tcfg = _cfgs("gqa")
-    q4 = tm.init_params(tcfg, tm.Q4_0, seed=0, device="cpu")
-    q8 = tm.init_params(tcfg, tm.Q8_0, seed=0, device="cpu")
-    assert tm.has_int4(q4) and tm.has_int4(q4["output"]) and not tm.has_int4(q8)
-    assert tm.native4_params(q4) is q4          # one packed carrier on the card
-
-
 @pytest.mark.parametrize("mode", [jm.Q8_0, jm.Q4_0, jm.INT4_CHANNEL])
 def test_params_from_numpy_carries_swiglu128(monkeypatch, mode):
     """JAX params fused with CSINN2_SWIGLU_FUSE=1 cross bit for bit, packed
